@@ -1,0 +1,246 @@
+"""Spectral semantic radiance field and the proposal density field.
+
+Port of ``apnerf_tpu/models/spectral.py`` (the forward routes; the
+``*_packed*`` train routes at ``spectral.py:325-497`` belong to the
+training port). The encoding is
+
+    enc(x) = [cos(2π x·W + φ), sin(2π x·W + φ)]      W: [3, M]
+
+followed by a ReLU trunk giving density and geometry features, an rgb
+head on SH(direction) ⊕ features and a semantic head on the features.
+
+Parameters live in ``nn.Module``s with the JAX layout (``W`` [3, M],
+``phase`` [M], MLPs ``w{i}`` [in, out] / ``b{i}`` [out]); the functions
+take (params, cfg, ...) as the JAX functions do. ``query_density`` runs
+encode + trunk through the CUDA kernel (``ops/cuda/fused_mlp.py``) for a
+bf16 field with a 2- or 3-hidden-layer trunk, at any row count: the TPU
+path's ``n_rows % 256`` gate (``spectral.py:256``) is not carried over.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.cuda.fused_mlp import _encode, fused_spectral_field
+from ..ops.sh import sh_encode_deg4
+from .ngp import trunc_exp
+from .nn import MLP, apply_mlp, init_mlp
+
+
+def _dtype(name: str) -> torch.dtype:
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+class SpectralConfig(NamedTuple):
+    aabb: Tuple[float, ...]  # (6,)
+    neurons: int = 256  # trunk width
+    layers: int = 3  # trunk hidden layers
+    geo_feat_dim: int = 15
+    n_levels: int = 16  # frequency bands
+    freqs_per_level: int = 8  # random directions per band
+    base_freq: float = 16.0
+    max_freq: float = 4096.0
+    num_semantic_classes: int = 0
+    use_viewdirs: bool = True
+    compute_dtype: str = "bfloat16"  # matmul dtype; f32 accumulation
+
+    @property
+    def n_freqs(self) -> int:
+        return self.n_levels * self.freqs_per_level
+
+    @property
+    def enc_dim(self) -> int:
+        return 2 * self.n_freqs
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _dtype(self.compute_dtype)
+
+
+class SpectralDensityConfig(NamedTuple):
+    aabb: Tuple[float, ...]
+    neurons: int = 64
+    layers: int = 2
+    n_levels: int = 8
+    freqs_per_level: int = 4
+    base_freq: float = 4.0
+    max_freq: float = 256.0
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def n_freqs(self) -> int:
+        return self.n_levels * self.freqs_per_level
+
+    @property
+    def enc_dim(self) -> int:
+        return 2 * self.n_freqs
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _dtype(self.compute_dtype)
+
+
+def _as_param(a, device=None) -> nn.Parameter:
+    if torch.is_tensor(a):
+        t = a.to(device=device, dtype=torch.float32)
+    else:
+        t = torch.as_tensor(np.array(a, np.float32), device=device)
+    return nn.Parameter(t, requires_grad=False)
+
+
+class SpectralField(nn.Module):
+    """The main field's parameters: ``W``, ``phase``, ``mlp_base``,
+    ``mlp_head`` and, with semantic classes, ``mlp_sem``."""
+
+    def __init__(self, W, phase, mlp_base: MLP, mlp_head: MLP, mlp_sem: Optional[MLP] = None):
+        super().__init__()
+        self.W = _as_param(W)
+        self.phase = _as_param(phase)
+        self.mlp_base = mlp_base
+        self.mlp_head = mlp_head
+        self.mlp_sem = mlp_sem
+
+    @classmethod
+    def from_tree(cls, tree: dict, device=None) -> "SpectralField":
+        sem = tree.get("mlp_sem")
+        return cls(
+            _as_param(tree["W"], device), _as_param(tree["phase"], device),
+            MLP.from_tree(tree["mlp_base"], device),
+            MLP.from_tree(tree["mlp_head"], device),
+            MLP.from_tree(sem, device) if sem is not None else None,
+        )
+
+
+class SpectralDensityField(nn.Module):
+    """The proposal field's parameters: ``W``, ``phase``, ``mlp_base``."""
+
+    def __init__(self, W, phase, mlp_base: MLP):
+        super().__init__()
+        self.W = _as_param(W)
+        self.phase = _as_param(phase)
+        self.mlp_base = mlp_base
+
+    @classmethod
+    def from_tree(cls, tree: dict, device=None) -> "SpectralDensityField":
+        return cls(
+            _as_param(tree["W"], device), _as_param(tree["phase"], device),
+            MLP.from_tree(tree["mlp_base"], device),
+        )
+
+
+def _init_spectrum(cfg, generator, device):
+    """Per-band isotropic random directions scaled to a geometric ladder
+    of band frequencies, and uniform phases (``spectral.py:70-89``)."""
+    scales = np.exp(np.linspace(np.log(cfg.base_freq), np.log(cfg.max_freq), cfg.n_levels))
+    dirs = torch.randn(
+        (cfg.n_levels, cfg.freqs_per_level, 3), generator=generator, device=generator.device
+    ).to(device)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    scales = torch.as_tensor(scales, dtype=torch.float32, device=device)
+    W = (dirs * scales[:, None, None]).reshape(cfg.n_freqs, 3)
+    phase = torch.rand((cfg.n_freqs,), generator=generator, device=generator.device)
+    return W.T.contiguous(), (phase * (2 * np.pi)).to(device)
+
+
+def init_spectral(cfg: SpectralConfig, generator: torch.Generator, device=None) -> SpectralField:
+    W, phase = _init_spectrum(cfg, generator, device)
+    base = init_mlp(
+        [cfg.enc_dim] + [cfg.neurons] * cfg.layers + [1 + cfg.geo_feat_dim], generator, device
+    )
+    head = init_mlp(
+        [(16 if cfg.use_viewdirs else 0) + cfg.geo_feat_dim] + [cfg.neurons // 4] * 2 + [3],
+        generator, device,
+    )
+    sem = None
+    if cfg.num_semantic_classes > 0:
+        sem = init_mlp(
+            [cfg.geo_feat_dim] + [cfg.neurons // 4] * 2 + [cfg.num_semantic_classes],
+            generator, device,
+        )
+    return SpectralField(W, phase, base, head, sem)
+
+
+def init_spectral_density(
+    cfg: SpectralDensityConfig, generator: torch.Generator, device=None
+) -> SpectralDensityField:
+    W, phase = _init_spectrum(cfg, generator, device)
+    base = init_mlp([cfg.enc_dim] + [cfg.neurons] * cfg.layers + [1], generator, device)
+    return SpectralDensityField(W, phase, base)
+
+
+def _normalize(cfg, x: torch.Tensor):
+    """Unit-cube coordinates and the in-aabb selector."""
+    aabb = torch.as_tensor(cfg.aabb, dtype=torch.float32, device=x.device)
+    u = (x - aabb[:3]) / (aabb[3:] - aabb[:3])
+    selector = ((u > 0.0) & (u < 1.0)).all(dim=-1)
+    return u, selector
+
+
+def spectral_encode(params, cfg, u: torch.Tensor) -> torch.Tensor:
+    """[..., 3] unit-cube coords → [..., 2M] spectral features."""
+    return _encode(params.W, params.phase, u, cfg.dtype)
+
+
+def _use_fused_field(cfg: SpectralConfig, params_mlp: MLP) -> bool:
+    """Encode + trunk through the CUDA kernel: bf16 and 2 or 3 hidden layers."""
+    return cfg.compute_dtype == "bfloat16" and params_mlp.n_layers in (3, 4)
+
+
+def query_density(params: SpectralField, cfg: SpectralConfig, x: torch.Tensor, return_feat: bool = False):
+    batch_shape = x.shape[:-1]
+    u, selector = _normalize(cfg, x)
+    u = u.reshape(-1, 3)
+    if _use_fused_field(cfg, params.mlp_base):
+        h = fused_spectral_field(params.W, params.phase, params.mlp_base, u.contiguous())
+    else:
+        h = apply_mlp(params.mlp_base, spectral_encode(params, cfg, u), compute_dtype=cfg.dtype)
+    h = h.reshape(batch_shape + (1 + cfg.geo_feat_dim,))
+    density_raw, geo_feat = h[..., :1], h[..., 1:]
+    density = trunc_exp(density_raw - 1.0) * selector[..., None]
+    if return_feat:
+        return density, geo_feat
+    return density
+
+
+def query_rgb(params: SpectralField, cfg: SpectralConfig, direction, geo_feat):
+    batch_shape = geo_feat.shape[:-1]
+    feat = geo_feat.reshape(-1, cfg.geo_feat_dim)
+    if cfg.use_viewdirs:
+        h = torch.cat([sh_encode_deg4(direction.reshape(-1, 3)), feat], dim=-1)
+    else:
+        h = feat
+    rgb = apply_mlp(params.mlp_head, h, compute_dtype=cfg.dtype)
+    return torch.sigmoid(rgb).reshape(batch_shape + (3,))
+
+
+def query_semantic(params: SpectralField, cfg: SpectralConfig, geo_feat):
+    batch_shape = geo_feat.shape[:-1]
+    logits = apply_mlp(
+        params.mlp_sem, geo_feat.reshape(-1, cfg.geo_feat_dim), compute_dtype=cfg.dtype
+    )
+    return logits.reshape(batch_shape + (cfg.num_semantic_classes,))
+
+
+def forward(params: SpectralField, cfg: SpectralConfig, positions, directions=None):
+    """→ (rgb, density[, sem_logits])."""
+    density, geo_feat = query_density(params, cfg, positions, return_feat=True)
+    rgb = query_rgb(params, cfg, directions, geo_feat)
+    if cfg.num_semantic_classes > 0:
+        return rgb, density, query_semantic(params, cfg, geo_feat)
+    return rgb, density
+
+
+def query_density_field(params: SpectralDensityField, cfg: SpectralDensityConfig, x: torch.Tensor):
+    """Proposal density. The plain chain, as the JAX package runs it by
+    default (its fused route is an opt-in ablation, ``spectral.py:596-600``)."""
+    batch_shape = x.shape[:-1]
+    u, selector = _normalize(cfg, x)
+    dt = cfg.dtype
+    proj = (u.reshape(-1, 3).to(dt).float() @ params.W.to(dt).float()) * (2 * np.pi) + params.phase
+    enc = torch.cat([torch.cos(proj), torch.sin(proj)], dim=-1)
+    h = apply_mlp(params.mlp_base, enc, compute_dtype=dt).reshape(batch_shape + (1,))
+    return trunc_exp(h - 1.0) * selector[..., None]

@@ -2,8 +2,10 @@
 
 Parameters keep the JAX layout, so the map is an identity on arrays:
 ``W`` [3, M], ``phase`` [M] and MLP leaves ``w{i}`` [in, out] / ``b{i}``
-[out]. A checkpoint trained by the JAX package can be rendered on the
-GPU without JAX installed.
+[out]. A checkpoint trained by the JAX package can be rendered, or
+trained further, on the GPU without JAX installed: the members'
+parameters are trainable. Carrying the optimizer state across and
+writing ``model_{i}.npz`` from the port come with the mapper loop.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ def _member_tree(tree: dict, i: int) -> dict:
 
 def params_from_jax(tree: dict, device=None) -> List[FlagshipMember]:
     """JAX ensemble params ``{"main": {...}, "prop": {...}}`` as nested
-    dicts of numpy arrays with a leading E axis → E port members."""
+    dicts of numpy arrays with a leading E axis → E port members, with
+    trainable parameters."""
     E = np.asarray(tree["main"]["W"]).shape[0]
     return [FlagshipMember.from_tree(_member_tree(tree, i), device) for i in range(E)]
 

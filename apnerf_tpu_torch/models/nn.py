@@ -6,8 +6,6 @@ leaves, so weights carry across as an identity map. ``apply_mlp`` keeps
 the mixed-precision contract of ``nn.py:43-78``: with a compute dtype,
 inputs and hidden outputs are rounded to it (the bias is added in that
 dtype, after rounding), and only the last layer emits float32.
-
-The slice is forward-only, so parameters are created without gradients.
 """
 
 from __future__ import annotations
@@ -24,8 +22,8 @@ class MLP(nn.Module):
         super().__init__()
         self.n_layers = len(layers)
         for i, (w, b) in enumerate(layers):
-            self.register_parameter(f"w{i}", nn.Parameter(w, requires_grad=False))
-            self.register_parameter(f"b{i}", nn.Parameter(b, requires_grad=False))
+            self.register_parameter(f"w{i}", nn.Parameter(w))
+            self.register_parameter(f"b{i}", nn.Parameter(b))
 
     @classmethod
     def from_tree(cls, tree: dict, device=None) -> "MLP":
@@ -63,7 +61,14 @@ def apply_mlp(
     params: MLP, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
 ) -> torch.Tensor:
     """ReLU hidden layers and a linear output (``nn.py:43-78``)."""
-    layers = params.layers()
+    return apply_layers(params.layers(), x, compute_dtype)
+
+
+def apply_layers(
+    layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], x: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """``apply_mlp`` on its ``(w, b)`` pairs."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     for i, (w, b) in enumerate(layers):

@@ -1,8 +1,11 @@
 """Spectral semantic radiance field and the proposal density field.
 
-Port of ``apnerf_tpu/models/spectral.py`` (the forward routes; the
-``*_packed*`` train routes at ``spectral.py:325-497`` belong to the
-training port). The encoding is
+Port of ``apnerf_tpu/models/spectral.py``: the forward routes and the
+train step's ``forward_packed_lossgrad``, which runs the whole main-field
+render, loss and backward through the CUDA train-step kernel
+(``ops/cuda/fused_field_volrend.py``). The TPU routing gates
+(``use_packed_*``, the ``APNERF_*`` switches) are not carried over: on
+the card that kernel is the train path. The encoding is
 
     enc(x) = [cos(2π x·W + φ), sin(2π x·W + φ)]      W: [3, M]
 
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.cuda.fused_mlp import _encode, fused_spectral_field
+from ..ops.cuda.fused_field_volrend import fused_field_volrend_lossgrad
+from ..ops.cuda.fused_mlp import encode_plain, fused_spectral_field
 from ..ops.sh import sh_encode_deg4
 from .ngp import trunc_exp
 from .nn import MLP, apply_mlp, init_mlp
@@ -89,7 +93,7 @@ def _as_param(a, device=None) -> nn.Parameter:
         t = a.to(device=device, dtype=torch.float32)
     else:
         t = torch.as_tensor(np.array(a, np.float32), device=device)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class SpectralField(nn.Module):
@@ -182,7 +186,7 @@ def _normalize(cfg, x: torch.Tensor):
 
 def spectral_encode(params, cfg, u: torch.Tensor) -> torch.Tensor:
     """[..., 3] unit-cube coords → [..., 2M] spectral features."""
-    return _encode(params.W, params.phase, u, cfg.dtype)
+    return encode_plain(params.W, params.phase, u, cfg.dtype)
 
 
 def _use_fused_field(cfg: SpectralConfig, params_mlp: MLP) -> bool:
@@ -232,6 +236,63 @@ def forward(params: SpectralField, cfg: SpectralConfig, positions, directions=No
     if cfg.num_semantic_classes > 0:
         return rgb, density, query_semantic(params, cfg, geo_feat)
     return rgb, density
+
+
+def forward_packed_lossgrad(
+    params: SpectralField,
+    cfg: SpectralConfig,
+    positions: torch.Tensor,  # [R, S, 3]
+    rays_d: torch.Tensor,  # [R, 3]
+    t0: torch.Tensor,  # [R, S]
+    t1: torch.Tensor,  # [R, S]
+    miss: torch.Tensor,  # [R] bool
+    pixels: torch.Tensor,  # [R, 3] rgb targets in [0, 1]
+    depth_gt: torch.Tensor,  # [R]
+    sem_labels: torch.Tensor,  # [R] int
+    bkgd: Optional[torch.Tensor],  # [3] or None
+):
+    """The whole train render, loss and backward in one call
+    (``spectral.py:386-436``) → (lossrows [3, R] raw per-ray sums, weights
+    [R, S] (the proposal loss's detached input), grads keyed like
+    ``params``: ``W``, ``phase``, ``mlp_base``, ``mlp_head``, ``mlp_sem``).
+    The loss is ``LOSS_WEIGHTS`` on ``loss_terms(lossrows)``
+    (``ops/cuda/fused_field_volrend.py``). Not differentiable: the
+    gradients are returned. Ray misses fold into dt, as the unfused
+    ``sigmas * ~miss`` does."""
+    R, S = positions.shape[0], positions.shape[1]
+    u, _ = _normalize(cfg, positions)
+    sh = sh_encode_deg4(rays_d)
+    dt = (t1 - t0) * (~miss)[:, None]
+    tm = 0.5 * (t0 + t1)
+    if bkgd is None:
+        bkgd = torch.zeros(3, device=positions.device)
+    lossrows, w, grads = fused_field_volrend_lossgrad(
+        list(params.parameters()), u.reshape(-1, 3).float().contiguous(),
+        sh.float().contiguous(), dt.reshape(-1).float().contiguous(),
+        tm.reshape(-1).float().contiguous(), pixels.float().contiguous(),
+        depth_gt.float().contiguous(), sem_labels.to(torch.int32).contiguous(),
+        bkgd.float().contiguous(), S, cfg.dtype,
+    )
+    tree: dict = {}
+    for (name, _), g in zip(params.named_parameters(), grads):
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = g
+    return lossrows, w.reshape(R, S), tree
+
+
+def grads_in_order(params: nn.Module, tree: dict) -> list:
+    """A gradient tree keyed like ``params`` → its leaves in
+    ``params.parameters()`` order."""
+    out = []
+    for name, _ in params.named_parameters():
+        node = tree
+        for key in name.split("."):
+            node = node[key]
+        out.append(node)
+    return out
 
 
 def query_density_field(params: SpectralDensityField, cfg: SpectralDensityConfig, x: torch.Tensor):

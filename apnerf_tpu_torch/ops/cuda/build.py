@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into one
+Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into an
+object, all of them at once in parallel, and the objects link into one
 shared library with a plain C interface, loaded with ``ctypes``. The
 build runs at first use, into ``build/`` at the repository root; the
-library's name carries a hash of the sources and flags, so an edited
-kernel never loads a stale binary. Nothing here runs at import time:
-the CPU tests import every module on a machine without ``nvcc``.
+library's name carries a hash of the sources, the shared headers and
+the flags, so an edited kernel never loads a stale binary. Nothing here
+runs at import time: the CPU tests import every module on a machine
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,10 +24,8 @@ from typing import Optional
 REPO_ROOT = Path(__file__).resolve().parents[3]
 CSRC = REPO_ROOT / "apnerf_tpu_torch" / "csrc"
 BUILD_DIR = REPO_ROOT / "build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 # seconds the last build took in this process (0.0 when the library was
@@ -50,8 +50,8 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libapnerf_kernels_{h.hexdigest()[:12]}.so"
@@ -64,15 +64,36 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [src.name for src, p in zip(_sources(), procs) if p.returncode != 0]
+    if not failed:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
+        else:
+            os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     return out
 
 
@@ -82,7 +103,7 @@ def library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.apnerf_fused_spectral_field_smem.argtypes = [i, i]
     lib.apnerf_fused_spectral_field_smem.restype = ctypes.c_size_t
     lib.apnerf_fused_spectral_field_fwd.argtypes = (
@@ -91,5 +112,18 @@ def library() -> ctypes.CDLL:
     lib.apnerf_fused_spectral_field_fwd.restype = i
     lib.apnerf_fused_render_weights_fwd.argtypes = [p, p, p, i, i, p, p, p, p]
     lib.apnerf_fused_render_weights_fwd.restype = i
+    lib.apnerf_fused_render_weights_bwd.argtypes = [p, p, p, p, i, i, p, p, p, p]
+    lib.apnerf_fused_render_weights_bwd.restype = i
+    lib.apnerf_fvr_smem.argtypes = [p, i]
+    lib.apnerf_fvr_smem.restype = ctypes.c_size_t
+    lib.apnerf_fvr_n_bias.argtypes = [p]
+    lib.apnerf_fvr_n_bias.restype = i
+    for name in ("apnerf_fvr_field_fwd", "apnerf_fvr_rays", "apnerf_fvr_field_bwd"):
+        getattr(lib, name).argtypes = [p, p]
+        getattr(lib, name).restype = i
+    lib.apnerf_xt_dy.argtypes = [p, i, i, i, p, i, i, i, i, i, p, ll, ll, p]
+    lib.apnerf_xt_dy.restype = i
+    lib.apnerf_sum_rows.argtypes = [p, i, ll, i, p, p]
+    lib.apnerf_sum_rows.restype = i
     _lib = lib
     return lib

@@ -1,7 +1,8 @@
 """Spectral encode + trunk in one CUDA kernel (``csrc/fused_mlp.cu``).
 
 Port of ``apnerf_tpu/ops/pallas/fused_mlp.py::fused_spectral_field``,
-forward only. ``fused_spectral_field`` launches the kernel for CUDA
+forward only (the train step's field gradients come from the train-step
+kernel, ``fused_field_volrend.py``). ``fused_spectral_field`` launches the kernel for CUDA
 tensors and takes the plain PyTorch version, ``fused_spectral_field_plain``,
 only for CPU tensors. The plain version is the chain the JAX package runs
 off the TPU (``spectral._encode_math`` then ``apply_mlp`` in bf16), which
@@ -20,7 +21,7 @@ from . import build
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
 
-def _encode(W, phase, u, dtype):
+def encode_plain(W, phase, u, dtype):
     """[cos, sin](2π·u·W + φ) in ``dtype``, with u and W rounded to
     ``dtype`` and the K=3 product taken in f32 (``spectral.py:124-135``:
     a bf16 matmul output would round the phase with an ulp of 256 rad)."""
@@ -30,7 +31,7 @@ def _encode(W, phase, u, dtype):
 
 def fused_spectral_field_plain(W, phase, params: MLP, u):
     """y = MLP(cos/sin(2π·u·W + φ)) as plain PyTorch ops, bf16 compute."""
-    enc = _encode(W, phase, u, torch.bfloat16)
+    enc = encode_plain(W, phase, u, torch.bfloat16)
     return apply_mlp(params, enc, compute_dtype=torch.bfloat16)
 
 
@@ -64,8 +65,13 @@ def fused_spectral_field(
         raise ValueError("fused_spectral_field: the trunk needs 2 or 3 hidden layers")
     if H % 16 or (2 * M) % 16:
         raise ValueError("fused_spectral_field: widths must be multiples of 16")
-    if any(p.requires_grad for p in (W, phase, u, *params.parameters())):
-        raise NotImplementedError("fused_spectral_field: the CUDA kernel is forward-only")
+    if torch.is_grad_enabled() and any(
+        p.requires_grad for p in (W, phase, u, *params.parameters())
+    ):
+        raise NotImplementedError(
+            "fused_spectral_field: the CUDA kernel is forward-only; call it under "
+            "torch.no_grad() (its backward is queued in ROADMAP.md)"
+        )
     _check(u, "u", (N, 3), torch.float32, dev)
     _check(W, "W", (3, M), torch.float32, dev)
     _check(phase, "phase", (M,), torch.float32, dev)

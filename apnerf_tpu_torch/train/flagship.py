@@ -1,25 +1,44 @@
-"""Flagship field configuration, initialization and occupancy update.
+"""The flagship train path: spectral field + proposal sampling.
 
-Port of the parts of ``apnerf_tpu/train/flagship.py`` that the planning
-step needs: ``make_spectral_config``, ``make_prop_config``, the params and
-occupancy grids of ``init_flagship_ensemble`` (``:75-97``) as
-``init_flagship_params``, and ``make_flagship_occ_update`` (``:333-364``),
-whose density queries run through the CUDA field kernel. The optimizer
-and the train step belong to the training port.
+Port of ``apnerf_tpu/train/flagship.py``: the field configs,
+``default_spectral_schedule``, ``init_flagship_ensemble`` (params,
+optimizer state and occupancy grids), the member core, the train phase
+and ``make_flagship_occ_update``, whose density queries run through the
+CUDA field kernel.
+
+The member core takes the combined-kernel branch (``flagship.py:119-194``):
+  1. proposal sampling, without gradients;
+  2. ``spectral.forward_packed_lossgrad``: the main field's render, 3-term
+     loss and whole backward in one call of the CUDA train-step kernel;
+  3. the proposal field recomputed at the level-0 midpoints (edges
+     detached) and the proposal-matching loss differentiated by autograd,
+     through the CUDA weights kernel's backward on the card;
+  4. ``finish``: Adam with the NaN guard, on the device.
+``lossgrad=False`` selects the autograd branch (``flagship.py:243-311``)
+instead: the same loss by autograd through ``spectral.forward``. It is
+the plain reference the tests and ``chip_smoke.py`` hold the kernels to.
 
 The ensemble is a Python list of E member modules, not a vmapped axis.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import PipelineConfig
 from ..models import spectral
+from ..models.propnet import prop_loss
+from ..ops import volrend
+from ..ops.cuda.fused_field_volrend import LOSS_WEIGHTS, loss_terms
 from ..ops.occupancy import OccGridState, init_occ_grid, update_occ_grid
+from ..render.prop_renderer import prop_sample_intervals
+from .phase import make_train_phase
+from .schedule import cyclic_lr
+from .step import AdamState, EnsembleState, make_optimizer
 
 
 class FlagshipMember(nn.Module):
@@ -37,6 +56,24 @@ class FlagshipMember(nn.Module):
             spectral.SpectralField.from_tree(tree["main"], device),
             spectral.SpectralDensityField.from_tree(tree["prop"], device),
         )
+
+
+class CoreOutput(NamedTuple):
+    opt: AdamState
+    loss: torch.Tensor  # [] f32
+    loss_rgb: torch.Tensor
+    loss_dep: torch.Tensor
+    loss_sem: torch.Tensor
+    n_samples: torch.Tensor  # [] int
+    skipped: torch.Tensor  # [] bool: a NaN or infinite gradient, no update
+
+
+def default_spectral_schedule(cfg: PipelineConfig):
+    """Cyclic LR anchored at ``cfg.spectral_lr`` (``flagship.py:38-47``)."""
+    return cyclic_lr(
+        cfg.spectral_lr / 10.0, cfg.spectral_lr,
+        max(cfg.training_steps // 4, 1), gamma=cfg.spectral_lr_gamma,
+    )
 
 
 def make_spectral_config(cfg: PipelineConfig) -> spectral.SpectralConfig:
@@ -77,6 +114,113 @@ def init_flagship_params(
         )
         occ.append(init_occ_grid(cfg.aabb, cfg.main_grid_resolution, device))
     return members, occ
+
+
+def init_flagship_ensemble(
+    cfg: PipelineConfig, generator: torch.Generator, device=None
+) -> EnsembleState:
+    """Members, fresh Adam states and empty grids, at step 0
+    (``flagship.py:75-97``)."""
+    opt = make_optimizer(cfg, default_spectral_schedule(cfg))
+    members, occ = init_flagship_params(cfg, generator, device)
+    return EnsembleState(
+        members=members, opt=[opt.init(list(m.parameters())) for m in members],
+        occ=occ, step=0,
+    )
+
+
+def _main_loss(terms) -> torch.Tensor:
+    """The weighted rgb, depth and semantic terms of the train loss."""
+    return sum(c * t for c, t in zip(LOSS_WEIGHTS, terms))
+
+
+def make_flagship_member_core(cfg: PipelineConfig, lossgrad: bool = True):
+    """One member's train step → ``member_core(member, opt_state, batch,
+    step, generator=None, noise=None) -> CoreOutput``. The member's
+    parameters update in place. ``noise`` [R, S+1] replaces the
+    stratified draw of proposal sampling. The occupancy grid is not
+    touched here: the planner reads it, and ``make_flagship_occ_update``
+    refreshes it once per chunk (``flagship.py:196-204``)."""
+    s_cfg, p_cfg = make_spectral_config(cfg), make_prop_config(cfg)
+    opt = make_optimizer(cfg, default_spectral_schedule(cfg))
+    S = cfg.max_samples_train
+
+    def sample(member, batch, generator, noise):
+        aabb = torch.as_tensor(cfg.aabb, dtype=torch.float32, device=batch.origins.device)
+        return prop_sample_intervals(
+            lambda p: spectral.query_density_field(member.prop, p_cfg, p),
+            batch.origins, batch.viewdirs, aabb, num_samples=S,
+            num_prop_samples=cfg.num_prop_samples, near_plane=cfg.near_plane,
+            stratified=True, generator=generator,
+            noises=[noise] if noise is not None else None,
+        )
+
+    def fused_loss_and_grads(member, batch, generator, noise):
+        with torch.no_grad():
+            t0, t1, _, pos, miss, levels = sample(member, batch, generator, noise)
+        t_edges0 = levels[0][0].detach()
+        lossrows, weights, main_grads = spectral.forward_packed_lossgrad(
+            member.main, s_cfg, pos, batch.viewdirs, t0, t1, miss,
+            batch.pixels, batch.depth, batch.sem, batch.color_bkgd,
+        )
+        terms = loss_terms(lossrows)
+        # the proposal loss: only the level-0 weights depend on the
+        # proposal parameters, and the level-0 edges do not
+        te0, te1 = t_edges0[..., :-1], t_edges0[..., 1:]
+        tm0 = 0.5 * (te0 + te1)
+        pos0 = batch.origins[:, None, :] + tm0[..., None] * batch.viewdirs[:, None, :]
+        with torch.enable_grad():
+            sig = spectral.query_density_field(member.prop, p_cfg, pos0)[..., 0]
+            wp, _, _ = volrend.render_weight_from_density(te0, te1, sig)
+            p_loss = prop_loss([(t_edges0, wp)], t0, t1, weights)
+            prop_grads = torch.autograd.grad(p_loss, list(member.prop.parameters()))
+        loss = _main_loss(terms) + cfg.prop_loss_weight * p_loss.detach()
+        grads = spectral.grads_in_order(member.main, main_grads) + list(prop_grads)
+        return loss, (*terms, (~miss).sum() * S), grads
+
+    def autograd_loss_and_grads(member, batch, generator, noise):
+        with torch.enable_grad():
+            t0, t1, _, pos, miss, levels = sample(member, batch, generator, noise)
+            dirs = batch.viewdirs[:, None, :].expand(pos.shape)
+            rgbs, sigmas, sems = spectral.forward(member.main, s_cfg, pos, dirs)
+            sigmas = sigmas[..., 0] * (~miss[:, None])
+            weights, _, _ = volrend.render_weight_from_density(t0, t1, sigmas)
+            out = volrend.render_outputs(
+                weights, t0, t1, rgbs, sems=sems, render_bkgd=batch.color_bkgd
+            )
+            p_loss = prop_loss(levels, t0, t1, weights)
+            terms = (
+                F.huber_loss(out["rgb"], batch.pixels, delta=1.0),
+                F.huber_loss(out["depth"][:, 0], batch.depth, delta=1.0),
+                F.cross_entropy(out["sem"], batch.sem.long()),
+            )
+            loss = _main_loss(terms) + cfg.prop_loss_weight * p_loss
+            grads = torch.autograd.grad(loss, list(member.parameters()))
+        aux = (*(t.detach() for t in terms), (~miss).sum() * S)
+        return loss.detach(), aux, list(grads)
+
+    loss_and_grads = fused_loss_and_grads if lossgrad else autograd_loss_and_grads
+
+    def finish(member, opt_state, loss, aux, grads) -> CoreOutput:
+        """The NaN-guarded Adam step (``flagship.py:207-232``): a
+        non-finite gradient leaves parameters, moments and count as they
+        were, selected on the device."""
+        new_state, bad = opt.step(list(member.parameters()), grads, opt_state)
+        return CoreOutput(new_state, loss, *aux, bad)
+
+    def member_core(member, opt_state, batch, step, generator=None, noise=None) -> CoreOutput:
+        del step  # the schedule reads the optimizer's own count
+        loss, aux, grads = loss_and_grads(member, batch, generator, noise)
+        return finish(member, opt_state, loss, aux, grads)
+
+    return member_core
+
+
+def make_flagship_train_phase(cfg: PipelineConfig):
+    """The chunk of steps over the flagship member core's combined-kernel
+    branch (same signature as ``phase.make_train_phase``'s ``phase_fn``).
+    Pair it with ``make_flagship_occ_update`` once per chunk."""
+    return make_train_phase(cfg, make_flagship_member_core(cfg))
 
 
 def make_flagship_occ_update(cfg: PipelineConfig) -> Callable:

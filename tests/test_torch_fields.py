@@ -130,7 +130,7 @@ def test_init_matches_jax_layout():
     assert tuple(occ[0].binaries.shape) == cfg.main_grid_resolution
     # band frequencies follow the geometric ladder
     norms = members[0].main.W.norm(dim=0).reshape(4, 2)
-    np.testing.assert_allclose(norms[:, 0].numpy(), [4.0, 8.0, 16.0, 32.0], rtol=1e-5)
+    np.testing.assert_allclose(norms[:, 0].detach().numpy(), [4.0, 8.0, 16.0, 32.0], rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -147,7 +147,7 @@ def test_main_field(dtype):
     dt, ft = t_sp.query_density(pt, ts, T(x), return_feat=True)
     on_scale(dt, dj, TOL[dtype])
     on_scale(ft, fj, TOL[dtype])
-    assert (dt.numpy()[..., 0] == 0).any()  # outside the box
+    assert (dt.detach().numpy()[..., 0] == 0).any()  # outside the box
     out_j = j_sp.forward(pj, js, x, d)
     out_t = t_sp.forward(pt, ts, T(x), T(d))
     for a, b in zip(out_t, out_j):
@@ -187,7 +187,8 @@ def test_field_kernel_plain_matches_pallas_interpret(layers):
     got = fused_spectral_field(pt.W, pt.phase, pt.mlp_base, T(u))
     assert fused_spectral_field.launches == 0  # CPU: plain version
     np.testing.assert_array_equal(
-        got.numpy(), fused_spectral_field_plain(pt.W, pt.phase, pt.mlp_base, T(u)).numpy()
+        got.detach().numpy(),
+        fused_spectral_field_plain(pt.W, pt.phase, pt.mlp_base, T(u)).detach().numpy(),
     )
     on_scale(got, ref, TOL["bfloat16"])
 
@@ -235,7 +236,7 @@ def test_render_rays_prop_with_variance(dtype, stratified):
     rel = 1e-4 if dtype == "float32" else 3e-2
     for k in ("rgb", "opacity", "depth", "sem", "rgb_var", "depth_var"):
         on_scale(ot[k], oj[k], rel)
-    np.testing.assert_allclose(ot["rgb"][0].numpy(), bk, rtol=1e-6)  # miss → background
+    np.testing.assert_allclose(ot["rgb"][0].detach().numpy(), bk, rtol=1e-6)  # miss → background
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

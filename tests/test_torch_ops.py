@@ -338,7 +338,7 @@ def test_apply_mlp(dtype):
     if dtype == "float32":
         close(yt, yj, rtol=1e-5, atol=1e-5)
     else:
-        assert np.abs(yt.numpy() - yj).max() <= 2e-2 * np.abs(yj).max()
+        assert np.abs(yt.detach().numpy() - yj).max() <= 2e-2 * np.abs(yj).max()
 
 
 def test_init_mlp_layout():

@@ -1,0 +1,84 @@
+"""CLI entry: python -m apnerf_tpu_torch.active.pipeline
+
+Port of ``apnerf_tpu/active/pipeline.py``: ``--sem-num``,
+``--habitat-scene``, ``--habitat-config-file``, ``--sim {habitat,fake}``,
+``--config`` and ``--seed`` as there. ``--device`` (default ``cuda``)
+takes the place of ``--platform``; ``--viz`` turns on the PNG dumps that
+the JAX mapper always writes (they need ``imageio``). ``--profile`` and
+``--mesh`` are not ported. The run is on the card unless ``--device cpu``
+is given: without a CUDA device the default fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import pathlib
+import random
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--sem-num", type=int, default=0, help="number of semantic classes")
+    p.add_argument("--habitat-scene", type=str, default="102344250")
+    p.add_argument(
+        "--habitat-config-file", type=str,
+        default=str(
+            pathlib.Path.cwd()
+            / "data/scene_datasets/hssd-hab/hssd-hab.scene_dataset_config.json"
+        ),
+    )
+    p.add_argument("--sim", choices=["habitat", "fake"], default="habitat")
+    p.add_argument("--config", type=str, default=None,
+                   help="scene YAML path (reference schema)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the run (cpu runs the kernels' plain versions)")
+    p.add_argument("--seed", type=int, default=9)
+    p.add_argument("--viz", action="store_true",
+                   help="write the visualisation and prediction PNGs (needs imageio)")
+    return p.parse_args(argv)
+
+
+def build_mapper(args):
+    from ..config import PipelineConfig, load_scene_config
+    from .mapper import ActiveNeRFMapper
+
+    cfg_path = args.config or f"configs/config_{args.habitat_scene}.yaml"
+    if pathlib.Path(cfg_path).exists():
+        cfg = load_scene_config(cfg_path, num_semantic_classes=args.sem_num)
+    else:
+        cfg = PipelineConfig(num_semantic_classes=args.sem_num)
+
+    if args.sim != "fake":
+        raise NotImplementedError(
+            "--sim habitat: sim/habitat.py (the Habitat-Sim backend) is still to port "
+            "(ROADMAP.md); run with --sim fake"
+        )
+    from ..sim.fake import FakeSim
+
+    sim = FakeSim(aabb=tuple(cfg.aabb), img_w=cfg.img_w, img_h=cfg.img_h, hfov=cfg.hfov)
+    if args.sem_num == 0:
+        cfg = dataclasses.replace(cfg, num_semantic_classes=sim.num_semantic_classes)
+    return ActiveNeRFMapper(cfg, sim, seed=args.seed, device=args.device, save_viz=args.viz)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    mapper = build_mapper(args)
+    mapper.pipeline()
+    if mapper.throughput_log:
+        last = mapper.throughput_log[-1]
+        print(
+            f"throughput: {last['samples_per_sec']:.3e} samples/s, "
+            f"{last['rays_per_sec']:.3e} rays/s"
+        )
+    print(f"done; artifacts in {mapper.save_path}")
+    return mapper
+
+
+if __name__ == "__main__":
+    main()

@@ -23,10 +23,10 @@
 // across forward and backward (the 3x256 trunk three times over), and a
 // member step has 262,144 rows, ~3.4e11 FLOP. The design is several
 // launches from one wrapper, all written here, no library product:
-//   1. fvr_field_fwd_kernel: the K1 block design (spectral_tile.cuh) on a
-//      64-row tile, extended through both heads; it writes the bf16
-//      activations the backward needs to a scratch buffer (~0.7 GB per
-//      call at the shipping shape) and the per-sample sigma, rgb, sem;
+//   1. fvr_field_fwd_kernel: the whole field on a 64-row tile
+//      (field_heads_tile.cuh); it writes the bf16 activations the
+//      backward needs to a scratch buffer (~0.7 GB per call at the
+//      shipping shape) and the per-sample sigma, rgb, sem;
 //   2. fvr_ray_kernel: one warp per ray, so the exclusive and the
 //      reverse scans are warp scans; weights, per-ray sums, loss rows and
 //      the per-sample cotangents;
@@ -38,16 +38,21 @@
 //      fixed order, so the gradients are the same from run to run (float
 //      atomics would not be).
 // wgmma, TMA and tuning are later work.
+//
+// The file also holds the ray kernel of the forward-only render
+// (fused_field_volrend's forward, section 2b below), which shares the
+// per-ray scan with fvr_ray_kernel and stops after the sums.
 
 #include <cfloat>
 
-#include "spectral_tile.cuh"
+#include "field_heads_tile.cuh"
 
 // Every pointer and size of one call; mirrors _FvrArgs in
 // apnerf_tpu_torch/ops/cuda/fused_field_volrend.py field by field. At
 // namespace scope, so the extern "C" entries that take it keep external
 // linkage.
 struct FvrArgs {
+  static constexpr bool kSaves = true;  // field_forward_tile stores the activations below
   // inputs
   const float* u;      // [N, 3] unit-cube coordinates
   const float* sh;     // [R, 16] SH of the ray directions
@@ -103,9 +108,6 @@ namespace {
 using namespace nvcuda;
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kShw = 16;        // SH features of a ray direction
-constexpr int kXr = 32;         // rgb-head input: SH (16) | geo (<= 16, zero-padded)
-constexpr int kRgbPad = 16;     // rgb-head output width, padded
 constexpr int kRayWarps = 8;    // rays per block of fvr_ray_kernel
 constexpr int kRayChan = 128;   // per-ray channel slots in shared memory (3 + C <= 64, twice)
 
@@ -115,8 +117,6 @@ constexpr int kRayChan = 128;   // per-ray channel slots in shared memory (3 + C
 __host__ __device__ inline int n_bias(const FvrArgs& a) {
   return (a.n_layers - 1) * a.hidden + a.trunk_out_pad + 4 * a.head_hidden + 4 * a.m;
 }
-
-__device__ __forceinline__ float bf(const bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -128,16 +128,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
   return v;
-}
-
-// g[row0 + i, :cols] = s[i, :cols] for the 64 rows of a tile (cols % 8 == 0)
-__device__ void store_tile(const bf16* s, int ld_s, int cols, bf16* g, int row0) {
-  const int vpr = cols / 8;
-  for (int e = threadIdx.x; e < kTileRows * vpr; e += kThreads) {
-    const int i = e / vpr, v = e % vpr;
-    *reinterpret_cast<uint4*>(g + (size_t)(row0 + i) * cols + v * 8) =
-        *reinterpret_cast<const uint4*>(s + i * ld_s + v * 8);
-  }
 }
 
 // s[i, :cols] = g[row0 + i, :cols], zero for rows at or past n_valid
@@ -218,126 +208,29 @@ __device__ void bwd_linear_f32(const bf16* src, int ld_src, int k, const bf16* w
 
 // ---- 1. field forward -------------------------------------------------------
 
-struct FwdSmem {
-  int ld_a, ld_b, ld_x, ld_h, out_w;
-  size_t a, b, outf, scratch, x, r1, r2, s1, s2, total;
+// per-sample outputs of the train step's field pass
+struct TrainEpilogue {
+  float* sigma;
+  float* dsd;
+  float* rgb_out;
+  float* sem_out;
+  int n_classes;
+  __device__ void density(int, int row, bool in, float raw) {
+    sigma[row] = in ? expf(raw - 1.f) : 0.f;
+    dsd[row] = in ? expf(fminf(raw - 1.f, 15.f)) : 0.f;
+  }
+  __device__ void rgb(int, int row, int c, float v) { rgb_out[(size_t)row * 3 + c] = v; }
+  __device__ void sem(int, int row, int c, float v) {
+    sem_out[(size_t)row * n_classes + c] = v;
+  }
 };
-
-__host__ __device__ inline FwdSmem fwd_smem(const FvrArgs& p) {
-  FwdSmem s;
-  s.ld_a = (2 * p.m > p.hidden ? 2 * p.m : p.hidden) + kPad;
-  s.ld_b = p.hidden + kPad;
-  s.ld_x = kXr + kPad;
-  s.ld_h = p.head_hidden + kPad;
-  s.out_w = p.c_pad > p.trunk_out_pad ? p.c_pad : p.trunk_out_pad;
-  if (s.out_w < kRgbPad) s.out_w = kRgbPad;
-  size_t o = 0;
-  s.a = o; o += (size_t)kTileRows * s.ld_a * sizeof(bf16);
-  s.b = o; o += (size_t)kTileRows * s.ld_b * sizeof(bf16);
-  s.x = o; o += (size_t)kTileRows * s.ld_x * sizeof(bf16);
-  s.r1 = o; o += (size_t)kTileRows * s.ld_h * sizeof(bf16);
-  s.r2 = o; o += (size_t)kTileRows * s.ld_h * sizeof(bf16);
-  s.s1 = o; o += (size_t)kTileRows * s.ld_h * sizeof(bf16);
-  s.s2 = o; o += (size_t)kTileRows * s.ld_h * sizeof(bf16);
-  s.outf = o; o += (size_t)kTileRows * s.out_w * sizeof(float);
-  s.scratch = o; o += (size_t)kWarps * 256 * sizeof(float);
-  s.total = o;
-  return s;
-}
 
 __global__ void __launch_bounds__(kThreads) fvr_field_fwd_kernel(FvrArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const FwdSmem L = fwd_smem(a);
-  const int m = a.m, h = a.hidden, hh = a.head_hidden, C = a.n_classes;
-  bf16* buf_a = reinterpret_cast<bf16*>(smem + L.a);
-  bf16* buf_b = reinterpret_cast<bf16*>(smem + L.b);
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.x);
-  bf16* r1 = reinterpret_cast<bf16*>(smem + L.r1);
-  bf16* r2 = reinterpret_cast<bf16*>(smem + L.r2);
-  bf16* s1 = reinterpret_cast<bf16*>(smem + L.s1);
-  bf16* s2 = reinterpret_cast<bf16*>(smem + L.s2);
-  float* outf = reinterpret_cast<float*>(smem + L.outf);
-  float* scratch = reinterpret_cast<float*>(smem + L.scratch) + (threadIdx.x / 32) * 256;
-  const int row0 = blockIdx.x * kTileRows;
-
-  encode_tile(a.u, a.W, a.phase, a.n_rows, m, row0, buf_a, L.ld_a);
-  __syncthreads();
-  store_tile(buf_a, L.ld_a, 2 * m, a.enc, row0);
-
-  // trunk: hidden layers ping-pong between buf_a and buf_b, each saved
-  const bf16* src = buf_a;
-  int ld_src = L.ld_a, k = 2 * m;
-  bf16* dst = buf_b;
-  int ld_dst = L.ld_b;
-  for (int l = 0; l < a.n_layers - 1; ++l) {
-    hidden_layer(src, ld_src, k, a.tw[l], a.tb[l], h, dst, ld_dst, scratch);
-    __syncthreads();
-    store_tile(dst, ld_dst, h, a.h[l], row0);
-    bf16* next = const_cast<bf16*>(src);
-    const int ld_next = ld_src;
-    src = dst;
-    ld_src = ld_dst;
-    dst = next;
-    ld_dst = ld_next;
-    k = h;
-  }
-  const int last = a.n_layers - 1;
-  output_layer(src, ld_src, k, a.tw[last], a.tb[last], a.trunk_out_pad, a.trunk_out_pad,
-               outf, 0, kTileRows, scratch);
-  __syncthreads();
-
-  // density, and the heads' input [bf16 SH | bf16 geo | 0]
-  for (int i = threadIdx.x; i < kTileRows; i += kThreads) {
-    const int row = row0 + i;
-    if (row < a.n_rows) {
-      const float* ur = a.u + (size_t)row * 3;
-      const bool in = ur[0] > 0.f && ur[0] < 1.f && ur[1] > 0.f && ur[1] < 1.f &&
-                      ur[2] > 0.f && ur[2] < 1.f;
-      const float raw = outf[i * a.trunk_out_pad];
-      a.sigma[row] = in ? expf(raw - 1.f) : 0.f;
-      a.dsd[row] = in ? expf(fminf(raw - 1.f, 15.f)) : 0.f;
-    }
-  }
-  for (int e = threadIdx.x; e < kTileRows * kXr; e += kThreads) {
-    const int i = e / kXr, j = e % kXr;
-    const int row = row0 + i;
-    float v = 0.f;
-    if (j < kShw) {
-      if (row < a.n_rows) v = a.sh[(size_t)(row / a.n_samples) * kShw + j];
-    } else if (j - kShw < a.geo) {
-      v = outf[i * a.trunk_out_pad + 1 + (j - kShw)];
-    }
-    xs[i * L.ld_x + j] = __float2bfloat16(v);
-  }
-  __syncthreads();
-  store_tile(xs, L.ld_x, kXr, a.xr, row0);
-
-  // rgb head on [SH | geo], sem head on geo (the columns from 16 on)
-  hidden_layer(xs, L.ld_x, kXr, a.rw[0], a.rb[0], hh, r1, L.ld_h, scratch);
-  hidden_layer(xs + kShw, L.ld_x, kXr - kShw, a.sw[0], a.sb[0], hh, s1, L.ld_h, scratch);
-  __syncthreads();
-  hidden_layer(r1, L.ld_h, hh, a.rw[1], a.rb[1], hh, r2, L.ld_h, scratch);
-  hidden_layer(s1, L.ld_h, hh, a.sw[1], a.sb[1], hh, s2, L.ld_h, scratch);
-  __syncthreads();
-  store_tile(r1, L.ld_h, hh, a.hr1, row0);
-  store_tile(r2, L.ld_h, hh, a.hr2, row0);
-  store_tile(s1, L.ld_h, hh, a.hs1, row0);
-  store_tile(s2, L.ld_h, hh, a.hs2, row0);
-  output_layer(r2, L.ld_h, hh, a.rw[2], a.rb[2], kRgbPad, kRgbPad, outf, 0, kTileRows, scratch);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kTileRows * 3; e += kThreads) {
-    const int i = e / 3, c = e % 3;
-    const int row = row0 + i;
-    if (row < a.n_rows) a.rgb[(size_t)row * 3 + c] = 1.f / (1.f + expf(-outf[i * kRgbPad + c]));
-  }
-  __syncthreads();
-  output_layer(s2, L.ld_h, hh, a.sw[2], a.sb[2], a.c_pad, a.c_pad, outf, 0, kTileRows, scratch);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kTileRows * C; e += kThreads) {
-    const int i = e / C, c = e % C;
-    const int row = row0 + i;
-    if (row < a.n_rows) a.sem[(size_t)row * C + c] = outf[i * a.c_pad + c];
-  }
+  TrainEpilogue epi{a.sigma, a.dsd, a.rgb, a.sem, a.n_classes};
+  // the call's arguments are the field's parameters and its save buffers
+  field_forward_tile(a, a, a.u, a.sh, a.n_rows, a.n_samples, blockIdx.x * kTileRows, smem,
+                     epi);
 }
 
 // ---- 2. per-ray volume rendering, loss and cotangents -------------------------
@@ -483,6 +376,67 @@ __global__ void __launch_bounds__(kRayWarps * 32) fvr_ray_kernel(FvrArgs a) {
     else if (c == 2) v = pr2;
     else if (c >= kRgbPad && c - kRgbPad < C) v = gch[3 + c - kRgbPad] * wsum;
     part[c] = v;
+  }
+}
+
+// ---- 2b. forward-only volume rendering over packed field values ------------------
+//
+// Replaces apnerf_tpu/ops/pallas/fused_field_volrend.py::fused_field_volrend
+// (forward: kernel _make_fvr_fwd_kernel, launched by _call_fvr_fwd) together
+// with the packed field pass of fused_field_heads.cu, which the wrapper
+// launches first: a = sigma dt, T = exp(-exclusive sum a), w = T (1 - e^-a),
+// then per ray the f32 sums of bf16(w rgb), bf16(w), bf16(w t_mid) and
+// bf16(w sem), the TPU kernel's rounding points. y is the packed field
+// output [n_rays * S, 4 + C]; acc is row-major [n_rays, 5 + C]: 0:3 rgb,
+// 3 opacity, 4 depth numerator, 5: semantics. One warp per ray, the scan
+// chunked by 32 with a carry, so any S and any ray count go. Memory-bound:
+// it reads 4 (4 + C) + 8 bytes per sample once and writes 4.
+__global__ void __launch_bounds__(kRayWarps * 32)
+    fvr_fwd_ray_kernel(const float* __restrict__ y, const float* __restrict__ dt,
+                       const float* __restrict__ tm, float* __restrict__ acc,
+                       float* __restrict__ w_out, int n_rays, int S, int C) {
+  extern __shared__ float rsm[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ray = blockIdx.x * kRayWarps + warp;
+  if (ray >= n_rays) return;  // uniform across the warp
+  const int ld = 4 + C;
+  float* wb = rsm + (size_t)warp * S;
+  const size_t base = (size_t)ray * S;
+
+  float carry = 0.f, op = 0.f, dn = 0.f;
+  for (int c0 = 0; c0 < S; c0 += 32) {
+    const int i = c0 + lane;
+    float s = 0.f;
+    if (i < S) s = y[(base + i) * ld + 3] * dt[base + i];
+    float incl = s;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (i < S) {
+      const float t = expf(-((carry + incl) - s));
+      const float w = t * (1.f - expf(-s));
+      wb[i] = w;
+      w_out[base + i] = w;
+      op += round_bf16(w);
+      dn += round_bf16(w * tm[base + i]);
+    }
+    carry += __shfl_sync(kFull, incl, 31);
+  }
+  op = warp_sum(op);
+  dn = warp_sum(dn);
+  __syncwarp();
+  float* out = acc + (size_t)ray * (5 + C);
+  for (int ch = lane; ch < 3 + C; ch += 32) {
+    const int col = ch < 3 ? ch : ch + 1;  // past the sigma column
+    float s = 0.f;
+    for (int i = 0; i < S; ++i) s += round_bf16(y[(base + i) * ld + col] * wb[i]);
+    out[ch < 3 ? ch : ch + 2] = s;
+  }
+  if (lane == 0) {
+    out[3] = op;
+    out[4] = dn;
   }
 }
 
@@ -760,6 +714,18 @@ extern "C" int apnerf_fvr_rays(const FvrArgs* a, void* stream) {
   if (err) return err;
   fvr_ray_kernel<<<(a->n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32, smem,
                    static_cast<cudaStream_t>(stream)>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int apnerf_fvr_fwd_rays(const float* y, const float* dt, const float* tm, float* acc,
+                                   float* w, int n_rays, int n_samples, int n_classes,
+                                   void* stream) {
+  const size_t smem = (size_t)kRayWarps * n_samples * sizeof(float);
+  int err = set_smem((const void*)fvr_fwd_ray_kernel, smem);
+  if (err) return err;
+  fvr_fwd_ray_kernel<<<(n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32, smem,
+                       static_cast<cudaStream_t>(stream)>>>(y, dt, tm, acc, w, n_rays,
+                                                            n_samples, n_classes);
   return (int)cudaGetLastError();
 }
 

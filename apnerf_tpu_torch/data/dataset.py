@@ -9,11 +9,13 @@ training) and the ``RayDataset`` store with ``update_data``,
 preallocated at ``max_images`` so appends are slice writes. The bootstrap
 pools and the host-side image choice use the same numpy generator as the
 JAX package, so a seed gives the same pools in both. ``resample_data``,
-``save`` and ``load`` come with the mapper loop.
+``save`` and ``load`` (``:193-247``) keep the npz schema, so either
+package loads what the other saved.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -78,6 +80,7 @@ class RayDataset:
     def __init__(
         self,
         training: bool,
+        save_fp: Optional[str] = None,
         num_rays: int = 1024,
         num_models: int = 1,
         width: int = 640,
@@ -89,11 +92,13 @@ class RayDataset:
         device="cuda",
     ):
         self.training = training
+        self.save_fp = save_fp
         self.num_rays = num_rays
         self.num_models = num_models
         self.boot_scale = boot_scale
         self.max_images = max_images
         self.size = 0
+        self.saved_batch = 0
         self.width, self.height = width, height
         self.device = torch.device(device)
         self.K = torch.as_tensor(make_intrinsics(width, height, hfov), device=self.device)
@@ -105,6 +110,8 @@ class RayDataset:
         self.depths = torch.zeros((max_images, height, width), dtype=torch.float32, device=dev)
         self.semantics = torch.zeros((max_images, height, width), dtype=torch.int32, device=dev)
         self.camtoworlds = torch.eye(4, device=dev).repeat(max_images, 1, 1)
+        if save_fp:
+            os.makedirs(save_fp, exist_ok=True)
 
     def __len__(self) -> int:
         return self.size
@@ -147,3 +154,52 @@ class RayDataset:
                     pool = recent
             out[m] = self._rng.choice(pool)
         return out
+
+    def resample_data(self) -> None:
+        """Keep a random 70 % of the images and rebuild the bootstrap pools
+        (``dataset.py:193-214``)."""
+        keep = self._rng.choice(self.size, size=int(self.size * 0.7), replace=False)
+        n = len(keep)
+        keep_t = torch.as_tensor(keep, device=self.device)
+        for name in ("images", "depths", "semantics", "camtoworlds"):
+            arr = getattr(self, name)
+            buf = torch.zeros_like(arr)
+            buf[:n] = arr[keep_t]
+            setattr(self, name, buf)
+        self.size = n
+        self.bootstrap_indices = [
+            self._rng.choice(n, size=int(n * self.boot_scale), replace=True).astype(np.int64)
+            for _ in range(self.num_models - 1)
+        ]
+
+    # ---- persistence: the npz schema of the JAX package and the reference ----
+
+    def save(self) -> str:
+        if self.save_fp is None:
+            raise ValueError("RayDataset.save needs a dataset built with save_fp")
+        path = os.path.join(self.save_fp, f"data{self.saved_batch}.npz")
+        np.savez(
+            path,
+            images=self.images[: self.size].cpu().numpy(),
+            depths=self.depths[: self.size].cpu().numpy(),
+            semantics=self.semantics[: self.size].cpu().numpy(),
+            camtoworlds=self.camtoworlds[: self.size].cpu().numpy(),
+            K=self.K.cpu().numpy(),
+            bootstrap_indices=np.array(self.bootstrap_indices, dtype=object),
+        )
+        return path
+
+    @classmethod
+    def load(cls, npz_path: str, training: bool = True, **kw) -> "RayDataset":
+        """Rebuild a dataset from a saved (or reference-produced) npz."""
+        with np.load(npz_path, allow_pickle=True) as data:
+            images = data["images"]
+            n, h, w = images.shape[:3]
+            kw.setdefault("max_images", max(n, 1))
+            ds = cls(training=training, width=w, height=h, **kw)
+            ds.update_data(images, data["depths"], data["semantics"], data["camtoworlds"])
+            if "bootstrap_indices" in data and ds.num_models > 1:
+                loaded = list(data["bootstrap_indices"])
+                for i in range(min(len(loaded), len(ds.bootstrap_indices))):
+                    ds.bootstrap_indices[i] = np.asarray(loaded[i], dtype=np.int64)
+        return ds

@@ -1,22 +1,28 @@
-"""Carry weights from the JAX package into the port, with numpy only.
+"""Carry weights and checkpoints between the JAX package and the port,
+with numpy only.
 
 Parameters keep the JAX layout, so the map is an identity on arrays:
 ``W`` [3, M], ``phase`` [M] and MLP leaves ``w{i}`` [in, out] / ``b{i}``
-[out]. A checkpoint trained by the JAX package can be rendered, or
-trained further, on the GPU without JAX installed: the members'
-parameters are trainable. Carrying the optimizer state across and
-writing ``model_{i}.npz`` from the port come with the mapper loop.
+[out]. A ``model_{i}.npz`` has the JAX mapper's keys
+(``apnerf_tpu/active/mapper.py:1219-1317``): ``occ_grid``, ``occs``,
+``step``, the parameters flattened as ``main/mlp_base/w0``…, and the
+optimizer state as ``__opt__{j}``, the leaves of optax's Adam state in
+its own order: the update count, every first moment, every second
+moment (each set in the sorted-key order of the parameter tree), and the
+schedule's count. Either package resumes the other's checkpoint, Adam
+moments and count included.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .train.flagship import FlagshipMember
+from .train.step import AdamState
 
 
 def _member_tree(tree: dict, i: int) -> dict:
@@ -48,10 +54,78 @@ def _unflatten(flat: dict) -> dict:
 def load_member_npz(path, device=None) -> Tuple[FlagshipMember, torch.Tensor, torch.Tensor]:
     """One ``model_{i}.npz`` written by ``ActiveNeRFMapper.save_checkpoints``
     (keys ``main/W``, ``main/mlp_base/w0``, …, ``occ_grid``, ``occs``) →
-    (member, occs [n] f32, binaries [Gx, Gy, Gz] bool). Optimizer leaves
-    and the step are ignored: they belong to training."""
+    (member, occs [n] f32, binaries [Gx, Gy, Gz] bool); ``load_member_opt``
+    reads the optimizer leaves and the step."""
     with np.load(os.fspath(path)) as data:
         flat = {k: data[k] for k in data.files if k.startswith(("main/", "prop/"))}
         occs = torch.as_tensor(data["occs"].astype(np.float32), device=device)
         binaries = torch.as_tensor(data["occ_grid"].astype(bool), device=device)
     return FlagshipMember.from_tree(_unflatten(flat), device), occs, binaries
+
+
+def _optax_order(member: FlagshipMember) -> List[int]:
+    """Positions in ``member.parameters()`` of the leaves in optax's
+    order: a JAX dict flattens by sorted keys at every level."""
+    names = [name.split(".") for name, _ in member.named_parameters()]
+    return sorted(range(len(names)), key=lambda i: names[i])
+
+
+def opt_leaves(member: FlagshipMember, opt: AdamState) -> List[np.ndarray]:
+    """A member's Adam state → the leaves of ``optax.adam``'s state for
+    that member, in ``jax.tree_util.tree_leaves`` order."""
+    sizes = [p.numel() for p in member.parameters()]
+    shapes = [tuple(p.shape) for p in member.parameters()]
+    order = _optax_order(member)
+    count = opt.count.cpu().numpy().astype(np.int32)
+    out = [count]
+    for flat in (opt.mu, opt.nu):
+        parts = [t.cpu().numpy() for t in flat.split(sizes)]
+        out += [parts[i].reshape(shapes[i]) for i in order]
+    return out + [count.copy()]
+
+
+def adam_from_opt_leaves(member: FlagshipMember, leaves, device=None) -> AdamState:
+    """The inverse of ``opt_leaves``: optax's leaves for one member → the
+    port's flat Adam state on ``device``."""
+    order = _optax_order(member)
+    n = len(order)
+    if len(leaves) != 2 * n + 2:
+        raise ValueError(
+            f"expected {2 * n + 2} optimizer leaves (count, {n} first and {n} second "
+            f"moments, count), got {len(leaves)}"
+        )
+    flats = []
+    for block in (leaves[1: 1 + n], leaves[1 + n: 1 + 2 * n]):
+        by_pos = [None] * n
+        for leaf, i in zip(block, order):
+            by_pos[i] = np.asarray(leaf, np.float32).reshape(-1)
+        flats.append(torch.as_tensor(np.concatenate(by_pos), device=device))
+    count = torch.as_tensor(np.asarray(leaves[0]).astype(np.int32), device=device).reshape(())
+    return AdamState(flats[0], flats[1], count)
+
+
+def save_member_npz(path, member: FlagshipMember, occs, binaries, opt: AdamState,
+                    step: int) -> None:
+    """Write one ``model_{i}.npz`` with the JAX mapper's keys."""
+    flat = {
+        name.replace(".", "/"): p.detach().cpu().numpy()
+        for name, p in member.named_parameters()
+    }
+    for j, leaf in enumerate(opt_leaves(member, opt)):
+        flat[f"__opt__{j}"] = leaf
+    np.savez(
+        os.fspath(path), occ_grid=binaries.cpu().numpy(), occs=occs.cpu().numpy(),
+        step=int(step), **flat,
+    )
+
+
+def load_member_opt(path, member: FlagshipMember, device=None) -> Tuple[Optional[AdamState], int]:
+    """The optimizer state and the step of one ``model_{i}.npz`` →
+    (Adam state, or None when the file holds none; step)."""
+    with np.load(os.fspath(path)) as data:
+        step = int(data["step"])
+        if "__opt__0" not in data.files:
+            return None, step
+        n = sum(1 for k in data.files if k.startswith("__opt__"))
+        leaves = [data[f"__opt__{j}"] for j in range(n)]
+    return adam_from_opt_leaves(member, leaves, device), step

@@ -1,11 +1,14 @@
 """Spectral semantic radiance field and the proposal density field.
 
-Port of ``apnerf_tpu/models/spectral.py``: the forward routes and the
+Port of ``apnerf_tpu/models/spectral.py``: the forward routes, the packed
+whole-field forwards ``forward_packed`` (the candidate render's, through
+``ops/cuda/fused_field_heads.py``) and ``forward_packed_volrend`` (the
+evaluation render's, through ``ops/cuda/fused_field_volrend.py``), and the
 train step's ``forward_packed_lossgrad``, which runs the whole main-field
-render, loss and backward through the CUDA train-step kernel
-(``ops/cuda/fused_field_volrend.py``). The TPU routing gates
-(``use_packed_*``, the ``APNERF_*`` switches) are not carried over: on
-the card that kernel is the train path. The encoding is
+render, loss and backward through the CUDA train-step kernel. The TPU
+routing gates (``use_packed_*``, ``supports_fused_volrend``, the
+``APNERF_*`` switches) are not carried over: on the card these kernels
+are the paths. The encoding is
 
     enc(x) = [cos(2π x·W + φ), sin(2π x·W + φ)]      W: [3, M]
 
@@ -28,7 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.cuda.fused_field_volrend import fused_field_volrend_lossgrad
+from ..ops.cuda.fused_field_heads import fused_field_heads
+from ..ops.cuda.fused_field_volrend import fused_field_volrend, fused_field_volrend_lossgrad
 from ..ops.cuda.fused_mlp import encode_plain, fused_spectral_field
 from ..ops.sh import sh_encode_deg4
 from .ngp import trunc_exp
@@ -236,6 +240,56 @@ def forward(params: SpectralField, cfg: SpectralConfig, positions, directions=No
     if cfg.num_semantic_classes > 0:
         return rgb, density, query_semantic(params, cfg, geo_feat)
     return rgb, density
+
+
+def _packed_inputs(cfg: SpectralConfig, positions, rays_d):
+    """Flat unit-cube coordinates [N, 3] and per-ray SH features [R, 16], as
+    the packed kernels read them."""
+    u, _ = _normalize(cfg, positions)
+    return u.reshape(-1, 3).float().contiguous(), sh_encode_deg4(rays_d).float().contiguous()
+
+
+def forward_packed(
+    params: SpectralField,
+    cfg: SpectralConfig,
+    positions: torch.Tensor,  # [R, S, 3]
+    rays_d: torch.Tensor,  # [R, 3] per-ray directions
+) -> torch.Tensor:
+    """The whole field in one kernel (``spectral.py:471-497``) → packed
+    [R, S, 4 + C] f32: columns 0:3 rgb (sigmoid), 3 density
+    (``trunc_exp(x - 1)`` times the in-aabb selector), 4: semantic logits.
+    Same math as ``forward``; samples are rows (the JAX function returns
+    the TPU's channel-major [4 + C, R, S]). Not differentiable."""
+    R, S = positions.shape[0], positions.shape[1]
+    u, sh = _packed_inputs(cfg, positions, rays_d)
+    y = fused_field_heads(list(params.parameters()), u, sh, S, cfg.dtype)
+    return y.reshape(R, S, y.shape[-1])
+
+
+def forward_packed_volrend(
+    params: SpectralField,
+    cfg: SpectralConfig,
+    positions: torch.Tensor,  # [R, S, 3]
+    rays_d: torch.Tensor,  # [R, 3]
+    t0: torch.Tensor,  # [R, S]
+    t1: torch.Tensor,  # [R, S]
+    miss: torch.Tensor,  # [R] bool, the ray missed the aabb
+):
+    """The whole field and volume rendering in one call
+    (``spectral.py:439-468``) → (acc [R, 5 + C] f32, weights [R, S] f32).
+    acc columns: 0:3 Σw·rgb, 3 Σw (opacity), 4 Σw·t_mid (depth numerator),
+    5: Σw·sem; the JAX function returns the TPU's [5 + C, R]. Ray misses
+    fold into dt, as the unfused ``sigmas * ~miss`` does. Not
+    differentiable."""
+    R, S = positions.shape[0], positions.shape[1]
+    u, sh = _packed_inputs(cfg, positions, rays_d)
+    dt = (t1 - t0) * (~miss)[:, None]
+    tm = 0.5 * (t0 + t1)
+    acc, w = fused_field_volrend(
+        list(params.parameters()), u, sh, dt.reshape(-1).float().contiguous(),
+        tm.reshape(-1).float().contiguous(), S, cfg.dtype,
+    )
+    return acc, w.reshape(R, S)
 
 
 def forward_packed_lossgrad(

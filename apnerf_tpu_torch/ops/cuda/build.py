@@ -121,6 +121,12 @@ def library() -> ctypes.CDLL:
     for name in ("apnerf_fvr_field_fwd", "apnerf_fvr_rays", "apnerf_fvr_field_bwd"):
         getattr(lib, name).argtypes = [p, p]
         getattr(lib, name).restype = i
+    lib.apnerf_fvr_fwd_rays.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.apnerf_fvr_fwd_rays.restype = i
+    lib.apnerf_ffh_smem.argtypes = [p]
+    lib.apnerf_ffh_smem.restype = ctypes.c_size_t
+    lib.apnerf_ffh_fwd.argtypes = [p, p]
+    lib.apnerf_ffh_fwd.restype = i
     lib.apnerf_xt_dy.argtypes = [p, i, i, i, p, i, i, i, i, i, p, ll, ll, p]
     lib.apnerf_xt_dy.restype = i
     lib.apnerf_sum_rows.argtypes = [p, i, ll, i, p, p]

@@ -1,7 +1,19 @@
-"""The train step's render, loss and backward in CUDA kernels
-(``csrc/fused_field_volrend.cu``).
+"""The main field fused with volume rendering, in CUDA kernels
+(``csrc/fused_field_volrend.cu``): the forward-only render of evaluation
+and visualisation, and the train step's render, loss and backward.
 
-Port of ``apnerf_tpu/ops/pallas/fused_field_volrend.py::
+``fused_field_volrend`` is the port of ``apnerf_tpu/ops/pallas/
+fused_field_volrend.py::fused_field_volrend`` (forward): the field, the
+weights w = T·α from σ·dt and the per-ray sums Σw·rgb, Σw, Σw·t_mid and
+Σw·sem, with misses folded into dt = 0. It runs the packed field kernel
+(``csrc/fused_field_heads.cu``) and a per-ray kernel over chunks of rays,
+so the per-sample field values of a chunk live in one scratch buffer
+that the next chunk reuses. The output is row-major ``acc [R, 5 + C]``
+(0:3 rgb, 3 opacity, 4 depth numerator, 5: semantics) and ``w [N]``;
+``fused_field_volrend_plain`` is its plain PyTorch version, with the
+kernel's bf16 rounding of the per-sample products.
+
+``fused_field_volrend_lossgrad`` is the port of ``apnerf_tpu/ops/pallas/fused_field_volrend.py::
 fused_field_volrend_lossgrad``: the main field, volume rendering, the
 3-term loss (huber rgb after background compositing, huber depth,
 softmax CE) and the closed-form backward to every main-field parameter,
@@ -27,19 +39,26 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ...models.ngp import trunc_exp
-from ...models.nn import apply_layers
 from . import build
-from .fused_mlp import encode_plain
+from .fused_field_heads import (
+    MAX_SMEM,
+    check_field_smem,
+    check_forward_only,
+    check_tensor,
+    field_plain,
+    launch_field_rows,
+    prepare_field,
+)
 from .volrend_cuda import fused_render_weights_plain
 
 # the train loss's weights of its rgb, depth and semantic terms
 # (``apnerf_tpu/train/flagship.py:298-308``)
 LOSS_WEIGHTS = (10.0, 1.0 / 5.0, 1.0 / 2.0)
 MAX_SAMPLES = 1024
-MAX_CLASSES = 64
-_MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 _N_CHUNKS = 64  # row chunks of the weight-gradient reduction
+# rows of per-sample field values the forward-only render keeps in device
+# memory at a time: 2^21 rows of 4 + C f32 are 277 MB at 29 classes
+FWD_CHUNK_ROWS = 1 << 21
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
@@ -55,31 +74,16 @@ def loss_terms(lossrows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torc
     return tuple(lossrows[i].sum() / sizes[i] for i in range(3))
 
 
-def _split(leaves: Sequence[torch.Tensor]):
-    """``leaves`` → (W, phase, trunk, rgb head, semantic head), each MLP a
-    list of its ``(w, b)`` pairs; each head has three layers."""
-    W, phase, *rest = leaves
-    pairs = list(zip(rest[0::2], rest[1::2]))
-    return W, phase, pairs[:-6], pairs[-6:-3], pairs[-3:]
-
-
 def fused_field_volrend_lossgrad_plain(
     leaves, u, sh, dt, tm, pix, dgt, lab, bk, S: int, compute_dtype=torch.bfloat16,
 ):
     """The same outputs as ``fused_field_volrend_lossgrad`` from plain
     PyTorch ops and autograd; ``compute_dtype`` is the field's matmul
     dtype (the kernel's is bf16)."""
-    W, phase, trunk, head, semh = _split(leaves)
     N = u.shape[0]
     R = N // S
     with torch.enable_grad():
-        h = apply_layers(trunk, encode_plain(W, phase, u, compute_dtype), compute_dtype)
-        raw, geo = h[:, 0], h[:, 1:]
-        sel = ((u > 0.0) & (u < 1.0)).all(dim=-1)
-        sigma = trunc_exp(raw - 1.0) * sel
-        x = torch.cat([sh.repeat_interleave(S, dim=0), geo], dim=-1)
-        rgb = torch.sigmoid(apply_layers(head, x, compute_dtype))
-        sem = apply_layers(semh, geo, compute_dtype)
+        rgb, sigma, sem = field_plain(leaves, u, sh, S, compute_dtype)
         # render_weight_from_density with the miss mask folded into dt
         w, _, _ = fused_render_weights_plain(
             torch.zeros_like(dt).reshape(R, S), dt.reshape(R, S), sigma.reshape(R, S)
@@ -124,32 +128,6 @@ class _FvrArgs(ctypes.Structure):
     )
 
 
-def _ceil16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def _padded(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    out = torch.zeros((rows, cols), dtype=torch.bfloat16, device=w.device)
-    out[: w.shape[0], : w.shape[1]] = w
-    return out
-
-
-def _padded_bias(b: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros(n, dtype=torch.float32, device=b.device)
-    out[: b.shape[0]] = b
-    return out
-
-
-def _check(t, name, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"fused_field_volrend_lossgrad: {name} must be {dtype} {tuple(shape)} on "
-            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"fused_field_volrend_lossgrad: {name} must be contiguous")
-
-
 @torch.no_grad()
 def fused_field_volrend_lossgrad(
     leaves: Sequence[torch.Tensor],  # W [3, M], phase [M], then the (w, b) pairs of
@@ -186,59 +164,21 @@ def fused_field_volrend_lossgrad(
             f"S={S} <= {MAX_SAMPLES}"
         )
     R = N // S
-    if len(leaves) % 2:
-        raise ValueError("fused_field_volrend_lossgrad: W, phase, then (w, b) pairs")
-    W, phase, trunk, head, semh = _split(leaves)
-    if len(trunk) not in (3, 4):
-        raise ValueError(
-            "fused_field_volrend_lossgrad: the trunk needs 2 or 3 hidden layers and "
-            "each head 2"
-        )
-    M, H = W.shape[1], trunk[0][0].shape[1]
-    out_t = trunk[-1][0].shape[1]
-    G = out_t - 1
-    hh = head[0][0].shape[1]
-    C = semh[-1][0].shape[1]
-    if M % 16 or H % 16 or hh % 16 or G > 16 or C > MAX_CLASSES:
-        raise ValueError(
-            f"fused_field_volrend_lossgrad: unsupported widths M={M} H={H} head={hh} "
-            f"geo={G} classes={C} (M, H and the head multiples of 16, geo <= 16, "
-            f"classes <= {MAX_CLASSES})"
-        )
-    f32 = torch.float32
+    who = "fused_field_volrend_lossgrad"
+    f32, bf16 = torch.float32, torch.bfloat16
     for name, t, dtype, shape in (
         ("u", u, f32, (N, 3)), ("sh", sh, f32, (R, 16)), ("dt", dt, f32, (N,)),
         ("tm", tm, f32, (N,)), ("pix", pix, f32, (R, 3)), ("dgt", dgt, f32, (R,)),
         ("lab", lab, torch.int32, (R,)), ("bk", bk, f32, (3,)),
-        ("W", W, f32, (3, M)), ("phase", phase, f32, (M,)),
     ):
-        _check(t, name, dtype, shape, dev)
-    widths = [(2 * M, H)] + [(H, H)] * (len(trunk) - 2) + [(H, out_t)]
-    for i, ((w, b), s) in enumerate(zip(trunk, widths)):
-        _check(w, f"mlp_base.w{i}", f32, s, dev)
-        _check(b, f"mlp_base.b{i}", f32, (s[1],), dev)
-    for mlp_name, layers, shapes in (
-        ("mlp_head", head, [(16 + G, hh), (hh, hh), (hh, 3)]),
-        ("mlp_sem", semh, [(G, hh), (hh, hh), (hh, C)]),
-    ):
-        for i, ((w, b), s) in enumerate(zip(layers, shapes)):
-            _check(w, f"{mlp_name}.w{i}", f32, s, dev)
-            _check(b, f"{mlp_name}.b{i}", f32, (s[1],), dev)
+        check_tensor(who, t, name, dtype, shape, dev)
+    fld = prepare_field(who, leaves, dev)
+    W, phase = leaves[0], leaves[1]
+    M, H, out_t, G, hh, C = fld.M, fld.H, fld.out_t, fld.G, fld.hh, fld.C
+    tpad, cpad, nh = fld.tpad, fld.cpad, fld.n_trunk - 1
+    tws, tbs, rws, rbs, sws, sbs = fld.tws, fld.tbs, fld.rws, fld.rbs, fld.sws, fld.sbs
     lib = build.library()
-    nh = len(trunk) - 1
     Np = -(-N // 64) * 64
-    tpad, cpad = _ceil16(out_t), _ceil16(C)
-    bf16 = torch.bfloat16
-
-    # bf16 weights, zero-padded to the kernels' widths; f32 biases
-    tws = [w.to(bf16).contiguous() for w, _ in trunk[:-1]] + [_padded(trunk[-1][0], H, tpad)]
-    tbs = [b for _, b in trunk[:-1]] + [_padded_bias(trunk[-1][1], tpad)]
-    rws = [_padded(head[0][0], 32, hh), head[1][0].to(bf16).contiguous(),
-           _padded(head[2][0], hh, 16)]
-    rbs = [head[0][1], head[1][1], _padded_bias(head[2][1], 16)]
-    sws = [_padded(semh[0][0], 16, hh), semh[1][0].to(bf16).contiguous(),
-           _padded(semh[2][0], hh, cpad)]
-    sbs = [semh[0][1], semh[1][1], _padded_bias(semh[2][1], cpad)]
 
     def buf(shape, dtype=bf16):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -271,12 +211,12 @@ def fused_field_volrend_lossgrad(
             setattr(a, name, t.data_ptr())
     a.w, a.lossrows = w_out.data_ptr(), lossrows.data_ptr()
     a.n_rows, a.n_rows_pad, a.n_rays, a.n_samples = N, Np, R, S
-    a.m, a.hidden, a.n_layers, a.trunk_out_pad, a.geo = M, H, len(trunk), tpad, G
+    a.m, a.hidden, a.n_layers, a.trunk_out_pad, a.geo = M, H, fld.n_trunk, tpad, G
     a.head_hidden, a.n_classes, a.c_pad = hh, C, cpad
     a.c_rgb, a.c_dep, a.c_sem = (c / n for c, n in zip(LOSS_WEIGHTS, _term_sizes(R)))
     ref = ctypes.addressof(a)
     for which in (0, 1):
-        if lib.apnerf_fvr_smem(ref, which) > _MAX_SMEM:
+        if lib.apnerf_fvr_smem(ref, which) > MAX_SMEM:
             raise ValueError("fused_field_volrend_lossgrad: widths too large for shared memory")
     n_bias = lib.apnerf_fvr_n_bias(ref)
     tile_part = buf((Np // 64, n_bias), f32)
@@ -344,3 +284,82 @@ def fused_field_volrend_lossgrad(
 # wrapper calls that launched the kernels since the counter was last reset
 # (chip_smoke.py reads it)
 fused_field_volrend_lossgrad.launches = 0
+
+
+def fused_field_volrend_plain(leaves, u, sh, dt, tm, S: int, compute_dtype=torch.bfloat16):
+    """The same outputs as ``fused_field_volrend`` from plain PyTorch ops.
+    In bf16 the per-sample products round to bf16 before the f32 per-ray
+    sums, as the kernel's do."""
+    N = u.shape[0]
+    R = N // S
+    rgb, sigma, sem = field_plain(leaves, u, sh, S, compute_dtype)
+    w, _, _ = fused_render_weights_plain(
+        torch.zeros_like(dt).reshape(R, S), dt.reshape(R, S), sigma.reshape(R, S)
+    )
+    w = w.reshape(N)
+    per_sample = torch.cat([rgb * w[:, None], w[:, None], (w * tm)[:, None], sem * w[:, None]],
+                           dim=-1)
+    if compute_dtype != torch.float32:
+        per_sample = per_sample.to(compute_dtype).float()
+    return per_sample.reshape(R, S, -1).sum(dim=1), w
+
+
+def fused_field_volrend(
+    leaves: Sequence[torch.Tensor],  # as ``fused_field_volrend_lossgrad`` takes them
+    u: torch.Tensor,  # [N, 3] f32 unit-cube coordinates, N = R * S
+    sh: torch.Tensor,  # [R, 16] f32 SH of the ray directions
+    dt: torch.Tensor,  # [N] f32 t1 - t0, zero on rays that miss the box
+    tm: torch.Tensor,  # [N] f32 interval midpoints
+    S: int,
+    compute_dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (acc [R, 5 + C] f32 per-ray sums: rgb, opacity, depth numerator,
+    semantic logits; weights [N] f32). Any R, any S up to ``MAX_SAMPLES``.
+    Not differentiable. A CUDA tensor launches the kernels or raises."""
+    who = "fused_field_volrend"
+    if u.device.type == "cpu":
+        return fused_field_volrend_plain(leaves, u, sh, dt, tm, S, compute_dtype)
+    if u.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {u.device}")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"{who}: the CUDA kernels compute in bf16")
+    dev = u.device
+    N = u.shape[0]
+    if not 0 < S <= MAX_SAMPLES or N == 0 or N % S:
+        raise ValueError(f"{who}: N={N} must be a positive multiple of S={S} <= {MAX_SAMPLES}")
+    R = N // S
+    check_forward_only(who, leaves, u, sh, dt, tm)
+    f32 = torch.float32
+    for name, t, shape in (("u", u, (N, 3)), ("sh", sh, (R, 16)), ("dt", dt, (N,)),
+                           ("tm", tm, (N,))):
+        check_tensor(who, t, name, f32, shape, dev)
+    fld = prepare_field(who, leaves, dev)
+    lib = build.library()
+    check_field_smem(who, lib, fld)
+    C = fld.C
+    rays_per_chunk = max(FWD_CHUNK_ROWS // S, 1)
+    y = torch.empty((min(R, rays_per_chunk) * S, 4 + C), dtype=f32, device=dev)
+    acc = torch.empty((R, 5 + C), dtype=f32, device=dev)
+    w = torch.empty((N,), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for r0 in range(0, R, rays_per_chunk):
+        n_rays = min(rays_per_chunk, R - r0)
+        row0 = r0 * S
+        err = launch_field_rows(
+            lib, fld, u.data_ptr() + row0 * 12, sh.data_ptr() + r0 * 64, y.data_ptr(),
+            n_rays * S, S, stream,
+        )
+        if err == 0:
+            err = lib.apnerf_fvr_fwd_rays(
+                y.data_ptr(), dt.data_ptr() + row0 * 4, tm.data_ptr() + row0 * 4,
+                acc.data_ptr() + r0 * (5 + C) * 4, w.data_ptr() + row0 * 4, n_rays, S, C,
+                stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"{who}: CUDA launch failed, error {err}")
+    fused_field_volrend.launches += 1
+    return acc, w
+
+
+# wrapper calls that launched the kernels since the counter was last reset
+fused_field_volrend.launches = 0

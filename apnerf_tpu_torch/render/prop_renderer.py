@@ -1,11 +1,13 @@
 """Proposal-network renderer: one proposal round, then the main field.
 
 Port of ``apnerf_tpu/render/prop_renderer.py``: ``prop_sample_intervals``
-and the plain and ``with_variance`` branches of ``render_rays_prop``
-(``prop_renderer.py:205-232``). The packed-kernel branches are train
-routes and wait for the training port. Every weights computation goes
-through ``render_weight_from_density``, the CUDA weights kernel on the
-card (the JAX package keeps its kernel opt-in, ``prop_renderer.py:41``).
+and ``render_rays_prop`` with its three branches (``:146-232``): the
+fused field-and-render branch (``field_packed_vr_fn``, no variance), the
+packed-field branch (``field_packed_fn``, with and without variance) and
+the plain ``field_fn`` branch. Every weights computation outside the
+fused branch goes through ``render_weight_from_density``, the CUDA
+weights kernel on the card (the JAX package keeps its kernel opt-in,
+``prop_renderer.py:41``).
 """
 
 from __future__ import annotations
@@ -72,26 +74,55 @@ def render_rays_prop(
     with_variance: bool = False,
     generator: Optional[torch.Generator] = None,
     noises=None,
+    field_packed_fn: Optional[Callable] = None,
+    field_packed_vr_fn: Optional[Callable] = None,
 ) -> Dict[str, torch.Tensor]:
     """One proposal round + main field render → outs. Unlike the JAX
     function it returns no ``prop_loss``: that is the train step's, and the
     candidate render has no use for it. Rays that miss the aabb get a
-    degenerate near≈far interval, hence zero weights and pure background."""
+    degenerate near≈far interval, hence zero weights and pure background.
+
+    ``field_packed_vr_fn``: ``(pos [R,S,3], rays_d [R,3], t0, t1, miss) →
+    (acc [R, 5+C], weights [R, S])`` (``spectral.forward_packed_volrend``);
+    taken when no variance is asked for. ``field_packed_fn``: ``(pos,
+    rays_d) → packed [R, S, 4+C]`` (``spectral.forward_packed``). Either
+    replaces ``field_fn``, with the same outputs."""
     t0, t1, t_mid, pos, miss, _ = prop_sample_intervals(
         prop_density_fn, rays_o, rays_d, aabb, num_samples=num_samples,
         num_prop_samples=num_prop_samples, near_plane=near_plane,
         far_plane=far_plane, stratified=stratified, generator=generator, noises=noises,
     )
-    dirs = rays_d[:, None, :].expand(pos.shape)
-    out = field_fn(pos, dirs)
-    if len(out) == 3:
-        rgbs, sigmas, sems = out
+    n_samples = (~miss).sum() * num_samples
+    if field_packed_vr_fn is not None and not with_variance:
+        # per-sample field values never reach this function: the kernel
+        # returns the per-ray sums; the background and the depth's
+        # normalisation stay out here
+        acc, _ = field_packed_vr_fn(pos, rays_d, t0, t1, miss)
+        opacities = acc[:, 3:4]
+        rgb_acc = acc[:, 0:3]
+        if render_bkgd is not None:
+            rgb_acc = rgb_acc + render_bkgd * (1.0 - opacities)
+        return {
+            "rgb": rgb_acc,
+            "opacity": opacities,
+            "depth": acc[:, 4:5] / opacities.clamp(min=torch.finfo(acc.dtype).eps),
+            "sem": acc[:, 5:],
+            "n_samples": n_samples,
+        }
+
+    if field_packed_fn is not None:
+        y = field_packed_fn(pos, rays_d)  # [R, S, 4+C]
+        rgbs, sigmas, sems = y[..., 0:3], y[..., 3:4], y[..., 4:]
     else:
-        (rgbs, sigmas), sems = out, None
+        out = field_fn(pos, rays_d[:, None, :].expand(pos.shape))
+        if len(out) == 3:
+            rgbs, sigmas, sems = out
+        else:
+            (rgbs, sigmas), sems = out, None
     sigmas = sigmas[..., 0] * (~miss[:, None])
     weights, _, _ = volrend.render_weight_from_density(t0, t1, sigmas)
     outs = volrend.render_outputs(weights, t0, t1, rgbs, sems=sems, render_bkgd=render_bkgd)
-    outs["n_samples"] = (~miss).sum() * num_samples
+    outs["n_samples"] = n_samples
     if with_variance:
         outs["rgb_var"] = volrend.render_variance(
             weights, rgbs, volrend.accumulate_along_rays(weights, rgbs)

@@ -1,13 +1,12 @@
-"""FakeSim, the analytic box-world simulator: its rendering part.
+"""FakeSim, the analytic box-world simulator (no Habitat required).
 
-Port of ``apnerf_tpu/sim/fake.py`` (``Box``, ``default_room`` and
-``FakeSim``'s ``__init__``, ``_pixel_rays``, ``render_pose`` and
-``sample_images_from_poses``, ``:29-243``), numpy on the host as there,
+Port of ``apnerf_tpu/sim/fake.py`` (``Box``, ``default_room``,
+``hard_room`` and the whole ``FakeSim`` facade), numpy on the host as there,
 on the port's ``ops/rays.py`` helpers: the JAX module imports JAX
 through its own ``ops/rays.py``, and the GPU host has no JAX. It renders
 RGB, depth (Euclidean ray length) and semantic images of a room of
-boxes, pixel for pixel as the JAX module does. Navigation, path sampling
-and the chase-camera views come with the mapper loop.
+boxes, pixel for pixel as the JAX module does, and answers the planner's
+navigability and path queries and the chase-camera views.
 """
 
 from __future__ import annotations
@@ -67,9 +66,55 @@ def default_room(aabb=(-8.0, 0.0, -8.0, 0.0, 3.0, 0.0)) -> List[Box]:
     return boxes
 
 
+def hard_room(
+    aabb=(-8.0, 0.0, -8.0, 0.0, 3.0, 0.0),
+    n_clutter: int = 24,
+    num_classes: int = 29,
+    seed: int = 11,
+) -> List[Box]:
+    """A deliberately HARD scene for quality anchoring: dense small-box
+    clutter (sharp depth discontinuities everywhere) + high-frequency
+    checkerboard textures on every surface. The analytic ``default_room``
+    is smooth and low-frequency — systematically kind to a global Fourier
+    field; this scene stresses exactly the spatial
+    locality a hash grid provides, so spectral-vs-NGP head-to-heads on it
+    are a fair second anchor. Exact ground truth, deterministic."""
+    x0, y0, z0, x1, y1, z1 = aabb
+    t = 0.2
+    boxes = [
+        Box([x0, y0 - t, z0], [x1, y0, z1], [0.6, 0.6, 0.6], 1, tex_freq=3.0),
+        Box([x0, y1, z0], [x1, y1 + t, z1], [0.9, 0.9, 0.9], 2, tex_freq=2.0),
+        Box([x0 - t, y0, z0], [x0, y1, z1], [0.7, 0.5, 0.4], 3, tex_freq=4.0),
+        Box([x1, y0, z0], [x1 + t, y1, z1], [0.4, 0.5, 0.7], 3, tex_freq=4.0),
+        Box([x0, y0, z0 - t], [x1, y1, z0], [0.5, 0.7, 0.4], 3, tex_freq=4.0),
+        Box([x0, y0, z1], [x1, y1, z1 + t], [0.7, 0.7, 0.3], 3, tex_freq=4.0),
+    ]
+    rng = np.random.RandomState(seed)
+    cx, cz = (x0 + x1) / 2, (z0 + z1) / 2
+    span_x, span_z = (x1 - x0), (z1 - z0)
+    for i in range(n_clutter):
+        bx = x0 + (0.08 + 0.84 * rng.rand()) * span_x
+        bz = z0 + (0.08 + 0.84 * rng.rand()) * span_z
+        # keep the room center clear for flying
+        if abs(bx - cx) < span_x * 0.12 and abs(bz - cz) < span_z * 0.12:
+            bx += span_x * 0.18
+        w, d = 0.1 + 0.6 * rng.rand(), 0.1 + 0.6 * rng.rand()
+        h = 0.15 + 1.2 * rng.rand()
+        by = y0 if rng.rand() < 0.7 else y0 + (y1 - y0) * 0.45 * rng.rand()
+        boxes.append(
+            Box(
+                [bx - w / 2, by, bz - d / 2],
+                [bx + w / 2, by + h, bz + d / 2],
+                rng.rand(3) * 0.75 + 0.15,
+                4 + (i % max(num_classes - 4, 1)),
+                tex_freq=4.0 + 8.0 * rng.rand(),
+            )
+        )
+    return boxes
+
+
 class FakeSim:
-    """Analytic simulator: the image-rendering part of the HabitatSim
-    facade."""
+    """Analytic simulator implementing the HabitatSim facade."""
 
     def __init__(
         self,
@@ -79,12 +124,16 @@ class FakeSim:
         hfov: float = np.pi / 2,
         boxes: Optional[List[Box]] = None,
         bkgd_color=(1.0, 1.0, 1.0),
+        seed: int = 0,
     ):
         self.aabb = np.asarray(aabb, dtype=np.float64)
         self.img_w, self.img_h = img_w, img_h
         self.K = make_intrinsics(img_w, img_h, hfov)
         self.boxes = boxes if boxes is not None else default_room(aabb)
         self.bkgd = np.asarray(bkgd_color)
+        self.quad_state = np.array([0, 0, 0, 0, 0, 0, 1.0])
+        self._rng = np.random.RandomState(seed)
+        self.visited: List[np.ndarray] = []
         self.num_semantic_classes = max(b.sem for b in self.boxes) + 1
         # box-stacked constants for the vectorized caster
         self._mns = np.stack([b.mn for b in self.boxes])  # [B, 3]
@@ -180,3 +229,73 @@ class FakeSim:
             depths.append(d)
             sems.append(s)
         return np.array(rgbs), np.array(depths), np.array(sems)
+
+    def set_quad_state(self, pose):
+        self.quad_state = np.asarray(pose, dtype=np.float64)
+
+    def get_quad_state(self):
+        return self.quad_state.copy()
+
+    def render_tpv(self, poses, draw_traj: bool = True):
+        """Chase-cam view: rendered from 0.5 m above/behind each pose."""
+        images = []
+        for p in np.asarray(poses):
+            cam = np.array(
+                [p[0], min(p[1] + 0.5, self.aabb[4] - 0.1), p[2] + 1.0,
+                 p[3], p[4], p[5], p[6]]
+            )
+            rgb, _, _ = self.render_pose(cam)
+            images.append(rgb[..., :3])
+        return images
+
+    def render_top_tpv(self, poses, draw_traj: bool = True):
+        """Top-down view from 3 m above, looking straight down
+        (sim.py:312-383)."""
+        images = []
+        look_down = np.array([0.70710678, 0.0, 0.0, -0.70710678])
+        for p in np.asarray(poses):
+            cam = np.concatenate(
+                [[p[0], min(p[1] + 3.0, self.aabb[4] - 0.05), p[2]], look_down]
+            )
+            rgb, _, _ = self.render_pose(cam)
+            images.append(rgb[..., :3])
+        return images
+
+    def _inside_obstacle(self, pt) -> bool:
+        for b in self.boxes:
+            if np.all(pt >= b.mn) and np.all(pt <= b.mx):
+                return True
+        return False
+
+    def check_navigability(self, location) -> bool:
+        pt = np.asarray(location[0] if np.ndim(location) > 1 else location)
+        inside_room = np.all(pt >= self.aabb[:3]) and np.all(pt <= self.aabb[3:])
+        return bool(inside_room and not self._inside_obstacle(pt))
+
+    def sample_path(self, curr_loc) -> np.ndarray:
+        """Straight-line 'navmesh' path to a random free point
+        (sim.py:385-401)."""
+        cl = np.asarray(curr_loc, dtype=np.float64)[:3]
+        for _ in range(100):
+            target = self.aabb[:3] + self._rng.rand(3) * (
+                self.aabb[3:] - self.aabb[:3]
+            )
+            target[1] = cl[1]
+            if not self._inside_obstacle(target):
+                return np.stack([cl, target])
+        return np.stack([cl, cl])
+
+    def add_visited_location(self, locations, r: float = 0.001):
+        self.visited.extend(np.atleast_2d(np.asarray(locations)))
+
+    def get_2d_point(self, point_3d, sensor_name=None):
+        """Project a world point into the current quad camera."""
+        c2w = pose_matrix_from_quat(self.quad_state[:3], self.quad_state[3:])
+        w2c = np.linalg.inv(c2w)
+        pc = w2c[:3, :3] @ np.asarray(point_3d) + w2c[:3, 3]
+        z = -pc[2]
+        if z <= 1e-6:
+            return np.array([-1, -1])
+        u = self.K[0, 0] * pc[0] / z + self.K[0, 2]
+        v = -self.K[1, 1] * pc[1] / z + self.K[1, 2]
+        return np.array([int(u), int(v)])

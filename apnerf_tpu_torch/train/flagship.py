@@ -134,15 +134,16 @@ def _main_loss(terms) -> torch.Tensor:
     return sum(c * t for c, t in zip(LOSS_WEIGHTS, terms))
 
 
-def make_flagship_member_core(cfg: PipelineConfig, lossgrad: bool = True):
+def make_flagship_member_core(cfg: PipelineConfig, lossgrad: bool = True, schedule=None):
     """One member's train step → ``member_core(member, opt_state, batch,
-    step, generator=None, noise=None) -> CoreOutput``. The member's
+    step, generator=None, noise=None) -> CoreOutput``. ``schedule``
+    replaces the default cyclic LR (the final refit's). The member's
     parameters update in place. ``noise`` [R, S+1] replaces the
     stratified draw of proposal sampling. The occupancy grid is not
     touched here: the planner reads it, and ``make_flagship_occ_update``
     refreshes it once per chunk (``flagship.py:196-204``)."""
     s_cfg, p_cfg = make_spectral_config(cfg), make_prop_config(cfg)
-    opt = make_optimizer(cfg, default_spectral_schedule(cfg))
+    opt = make_optimizer(cfg, schedule or default_spectral_schedule(cfg))
     S = cfg.max_samples_train
 
     def sample(member, batch, generator, noise):
@@ -205,7 +206,8 @@ def make_flagship_member_core(cfg: PipelineConfig, lossgrad: bool = True):
         """The NaN-guarded Adam step (``flagship.py:207-232``): a
         non-finite gradient leaves parameters, moments and count as they
         were, selected on the device."""
-        new_state, bad = opt.step(list(member.parameters()), grads, opt_state)
+        names, params = zip(*member.named_parameters())
+        new_state, bad = opt.step(list(params), grads, opt_state, names=names)
         return CoreOutput(new_state, loss, *aux, bad)
 
     def member_core(member, opt_state, batch, step, generator=None, noise=None) -> CoreOutput:
@@ -216,11 +218,11 @@ def make_flagship_member_core(cfg: PipelineConfig, lossgrad: bool = True):
     return member_core
 
 
-def make_flagship_train_phase(cfg: PipelineConfig):
+def make_flagship_train_phase(cfg: PipelineConfig, schedule=None):
     """The chunk of steps over the flagship member core's combined-kernel
     branch (same signature as ``phase.make_train_phase``'s ``phase_fn``).
     Pair it with ``make_flagship_occ_update`` once per chunk."""
-    return make_train_phase(cfg, make_flagship_member_core(cfg))
+    return make_train_phase(cfg, make_flagship_member_core(cfg, schedule=schedule))
 
 
 def make_flagship_occ_update(cfg: PipelineConfig) -> Callable:

@@ -38,6 +38,7 @@ SLICE_MODULES = [
     "apnerf_tpu_torch.ops.cuda.fused_mlp",
     "apnerf_tpu_torch.ops.cuda.volrend_cuda",
     "apnerf_tpu_torch.ops.cuda.fused_field_volrend",
+    "apnerf_tpu_torch.ops.cuda.fused_field_heads",
     "apnerf_tpu_torch.models.nn",
     "apnerf_tpu_torch.models.ngp",
     "apnerf_tpu_torch.models.spectral",
@@ -52,6 +53,18 @@ SLICE_MODULES = [
     "apnerf_tpu_torch.bench",
     "apnerf_tpu_torch.active.uncertainty",
     "apnerf_tpu_torch.active.mapper",
+    "apnerf_tpu_torch.active.pipeline",
+    "apnerf_tpu_torch.planning.cost_map",
+    "apnerf_tpu_torch.planning.dijkstra",
+    "apnerf_tpu_torch.planning.minsnap",
+    "apnerf_tpu_torch.planning.se3_control",
+    "apnerf_tpu_torch.planning.traj",
+    "apnerf_tpu_torch.native",
+    "apnerf_tpu_torch.native.lib",
+    "apnerf_tpu_torch.utils.metrics",
+    "apnerf_tpu_torch.sim.base",
+    "apnerf_tpu_torch.viz.render_views",
+    "chip_smoke",
 ]
 
 
@@ -200,19 +213,59 @@ def test_ngp_occ_path_not_ported(tmp_path):
 
 
 def test_port_config_is_the_pipeline_config():
-    from apnerf_tpu_torch.config import PipelineConfig as PortConfig
+    """The port keeps its own copy of the config: another class with the
+    same fields, types and defaults, whose ``load_scene_config`` loads
+    every ``configs/*.yaml`` to the values the JAX package's loads."""
+    import glob
 
-    assert PortConfig is PipelineConfig
+    from apnerf_tpu.config import load_scene_config as jax_load
+    from apnerf_tpu_torch.config import PipelineConfig as PortConfig
+    from apnerf_tpu_torch.config import load_scene_config as port_load
+
+    assert PortConfig is not PipelineConfig
+    assert PortConfig.__module__ == "apnerf_tpu_torch.config"
+    fields = lambda c: [(f.name, f.type, f.default) for f in dataclasses.fields(c)]
+    assert fields(PortConfig) == fields(PipelineConfig)
+    yamls = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
+    assert len(yamls) >= 5
+    for path in yamls:
+        a, b = dataclasses.asdict(jax_load(path)), dataclasses.asdict(port_load(path))
+        assert a == b, path
+        assert dataclasses.asdict(jax_load(path, num_semantic_classes=7)) == dataclasses.asdict(
+            port_load(path, num_semantic_classes=7))
+    cfg_j, cfg_t = jax_load(yamls[0]), port_load(yamls[0])
+    assert cfg_t.main_grid_resolution == cfg_j.main_grid_resolution
+    assert cfg_t.focal == cfg_j.focal
+    for ps in (-10, -1, 0, 4, 5, 9):
+        assert cfg_t.occ_thre_for_phase(ps) == cfg_j.occ_thre_for_phase(ps)
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """No file of the port, nor ``chip_smoke.py``, has an import line that
+    names ``jax`` or ``apnerf_tpu`` (``apnerf_tpu_torch`` is the port)."""
+    import re
+
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|apnerf_tpu)(?![\w])", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "apnerf_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 40
+    bad = [f for f in files if pat.search(open(f).read())]
+    assert not bad, bad
+    assert pat.search("from apnerf_tpu.config import x") and pat.search("  import jax.numpy")
+    assert not pat.search("from apnerf_tpu_torch.config import x")
 
 
 def test_slice_modules_import_no_jax():
-    """Every slice module imports without JAX (a fresh interpreter: this
-    one already holds JAX, which ``tests/conftest.py`` imports)."""
+    """Every slice module imports without JAX and without anything of the
+    JAX package (a fresh interpreter: this one already holds both)."""
     code = (
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'optax', 'apnerf_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'optax.', 'apnerf_tpu.')))\n"
         "assert not bad, bad\n"
+        "assert 'apnerf_tpu_torch.active.pipeline' in sys.modules\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

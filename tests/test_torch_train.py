@@ -321,10 +321,18 @@ def test_adam_nan_gradient_leaves_everything_untouched():
 
 
 def test_make_optimizer_refuses_weight_decay():
-    with pytest.raises(NotImplementedError):
-        make_optimizer(PipelineConfig(weight_decay=1e-4))
-    with pytest.raises(NotImplementedError):
-        make_optimizer(PipelineConfig(spectral_spectrum_wd=1e-4))
+    """Until the mapper loop was ported, both weight-decay options raised;
+    now they build (``tests/test_torch_ports.py`` holds them to optax):
+    ``weight_decay`` decays every parameter, ``spectral_spectrum_wd`` the
+    main field's spectrum only, and neither is on by default."""
+    assert make_optimizer(PipelineConfig()).weight_decay == 0.0
+    every = make_optimizer(PipelineConfig(weight_decay=1e-4))
+    assert every.weight_decay == 1e-4 and every.decay_mask is None
+    spectrum = make_optimizer(PipelineConfig(spectral_spectrum_wd=1e-4))
+    assert spectrum.weight_decay == 1e-4
+    assert spectrum.decay_mask("main.W", None) and spectrum.decay_mask("main.phase", None)
+    assert not spectrum.decay_mask("prop.W", None)
+    assert not spectrum.decay_mask("main.mlp_base.w0", None)
 
 
 # -- data: fetch, pools, FakeSim -----------------------------------------------------------

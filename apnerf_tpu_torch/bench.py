@@ -1,7 +1,8 @@
 """The port's train bench: flagship ensemble training throughput on one
 NVIDIA GPU, with the quality canary.
 
-    python -m apnerf_tpu_torch.bench
+    python -m apnerf_tpu_torch.bench [--route lossgrad|volrend|packed|field|trunk]
+                                     [--fused-prop]
 
 The protocol of the root ``bench.py`` (``:71-226``), which stays JAX-only:
 a FakeSim 39-view scan at 640², the training configuration (2 members ×
@@ -12,18 +13,23 @@ member 0 renders 4 held-out views at 160² with 256 samples and the mean
 PSNR against FakeSim's images is the canary, gated at the root bench's
 15.44 − 1.5 = 13.94 dB. Prints one JSON line with the root bench's keys
 (``value`` in samples/s, ``vs_baseline`` against the TITAN RTX envelope
-of 1.95e7 samples/s) plus the step and occupancy-update times. A run
+of 1.95e7 samples/s) plus the step and occupancy-update times and the
+route. ``--route`` picks the member core's train route (``train/
+flagship.py``: the default ``lossgrad`` is the combined train-step kernel,
+the others differentiate through the render kernels' own backwards) and
+``--fused-prop`` takes the proposal field through the field kernel. A run
 without a CUDA device fails: there is no CPU fallback.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import subprocess
 import sys
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,6 +41,7 @@ from .ops.rays import image_rays, make_intrinsics, pose_matrix_from_quat
 from .render.prop_renderer import render_rays_prop
 from .sim.fake import FakeSim
 from .train.flagship import (
+    ROUTES,
     init_flagship_ensemble,
     make_flagship_occ_update,
     make_flagship_train_phase,
@@ -126,19 +133,23 @@ def power_limit() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
 
 
+class BenchData(NamedTuple):
+    """The scan every run trains on; one scan serves several runs."""
+
+    sim: FakeSim
+    center: np.ndarray
+    dataset: RayDataset
+
+
 class BenchRun(NamedTuple):
     result: dict  # the JSON line's keys
     state: EnsembleState  # after the timed chunks
     dataset: RayDataset
+    losses: torch.Tensor  # [steps, E]: the warm-up chunk's, then the timed chunks'
 
 
-def run(device="cuda", timed=None) -> BenchRun:
-    """The whole protocol. ``timed``, when given, is a context-manager
-    factory entered around exactly the timed chunks (``chip_smoke.py``
-    counts kernel launches there)."""
-    device = torch.device(device)
-    if device.type != "cuda" or not torch.cuda.is_available():
-        raise RuntimeError("the bench measures a CUDA device, and none is available")
+def make_data(device) -> BenchData:
+    """FakeSim's 39-view scan at the bench configuration, on ``device``."""
     cfg = bench_config()
     sim = FakeSim(aabb=AABB, img_w=cfg.img_w, img_h=cfg.img_h)
     center, poses, mats = scan_poses()
@@ -148,10 +159,25 @@ def run(device="cuda", timed=None) -> BenchRun:
         width=cfg.img_w, height=cfg.img_h, max_images=cfg.max_images, device=device,
     )
     ds.update_data(images[..., :3], depths, sems, mats)
+    return BenchData(sim, center, ds)
+
+
+def run(device="cuda", timed=None, route: str = "lossgrad", fused_prop: bool = False,
+        n_calls: int = N_CALLS, data: Optional[BenchData] = None) -> BenchRun:
+    """The whole protocol on the member core's ``route``. ``timed``, when
+    given, is a context-manager factory entered around exactly the timed
+    chunks (``chip_smoke.py`` counts kernel launches there); ``n_calls``
+    cuts the number of timed chunks; ``data`` reuses a scan (``make_data``)
+    instead of rendering it again."""
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError("the bench measures a CUDA device, and none is available")
+    cfg = bench_config()
+    sim, center, ds = data if data is not None else make_data(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     state = init_flagship_ensemble(cfg, gen, device)._replace(step=1000)
-    phase_fn = make_flagship_train_phase(cfg)
+    phase_fn = make_flagship_train_phase(cfg, route=route, fused_prop=fused_prop)
     occ_update_fn = make_flagship_occ_update(cfg)
     pools, counts = pools_from_dataset(ds)
 
@@ -169,15 +195,17 @@ def run(device="cuda", timed=None) -> BenchRun:
 
     state, losses, _, _ = run_chunk(state)  # warm-up
     float(losses.sum())
+    all_losses = [losses]
     t_phase = t_occ = 0.0
     with timed() if timed is not None else contextlib.nullcontext():
         t0 = time.perf_counter()
-        for _ in range(N_CALLS):
+        for _ in range(n_calls):
             state, losses, tp, to = run_chunk(state)
+            all_losses.append(losses)
             t_phase, t_occ = t_phase + tp, t_occ + to
         final_loss = float(losses[-5:].mean())
         dt = time.perf_counter() - t0
-    n_steps = STEPS_PER_CALL * N_CALLS
+    n_steps = STEPS_PER_CALL * n_calls
     samples_per_step = cfg.n_ensembles * cfg.num_rays * cfg.max_samples_train
     value = samples_per_step * n_steps / dt
     views = canary_psnrs(state.members[0], cfg, sim, center, device)
@@ -194,16 +222,24 @@ def run(device="cuda", timed=None) -> BenchRun:
         "final_loss": final_loss,
         "ms_per_step": dt / n_steps * 1e3,
         "phase_ms_per_step": t_phase / n_steps * 1e3,
-        "occ_update_s_per_chunk": t_occ / N_CALLS,
+        "occ_update_s_per_chunk": t_occ / n_calls,
         "timed_steps": n_steps,
+        "route": route,
+        "fused_prop": fused_prop,
         "device": torch.cuda.get_device_name(device),
         "power_limit": power_limit(),
     }
-    return BenchRun(result, state, ds)
+    return BenchRun(result, state, ds, torch.cat(all_losses))
 
 
-def main() -> int:
-    result = run().result
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--route", choices=ROUTES, default="lossgrad",
+                        help="the member core's train route")
+    parser.add_argument("--fused-prop", action="store_true",
+                        help="the proposal field through the field kernel too")
+    args = parser.parse_args(argv)
+    result = run(route=args.route, fused_prop=args.fused_prop).result
     print(json.dumps(result))
     if not np.isfinite(result["final_loss"]):
         print("FAILED: the final loss is not finite", file=sys.stderr)

@@ -57,18 +57,6 @@ constexpr int kShw = 16;     // SH features of a ray direction
 constexpr int kXr = 32;      // rgb-head input: SH (16) | geo (<= 16, zero-padded)
 constexpr int kRgbPad = 16;  // rgb-head output width, padded
 
-__device__ __forceinline__ float bf(const bf16 x) { return __bfloat162float(x); }
-
-// g[row0 + i, :cols] = s[i, :cols] for the 64 rows of a tile (cols % 8 == 0)
-__device__ void store_tile(const bf16* s, int ld_s, int cols, bf16* g, int row0) {
-  const int vpr = cols / 8;
-  for (int e = threadIdx.x; e < kTileRows * vpr; e += kThreads) {
-    const int i = e / vpr, v = e % vpr;
-    *reinterpret_cast<uint4*>(g + (size_t)(row0 + i) * cols + v * 8) =
-        *reinterpret_cast<const uint4*>(s + i * ld_s + v * 8);
-  }
-}
-
 struct FwdSmem {
   int ld_a, ld_b, ld_x, ld_h, out_w;
   size_t a, b, outf, scratch, x, r1, r2, s1, s2, total;

@@ -41,73 +41,23 @@
 //
 // The file also holds the ray kernel of the forward-only render
 // (fused_field_volrend's forward, section 2b below), which shares the
-// per-ray scan with fvr_ray_kernel and stops after the sums.
+// per-ray scan with fvr_ray_kernel and stops after the sums, and that
+// render's backward (TPU counterpart _make_fvr_bwd_kernel,
+// launched by _call_fvr_bwd): launches 1, 3 and 4 as they are, and
+// fvr_ray_kernel<false>, which starts from the given cotangents of the
+// per-ray sums and of the weights instead of the loss. The packed field's
+// backward (fused_field_heads.cu) runs launches 1, 3 and 4 too. The field
+// backward returns the position gradient du where the call asks for it.
 
 #include <cfloat>
 
-#include "field_heads_tile.cuh"
-
-// Every pointer and size of one call; mirrors _FvrArgs in
-// apnerf_tpu_torch/ops/cuda/fused_field_volrend.py field by field. At
-// namespace scope, so the extern "C" entries that take it keep external
-// linkage.
-struct FvrArgs {
-  static constexpr bool kSaves = true;  // field_forward_tile stores the activations below
-  // inputs
-  const float* u;      // [N, 3] unit-cube coordinates
-  const float* sh;     // [R, 16] SH of the ray directions
-  const float* dt;     // [N] t1 - t0, zero on rays that miss the box
-  const float* tm;     // [N] interval midpoints
-  const float* pix;    // [R, 3]
-  const float* dgt;    // [R]
-  const int* lab;      // [R]
-  const float* bk;     // [3]
-  const float* W;      // [3, M]
-  const float* phase;  // [M]
-  const bf16* tw[4];   // trunk weights [in, out] bf16; the last one [H, out_pad]
-  const float* tb[4];  // trunk biases f32; the last one [out_pad]
-  const bf16* rw[3];   // rgb head [32, hh], [hh, hh], [hh, 16] bf16, zero-padded
-  const float* rb[3];  // [hh], [hh], [16]
-  const bf16* sw[3];   // sem head [16, hh], [hh, hh], [hh, c_pad]
-  const float* sb[3];  // [hh], [hh], [c_pad]
-  // scratch, rows padded to n_rows_pad (a multiple of 64)
-  bf16* enc;           // [Np, 2M]
-  bf16* h[3];          // [Np, H] trunk hidden activations
-  bf16* xr;            // [Np, 32] rgb-head input; its columns 16.. are the sem-head input
-  bf16* hr1;           // [Np, hh] rgb-head hidden activations
-  bf16* hr2;
-  bf16* hs1;           // [Np, hh] sem-head hidden activations
-  bf16* hs2;
-  float* sigma;        // [N]
-  float* dsd;          // [N] d sigma / d raw = exp(min(raw - 1, 15)) * in-cube
-  float* rgb;          // [N, 3]
-  float* sem;          // [N, C]
-  float* graw;         // [N] loss cotangent of raw
-  bf16* gout_rgb;      // [Np, 16] cotangent of the rgb-head output (pre-sigmoid)
-  bf16* gout_sem;      // [Np, c_pad] cotangent of the semantic logits
-  float* ray_part;     // [R, 16 + c_pad] per-ray f32 sums of those cotangents
-  bf16* gtrb;          // [Np, trunk_out_pad] cotangent of the trunk output
-  bf16* gh[3];         // [Np, H] cotangents of the trunk pre-activations
-  bf16* gr1;           // [Np, hh] rgb-head pre-activation cotangents
-  bf16* gr2;
-  bf16* gs1;           // [Np, hh] sem-head pre-activation cotangents
-  bf16* gs2;
-  float* tile_part;    // [Np / 64, n_bias] per-block column sums (see bias layout)
-  // outputs
-  float* w;            // [N] weights
-  float* lossrows;     // [3, R] per-ray huber rgb (summed over channels), huber depth, CE
-  // sizes
-  int n_rows, n_rows_pad, n_rays, n_samples;
-  int m, hidden, n_layers, trunk_out_pad, geo;
-  int head_hidden, n_classes, c_pad;
-  float c_rgb, c_dep, c_sem;  // loss weight / mean norm of each term
-};
+#include "field_train_args.cuh"
+#include "mlp_bwd_tile.cuh"
 
 namespace {
 
 using namespace nvcuda;
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRayWarps = 8;    // rays per block of fvr_ray_kernel
 constexpr int kRayChan = 128;   // per-ray channel slots in shared memory (3 + C <= 64, twice)
 
@@ -116,94 +66,6 @@ constexpr int kRayChan = 128;   // per-ray channel slots in shared memory (3 + C
 // dphase (M), dW_spec (3 x M, scaled by 2 pi)
 __host__ __device__ inline int n_bias(const FvrArgs& a) {
   return (a.n_layers - 1) * a.hidden + a.trunk_out_pad + 4 * a.head_hidden + 4 * a.m;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-// s[i, :cols] = g[row0 + i, :cols], zero for rows at or past n_valid
-__device__ void load_tile(const bf16* g, int cols, int row0, int n_valid, bf16* s, int ld_s) {
-  const int vpr = cols / 8;
-  for (int e = threadIdx.x; e < kTileRows * vpr; e += kThreads) {
-    const int i = e / vpr, v = e % vpr;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + i < n_valid)
-      val = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + i) * cols + v * 8);
-    *reinterpret_cast<uint4*>(s + i * ld_s + v * 8) = val;
-  }
-}
-
-// part[col] = sum over the tile's 64 rows of s[i, col] (bf16 values, f32 sum)
-__device__ void column_sums(const bf16* s, int ld_s, int cols, float* part) {
-  for (int c = threadIdx.x; c < cols; c += kThreads) {
-    float acc = 0.f;
-    for (int i = 0; i < kTileRows; ++i) acc += bf(s[i * ld_s + c]);
-    part[c] = acc;
-  }
-}
-
-// dst[64, n_out] = bf16((src[64, k] @ w^T) * (mask[row0 + i, :] > 0)), where
-// w is a native [n_out, ldw] weight read transposed (so this is dX = dY W^T
-// through a ReLU) and mask is the saved forward activation [Np, ld_mask].
-__device__ void bwd_layer(const bf16* src, int ld_src, int k, const bf16* w, int ldw,
-                          int n_out, const bf16* mask, int ld_mask, int row0, bf16* dst,
-                          int ld_dst, float* scratch) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int ct = warp; ct < n_out / 16; ct += kWarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kRowTiles];
-#pragma unroll
-    for (int r = 0; r < kRowTiles; ++r) wmma::fill_fragment(acc[r], 0.f);
-    for (int kk = 0; kk < k; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfrag;
-      wmma::load_matrix_sync(bfrag, w + (size_t)ct * 16 * ldw + kk, ldw);
-#pragma unroll
-      for (int r = 0; r < kRowTiles; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afrag;
-        wmma::load_matrix_sync(afrag, src + r * 16 * ld_src + kk, ld_src);
-        wmma::mma_sync(acc[r], afrag, bfrag, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRowTiles; ++r) {
-      wmma::store_matrix_sync(scratch, acc[r], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int i = r * 16 + e / 16, col = ct * 16 + e % 16;
-        const bool on = bf(mask[(size_t)(row0 + i) * ld_mask + col]) > 0.f;
-        dst[i * ld_dst + col] = __float2bfloat16(on ? scratch[e] : 0.f);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// dst[64, n_out] = src[64, k] @ w^T in f32 (w native [n_out, ldw]); no mask
-__device__ void bwd_linear_f32(const bf16* src, int ld_src, int k, const bf16* w, int ldw,
-                               int n_out, float* dst, int ld_dst) {
-  const int warp = threadIdx.x / 32;
-  const int n_tiles = kRowTiles * (n_out / 16);
-  for (int t = warp; t < n_tiles; t += kWarps) {
-    const int r = t % kRowTiles, ct = t / kRowTiles;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < k; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afrag;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfrag;
-      wmma::load_matrix_sync(afrag, src + r * 16 * ld_src + kk, ld_src);
-      wmma::load_matrix_sync(bfrag, w + (size_t)ct * 16 * ldw + kk, ldw);
-      wmma::mma_sync(acc, afrag, bfrag, acc);
-    }
-    wmma::store_matrix_sync(dst + r * 16 * ld_dst + ct * 16, acc, ld_dst, wmma::mem_row_major);
-  }
 }
 
 // ---- 1. field forward -------------------------------------------------------
@@ -235,6 +97,12 @@ __global__ void __launch_bounds__(kThreads) fvr_field_fwd_kernel(FvrArgs a) {
 
 // ---- 2. per-ray volume rendering, loss and cotangents -------------------------
 
+// kLoss: the train step's kernel, which forms the loss and its per-ray
+// cotangents itself. Otherwise the backward of the forward-only render:
+// the per-ray cotangents are given (g_acc, rounded to bf16 as the TPU
+// kernel rounds them, and g_w, which may be null), the weights are
+// recomputed and nothing but the per-sample cotangents is written.
+template <bool kLoss>
 __global__ void __launch_bounds__(kRayWarps * 32) fvr_ray_kernel(FvrArgs a) {
   extern __shared__ float rsm[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -265,58 +133,69 @@ __global__ void __launch_bounds__(kRayWarps * 32) fvr_ray_kernel(FvrArgs a) {
       const float w = t * (1.f - expf(-s));
       wb[i] = w;
       tb[i] = t;
-      a.w[base + i] = w;
-      op += round_bf16(w);
-      dn += round_bf16(w * a.tm[base + i]);
+      if constexpr (kLoss) {
+        a.w[base + i] = w;
+        op += round_bf16(w);
+        dn += round_bf16(w * a.tm[base + i]);
+      }
     }
     carry += __shfl_sync(kFull, incl, 31);
   }
-  op = warp_sum(op);
-  dn = warp_sum(dn);
-  __syncwarp();
-  for (int ch = lane; ch < NC; ch += 32) {
-    float s = 0.f;
-    for (int i = 0; i < S; ++i) {
-      const float v = ch < 3 ? a.rgb[(base + i) * 3 + ch] : a.sem[(base + i) * C + (ch - 3)];
-      s += round_bf16(v * wb[i]);
+  float gop, gdn;  // bf16-rounded cotangents of the opacity and the depth numerator
+  if constexpr (kLoss) {
+    op = warp_sum(op);
+    dn = warp_sum(dn);
+    __syncwarp();
+    for (int ch = lane; ch < NC; ch += 32) {
+      float s = 0.f;
+      for (int i = 0; i < S; ++i) {
+        const float v = ch < 3 ? a.rgb[(base + i) * 3 + ch] : a.sem[(base + i) * C + (ch - 3)];
+        s += round_bf16(v * wb[i]);
+      }
+      acc[ch] = s;
     }
-    acc[ch] = s;
-  }
-  __syncwarp();
+    __syncwarp();
 
-  // loss and its cotangents (every lane holds the ray's scalars)
-  float l_rgb = 0.f, g_op = 0.f;
-  for (int c = 0; c < 3; ++c) {
-    const float bkc = a.bk[c];
-    const float res = acc[c] + bkc * (1.f - op) - a.pix[(size_t)ray * 3 + c];
-    const float ares = fabsf(res);
-    const float hub = fminf(fmaxf(res, -1.f), 1.f);
-    l_rgb += ares <= 1.f ? 0.5f * res * res : ares - 0.5f;
-    g_op += hub * (-bkc);
-    if (lane == 0) gch[c] = round_bf16(a.c_rgb * hub);
-  }
-  const float ope = fmaxf(op, eps);
-  const float dres = dn / ope - a.dgt[ray];
-  const float adres = fabsf(dres);
-  const float hubd = fminf(fmaxf(dres, -1.f), 1.f);
-  const float l_dep = adres <= 1.f ? 0.5f * dres * dres : adres - 0.5f;
-  g_op = a.c_rgb * g_op + (op > eps ? a.c_dep * hubd * (-dn) / (ope * ope) : 0.f);
-  const float gop = round_bf16(g_op);
-  const float gdn = round_bf16(a.c_dep * hubd / ope);
-  float mx = -FLT_MAX;
-  for (int k = lane; k < C; k += 32) mx = fmaxf(mx, acc[3 + k]);
-  mx = warp_max(mx);
-  float zs = 0.f;
-  for (int k = lane; k < C; k += 32) zs += expf(acc[3 + k] - mx);
-  zs = warp_sum(zs);
-  const int lb = a.lab[ray];
-  for (int k = lane; k < C; k += 32)
-    gch[3 + k] = round_bf16(a.c_sem * (expf(acc[3 + k] - mx) / zs - (k == lb ? 1.f : 0.f)));
-  if (lane == 0) {
-    const float picked = (lb >= 0 && lb < C) ? acc[3 + lb] : 0.f;
-    a.lossrows[ray] = l_rgb;
-    a.lossrows[a.n_rays + ray] = l_dep;
-    a.lossrows[2 * a.n_rays + ray] = mx + logf(zs) - picked;
+    // loss and its cotangents (every lane holds the ray's scalars)
+    float l_rgb = 0.f, g_op = 0.f;
+    for (int c = 0; c < 3; ++c) {
+      const float bkc = a.bk[c];
+      const float res = acc[c] + bkc * (1.f - op) - a.pix[(size_t)ray * 3 + c];
+      const float ares = fabsf(res);
+      const float hub = fminf(fmaxf(res, -1.f), 1.f);
+      l_rgb += ares <= 1.f ? 0.5f * res * res : ares - 0.5f;
+      g_op += hub * (-bkc);
+      if (lane == 0) gch[c] = round_bf16(a.c_rgb * hub);
+    }
+    const float ope = fmaxf(op, eps);
+    const float dres = dn / ope - a.dgt[ray];
+    const float adres = fabsf(dres);
+    const float hubd = fminf(fmaxf(dres, -1.f), 1.f);
+    const float l_dep = adres <= 1.f ? 0.5f * dres * dres : adres - 0.5f;
+    g_op = a.c_rgb * g_op + (op > eps ? a.c_dep * hubd * (-dn) / (ope * ope) : 0.f);
+    gop = round_bf16(g_op);
+    gdn = round_bf16(a.c_dep * hubd / ope);
+    float mx = -FLT_MAX;
+    for (int k = lane; k < C; k += 32) mx = fmaxf(mx, acc[3 + k]);
+    mx = warp_max(mx);
+    float zs = 0.f;
+    for (int k = lane; k < C; k += 32) zs += expf(acc[3 + k] - mx);
+    zs = warp_sum(zs);
+    const int lb = a.lab[ray];
+    for (int k = lane; k < C; k += 32)
+      gch[3 + k] = round_bf16(a.c_sem * (expf(acc[3 + k] - mx) / zs - (k == lb ? 1.f : 0.f)));
+    if (lane == 0) {
+      const float picked = (lb >= 0 && lb < C) ? acc[3 + lb] : 0.f;
+      a.lossrows[ray] = l_rgb;
+      a.lossrows[a.n_rays + ray] = l_dep;
+      a.lossrows[2 * a.n_rays + ray] = mx + logf(zs) - picked;
+    }
+  } else {
+    // acc columns: 0:3 rgb, 3 opacity, 4 depth numerator, 5: semantics
+    const float* ga = a.g_acc + (size_t)ray * (5 + C);
+    for (int ch = lane; ch < NC; ch += 32) gch[ch] = round_bf16(ga[ch < 3 ? ch : ch + 2]);
+    gop = round_bf16(ga[3]);
+    gdn = round_bf16(ga[4]);
   }
   __syncwarp();
 
@@ -339,6 +218,9 @@ __global__ void __launch_bounds__(kRayWarps * 32) fvr_ray_kernel(FvrArgs a) {
       }
       const float* sr = a.sem + row * C;
       for (int k = 0; k < C; ++k) dw += sr[k] * gch[3 + k];
+      if constexpr (!kLoss) {
+        if (a.g_w != nullptr) dw += a.g_w[row];
+      }
       v = dw * w;
       pr0 += gp[0];
       pr1 += gp[1];
@@ -477,7 +359,7 @@ __global__ void __launch_bounds__(kThreads) fvr_field_bwd_kernel(FvrArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const BwdSmem L = bwd_smem(a);
   const int m = a.m, h = a.hidden, hh = a.head_hidden, nh = a.n_layers - 1;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   bf16* go = reinterpret_cast<bf16*>(smem + L.go);
   bf16* gs = reinterpret_cast<bf16*>(smem + L.gs);
   bf16* r1 = reinterpret_cast<bf16*>(smem + L.r1);
@@ -560,56 +442,9 @@ __global__ void __launch_bounds__(kThreads) fvr_field_bwd_kernel(FvrArgs a) {
     nxt = t;
   }
 
-  // encode: g_enc = gh[0] @ w0^T; dproj = cos * g_sin - sin * g_cos. A warp
-  // owns column strip ct of both halves, so each dproj element is local.
-  for (int ct = warp; ct < m / 16; ct += kWarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> ac[kRowTiles], as[kRowTiles];
-#pragma unroll
-    for (int r = 0; r < kRowTiles; ++r) {
-      wmma::fill_fragment(ac[r], 0.f);
-      wmma::fill_fragment(as[r], 0.f);
-    }
-    for (int kk = 0; kk < h; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bc, bs;
-      wmma::load_matrix_sync(bc, a.tw[0] + (size_t)(ct * 16) * h + kk, h);
-      wmma::load_matrix_sync(bs, a.tw[0] + (size_t)(m + ct * 16) * h + kk, h);
-#pragma unroll
-      for (int r = 0; r < kRowTiles; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, cur + r * 16 * L.ld_b + kk, L.ld_b);
-        wmma::mma_sync(ac[r], af, bc, ac[r]);
-        wmma::mma_sync(as[r], af, bs, as[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRowTiles; ++r) {
-      wmma::store_matrix_sync(scratch, ac[r], 16, wmma::mem_row_major);
-      wmma::store_matrix_sync(scratch + 256, as[r], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int i = r * 16 + e / 16, j = ct * 16 + e % 16;
-        const bf16* er = a.enc + (size_t)(row0 + i) * (2 * m);
-        dp[i * m + j] = bf(er[j]) * scratch[256 + e] - bf(er[m + j]) * scratch[e];
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  // dphase = sum dproj; dW_spec = 2 pi * bf16(u)^T bf16(dproj)
-  for (int c = threadIdx.x; c < 4 * m; c += kThreads) {
-    const int d = c / m - 1, j = c % m;
-    float s = 0.f;
-    for (int i = 0; i < kTileRows; ++i) {
-      const int row = row0 + i;
-      const float v = dp[i * m + j];
-      if (d < 0) {
-        s += v;
-      } else if (row < a.n_rows) {
-        s += round_bf16(a.u[(size_t)row * 3 + d]) * round_bf16(v);
-      }
-    }
-    part[off_dph + c] = d < 0 ? s : s * kTwoPi;
-  }
+  // encode: dproj, the dphase and dW_spec sums, and du where asked for
+  encode_backward_tile(cur, L.ld_b, a.tw[0], h, m, a.enc, a.u, a.W, a.n_rows, row0, dp, scratch,
+                       part + off_dph, a.du);
 }
 
 // ---- 4. weight gradients: dW = X^T dY over all rows ---------------------------------
@@ -684,11 +519,6 @@ __global__ void sum_rows_kernel(const float* __restrict__ P, int n, long long ld
   out[j] = s;
 }
 
-int set_smem(const void* kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
-}
-
 }  // namespace
 
 // Shared memory (bytes) of the field kernels: which = 0 forward, 1 backward.
@@ -708,12 +538,19 @@ extern "C" int apnerf_fvr_field_fwd(const FvrArgs* a, void* stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int apnerf_fvr_rays(const FvrArgs* a, void* stream) {
+// with_loss = 1: the train step's ray kernel; 0: the render's backward
+// from given cotangents (a->g_acc, a->g_w)
+extern "C" int apnerf_fvr_rays(const FvrArgs* a, int with_loss, void* stream) {
   const size_t smem = (size_t)kRayWarps * (2 * a->n_samples + 2 * kRayChan) * sizeof(float);
-  int err = set_smem((const void*)fvr_ray_kernel, smem);
+  const void* kernel =
+      with_loss ? (const void*)fvr_ray_kernel<true> : (const void*)fvr_ray_kernel<false>;
+  int err = set_smem(kernel, smem);
   if (err) return err;
-  fvr_ray_kernel<<<(a->n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32, smem,
-                   static_cast<cudaStream_t>(stream)>>>(*a);
+  const int grid = (a->n_rays + kRayWarps - 1) / kRayWarps;
+  if (with_loss)
+    fvr_ray_kernel<true><<<grid, kRayWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+  else
+    fvr_ray_kernel<false><<<grid, kRayWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -31,17 +31,26 @@ constexpr int kRowTiles = kTileRows / 16;
 constexpr int kPad = 8;  // bf16 elements of row padding against bank conflicts
 constexpr float kTwoPi = 6.283185307179586f;
 
-struct Trunk {
-  const bf16* w[4];
-  const float* b[4];
-  int n_layers;  // weight matrices: 3 or 4
-  int hidden;    // H, a multiple of 16
-  int out_pad;   // output width rounded up to 16
-  int out;       // output width
-};
+// allow `kernel` that much dynamic shared memory -> the CUDA error code
+inline int set_smem(const void* kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float bf(const bf16 x) { return __bfloat162float(x); }
+
+// g[row0 + i, :cols] = s[i, :cols] for the 64 rows of a tile (cols % 8 == 0)
+__device__ void store_tile(const bf16* s, int ld_s, int cols, bf16* g, int row0) {
+  const int vpr = cols / 8;
+  for (int e = threadIdx.x; e < kTileRows * vpr; e += kThreads) {
+    const int i = e / vpr, v = e % vpr;
+    *reinterpret_cast<uint4*>(g + (size_t)(row0 + i) * cols + v * 8) =
+        *reinterpret_cast<const uint4*>(s + i * ld_s + v * 8);
+  }
 }
 
 // dst[64, 2m] = [bf16(cos proj), bf16(sin proj)] for rows row0.. of u

@@ -3,12 +3,14 @@
 Port of ``apnerf_tpu/models/spectral.py``: the forward routes, the packed
 whole-field forwards ``forward_packed`` (the candidate render's, through
 ``ops/cuda/fused_field_heads.py``) and ``forward_packed_volrend`` (the
-evaluation render's, through ``ops/cuda/fused_field_volrend.py``), and the
-train step's ``forward_packed_lossgrad``, which runs the whole main-field
-render, loss and backward through the CUDA train-step kernel. The TPU
-routing gates (``use_packed_*``, ``supports_fused_volrend``, the
-``APNERF_*`` switches) are not carried over: on the card these kernels
-are the paths. The encoding is
+evaluation render's, through ``ops/cuda/fused_field_volrend.py``), both
+differentiable, and the train step's ``forward_packed_lossgrad``, which
+runs the whole main-field render, loss and backward through the CUDA
+train-step kernel. The TPU routing gates (``use_packed_*``,
+``supports_fused_volrend``, the ``APNERF_*`` switches) are not carried
+over: a caller names its route with a plain argument (``trunk=`` of
+``query_density`` and ``forward``, ``fused=`` of ``query_density_field``)
+and on the card each route's kernels are its path. The encoding is
 
     enc(x) = [cos(2π x·W + φ), sin(2π x·W + φ)]      W: [3, M]
 
@@ -21,6 +23,14 @@ take (params, cfg, ...) as the JAX functions do. ``query_density`` runs
 encode + trunk through the CUDA kernel (``ops/cuda/fused_mlp.py``) for a
 bf16 field with a 2- or 3-hidden-layer trunk, at any row count: the TPU
 path's ``n_rows % 256`` gate (``spectral.py:256``) is not carried over.
+Any other field raises on the card and runs the plain chain in its own
+dtype for CPU tensors: no route becomes the plain chain on a CUDA tensor.
+With ``trunk="mlp"`` the encode stays outside and the trunk alone goes
+through the MLP kernel (``_trunk_apply``, ``spectral.py:207-220``). The
+encode outside a kernel is ``encode_plain`` under autograd: the JAX
+``_enc_bwd`` rounds dproj to bf16 before its reductions and autograd does
+not, a difference of bf16 rounding (2^-9 of each term) in dW, dphase and
+du that the parity tests' bf16 tolerances absorb.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from torch import nn
 
 from ..ops.cuda.fused_field_heads import fused_field_heads
 from ..ops.cuda.fused_field_volrend import fused_field_volrend, fused_field_volrend_lossgrad
-from ..ops.cuda.fused_mlp import encode_plain, fused_spectral_field
+from ..ops.cuda.fused_mlp import encode_plain, fused_mlp_apply, fused_spectral_field
 from ..ops.sh import sh_encode_deg4
 from .ngp import trunc_exp
 from .nn import MLP, apply_mlp, init_mlp
@@ -193,19 +203,48 @@ def spectral_encode(params, cfg, u: torch.Tensor) -> torch.Tensor:
     return encode_plain(params.W, params.phase, u, cfg.dtype)
 
 
-def _use_fused_field(cfg: SpectralConfig, params_mlp: MLP) -> bool:
-    """Encode + trunk through the CUDA kernel: bf16 and 2 or 3 hidden layers."""
+def _use_fused_field(cfg, params_mlp: MLP) -> bool:
+    """A field the trunk kernels take: bf16 and 2 or 3 hidden layers."""
     return cfg.compute_dtype == "bfloat16" and params_mlp.n_layers in (3, 4)
 
 
-def query_density(params: SpectralField, cfg: SpectralConfig, x: torch.Tensor, return_feat: bool = False):
+def _kernel_route(who: str, cfg, params_mlp: MLP, x: torch.Tensor) -> bool:
+    """Whether a call that asks for a trunk kernel goes to its wrapper. A
+    field the kernels do not take (f32, another depth) runs the plain chain
+    in its own dtype for CPU tensors only; on any other device the route
+    raises: it never becomes the plain chain on the card."""
+    ok = _use_fused_field(cfg, params_mlp)
+    if not ok and x.device.type != "cpu":
+        raise ValueError(
+            f"{who}: the kernel route takes a bfloat16 field with 2 or 3 hidden layers, got "
+            f"{cfg.compute_dtype} with {params_mlp.n_layers - 1}")
+    return ok
+
+
+def _trunk_apply(params_mlp: MLP, enc: torch.Tensor, cfg: SpectralConfig, fused: bool):
+    """The trunk on given features: the MLP kernel's wrapper when ``fused``
+    (``spectral.py:207-220``), else the plain chain."""
+    if fused:
+        return fused_mlp_apply(params_mlp, enc.contiguous())
+    return apply_mlp(params_mlp, enc, compute_dtype=cfg.dtype)
+
+
+def query_density(params: SpectralField, cfg: SpectralConfig, x: torch.Tensor,
+                  return_feat: bool = False, trunk: str = "field"):
+    """``trunk`` names the route of encode + trunk: "field", both in the
+    field kernel; "mlp", the encode outside and the trunk in the MLP
+    kernel. A field neither kernel takes (f32, another depth) runs the
+    plain chain for CPU tensors and raises on the card."""
+    if trunk not in ("field", "mlp"):
+        raise ValueError(f"query_density: unknown trunk route {trunk!r}")
     batch_shape = x.shape[:-1]
     u, selector = _normalize(cfg, x)
     u = u.reshape(-1, 3)
-    if _use_fused_field(cfg, params.mlp_base):
+    kernel = _kernel_route(f"query_density(trunk={trunk!r})", cfg, params.mlp_base, u)
+    if kernel and trunk == "field":
         h = fused_spectral_field(params.W, params.phase, params.mlp_base, u.contiguous())
     else:
-        h = apply_mlp(params.mlp_base, spectral_encode(params, cfg, u), compute_dtype=cfg.dtype)
+        h = _trunk_apply(params.mlp_base, spectral_encode(params, cfg, u), cfg, kernel)
     h = h.reshape(batch_shape + (1 + cfg.geo_feat_dim,))
     density_raw, geo_feat = h[..., :1], h[..., 1:]
     density = trunc_exp(density_raw - 1.0) * selector[..., None]
@@ -233,9 +272,10 @@ def query_semantic(params: SpectralField, cfg: SpectralConfig, geo_feat):
     return logits.reshape(batch_shape + (cfg.num_semantic_classes,))
 
 
-def forward(params: SpectralField, cfg: SpectralConfig, positions, directions=None):
-    """→ (rgb, density[, sem_logits])."""
-    density, geo_feat = query_density(params, cfg, positions, return_feat=True)
+def forward(params: SpectralField, cfg: SpectralConfig, positions, directions=None,
+            trunk: str = "field"):
+    """→ (rgb, density[, sem_logits]); ``trunk`` as in ``query_density``."""
+    density, geo_feat = query_density(params, cfg, positions, return_feat=True, trunk=trunk)
     rgb = query_rgb(params, cfg, directions, geo_feat)
     if cfg.num_semantic_classes > 0:
         return rgb, density, query_semantic(params, cfg, geo_feat)
@@ -246,7 +286,8 @@ def _packed_inputs(cfg: SpectralConfig, positions, rays_d):
     """Flat unit-cube coordinates [N, 3] and per-ray SH features [R, 16], as
     the packed kernels read them."""
     u, _ = _normalize(cfg, positions)
-    return u.reshape(-1, 3).float().contiguous(), sh_encode_deg4(rays_d).float().contiguous()
+    sh = sh_encode_deg4(rays_d).detach()
+    return u.reshape(-1, 3).float().contiguous(), sh.float().contiguous()
 
 
 def forward_packed(
@@ -259,7 +300,8 @@ def forward_packed(
     [R, S, 4 + C] f32: columns 0:3 rgb (sigmoid), 3 density
     (``trunc_exp(x - 1)`` times the in-aabb selector), 4: semantic logits.
     Same math as ``forward``; samples are rows (the JAX function returns
-    the TPU's channel-major [4 + C, R, S]). Not differentiable."""
+    the TPU's channel-major [4 + C, R, S]). Differentiable in the
+    parameters and the positions; the directions get no gradient."""
     R, S = positions.shape[0], positions.shape[1]
     u, sh = _packed_inputs(cfg, positions, rays_d)
     y = fused_field_heads(list(params.parameters()), u, sh, S, cfg.dtype)
@@ -279,15 +321,16 @@ def forward_packed_volrend(
     (``spectral.py:439-468``) → (acc [R, 5 + C] f32, weights [R, S] f32).
     acc columns: 0:3 Σw·rgb, 3 Σw (opacity), 4 Σw·t_mid (depth numerator),
     5: Σw·sem; the JAX function returns the TPU's [5 + C, R]. Ray misses
-    fold into dt, as the unfused ``sigmas * ~miss`` does. Not
-    differentiable."""
+    fold into dt, as the unfused ``sigmas * ~miss`` does. Differentiable
+    in the parameters and the positions; the directions, t0 and t1 get no
+    gradient (``fused_field_volrend.py:670-673``)."""
     R, S = positions.shape[0], positions.shape[1]
     u, sh = _packed_inputs(cfg, positions, rays_d)
     dt = (t1 - t0) * (~miss)[:, None]
     tm = 0.5 * (t0 + t1)
     acc, w = fused_field_volrend(
-        list(params.parameters()), u, sh, dt.reshape(-1).float().contiguous(),
-        tm.reshape(-1).float().contiguous(), S, cfg.dtype,
+        list(params.parameters()), u, sh, dt.detach().reshape(-1).float().contiguous(),
+        tm.detach().reshape(-1).float().contiguous(), S, cfg.dtype,
     )
     return acc, w.reshape(R, S)
 
@@ -349,13 +392,21 @@ def grads_in_order(params: nn.Module, tree: dict) -> list:
     return out
 
 
-def query_density_field(params: SpectralDensityField, cfg: SpectralDensityConfig, x: torch.Tensor):
-    """Proposal density. The plain chain, as the JAX package runs it by
-    default (its fused route is an opt-in ablation, ``spectral.py:596-600``)."""
+def query_density_field(params: SpectralDensityField, cfg: SpectralDensityConfig,
+                        x: torch.Tensor, fused: bool = False):
+    """Proposal density. The plain chain by default, as the JAX package
+    runs it; ``fused`` takes encode + trunk through the field kernel, its
+    opt-in route (``spectral.py:596-619``): a field that kernel does not
+    take (f32, another depth) runs the plain chain for CPU tensors and
+    raises on the card."""
     batch_shape = x.shape[:-1]
     u, selector = _normalize(cfg, x)
     dt = cfg.dtype
-    proj = (u.reshape(-1, 3).to(dt).float() @ params.W.to(dt).float()) * (2 * np.pi) + params.phase
-    enc = torch.cat([torch.cos(proj), torch.sin(proj)], dim=-1)
-    h = apply_mlp(params.mlp_base, enc, compute_dtype=dt).reshape(batch_shape + (1,))
-    return trunc_exp(h - 1.0) * selector[..., None]
+    u = u.reshape(-1, 3)
+    if fused and _kernel_route("query_density_field(fused=True)", cfg, params.mlp_base, u):
+        h = fused_spectral_field(params.W, params.phase, params.mlp_base, u.contiguous())
+    else:
+        proj = (u.to(dt).float() @ params.W.to(dt).float()) * (2 * np.pi) + params.phase
+        enc = torch.cat([torch.cos(proj), torch.sin(proj)], dim=-1)
+        h = apply_mlp(params.mlp_base, enc, compute_dtype=dt)
+    return trunc_exp(h.reshape(batch_shape + (1,)) - 1.0) * selector[..., None]

@@ -104,12 +104,6 @@ def library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.apnerf_fused_spectral_field_smem.argtypes = [i, i]
-    lib.apnerf_fused_spectral_field_smem.restype = ctypes.c_size_t
-    lib.apnerf_fused_spectral_field_fwd.argtypes = (
-        [p, p, p, i, i] + [p] * 8 + [i, i, i, i, p, p]
-    )
-    lib.apnerf_fused_spectral_field_fwd.restype = i
     lib.apnerf_fused_render_weights_fwd.argtypes = [p, p, p, i, i, p, p, p, p]
     lib.apnerf_fused_render_weights_fwd.restype = i
     lib.apnerf_fused_render_weights_bwd.argtypes = [p, p, p, p, i, i, p, p, p, p]
@@ -118,9 +112,19 @@ def library() -> ctypes.CDLL:
     lib.apnerf_fvr_smem.restype = ctypes.c_size_t
     lib.apnerf_fvr_n_bias.argtypes = [p]
     lib.apnerf_fvr_n_bias.restype = i
-    for name in ("apnerf_fvr_field_fwd", "apnerf_fvr_rays", "apnerf_fvr_field_bwd"):
+    for name in ("apnerf_fvr_field_fwd", "apnerf_fvr_field_bwd", "apnerf_ffh_bwd_pack"):
         getattr(lib, name).argtypes = [p, p]
         getattr(lib, name).restype = i
+    lib.apnerf_fvr_rays.argtypes = [p, i, p]
+    lib.apnerf_fvr_rays.restype = i
+    lib.apnerf_mlp_smem.argtypes = [p, i, i]
+    lib.apnerf_mlp_smem.restype = ctypes.c_size_t
+    lib.apnerf_mlp_n_bias.argtypes = [p, i]
+    lib.apnerf_mlp_n_bias.restype = i
+    lib.apnerf_mlp_fwd.argtypes = [p, i, i, p]
+    lib.apnerf_mlp_fwd.restype = i
+    lib.apnerf_mlp_bwd.argtypes = [p, i, p]
+    lib.apnerf_mlp_bwd.restype = i
     lib.apnerf_fvr_fwd_rays.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.apnerf_fvr_fwd_rays.restype = i
     lib.apnerf_ffh_smem.argtypes = [p]

@@ -2,12 +2,18 @@
 (``csrc/fused_field_heads.cu``).
 
 Port of ``apnerf_tpu/ops/pallas/fused_field_heads.py::fused_field_heads``,
-forward only: spectral encode, trunk, density (``trunc_exp(raw - 1)`` times
+forward and backward: spectral encode, trunk, density (``trunc_exp(raw - 1)`` times
 the in-cube selector), the rgb head on SH(direction) ⊕ geometry features
 (sigmoid applied) and the semantic head, packed per sample.
 ``fused_field_heads`` launches the kernel for CUDA tensors and takes
 ``fused_field_heads_plain`` only for CPU tensors. Both take the field's
-parameters as one flat list (``list(field.parameters())``).
+parameters as one flat list (``list(field.parameters())``). A call that
+asks for gradients goes through a ``torch.autograd.Function`` whose
+backward, ``fused_field_heads_bwd``, recomputes the field with its
+activations saved (as the TPU kernel recomputes), turns the packed
+cotangent into per-sample cotangents (the sigmoid's and ``trunc_exp``'s
+derivatives) and runs the field backward (``field_train.py``): gradients
+of every leaf and of ``u``; ``sh`` gets none, as in the JAX VJP.
 
 Layout (the port's, not the TPU's ``[channels, N]``): the output is
 row-major ``[N, 4 + C]`` f32, columns 0:3 rgb, 3 sigma, 4: the C logits;
@@ -22,7 +28,7 @@ weights the kernels read (``prepare_field``).
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,9 +36,9 @@ from ...models.ngp import trunc_exp
 from ...models.nn import apply_layers
 from . import build
 from .fused_mlp import encode_plain
+from .launch import MAX_SMEM, check_tensor, needs_grad
 
 MAX_CLASSES = 64
-MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
 _p = ctypes.c_void_p
 
@@ -100,18 +106,6 @@ def _padded_bias(b: torch.Tensor, n: int) -> torch.Tensor:
     out = torch.zeros(n, dtype=torch.float32, device=b.device)
     out[: b.shape[0]] = b
     return out
-
-
-def check_tensor(who: str, t, name, dtype, shape, device):
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device``: what a kernel reads through a raw pointer."""
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{who}: {name} must be {dtype} {tuple(shape)} on {device}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{who}: {name} must be contiguous")
 
 
 class PreparedField(NamedTuple):
@@ -188,15 +182,6 @@ def prepare_field(who: str, leaves: Sequence[torch.Tensor], dev) -> PreparedFiel
                          tws, tbs, rws, rbs, sws, sbs)
 
 
-def check_forward_only(who: str, leaves, *inputs):
-    """The forward kernels have no backward: refuse inputs that ask for one."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (*leaves, *inputs)):
-        raise NotImplementedError(
-            f"{who}: the CUDA kernel is forward-only; call it under torch.no_grad() "
-            "(its backward is queued in ROADMAP.md)"
-        )
-
-
 def launch_field_rows(lib, fld: PreparedField, u_ptr: int, sh_ptr: int, y_ptr: int,
                       n_rows: int, S: int, stream: int) -> int:
     """Launch the packed field kernel on ``n_rows`` rows starting at the
@@ -214,30 +199,9 @@ def check_field_smem(who: str, lib, fld: PreparedField):
         raise ValueError(f"{who}: widths too large for shared memory")
 
 
-def fused_field_heads(
-    leaves: Sequence[torch.Tensor],  # W [3, M], phase [M], then the (w, b) pairs of
-    # the trunk's, the rgb head's and the semantic head's layers, in order; f32
-    u: torch.Tensor,  # [N, 3] f32 unit-cube coordinates, N = R * S
-    sh: torch.Tensor,  # [R, 16] f32 SH of the ray directions
-    S: int,
-    compute_dtype=torch.bfloat16,
-) -> torch.Tensor:
-    """→ packed [N, 4 + C] f32: rgb, sigma, semantic logits. Not
-    differentiable. A CUDA tensor launches the kernel or raises."""
+def _launch_forward(leaves, u, sh, S):
     who = "fused_field_heads"
-    if u.device.type == "cpu":
-        return fused_field_heads_plain(leaves, u, sh, S, compute_dtype)
-    if u.device.type != "cuda":
-        raise ValueError(f"{who}: unsupported device {u.device}")
-    if compute_dtype != torch.bfloat16:
-        raise ValueError(f"{who}: the CUDA kernel computes in bf16")
-    dev = u.device
-    N = u.shape[0]
-    if S <= 0 or N == 0 or N % S:
-        raise ValueError(f"{who}: N={N} must be a positive multiple of S={S}")
-    check_forward_only(who, leaves, u, sh)
-    check_tensor(who, u, "u", torch.float32, (N, 3), dev)
-    check_tensor(who, sh, "sh", torch.float32, (N // S, 16), dev)
+    dev, N = u.device, u.shape[0]
     fld = prepare_field(who, leaves, dev)
     lib = build.library()
     check_field_smem(who, lib, fld)
@@ -250,5 +214,99 @@ def fused_field_heads(
     return y
 
 
-# kernel launches since the counter was last reset (chip_smoke.py reads it)
+def fused_field_heads_bwd_plain(leaves, u, sh, S: int, g, need_du: bool = False,
+                                compute_dtype=torch.bfloat16):
+    """The same outputs as ``fused_field_heads_bwd`` by autograd through the
+    plain forward."""
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    u = u.detach().requires_grad_(need_du)
+    with torch.enable_grad():
+        y = fused_field_heads_plain(leaves, u, sh, S, compute_dtype)
+        grads = torch.autograd.grad(y, leaves + ([u] if need_du else []), g)
+    return list(grads[: len(leaves)]), (grads[-1] if need_du else None)
+
+
+@torch.no_grad()
+def fused_field_heads_bwd(
+    leaves: Sequence[torch.Tensor],
+    u: torch.Tensor,  # [N, 3]
+    sh: torch.Tensor,  # [R, 16]
+    S: int,
+    g: torch.Tensor,  # [N, 4 + C] f32 cotangent of the packed output
+    need_du: bool = False,
+    compute_dtype=torch.bfloat16,
+) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """The backward of ``fused_field_heads`` → (one gradient per leaf, in
+    ``leaves``' order; du [N, 3] or None). A CUDA tensor launches the
+    kernels or raises."""
+    who = "fused_field_heads_bwd"
+    if u.device.type == "cpu":
+        return fused_field_heads_bwd_plain(leaves, u, sh, S, g, need_du, compute_dtype)
+    if u.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {u.device}")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"{who}: the CUDA kernel computes in bf16")
+    from .field_train import FieldTrainCall  # field_train imports this module
+
+    call = FieldTrainCall(who, leaves, u, sh, S, need_du)
+    check_tensor(who, g, "g", torch.float32, (call.N, 4 + call.fld.C), call.dev)
+    call.set_inputs(g_packed=g)
+    call.field_forward()
+    call.run(call.lib.apnerf_ffh_bwd_pack, call.ref)
+    out = call.field_backward()
+    fused_field_heads_bwd.launches += 1
+    return out
+
+
+class _FieldHeads(torch.autograd.Function):
+    """y = f(u, sh, *leaves); the forward keeps its inputs only."""
+
+    @staticmethod
+    def forward(ctx, S, u, sh, *leaves):
+        ctx.S = S
+        ctx.save_for_backward(u, sh, *leaves)
+        return _launch_forward(leaves, u, sh, S)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, sh, *leaves = ctx.saved_tensors
+        grads, du = fused_field_heads_bwd(
+            leaves, u, sh, ctx.S, g.float().contiguous(), ctx.needs_input_grad[1])
+        # the SH features are a fixed function of the ray directions
+        return (None, du, None, *grads)
+
+
+def fused_field_heads(
+    leaves: Sequence[torch.Tensor],  # W [3, M], phase [M], then the (w, b) pairs of
+    # the trunk's, the rgb head's and the semantic head's layers, in order; f32
+    u: torch.Tensor,  # [N, 3] f32 unit-cube coordinates, N = R * S
+    sh: torch.Tensor,  # [R, 16] f32 SH of the ray directions
+    S: int,
+    compute_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """→ packed [N, 4 + C] f32: rgb, sigma, semantic logits. A CUDA tensor
+    launches the kernel or raises. Differentiable in the leaves and ``u``
+    (``sh`` gets no gradient); the backward keeps every row's activations
+    at once."""
+    who = "fused_field_heads"
+    if u.device.type == "cpu":
+        return fused_field_heads_plain(leaves, u, sh, S, compute_dtype)
+    if u.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {u.device}")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"{who}: the CUDA kernel computes in bf16")
+    dev = u.device
+    N = u.shape[0]
+    if S <= 0 or N == 0 or N % S:
+        raise ValueError(f"{who}: N={N} must be a positive multiple of S={S}")
+    check_tensor(who, u, "u", torch.float32, (N, 3), dev)
+    check_tensor(who, sh, "sh", torch.float32, (N // S, 16), dev)
+    if needs_grad(*leaves, u):
+        return _FieldHeads.apply(S, u, sh, *leaves)
+    return _launch_forward(leaves, u, sh, S)
+
+
+# wrapper calls that launched the kernels since the counters were last reset
+# (chip_smoke.py reads them)
 fused_field_heads.launches = 0
+fused_field_heads_bwd.launches = 0

@@ -3,7 +3,7 @@
 and visualisation, and the train step's render, loss and backward.
 
 ``fused_field_volrend`` is the port of ``apnerf_tpu/ops/pallas/
-fused_field_volrend.py::fused_field_volrend`` (forward): the field, the
+fused_field_volrend.py::fused_field_volrend``, forward and backward: the field, the
 weights w = T·α from σ·dt and the per-ray sums Σw·rgb, Σw, Σw·t_mid and
 Σw·sem, with misses folded into dt = 0. It runs the packed field kernel
 (``csrc/fused_field_heads.cu``) and a per-ray kernel over chunks of rays,
@@ -11,7 +11,16 @@ so the per-sample field values of a chunk live in one scratch buffer
 that the next chunk reuses. The output is row-major ``acc [R, 5 + C]``
 (0:3 rgb, 3 opacity, 4 depth numerator, 5: semantics) and ``w [N]``;
 ``fused_field_volrend_plain`` is its plain PyTorch version, with the
-kernel's bf16 rounding of the per-sample products.
+kernel's bf16 rounding of the per-sample products. A call that asks for
+gradients goes through a ``torch.autograd.Function`` whose backward,
+``fused_field_volrend_bwd``, recomputes the field with its activations
+saved (as the TPU kernel recomputes), turns the cotangents of ``acc`` and
+``w`` into per-sample cotangents in a warp-per-ray kernel (the train-step
+kernel's, started from the given cotangents instead of the loss) and runs
+the field backward: gradients of every leaf and of ``u``; ``sh``, ``dt``
+and ``tm`` get none, as in the JAX VJP. The plain backward is autograd
+through the plain version with the per-ray cotangents rounded to bf16
+first, as both kernels round them.
 
 ``fused_field_volrend_lossgrad`` is the port of ``apnerf_tpu/ops/pallas/fused_field_volrend.py::
 fused_field_volrend_lossgrad``: the main field, volume rendering, the
@@ -33,32 +42,28 @@ the scale of bf16 rounding, not bit for bit.
 
 from __future__ import annotations
 
-import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import build
-from .fused_field_heads import (
-    MAX_SMEM,
-    check_field_smem,
-    check_forward_only,
-    check_tensor,
-    field_plain,
-    launch_field_rows,
-    prepare_field,
-)
+from .field_train import FieldTrainCall
+from .fused_field_heads import check_field_smem, field_plain, launch_field_rows, prepare_field
+from .launch import check_tensor, needs_grad
 from .volrend_cuda import fused_render_weights_plain
 
 # the train loss's weights of its rgb, depth and semantic terms
 # (``apnerf_tpu/train/flagship.py:298-308``)
 LOSS_WEIGHTS = (10.0, 1.0 / 5.0, 1.0 / 2.0)
 MAX_SAMPLES = 1024
-_N_CHUNKS = 64  # row chunks of the weight-gradient reduction
 # rows of per-sample field values the forward-only render keeps in device
 # memory at a time: 2^21 rows of 4 + C f32 are 277 MB at 29 classes
 FWD_CHUNK_ROWS = 1 << 21
+# rows a differentiable call may have: its backward keeps every row's bf16
+# activations and cotangents at once (~5 KB a row at the shipping widths,
+# 1.3 GB at a train step's 262,144 rows), unchunked
+BWD_MAX_ROWS = FWD_CHUNK_ROWS
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
@@ -104,30 +109,6 @@ def fused_field_volrend_lossgrad_plain(
     return lossrows.detach(), w.detach().reshape(-1), list(grads)
 
 
-_p = ctypes.c_void_p
-
-
-class _FvrArgs(ctypes.Structure):
-    """Every pointer and size of one call; mirrors ``FvrArgs`` in
-    ``csrc/fused_field_volrend.cu`` field by field."""
-
-    _fields_ = (
-        [(n, _p) for n in ("u", "sh", "dt", "tm", "pix", "dgt", "lab", "bk", "W", "phase")]
-        + [("tw", _p * 4), ("tb", _p * 4), ("rw", _p * 3), ("rb", _p * 3),
-           ("sw", _p * 3), ("sb", _p * 3)]
-        + [("enc", _p), ("h", _p * 3)]
-        + [(n, _p) for n in (
-            "xr", "hr1", "hr2", "hs1", "hs2", "sigma", "dsd", "rgb", "sem", "graw",
-            "gout_rgb", "gout_sem", "ray_part", "gtrb")]
-        + [("gh", _p * 3)]
-        + [(n, _p) for n in ("gr1", "gr2", "gs1", "gs2", "tile_part", "w", "lossrows")]
-        + [(n, ctypes.c_int) for n in (
-            "n_rows", "n_rows_pad", "n_rays", "n_samples", "m", "hidden", "n_layers",
-            "trunk_out_pad", "geo", "head_hidden", "n_classes", "c_pad")]
-        + [(n, ctypes.c_float) for n in ("c_rgb", "c_dep", "c_sem")]
-    )
-
-
 @torch.no_grad()
 def fused_field_volrend_lossgrad(
     leaves: Sequence[torch.Tensor],  # W [3, M], phase [M], then the (w, b) pairs of
@@ -156,128 +137,27 @@ def fused_field_volrend_lossgrad(
         raise ValueError(f"fused_field_volrend_lossgrad: unsupported device {u.device}")
     if compute_dtype != torch.bfloat16:
         raise ValueError("fused_field_volrend_lossgrad: the CUDA kernel computes in bf16")
-    dev = u.device
-    N = u.shape[0]
-    if not 0 < S <= MAX_SAMPLES or N == 0 or N % S:
-        raise ValueError(
-            f"fused_field_volrend_lossgrad: N={N} must be a positive multiple of "
-            f"S={S} <= {MAX_SAMPLES}"
-        )
-    R = N // S
     who = "fused_field_volrend_lossgrad"
-    f32, bf16 = torch.float32, torch.bfloat16
+    N = u.shape[0]
+    if not 0 < S <= MAX_SAMPLES:
+        raise ValueError(f"{who}: S={S} must be in 1..{MAX_SAMPLES}")
+    call = FieldTrainCall(who, leaves, u, sh, S)
+    dev, R = call.dev, call.R
+    f32 = torch.float32
     for name, t, dtype, shape in (
-        ("u", u, f32, (N, 3)), ("sh", sh, f32, (R, 16)), ("dt", dt, f32, (N,)),
-        ("tm", tm, f32, (N,)), ("pix", pix, f32, (R, 3)), ("dgt", dgt, f32, (R,)),
-        ("lab", lab, torch.int32, (R,)), ("bk", bk, f32, (3,)),
+        ("dt", dt, f32, (N,)), ("tm", tm, f32, (N,)), ("pix", pix, f32, (R, 3)),
+        ("dgt", dgt, f32, (R,)), ("lab", lab, torch.int32, (R,)), ("bk", bk, f32, (3,)),
     ):
         check_tensor(who, t, name, dtype, shape, dev)
-    fld = prepare_field(who, leaves, dev)
-    W, phase = leaves[0], leaves[1]
-    M, H, out_t, G, hh, C = fld.M, fld.H, fld.out_t, fld.G, fld.hh, fld.C
-    tpad, cpad, nh = fld.tpad, fld.cpad, fld.n_trunk - 1
-    tws, tbs, rws, rbs, sws, sbs = fld.tws, fld.tbs, fld.rws, fld.rbs, fld.sws, fld.sbs
-    lib = build.library()
-    Np = -(-N // 64) * 64
-
-    def buf(shape, dtype=bf16):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    s = {
-        "enc": buf((Np, 2 * M)), "h": [buf((Np, H)) for _ in range(nh)],
-        "xr": buf((Np, 32)), "hr1": buf((Np, hh)), "hr2": buf((Np, hh)),
-        "hs1": buf((Np, hh)), "hs2": buf((Np, hh)),
-        "sigma": buf((N,), f32), "dsd": buf((N,), f32), "rgb": buf((N, 3), f32),
-        "sem": buf((N, C), f32), "graw": buf((N,), f32),
-        "gout_rgb": buf((Np, 16)), "gout_sem": buf((Np, cpad)),
-        "ray_part": buf((R, 16 + cpad), f32), "gtrb": buf((Np, tpad)),
-        "gh": [buf((Np, H)) for _ in range(nh)],
-        "gr1": buf((Np, hh)), "gr2": buf((Np, hh)), "gs1": buf((Np, hh)),
-        "gs2": buf((Np, hh)),
-    }
-    w_out = buf((N,), f32)
-    lossrows = buf((3, R), f32)
-    a = _FvrArgs()
-    for name, t in (("u", u), ("sh", sh), ("dt", dt), ("tm", tm), ("pix", pix),
-                    ("dgt", dgt), ("lab", lab), ("bk", bk)):
-        setattr(a, name, t.data_ptr())
-    a.W, a.phase = W.data_ptr(), phase.data_ptr()
-    for dst, ts in ((a.tw, tws), (a.tb, tbs), (a.rw, rws), (a.rb, rbs), (a.sw, sws),
-                    (a.sb, sbs), (a.h, s["h"]), (a.gh, s["gh"])):
-        for i, t in enumerate(ts):
-            dst[i] = t.data_ptr()
-    for name, t in s.items():
-        if torch.is_tensor(t):
-            setattr(a, name, t.data_ptr())
-    a.w, a.lossrows = w_out.data_ptr(), lossrows.data_ptr()
-    a.n_rows, a.n_rows_pad, a.n_rays, a.n_samples = N, Np, R, S
-    a.m, a.hidden, a.n_layers, a.trunk_out_pad, a.geo = M, H, fld.n_trunk, tpad, G
-    a.head_hidden, a.n_classes, a.c_pad = hh, C, cpad
+    w_out = call.buf((N,), f32)
+    lossrows = call.buf((3, R), f32)
+    call.set_inputs(dt=dt, tm=tm, pix=pix, dgt=dgt, lab=lab, bk=bk, w=w_out, lossrows=lossrows)
+    a = call.a
     a.c_rgb, a.c_dep, a.c_sem = (c / n for c, n in zip(LOSS_WEIGHTS, _term_sizes(R)))
-    ref = ctypes.addressof(a)
-    for which in (0, 1):
-        if lib.apnerf_fvr_smem(ref, which) > MAX_SMEM:
-            raise ValueError("fused_field_volrend_lossgrad: widths too large for shared memory")
-    n_bias = lib.apnerf_fvr_n_bias(ref)
-    tile_part = buf((Np // 64, n_bias), f32)
-    a.tile_part = tile_part.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def run(fn, *args):
-        err = fn(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"fused_field_volrend_lossgrad: CUDA launch failed, error {err}")
-
-    run(lib.apnerf_fvr_field_fwd, ref)
-    run(lib.apnerf_fvr_rays, ref)
-    run(lib.apnerf_fvr_field_bwd, ref)
-
-    # weight gradients X^T dY, in the leaves' order: (X, ld X, readable X
-    # columns, rows of dW, dY, ld dY, columns of dW)
-    xr_geo = s["xr"].data_ptr() + 16 * 2  # the sem head's input: xr[:, 16:]
-    jobs = [(s["enc"].data_ptr(), 2 * M, 2 * M, 2 * M, s["gh"][0].data_ptr(), H, H)]
-    for l in range(1, nh):
-        jobs.append((s["h"][l - 1].data_ptr(), H, H, H, s["gh"][l].data_ptr(), H, H))
-    jobs += [
-        (s["h"][nh - 1].data_ptr(), H, H, H, s["gtrb"].data_ptr(), tpad, out_t),
-        (s["xr"].data_ptr(), 32, 32, 16 + G, s["gr1"].data_ptr(), hh, hh),
-        (s["hr1"].data_ptr(), hh, hh, hh, s["gr2"].data_ptr(), hh, hh),
-        (s["hr2"].data_ptr(), hh, hh, hh, s["gout_rgb"].data_ptr(), 16, 3),
-        (xr_geo, 32, 16, G, s["gs1"].data_ptr(), hh, hh),
-        (s["hs1"].data_ptr(), hh, hh, hh, s["gs2"].data_ptr(), hh, hh),
-        (s["hs2"].data_ptr(), hh, hh, hh, s["gout_sem"].data_ptr(), cpad, C),
-    ]
-    offs, total = [], 0
-    for job in jobs:
-        offs.append(total)
-        total += job[3] * job[6]
-    rows_per_chunk = 64 * -(-(Np // 64) // _N_CHUNKS)
-    n_chunks = -(-Np // rows_per_chunk)
-    P = buf((n_chunks, total), f32)
-    for job, off in zip(jobs, offs):
-        X, ldx, xc, din, Y, ldy, dout = job
-        run(lib.apnerf_xt_dy, X, ldx, xc, din, Y, ldy, dout, Np, rows_per_chunk, n_chunks,
-            P.data_ptr(), total, off)
-    gw, gb, gr = buf((total,), f32), buf((n_bias,), f32), buf((16 + cpad,), f32)
-    run(lib.apnerf_sum_rows, P.data_ptr(), n_chunks, total, total, gw.data_ptr())
-    run(lib.apnerf_sum_rows, tile_part.data_ptr(), Np // 64, n_bias, n_bias, gb.data_ptr())
-    run(lib.apnerf_sum_rows, s["ray_part"].data_ptr(), R, 16 + cpad, 16 + cpad,
-        gr.data_ptr())
+    call.field_forward()
+    call.run(call.lib.apnerf_fvr_rays, call.ref, 1)
+    grads, _ = call.field_backward()
     fused_field_volrend_lossgrad.launches += 1
-
-    dws = [gw[off: off + job[3] * job[6]].view(job[3], job[6]) for job, off in zip(jobs, offs)]
-    off_gtr = nh * H
-    off_r1 = off_gtr + tpad
-    off_s1 = off_r1 + 2 * hh
-    off_dph = off_s1 + 2 * hh
-    dbs = [gb[l * H: (l + 1) * H] for l in range(nh)] + [
-        gb[off_gtr: off_gtr + out_t],
-        gb[off_r1: off_r1 + hh], gb[off_r1 + hh: off_r1 + 2 * hh], gr[:3],
-        gb[off_s1: off_s1 + hh], gb[off_s1 + hh: off_s1 + 2 * hh], gr[16: 16 + C],
-    ]
-    grads = [gb[off_dph + M: off_dph + 4 * M].view(3, M), gb[off_dph: off_dph + M]]
-    for dw, db in zip(dws, dbs):
-        grads += [dw, db]
     return lossrows, w_out, grads
 
 
@@ -304,35 +184,29 @@ def fused_field_volrend_plain(leaves, u, sh, dt, tm, S: int, compute_dtype=torch
     return per_sample.reshape(R, S, -1).sum(dim=1), w
 
 
-def fused_field_volrend(
-    leaves: Sequence[torch.Tensor],  # as ``fused_field_volrend_lossgrad`` takes them
-    u: torch.Tensor,  # [N, 3] f32 unit-cube coordinates, N = R * S
-    sh: torch.Tensor,  # [R, 16] f32 SH of the ray directions
-    dt: torch.Tensor,  # [N] f32 t1 - t0, zero on rays that miss the box
-    tm: torch.Tensor,  # [N] f32 interval midpoints
-    S: int,
-    compute_dtype=torch.bfloat16,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (acc [R, 5 + C] f32 per-ray sums: rgb, opacity, depth numerator,
-    semantic logits; weights [N] f32). Any R, any S up to ``MAX_SAMPLES``.
-    Not differentiable. A CUDA tensor launches the kernels or raises."""
-    who = "fused_field_volrend"
-    if u.device.type == "cpu":
-        return fused_field_volrend_plain(leaves, u, sh, dt, tm, S, compute_dtype)
-    if u.device.type != "cuda":
-        raise ValueError(f"{who}: unsupported device {u.device}")
-    if compute_dtype != torch.bfloat16:
-        raise ValueError(f"{who}: the CUDA kernels compute in bf16")
-    dev = u.device
-    N = u.shape[0]
+def _check_backward_rows(who, N):
+    if N > BWD_MAX_ROWS:
+        raise ValueError(
+            f"{who}: a backward keeps every row's activations at once: N={N} exceeds "
+            f"{BWD_MAX_ROWS} rows"
+        )
+
+
+def _check_render_inputs(who, u, sh, dt, tm, S):
+    dev, N = u.device, u.shape[0]
     if not 0 < S <= MAX_SAMPLES or N == 0 or N % S:
         raise ValueError(f"{who}: N={N} must be a positive multiple of S={S} <= {MAX_SAMPLES}")
-    R = N // S
-    check_forward_only(who, leaves, u, sh, dt, tm)
-    f32 = torch.float32
-    for name, t, shape in (("u", u, (N, 3)), ("sh", sh, (R, 16)), ("dt", dt, (N,)),
+    for name, t, shape in (("u", u, (N, 3)), ("sh", sh, (N // S, 16)), ("dt", dt, (N,)),
                            ("tm", tm, (N,))):
-        check_tensor(who, t, name, f32, shape, dev)
+        check_tensor(who, t, name, torch.float32, shape, dev)
+
+
+def _launch_forward(leaves, u, sh, dt, tm, S):
+    """The forward kernels over chunks of rays → (acc, w)."""
+    who = "fused_field_volrend"
+    dev, N = u.device, u.shape[0]
+    R = N // S
+    f32 = torch.float32
     fld = prepare_field(who, leaves, dev)
     lib = build.library()
     check_field_smem(who, lib, fld)
@@ -361,5 +235,115 @@ def fused_field_volrend(
     return acc, w
 
 
-# wrapper calls that launched the kernels since the counter was last reset
+def fused_field_volrend_bwd_plain(leaves, u, sh, dt, tm, S: int, g_acc, g_w=None,
+                                  need_du: bool = False, compute_dtype=torch.bfloat16):
+    """The same outputs as ``fused_field_volrend_bwd`` by autograd through
+    the plain forward; in bf16 the per-ray cotangents round to bf16 first."""
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    u = u.detach().requires_grad_(need_du)
+    if compute_dtype != torch.float32:
+        g_acc = g_acc.to(compute_dtype).float()
+    with torch.enable_grad():
+        acc, w = fused_field_volrend_plain(leaves, u, sh, dt, tm, S, compute_dtype)
+        outs, gs = [acc], [g_acc]
+        if g_w is not None:
+            outs, gs = outs + [w], gs + [g_w]
+        grads = torch.autograd.grad(outs, leaves + ([u] if need_du else []), gs)
+    return list(grads[: len(leaves)]), (grads[-1] if need_du else None)
+
+
+@torch.no_grad()
+def fused_field_volrend_bwd(
+    leaves: Sequence[torch.Tensor],
+    u: torch.Tensor,  # [N, 3]
+    sh: torch.Tensor,  # [R, 16]
+    dt: torch.Tensor,  # [N]
+    tm: torch.Tensor,  # [N]
+    S: int,
+    g_acc: torch.Tensor,  # [R, 5 + C] f32 cotangent of the per-ray sums
+    g_w: Optional[torch.Tensor] = None,  # [N] f32 cotangent of the weights, or None
+    need_du: bool = False,
+    compute_dtype=torch.bfloat16,
+) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """The backward of ``fused_field_volrend`` → (one gradient per leaf, in
+    ``leaves``' order; du [N, 3] or None). A CUDA tensor launches the
+    kernels or raises."""
+    who = "fused_field_volrend_bwd"
+    if u.device.type == "cpu":
+        return fused_field_volrend_bwd_plain(
+            leaves, u, sh, dt, tm, S, g_acc, g_w, need_du, compute_dtype)
+    if u.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {u.device}")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"{who}: the CUDA kernels compute in bf16")
+    _check_render_inputs(who, u, sh, dt, tm, S)
+    N = u.shape[0]
+    _check_backward_rows(who, N)
+    call = FieldTrainCall(who, leaves, u, sh, S, need_du)
+    check_tensor(who, g_acc, "g_acc", torch.float32, (call.R, 5 + call.fld.C), call.dev)
+    if g_w is not None:
+        check_tensor(who, g_w, "g_w", torch.float32, (N,), call.dev)
+    call.set_inputs(dt=dt, tm=tm, g_acc=g_acc, g_w=g_w)
+    call.field_forward()
+    call.run(call.lib.apnerf_fvr_rays, call.ref, 0)
+    out = call.field_backward()
+    fused_field_volrend_bwd.launches += 1
+    return out
+
+
+class _FieldVolrend(torch.autograd.Function):
+    """acc, w = f(u, sh, dt, tm, *leaves); the forward keeps its inputs only."""
+
+    @staticmethod
+    def forward(ctx, S, u, sh, dt, tm, *leaves):
+        ctx.S = S
+        ctx.save_for_backward(u, sh, dt, tm, *leaves)
+        ctx.set_materialize_grads(False)
+        return _launch_forward(leaves, u, sh, dt, tm, S)
+
+    @staticmethod
+    def backward(ctx, g_acc, g_w):
+        u, sh, dt, tm, *leaves = ctx.saved_tensors
+        if g_acc is None:
+            g_acc = torch.zeros((u.shape[0] // ctx.S, leaves[-1].shape[0] + 5),
+                                dtype=torch.float32, device=u.device)
+        grads, du = fused_field_volrend_bwd(
+            leaves, u, sh, dt, tm, ctx.S, g_acc.float().contiguous(),
+            None if g_w is None else g_w.float().contiguous(), ctx.needs_input_grad[1],
+        )
+        # sh, dt and t_mid come from the sampler, which runs without gradients
+        return (None, du, None, None, None, *grads)
+
+
+def fused_field_volrend(
+    leaves: Sequence[torch.Tensor],  # as ``fused_field_volrend_lossgrad`` takes them
+    u: torch.Tensor,  # [N, 3] f32 unit-cube coordinates, N = R * S
+    sh: torch.Tensor,  # [R, 16] f32 SH of the ray directions
+    dt: torch.Tensor,  # [N] f32 t1 - t0, zero on rays that miss the box
+    tm: torch.Tensor,  # [N] f32 interval midpoints
+    S: int,
+    compute_dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (acc [R, 5 + C] f32 per-ray sums: rgb, opacity, depth numerator,
+    semantic logits; weights [N] f32). Any R, any S up to ``MAX_SAMPLES``.
+    A CUDA tensor launches the kernels or raises. Differentiable in the
+    leaves and ``u`` (``sh``, ``dt`` and ``tm`` get no gradient), up to
+    ``BWD_MAX_ROWS`` rows: a larger differentiable call raises; without
+    gradients any size goes, in chunks of ``FWD_CHUNK_ROWS`` rows."""
+    who = "fused_field_volrend"
+    if u.device.type == "cpu":
+        return fused_field_volrend_plain(leaves, u, sh, dt, tm, S, compute_dtype)
+    if u.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {u.device}")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"{who}: the CUDA kernels compute in bf16")
+    _check_render_inputs(who, u, sh, dt, tm, S)
+    if needs_grad(*leaves, u):
+        _check_backward_rows(who, u.shape[0])  # now, not when the backward runs
+        return _FieldVolrend.apply(S, u, sh, dt, tm, *leaves)
+    return _launch_forward(leaves, u, sh, dt, tm, S)
+
+
+# wrapper calls that launched the kernels since the counters were last reset
 fused_field_volrend.launches = 0
+fused_field_volrend_bwd.launches = 0

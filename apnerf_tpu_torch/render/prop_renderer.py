@@ -76,10 +76,13 @@ def render_rays_prop(
     noises=None,
     field_packed_fn: Optional[Callable] = None,
     field_packed_vr_fn: Optional[Callable] = None,
-) -> Dict[str, torch.Tensor]:
+    return_levels: bool = False,
+):
     """One proposal round + main field render → outs. Unlike the JAX
-    function it returns no ``prop_loss``: that is the train step's, and the
-    candidate render has no use for it. Rays that miss the aabb get a
+    function it computes no ``prop_loss``: the candidate render has no use
+    for it. The train step asks with ``return_levels`` for what that loss
+    reads and gets ``(outs, (levels, t0, t1, weights))``: references to
+    tensors the render made anyway. Rays that miss the aabb get a
     degenerate near≈far interval, hence zero weights and pure background.
 
     ``field_packed_vr_fn``: ``(pos [R,S,3], rays_d [R,3], t0, t1, miss) →
@@ -87,7 +90,7 @@ def render_rays_prop(
     taken when no variance is asked for. ``field_packed_fn``: ``(pos,
     rays_d) → packed [R, S, 4+C]`` (``spectral.forward_packed``). Either
     replaces ``field_fn``, with the same outputs."""
-    t0, t1, t_mid, pos, miss, _ = prop_sample_intervals(
+    t0, t1, t_mid, pos, miss, levels = prop_sample_intervals(
         prop_density_fn, rays_o, rays_d, aabb, num_samples=num_samples,
         num_prop_samples=num_prop_samples, near_plane=near_plane,
         far_plane=far_plane, stratified=stratified, generator=generator, noises=noises,
@@ -97,18 +100,19 @@ def render_rays_prop(
         # per-sample field values never reach this function: the kernel
         # returns the per-ray sums; the background and the depth's
         # normalisation stay out here
-        acc, _ = field_packed_vr_fn(pos, rays_d, t0, t1, miss)
+        acc, weights = field_packed_vr_fn(pos, rays_d, t0, t1, miss)
         opacities = acc[:, 3:4]
         rgb_acc = acc[:, 0:3]
         if render_bkgd is not None:
             rgb_acc = rgb_acc + render_bkgd * (1.0 - opacities)
-        return {
+        outs = {
             "rgb": rgb_acc,
             "opacity": opacities,
             "depth": acc[:, 4:5] / opacities.clamp(min=torch.finfo(acc.dtype).eps),
             "sem": acc[:, 5:],
             "n_samples": n_samples,
         }
+        return (outs, (levels, t0, t1, weights)) if return_levels else outs
 
     if field_packed_fn is not None:
         y = field_packed_fn(pos, rays_d)  # [R, S, 4+C]
@@ -130,4 +134,4 @@ def render_rays_prop(
         outs["depth_var"] = volrend.render_variance(
             weights, t_mid[..., None], outs["depth"]
         )[..., 0:1]
-    return outs
+    return (outs, (levels, t0, t1, weights)) if return_levels else outs

@@ -6,7 +6,8 @@ optimizer state and occupancy grids), the member core, the train phase
 and ``make_flagship_occ_update``, whose density queries run through the
 CUDA field kernel.
 
-The member core takes the combined-kernel branch (``flagship.py:119-194``):
+The member core's default route, ``lossgrad``, is the combined-kernel
+branch (``flagship.py:119-194``):
   1. proposal sampling, without gradients;
   2. ``spectral.forward_packed_lossgrad``: the main field's render, 3-term
      loss and whole backward in one call of the CUDA train-step kernel;
@@ -14,9 +15,20 @@ The member core takes the combined-kernel branch (``flagship.py:119-194``):
      detached) and the proposal-matching loss differentiated by autograd,
      through the CUDA weights kernel's backward on the card;
   4. ``finish``: Adam with the NaN guard, on the device.
-``lossgrad=False`` selects the autograd branch (``flagship.py:243-311``)
-instead: the same loss by autograd through ``spectral.forward``. It is
-the plain reference the tests and ``chip_smoke.py`` hold the kernels to.
+The four other routes are the JAX member core's ``loss_fn`` branch
+(``flagship.py:243-311``): one loss by autograd through
+``render_rays_prop``, differing in the renderer branch and field call
+each takes, and so in the kernels whose forward and backward it runs:
+  ``volrend``  the fused field-and-render branch (``forward_packed_volrend``);
+  ``packed``   the packed-field branch (``forward_packed``), weights kernel;
+  ``field``    the plain branch, encode + trunk in the field kernel, heads
+               outside;
+  ``trunk``    the plain branch, the encode outside, the trunk in the MLP
+               kernel.
+The JAX package picks among them with environment switches; here the route
+is a plain argument, and a route whose kernels refuse the field raises
+rather than becoming another. With the kernels' plain versions in their
+place, each is the reference ``chip_smoke.py`` holds that route to.
 
 The ensemble is a Python list of E member modules, not a vmapped axis.
 """
@@ -35,7 +47,7 @@ from ..models.propnet import prop_loss
 from ..ops import volrend
 from ..ops.cuda.fused_field_volrend import LOSS_WEIGHTS, loss_terms
 from ..ops.occupancy import OccGridState, init_occ_grid, update_occ_grid
-from ..render.prop_renderer import prop_sample_intervals
+from ..render.prop_renderer import prop_sample_intervals, render_rays_prop
 from .phase import make_train_phase
 from .schedule import cyclic_lr
 from .step import AdamState, EnsembleState, make_optimizer
@@ -134,22 +146,34 @@ def _main_loss(terms) -> torch.Tensor:
     return sum(c * t for c, t in zip(LOSS_WEIGHTS, terms))
 
 
-def make_flagship_member_core(cfg: PipelineConfig, lossgrad: bool = True, schedule=None):
+ROUTES = ("lossgrad", "volrend", "packed", "field", "trunk")
+
+
+def make_flagship_member_core(cfg: PipelineConfig, route: str = "lossgrad", schedule=None,
+                              fused_prop: bool = False):
     """One member's train step → ``member_core(member, opt_state, batch,
-    step, generator=None, noise=None) -> CoreOutput``. ``schedule``
-    replaces the default cyclic LR (the final refit's). The member's
-    parameters update in place. ``noise`` [R, S+1] replaces the
-    stratified draw of proposal sampling. The occupancy grid is not
-    touched here: the planner reads it, and ``make_flagship_occ_update``
-    refreshes it once per chunk (``flagship.py:196-204``)."""
+    step, generator=None, noise=None) -> CoreOutput``. ``route`` is one of
+    ``ROUTES`` (see the module docstring); ``fused_prop`` takes the
+    proposal field through the field kernel too, in sampling and in the
+    proposal loss (the JAX package's opt-in route). ``schedule`` replaces
+    the default cyclic LR (the final refit's). The member's parameters
+    update in place. ``noise`` [R, S+1] replaces the stratified draw of
+    proposal sampling. The occupancy grid is not touched here: the planner
+    reads it, and ``make_flagship_occ_update`` refreshes it once per chunk
+    (``flagship.py:196-204``)."""
+    if route not in ROUTES:
+        raise ValueError(f"unknown train route {route!r}: one of {ROUTES}")
     s_cfg, p_cfg = make_spectral_config(cfg), make_prop_config(cfg)
     opt = make_optimizer(cfg, schedule or default_spectral_schedule(cfg))
     S = cfg.max_samples_train
 
+    def prop_density(member, pos):
+        return spectral.query_density_field(member.prop, p_cfg, pos, fused=fused_prop)
+
     def sample(member, batch, generator, noise):
         aabb = torch.as_tensor(cfg.aabb, dtype=torch.float32, device=batch.origins.device)
         return prop_sample_intervals(
-            lambda p: spectral.query_density_field(member.prop, p_cfg, p),
+            lambda p: prop_density(member, p),
             batch.origins, batch.viewdirs, aabb, num_samples=S,
             num_prop_samples=cfg.num_prop_samples, near_plane=cfg.near_plane,
             stratified=True, generator=generator,
@@ -171,7 +195,7 @@ def make_flagship_member_core(cfg: PipelineConfig, lossgrad: bool = True, schedu
         tm0 = 0.5 * (te0 + te1)
         pos0 = batch.origins[:, None, :] + tm0[..., None] * batch.viewdirs[:, None, :]
         with torch.enable_grad():
-            sig = spectral.query_density_field(member.prop, p_cfg, pos0)[..., 0]
+            sig = prop_density(member, pos0)[..., 0]
             wp, _, _ = volrend.render_weight_from_density(te0, te1, sig)
             p_loss = prop_loss([(t_edges0, wp)], t0, t1, weights)
             prop_grads = torch.autograd.grad(p_loss, list(member.prop.parameters()))
@@ -180,14 +204,28 @@ def make_flagship_member_core(cfg: PipelineConfig, lossgrad: bool = True, schedu
         return loss, (*terms, (~miss).sum() * S), grads
 
     def autograd_loss_and_grads(member, batch, generator, noise):
+        main = member.main
+        trunk = "mlp" if route == "trunk" else "field"
+
+        def field_fn(pos, dirs):
+            return spectral.forward(main, s_cfg, pos, dirs, trunk=trunk)
+
+        def field_packed_fn(pos, rays_d):
+            return spectral.forward_packed(main, s_cfg, pos, rays_d)
+
+        def field_packed_vr_fn(pos, rays_d, t0, t1, miss):
+            return spectral.forward_packed_volrend(main, s_cfg, pos, rays_d, t0, t1, miss)
+
+        aabb = torch.as_tensor(cfg.aabb, dtype=torch.float32, device=batch.origins.device)
         with torch.enable_grad():
-            t0, t1, _, pos, miss, levels = sample(member, batch, generator, noise)
-            dirs = batch.viewdirs[:, None, :].expand(pos.shape)
-            rgbs, sigmas, sems = spectral.forward(member.main, s_cfg, pos, dirs)
-            sigmas = sigmas[..., 0] * (~miss[:, None])
-            weights, _, _ = volrend.render_weight_from_density(t0, t1, sigmas)
-            out = volrend.render_outputs(
-                weights, t0, t1, rgbs, sems=sems, render_bkgd=batch.color_bkgd
+            out, (levels, t0, t1, weights) = render_rays_prop(
+                field_fn, lambda p: prop_density(member, p), batch.origins, batch.viewdirs,
+                aabb, num_samples=S, num_prop_samples=cfg.num_prop_samples,
+                near_plane=cfg.near_plane, render_bkgd=batch.color_bkgd, stratified=True,
+                generator=generator, noises=[noise] if noise is not None else None,
+                field_packed_fn=field_packed_fn if route == "packed" else None,
+                field_packed_vr_fn=field_packed_vr_fn if route == "volrend" else None,
+                return_levels=True,
             )
             p_loss = prop_loss(levels, t0, t1, weights)
             terms = (
@@ -197,10 +235,10 @@ def make_flagship_member_core(cfg: PipelineConfig, lossgrad: bool = True, schedu
             )
             loss = _main_loss(terms) + cfg.prop_loss_weight * p_loss
             grads = torch.autograd.grad(loss, list(member.parameters()))
-        aux = (*(t.detach() for t in terms), (~miss).sum() * S)
+        aux = (*(t.detach() for t in terms), out["n_samples"])
         return loss.detach(), aux, list(grads)
 
-    loss_and_grads = fused_loss_and_grads if lossgrad else autograd_loss_and_grads
+    loss_and_grads = fused_loss_and_grads if route == "lossgrad" else autograd_loss_and_grads
 
     def finish(member, opt_state, loss, aux, grads) -> CoreOutput:
         """The NaN-guarded Adam step (``flagship.py:207-232``): a
@@ -218,11 +256,13 @@ def make_flagship_member_core(cfg: PipelineConfig, lossgrad: bool = True, schedu
     return member_core
 
 
-def make_flagship_train_phase(cfg: PipelineConfig, schedule=None):
-    """The chunk of steps over the flagship member core's combined-kernel
-    branch (same signature as ``phase.make_train_phase``'s ``phase_fn``).
-    Pair it with ``make_flagship_occ_update`` once per chunk."""
-    return make_train_phase(cfg, make_flagship_member_core(cfg, schedule=schedule))
+def make_flagship_train_phase(cfg: PipelineConfig, schedule=None, route: str = "lossgrad",
+                              fused_prop: bool = False):
+    """The chunk of steps over the flagship member core on ``route`` (same
+    signature as ``phase.make_train_phase``'s ``phase_fn``). Pair it with
+    ``make_flagship_occ_update`` once per chunk."""
+    return make_train_phase(
+        cfg, make_flagship_member_core(cfg, route, schedule=schedule, fused_prop=fused_prop))
 
 
 def make_flagship_occ_update(cfg: PipelineConfig) -> Callable:

@@ -1,7 +1,7 @@
 """Drive the PyTorch port's planning step, train step and whole active
 mapping loop on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase below
+    python3 chip_smoke.py            # every phase below but 12
     python3 chip_smoke.py --modes    # and phase 12
 
 Phases, each of which must pass:
@@ -59,7 +59,30 @@ Phases, each of which must pass:
      the first candidate of a planning step (predictive information) and
      one evaluation view (per-ray outputs);
  12. (``--modes`` only) two planning steps of 4 candidates in the
-     overlapped and in the serial mode, wall time of each.
+     overlapped and in the serial mode, wall time of each;
+ 13. the backwards of the render and trunk kernels against autograd
+     through their plain versions at the train shape (2048 x 128 rows, 29
+     classes; the field kernel's also at the proposal field's 2048 x 64
+     rows with 32 frequencies and a 2 x 64 trunk), zero and random biases,
+     every gradient leaf and du / dx, each limit shown to catch a zeroed
+     and a negated gradient, from the cotangents a train loss hands each
+     of them: the fused field-and-render kernel's (with a real cotangent
+     of the weights), the packed field kernel's, the field kernel's, and
+     the MLP kernel forward and backward at [262,144, 256] with x in bf16
+     and in f32;
+ 14. the member core's four other train routes (``volrend``, ``packed``,
+     ``field``, ``field`` again with the proposal field through the field
+     kernel too, ``trunk``): the bench protocol at full width on the scan
+     of phase 7, one warm-up and one timed chunk of 100 steps each, ms per
+     step, a finite falling loss, exact launch counts, one member step of
+     the route against the same route on the plain versions (the main
+     field's tensors and the proposal field's each at their limits), and
+     one member step traced.
+ 15. (``--diagnose`` only) for the routes ``packed`` and ``volrend``, one
+     member step with the forward kernels and the plain backwards between
+     the two sides of phase 14's comparison: how much of a difference is
+     the backward kernel's and how much the forwards'.
+Phases 13 to 15 run after phase 9.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and before that one JSON object
@@ -387,11 +410,21 @@ def main(argv=None) -> int:
     # ---- 5-7. the train step's kernels and the train path ------------------------
     records["fused_render_weights_bwd"] = phase_k2_bwd(dev)
     records["fused_field_volrend_lossgrad"] = phase_k6(dev)
-    phase_train(dev)
+    bench_run = phase_train(dev)
 
     # ---- 8-9. the render kernels against their plain versions ---------------------
     records["fused_field_heads"] = phase_k4(dev)
     records["fused_field_volrend"] = phase_k5(dev)
+
+    # ---- 13-14. the kernels' backwards and the train routes that run them ----------
+    records["fused_field_volrend_bwd"] = phase_render_bwd(dev, "volrend")
+    records["fused_field_heads_bwd"] = phase_render_bwd(dev, "heads")
+    records["fused_spectral_field_bwd"] = phase_k1_bwd(dev)
+    records["fused_mlp_apply"], records["fused_mlp_apply_bwd"] = phase_k3(dev)
+    route_launches = phase_routes(dev, bench_run)
+    if "--diagnose" in argv:
+        phase_backward_alone(dev, bench_run)
+    del bench_run
 
     # ---- 10-11. the loop through the CLI, and its renders on both routes ----------
     loop_mapper, launches = phase_loop(dev)
@@ -418,13 +451,39 @@ def main(argv=None) -> int:
         {"name": "fused_field_volrend", "route": "cuda",
          "source": "apnerf_tpu_torch/csrc/fused_field_volrend.cu",
          "replaces": "apnerf_tpu/ops/pallas/fused_field_volrend.py:629"},
+        {"name": "fused_field_volrend_bwd", "route": "cuda",
+         "source": "apnerf_tpu_torch/csrc/fused_field_volrend.cu",
+         "replaces": "apnerf_tpu/ops/pallas/fused_field_volrend.py:598"},
+        {"name": "fused_field_heads_bwd", "route": "cuda",
+         "source": "apnerf_tpu_torch/csrc/fused_field_heads.cu",
+         "replaces": "apnerf_tpu/ops/pallas/fused_field_heads.py:438"},
+        {"name": "fused_spectral_field_bwd", "route": "cuda",
+         "source": "apnerf_tpu_torch/csrc/fused_mlp.cu",
+         "replaces": "apnerf_tpu/ops/pallas/fused_mlp.py:348"},
+        {"name": "fused_mlp_apply", "route": "cuda",
+         "source": "apnerf_tpu_torch/csrc/fused_mlp.cu",
+         "replaces": "apnerf_tpu/ops/pallas/fused_mlp.py:433"},
+        {"name": "fused_mlp_apply_bwd", "route": "cuda",
+         "source": "apnerf_tpu_torch/csrc/fused_mlp.cu",
+         "replaces": "apnerf_tpu/ops/pallas/fused_mlp.py:292"},
     ]
     for k in kernels:
-        err, ms, pms, (bound_ms, bound_by) = records[k["name"]]
-        # launches: over the loop of phase 10, the main path. No single
-        # PyTorch call computes any of these functions, so no library time.
-        k.update(launches=launches[k["name"]], max_abs_err=err, ms=ms, plain_ms=pms,
+        err, ms, pms, (bound_ms, bound_by), *rel = records[k["name"]]
+        # launches: over the main path that runs the kernel: the loop of phase
+        # 10, or for the kernels of the train routes the timed chunk of its
+        # route in phase 14. No single PyTorch call computes any of these
+        # functions (a whole field, a render, its backward, a whole MLP with
+        # the bf16 contract), so no library time.
+        n = launches[k["name"]] or route_launches.get(k["name"], 0)
+        if n == 0:
+            fail(f"no main path launched {k['name']}")
+        k.update(launches=n, max_abs_err=err, ms=ms, plain_ms=pms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        if rel:
+            # a backward's leaves differ in scale by orders of magnitude, so its
+            # max-abs error is that of the largest leaf: the worst error over
+            # its own leaf's max-abs says how far the kernel is off
+            k["max_err_over_leaf_scale"] = rel[0]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
@@ -436,12 +495,21 @@ def main(argv=None) -> int:
 
 def all_counters():
     """Every kernel wrapper of the port, by name: each counts its launches."""
-    from apnerf_tpu_torch.ops.cuda.fused_field_heads import fused_field_heads
+    from apnerf_tpu_torch.ops.cuda.fused_field_heads import (
+        fused_field_heads,
+        fused_field_heads_bwd,
+    )
     from apnerf_tpu_torch.ops.cuda.fused_field_volrend import (
         fused_field_volrend,
+        fused_field_volrend_bwd,
         fused_field_volrend_lossgrad,
     )
-    from apnerf_tpu_torch.ops.cuda.fused_mlp import fused_spectral_field
+    from apnerf_tpu_torch.ops.cuda.fused_mlp import (
+        fused_mlp_apply,
+        fused_mlp_apply_bwd,
+        fused_spectral_field,
+        fused_spectral_field_bwd,
+    )
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
         fused_render_weights,
         fused_render_weights_bwd,
@@ -449,7 +517,9 @@ def all_counters():
 
     return {f.__name__: f for f in (
         fused_spectral_field, fused_render_weights, fused_render_weights_bwd,
-        fused_field_volrend_lossgrad, fused_field_heads, fused_field_volrend)}
+        fused_field_volrend_lossgrad, fused_field_heads, fused_field_volrend,
+        fused_field_volrend_bwd, fused_field_heads_bwd, fused_spectral_field_bwd,
+        fused_mlp_apply, fused_mlp_apply_bwd)}
 
 
 def reset_counts(counters):
@@ -463,25 +533,30 @@ def read_counts(counters):
 
 @contextlib.contextmanager
 def plain_routes():
-    """Every forward kernel of the render paths replaced by its plain
-    version where the port's modules look it up."""
+    """Every kernel of the render and train paths replaced by its plain
+    version where the port's modules look it up (autograd then goes through
+    the plain versions, so no backward kernel runs either)."""
     from apnerf_tpu_torch.models import spectral
     from apnerf_tpu_torch.ops import volrend
     from apnerf_tpu_torch.ops.cuda.fused_field_heads import fused_field_heads_plain
     from apnerf_tpu_torch.ops.cuda.fused_field_volrend import fused_field_volrend_plain
-    from apnerf_tpu_torch.ops.cuda.fused_mlp import fused_spectral_field_plain
+    from apnerf_tpu_torch.ops.cuda.fused_mlp import (
+        fused_mlp_apply_plain,
+        fused_spectral_field_plain,
+    )
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import fused_render_weights_plain
 
-    saved = (spectral.fused_spectral_field, spectral.fused_field_heads,
+    saved = (spectral.fused_spectral_field, spectral.fused_mlp_apply, spectral.fused_field_heads,
              spectral.fused_field_volrend, volrend.fused_render_weights)
     spectral.fused_spectral_field = fused_spectral_field_plain
+    spectral.fused_mlp_apply = fused_mlp_apply_plain
     spectral.fused_field_heads = fused_field_heads_plain
     spectral.fused_field_volrend = fused_field_volrend_plain
     volrend.fused_render_weights = fused_render_weights_plain
     try:
         yield
     finally:
-        (spectral.fused_spectral_field, spectral.fused_field_heads,
+        (spectral.fused_spectral_field, spectral.fused_mlp_apply, spectral.fused_field_heads,
          spectral.fused_field_volrend, volrend.fused_render_weights) = saved
 
 
@@ -661,26 +736,22 @@ def _step_inputs(dev, ds, seed):
     return batch, noise
 
 
-def compare_member_step(dev, state, ds, seed):
+def compare_member_step(dev, state, ds, seed, route="lossgrad", fused_prop=False,
+                        tols=(STEP_LOSS_RTOL, STEP_UPDATE_TOL, STEP_GRAD_TOL), prop_tols=None):
     """One member step of member 0 from ``state`` on a batch drawn with
-    ``seed``: the combined-kernel branch on the kernels against the
-    autograd branch with the plain versions in place of the kernels →
-    (loss relative error, worst update err/scale, worst gradient
-    err/scale), each over the member's tensors. The gradient is recovered
-    from Adam's first moment, g = (mu' - b1 mu) / (1 - b1)."""
+    ``seed``: ``route`` on the kernels against the same route with the
+    plain versions in place of the kernels (for the combined-kernel branch,
+    whose plain version returns gradients too, against the autograd branch
+    ``field`` on the plain versions). Holds the loss (relative) to
+    ``tols[0]`` and every tensor's update and gradient (err / max-abs) to
+    ``tols[1:]``; ``prop_tols``, where given, are the (update, gradient)
+    limits of the proposal field's tensors. → (loss relative error, worst
+    update and worst gradient over the main field's tensors, the same over
+    the proposal field's). The gradient is recovered from Adam's first
+    moment, g = (mu' - b1 mu) / (1 - b1)."""
     import copy
 
     from apnerf_tpu_torch import bench
-    from apnerf_tpu_torch.models import spectral
-    from apnerf_tpu_torch.ops import volrend
-    from apnerf_tpu_torch.ops.cuda.fused_mlp import (
-        fused_spectral_field,
-        fused_spectral_field_plain,
-    )
-    from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
-        fused_render_weights,
-        fused_render_weights_plain,
-    )
     from apnerf_tpu_torch.train.flagship import make_flagship_member_core
     from apnerf_tpu_torch.train.step import AdamState
 
@@ -695,14 +766,10 @@ def compare_member_step(dev, state, ds, seed):
                    noise=noise)
         return member, out
 
-    mk, ok = one_step(make_flagship_member_core(cfg))
-    spectral.fused_spectral_field = fused_spectral_field_plain
-    volrend.fused_render_weights = fused_render_weights_plain
-    try:
-        mp, op_ = one_step(make_flagship_member_core(cfg, lossgrad=False))
-    finally:
-        spectral.fused_spectral_field = fused_spectral_field
-        volrend.fused_render_weights = fused_render_weights
+    mk, ok = one_step(make_flagship_member_core(cfg, route, fused_prop=fused_prop))
+    with plain_routes():
+        mp, op_ = one_step(make_flagship_member_core(
+            cfg, "field" if route == "lossgrad" else route, fused_prop=fused_prop))
     if bool(ok.skipped) or bool(op_.skipped):
         fail("the member step met a non-finite gradient")
     b1 = 0.9
@@ -723,23 +790,33 @@ def compare_member_step(dev, state, ds, seed):
             # larger max-abs of its weight's gradient and its own.
             rg = eg / max(float(gp[i].abs().max()), float(gp[i - 1].abs().max()), 1e-30)
         rows.append((name, ru, rg))
-    worst_u = max(r[1] for r in rows)
-    worst_g = max(r[2] for r in rows)
-    print(f"  member step (batch seed {seed}), kernels vs plain versions: loss "
-          f"{float(ok.loss):.6f} vs {float(op_.loss):.6f} (rel {loss_rel:.3e}, tol "
-          f"{STEP_LOSS_RTOL}); update worst err/scale {worst_u:.3e} (tol {STEP_UPDATE_TOL}); "
-          f"gradient worst err/scale {worst_g:.3e} (tol {STEP_GRAD_TOL})", flush=True)
+    limits = {"main": tuple(tols[1:]), "prop": tuple(prop_tols or tols[1:])}
+    worst = {
+        part: (max(r[1] for r in rows if r[0].startswith(part)),
+               max(r[2] for r in rows if r[0].startswith(part)))
+        for part in limits
+    }
+    print(f"  member step on route {route}{' with fused_prop' if fused_prop else ''} (batch seed "
+          f"{seed}), kernels vs plain versions: loss {float(ok.loss):.6f} vs "
+          f"{float(op_.loss):.6f} (rel {loss_rel:.3e}, tol {tols[0]}); "
+          + "; ".join(
+              f"{part} field: update worst err/scale {worst[part][0]:.3e} (tol "
+              f"{limits[part][0]}), gradient {worst[part][1]:.3e} (tol {limits[part][1]})"
+              for part in limits), flush=True)
     for name, ru, rg in rows:
         print(f"    {name:24s} update {ru:.3e} gradient {rg:.3e}")
-    return loss_rel, worst_u, worst_g
+    over = [part for part in limits
+            if not (worst[part][0] <= limits[part][0] and worst[part][1] <= limits[part][1])]
+    if not loss_rel <= tols[0] or over:
+        fail(f"the member step on route {route} with the kernels disagrees with the plain "
+             f"versions (loss {loss_rel:.3e}, tensors of {over or 'no'} field over their limits)")
+    return loss_rel, worst["main"], worst["prop"]
 
 
 def phase_train(dev):
     """The bench protocol in process, launch counts over its timed chunks,
     then one member step with the kernels against one with their plain
-    versions. → the timed chunks' launch counts."""
-    import copy
-
+    versions. → the bench's data and run (phase 14 trains on the same scan)."""
     from apnerf_tpu_torch import bench
     from apnerf_tpu_torch.ops.cuda import fused_field_volrend as fvr
     from apnerf_tpu_torch.ops.cuda.fused_mlp import fused_spectral_field
@@ -747,8 +824,6 @@ def phase_train(dev):
         fused_render_weights,
         fused_render_weights_bwd,
     )
-    from apnerf_tpu_torch.train.flagship import make_flagship_member_core
-    from apnerf_tpu_torch.train.step import AdamState
 
     counters = (fused_spectral_field, fused_render_weights, fused_render_weights_bwd,
                 fvr.fused_field_volrend_lossgrad)
@@ -762,7 +837,8 @@ def phase_train(dev):
         counts.update({c.__name__: c.launches for c in counters})
 
     t_start = time.perf_counter()
-    run = bench.run(dev, timed=timed)
+    data = bench.make_data(dev)
+    run = bench.run(dev, timed=timed, data=data)
     res = run.result
     print(f"train path: {json.dumps(res)}", flush=True)
     print(f"  wall of the whole protocol {time.perf_counter() - t_start:.1f} s; "
@@ -789,16 +865,26 @@ def phase_train(dev):
     # one member step from the trained state: the combined-kernel branch on
     # the kernels against the autograd branch on the plain versions
     state, ds = run.state, run.dataset
-    loss_rel, worst_u, worst_g = compare_member_step(dev, state, ds, seed=123)
-    if not (loss_rel <= STEP_LOSS_RTOL and worst_u <= STEP_UPDATE_TOL
-            and worst_g <= STEP_GRAD_TOL):
-        fail("the member step with the kernels disagrees with the plain versions")
+    compare_member_step(dev, state, ds, seed=123)
+
+    profile_member_step(dev, state, ds, "lossgrad")
+    return data, run
+
+
+def profile_member_step(dev, state, ds, route, fused_prop=False, rows=20):
+    """One member step of ``route`` from ``state`` traced with
+    ``torch.profiler``: device time by kernel and the device's idle share."""
+    import copy
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from apnerf_tpu_torch import bench
+    from apnerf_tpu_torch.train.flagship import make_flagship_member_core
+    from apnerf_tpu_torch.train.step import AdamState
+
     batch, noise = _step_inputs(dev, ds, 123)
-    core = make_flagship_member_core(cfg)
+    core = make_flagship_member_core(bench.bench_config(), route, fused_prop=fused_prop)
     member = copy.deepcopy(state.members[0])
     opt = AdamState(*(t.clone() for t in state.opt[0]))
     core(member, opt, batch, state.step, noise=noise)
@@ -810,10 +896,193 @@ def phase_train(dev):
     busy = sum(
         e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA
     ) / 1e6
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
-    print(f"profiled member step: wall {t_p * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms, "
-          f"idle share {1 - busy / t_p:.1%}", flush=True)
-    return counts
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=rows))
+    print(f"profiled member step on route {route}: wall {t_p * 1e3:.3f} ms, device busy "
+          f"{busy * 1e3:.3f} ms, idle share {1 - busy / t_p:.1%}", flush=True)
+
+
+# A member step of each autograd route on its kernels against the same route
+# on the plain versions: (loss relative, update err/scale, gradient
+# err/scale) for every tensor, as for the combined-kernel branch above, and
+# for the proposal field's tensors where they have limits of their own.
+# About 2x one reading on an H100 (PERF.md; the readings repeated to the
+# last digit over three runs at this depth). A zeroed (negated) gradient
+# reads 0.75 (1.47) for the update and 1 (2) for the gradient, over every
+# limit here. With ``fused_prop`` the two sides sample from proposal
+# densities that differ by the bias convention, so they render other
+# samples: the main field's tensors read higher than without, and the
+# proposal field's, whose gradients come through the proposal loss alone,
+# highest.
+ROUTE_STEP_TOL = {
+    ("volrend", False): ((4e-4, 3.5e-1, 3.2e-2), None),
+    ("packed", False): ((2.5e-4, 2e-1, 9e-2), None),
+    ("field", False): ((STEP_LOSS_RTOL, STEP_UPDATE_TOL, STEP_GRAD_TOL), None),
+    ("field", True): ((3e-4, 2e-1, 9e-2), (1e-1, 2.2e-1)),
+    ("trunk", False): ((STEP_LOSS_RTOL, STEP_UPDATE_TOL, STEP_GRAD_TOL), None),
+}
+
+
+def phase_routes(dev, bench_run):
+    """The member core's four autograd routes through the bench protocol on
+    the scan of the train path's phase, depth cut to one warm-up and one
+    timed chunk each → the launch counts of each route's own kernels over
+    its timed chunk."""
+    from apnerf_tpu_torch import bench
+
+    data, _ = bench_run
+    cfg = bench.bench_config()
+    E = cfg.n_ensembles
+    counters = all_counters()
+    own = {}
+    # (route, the proposal field through the field kernel too, the route's
+    # own kernels); the field route runs twice, the second time with the
+    # proposal field along, so the field kernel's backward runs at both of
+    # its shapes on a train path
+    for route, fused_prop, kernels in (
+        ("volrend", False, ("fused_field_volrend", "fused_field_volrend_bwd")),
+        ("packed", False, ("fused_field_heads", "fused_field_heads_bwd")),
+        ("field", False, ("fused_spectral_field", "fused_spectral_field_bwd")),
+        ("field", True, ("fused_spectral_field", "fused_spectral_field_bwd")),
+        ("trunk", False, ("fused_mlp_apply", "fused_mlp_apply_bwd")),
+    ):
+        counts = {}
+
+        @contextlib.contextmanager
+        def timed():
+            reset_counts(counters)
+            yield
+            counts.update(read_counts(counters))
+
+        t_start = time.perf_counter()
+        run = bench.run(dev, timed=timed, route=route, fused_prop=fused_prop, n_calls=1,
+                        data=data)
+        res = run.result
+        n = res["timed_steps"]
+        first, last = float(run.losses[:10].mean()), float(run.losses[-10:].mean())
+        print(f"train route {route}{' with fused_prop' if fused_prop else ''}: "
+              f"{res['ms_per_step']:.3f} ms per step (phase {res['phase_ms_per_step']:.3f}) over "
+              f"{n} timed steps, {res['value']:.6e} samples/s; loss {first:.6f} over the first "
+              f"10 steps of the warm-up chunk, {last:.6f} over the last 10 timed steps, final "
+              f"{res['final_loss']:.6f}; canary {res['psnr_100steps']:.3f} dB after "
+              f"{n + bench.STEPS_PER_CALL} steps (not gated at this depth); wall "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        print(f"  launches over the timed chunk: {counts}", flush=True)
+        if not (torch.isfinite(run.losses).all() and np.isfinite(res["final_loss"])):
+            fail(f"train route {route}: a loss is not finite")
+        if not last < first:
+            fail(f"train route {route}: the loss did not fall ({first} -> {last})")
+        # per member step: the proposal level's weights, forward and backward,
+        # on every route; the main weights' too where the route renders with
+        # the weights kernel; the route's own kernels once each, the field
+        # kernel once more per member for the occupancy update of the chunk
+        main_w = 0 if route == "volrend" else 1
+        expected = dict.fromkeys(counts, 0)
+        expected.update(fused_render_weights=(1 + main_w) * E * n,
+                        fused_render_weights_bwd=(1 + main_w) * E * n,
+                        fused_spectral_field=E)
+        for k in kernels:
+            expected[k] = expected.get(k, 0) + E * n
+        if fused_prop:  # the proposal field's sampling pass, forward and backward
+            expected["fused_spectral_field"] += E * n
+            expected["fused_spectral_field_bwd"] += E * n
+        if counts != expected:
+            fail(f"train route {route} launch counts {counts}, expected {expected}")
+        own.update({k: counts[k] for k in kernels})
+
+        tols, prop_tols = ROUTE_STEP_TOL[route, fused_prop]
+        compare_member_step(dev, run.state, run.dataset, seed=123, route=route,
+                            fused_prop=fused_prop, tols=tols, prop_tols=prop_tols)
+        profile_member_step(dev, run.state, run.dataset, route, fused_prop, rows=10)
+        del run
+        torch.cuda.empty_cache()
+    return own
+
+
+@contextlib.contextmanager
+def plain_backwards():
+    """The packed field kernel and the fused field-and-render kernel keep
+    their forward kernels and take the plain backward on the same
+    cotangents, where ``models/spectral.py`` looks them up."""
+    from apnerf_tpu_torch.models import spectral
+    from apnerf_tpu_torch.ops.cuda import fused_field_heads as ffh
+    from apnerf_tpu_torch.ops.cuda import fused_field_volrend as fvr
+
+    def hybrid(forward, backward_plain, n_rest):
+        class Hybrid(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, n_leaves, *args):
+                ctx.n = n_leaves
+                ctx.save_for_backward(*args)
+                leaves, rest = list(args[:n_leaves]), args[n_leaves:]
+                with torch.no_grad():
+                    return forward(leaves, *rest[:n_rest], int(rest[n_rest]))
+
+            @staticmethod
+            def backward(ctx, *gs):
+                args = ctx.saved_tensors
+                leaves, rest = list(args[:ctx.n]), args[ctx.n:]
+                gs = [None if g is None else g.contiguous() for g in gs]
+                grads, du = backward_plain(leaves, *rest[:n_rest], int(rest[n_rest]), *gs,
+                                           ctx.needs_input_grad[1 + ctx.n])
+                return (None, *grads, du, *[None] * n_rest)
+
+        def call(leaves, *rest_and_dtype):
+            *rest, S = rest_and_dtype[:n_rest + 1]
+            return Hybrid.apply(len(leaves), *leaves, *rest, torch.tensor(S))
+
+        return call
+
+    saved = spectral.fused_field_heads, spectral.fused_field_volrend
+    spectral.fused_field_heads = hybrid(ffh.fused_field_heads, ffh.fused_field_heads_bwd_plain, 2)
+    spectral.fused_field_volrend = hybrid(fvr.fused_field_volrend,
+                                          fvr.fused_field_volrend_bwd_plain, 4)
+    try:
+        yield
+    finally:
+        spectral.fused_field_heads, spectral.fused_field_volrend = saved
+
+
+def phase_backward_alone(dev, bench_run, routes=("packed", "volrend")):
+    """(``--diagnose`` only) Where a route's member step differs from the
+    same route on the plain versions: one step from a state trained for 200
+    steps with the kernels (A), with the forward kernels and the plain
+    backwards (B) and with the plain versions (C), the gradient of every
+    tensor, err / max-abs: A against B is the backward kernel alone on
+    equal cotangents, B against C the two forwards."""
+    import copy
+
+    from apnerf_tpu_torch import bench
+    from apnerf_tpu_torch.train.flagship import make_flagship_member_core
+    from apnerf_tpu_torch.train.step import AdamState
+
+    cfg = bench.bench_config()
+    for route in routes:
+        run = bench.run(dev, route=route, n_calls=1, data=bench_run[0])
+        state = run.state
+        old, opt0 = state.members[0], state.opt[0]
+        sizes = [p.numel() for p in old.parameters()]
+        for seed in (123, 7):
+            batch, noise = _step_inputs(dev, run.dataset, seed)
+
+            def gradients():
+                out = make_flagship_member_core(cfg, route)(
+                    copy.deepcopy(old), AdamState(*(t.clone() for t in opt0)), batch,
+                    state.step, noise=noise)
+                return torch.split((out.opt.mu - 0.9 * opt0.mu) / 0.1, sizes)
+
+            ga = gradients()
+            with plain_backwards():
+                gb = gradients()
+            with plain_routes():
+                gc = gradients()
+            print(f"route {route}, batch seed {seed}: gradient err / max-abs, kernels (A), "
+                  f"forward kernels with plain backwards (B), plain versions (C)")
+            for (name, _), a, b, c in zip(old.named_parameters(), ga, gb, gc):
+                if name.startswith("main"):
+                    print(f"    {name:24s} A-C {_errs(a, c)[1]:.3e}  B-C {_errs(b, c)[1]:.3e}  "
+                          f"A-B {_errs(a, b)[1]:.3e}")
+        del run
+        torch.cuda.empty_cache()
 
 
 # packed field kernel against its plain version, err / max-abs of the plain
@@ -1008,6 +1277,364 @@ def phase_k5(dev):
     return record
 
 
+# The backwards of the render kernels and of the trunk kernels against
+# autograd through their plain versions, per gradient leaf: err / max-abs of
+# the plain gradient, (default limit, leaves with their own limit), about 2x
+# the readings on an H100 (PERF.md; seeded inputs, both sides deterministic).
+# A zeroed gradient reads 1 and a negated one 2 on this scale, and each
+# limit is checked at run time to lie under both. The cotangents are those a
+# train step hands each backward (``_loss_cotangents``): a loss's, with
+# structure across rows, as the train-step kernel's are. With zero biases
+# the two sides differ by the bf16 rounding points (per-ray cotangents, head
+# inputs, cotangents between layers). With random biases they also differ
+# by the bias convention (the plain versions add hidden biases in bf16 after
+# rounding, the kernels in f32 before), which flips the ReLU mask of units
+# near zero: the spectrum's gradients (sums over all rows with
+# cancellation) and the per-sample position gradient read highest.
+BWD_TOL = {
+    "fused_field_volrend_bwd": {
+        "zero biases": (1e-2, {}),
+        "random biases": (2e-2, {"W": 1.5e-1, "phase": 1.4e-1, "mlp_base.w0": 9e-2,
+                                 "du": 1.7e-1}),
+    },
+    "fused_field_heads_bwd": {
+        "zero biases": (1.2e-2, {"du": 2e-2}),
+        "random biases": (2e-2, {"W": 2.2e-1, "phase": 2.1e-1, "mlp_base.w0": 1.1e-1,
+                                 "du": 3e-1}),
+    },
+    "fused_spectral_field_bwd": {
+        "zero biases": (1.2e-2, {}),
+        "random biases": (2e-2, {"W": 1.7e-1, "phase": 1.7e-1, "w0": 1e-1, "w1": 4e-2,
+                                 "du": 2e-1}),
+    },
+    "fused_spectral_field_bwd, proposal field": {
+        "zero biases": (1.4e-2, {}),
+        "random biases": (2.4e-2, {"W": 1.6e-1, "phase": 1.5e-1, "du": 2.4e-1}),
+    },
+    "fused_mlp_apply_bwd": {
+        "zero biases": (1.2e-2, {}),
+        "random biases": (2e-2, {"w0": 1.1e-1, "w1": 3e-2, "dx": 3e-1}),
+    },
+}
+K3_FWD_TOL = {"zero biases": 1e-5, "random biases": 1e-2}  # as the field kernel's
+
+
+def _check_grads(label, names, got, ref, tol, leaf_tol):
+    """Hold each gradient to its plain version on the leaf's scale and show
+    that its limit catches a zeroed and a negated gradient → (the largest
+    max-abs error, the largest err / leaf scale)."""
+    over, worst_abs, worst_rel = [], 0.0, 0.0
+    for name, g, r in zip(names, got, ref):
+        if g.shape != r.shape or not torch.isfinite(g.float()).all():
+            fail(f"{label}: gradient {name} is misshapen or not finite")
+        err, rel = _errs(g, r)
+        lim = leaf_tol.get(name, tol)
+        zeroed, negated = _errs(torch.zeros_like(g), r)[1], _errs(-g, r)[1]
+        print(f"  grad {name:20s} max_abs {err:.3e} err/scale {rel:.3e} (tol {lim}) scale "
+              f"{float(r.float().abs().max()):.3e}; zeroed reads {zeroed:.3e}, negated "
+              f"{negated:.3e}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        if not rel <= lim:
+            over.append(name)
+        if not (zeroed > lim and negated > lim):
+            fail(f"{label}: the limit on {name} would pass a zeroed or negated gradient")
+    print(f"  worst gradient err/scale {worst_rel:.3e}", flush=True)
+    if over:
+        fail(f"{label} disagrees with autograd through its plain version (leaves {over})")
+    return worst_abs, worst_rel
+
+
+def _train_inputs(dev, seed):
+    """The bench configuration's main field with seeded weights and one
+    train step's per-sample inputs at the train shape → (generator, config,
+    field config, field, (u [N, 3], sh [R, 16], dt [N], t_mid [N]))."""
+    from apnerf_tpu_torch import bench
+    from apnerf_tpu_torch.models import spectral
+    from apnerf_tpu_torch.train.flagship import make_spectral_config
+
+    gen = _generator(dev, seed)
+    cfg = bench.bench_config()
+    s_cfg = make_spectral_config(cfg)
+    field = spectral.init_spectral(s_cfg, gen, dev)
+    pos, dirs, t0_, t1_, miss = _render_inputs(
+        gen, dev, cfg.num_rays, cfg.max_samples_train, cfg.aabb)
+    with torch.no_grad():
+        u, sh = spectral._packed_inputs(s_cfg, pos, dirs)
+        dt = ((t1_ - t0_) * (~miss)[:, None]).reshape(-1).contiguous()
+        tm = (0.5 * (t0_ + t1_)).reshape(-1).contiguous()
+    return gen, cfg, s_cfg, field, (u, sh, dt, tm)
+
+
+def _loss_cotangents(leaves, u, sh, dt, tm, S, n_classes, seed):
+    """The cotangents a train step hands each backward, at the plain
+    forward's values → (g_acc [R, 5 + C] and g_w [N], of the per-ray sums
+    and the weights; g_y [N, 4 + C], of the packed field output; g_h [N, 1 +
+    G], of the trunk's output), each the one before it taken back through
+    the plain ops. The loss is the train loss (``LOSS_WEIGHTS`` on huber
+    rgb, huber depth and cross entropy against seeded targets) plus a term
+    on the weights themselves, so g_w is a real cotangent as the proposal
+    loss's would be."""
+    import torch.nn.functional as F
+
+    from apnerf_tpu_torch.models.ngp import trunc_exp
+    from apnerf_tpu_torch.models.nn import apply_layers
+    from apnerf_tpu_torch.ops.cuda.fused_field_heads import split_leaves
+    from apnerf_tpu_torch.ops.cuda.fused_field_volrend import LOSS_WEIGHTS
+    from apnerf_tpu_torch.ops.cuda.fused_mlp import encode_plain
+    from apnerf_tpu_torch.ops.cuda.volrend_cuda import fused_render_weights_plain
+
+    dev, N, bf16 = u.device, u.shape[0], torch.bfloat16
+    R = N // S
+    gen = _generator(dev, seed)
+    pix = torch.rand((R, 3), generator=gen, device=dev)
+    dgt = torch.rand((R,), generator=gen, device=dev) * 4.0
+    lab = torch.randint(0, n_classes, (R,), generator=gen, device=dev)
+    bk = torch.tensor([0.2, 0.3, 0.4], device=dev)
+    W, phase, trunk, head, semh = split_leaves([t.detach() for t in leaves])
+    with torch.enable_grad():
+        h = apply_layers(trunk, encode_plain(W, phase, u, bf16), bf16).detach()
+        h.requires_grad_(True)
+        geo = h[:, 1:]
+        sigma = trunc_exp(h[:, 0] - 1.0) * ((u > 0.0) & (u < 1.0)).all(dim=-1)
+        x = torch.cat([sh.repeat_interleave(S, dim=0), geo], dim=-1)
+        y = torch.cat([torch.sigmoid(apply_layers(head, x, bf16)), sigma[:, None],
+                       apply_layers(semh, geo, bf16)], dim=-1)
+        y_in = y.detach().requires_grad_(True)
+        w = fused_render_weights_plain(
+            torch.zeros((R, S), device=dev), dt.reshape(R, S), y_in[:, 3].reshape(R, S)
+        )[0].reshape(N)
+        per_sample = torch.cat([y_in[:, :3] * w[:, None], w[:, None], (w * tm)[:, None],
+                                y_in[:, 4:] * w[:, None]], dim=-1)
+        acc = per_sample.reshape(R, S, -1).sum(dim=1)
+        acc_in, w_in = (t.detach().requires_grad_(True) for t in (acc, w))
+        op = acc_in[:, 3:4]
+        depth = acc_in[:, 4] / op[:, 0].clamp(min=torch.finfo(torch.float32).eps)
+        terms = (F.huber_loss(acc_in[:, :3] + bk * (1.0 - op), pix, delta=1.0),
+                 F.huber_loss(depth, dgt, delta=1.0), F.cross_entropy(acc_in[:, 5:], lab))
+        shifted = w.detach().reshape(R, S).roll(1, dims=1).reshape(N)
+        loss = sum(c * t for c, t in zip(LOSS_WEIGHTS, terms)) + ((w_in - shifted) ** 2).sum() / R
+        g_acc, g_w = torch.autograd.grad(loss, (acc_in, w_in))
+        (g_y,) = torch.autograd.grad((acc, w), y_in, (g_acc, g_w))
+        (g_h,) = torch.autograd.grad(y, h, g_y)
+    return g_acc.contiguous(), g_w.contiguous(), g_y.contiguous(), g_h.contiguous()
+
+
+def phase_render_bwd(dev, which):
+    """The backward of the fused field-and-render kernel (``which`` =
+    "volrend": from cotangents of the per-ray sums and of the weights) or
+    of the packed field kernel ("heads": from the packed cotangent) against
+    autograd through its plain version at the train shape, every leaf and
+    du → (largest max-abs error with zero biases, kernel ms, plain ms,
+    bound, largest err / leaf scale)."""
+    from apnerf_tpu_torch.ops.cuda import fused_field_heads as ffh
+    from apnerf_tpu_torch.ops.cuda import fused_field_volrend as fvr
+
+    seed = 13 if which == "volrend" else 14
+    gen, cfg, s_cfg, field, (u, sh, dt, tm) = _train_inputs(dev, seed)
+    R, S, C = cfg.num_rays, cfg.max_samples_train, cfg.num_semantic_classes
+    N = R * S
+    name = "fused_field_volrend_bwd" if which == "volrend" else "fused_field_heads_bwd"
+    names = [n for n, _ in field.named_parameters()] + ["du"]
+    record = None
+    for case, (tol, leaf_tol) in BWD_TOL[name].items():
+        if case == "random biases":
+            _set_random_biases(field, gen, dev)
+        leaves = list(field.parameters())
+        g_acc, g_w, g_y, _ = _loss_cotangents(leaves, u, sh, dt, tm, S, C, seed)
+        if which == "volrend":  # with a real cotangent of the weights
+            def kernel():
+                return fvr.fused_field_volrend_bwd(leaves, u, sh, dt, tm, S, g_acc, g_w, True)
+
+            def plain():
+                return fvr.fused_field_volrend_bwd_plain(leaves, u, sh, dt, tm, S, g_acc, g_w,
+                                                         True)
+
+            # the cotangents read, du written, beside the train-step kernel's bytes
+            extra = N * (4 + 12) + R * 4 * (5 + C)
+        else:
+            def kernel():
+                return ffh.fused_field_heads_bwd(leaves, u, sh, S, g_y, True)
+
+            def plain():
+                return ffh.fused_field_heads_bwd_plain(leaves, u, sh, S, g_y, True)
+
+            extra = N * (4 * (4 + C) + 12) - N * 8  # no dt, t_mid
+        gk, duk = kernel()
+        torch.cuda.synchronize()
+        gp, dup = plain()
+        ms = cuda_ms(kernel, reps=5, inner=3)
+        pms = cuda_ms(plain, reps=3, inner=2)
+        print(f"{name} [{case}] R={R} S={S} C={C}: kernel {ms:.3f} ms, plain (forward and "
+              f"backward under autograd) {pms:.3f} ms", flush=True)
+        worst, rel = _check_grads(f"{name} [{case}]", names, [*gk, duk], [*gp, dup], tol,
+                                  leaf_tol)
+        if case == "zero biases":
+            # the recompute (2 operations per multiply-add) and two products
+            # per layer (4); per-sample inputs read once, parameters read and
+            # their gradients written
+            macs = field_macs(s_cfg.n_freqs, s_cfg.neurons, s_cfg.layers, s_cfg.geo_feat_dim,
+                              s_cfg.neurons // 4, C)
+            n_bytes = N * (12 + 8) + R * 64 + 2 * field_weight_bytes(field) + extra
+            record = (worst, ms, pms, bound(6 * macs * N, n_bytes), rel)
+        del gk, duk, gp, dup, g_acc, g_w, g_y
+    torch.cuda.empty_cache()
+    return record
+
+
+def _proposal_cotangent(prop, u, R, Sp, seed):
+    """The cotangent a proposal-matching loss hands the proposal field's
+    raw output [N, 1]: the squared distance of its render weights to seeded
+    per-ray histograms, taken back through the plain ops."""
+    from apnerf_tpu_torch.models.ngp import trunc_exp
+    from apnerf_tpu_torch.ops.cuda.fused_mlp import fused_spectral_field_plain
+    from apnerf_tpu_torch.ops.cuda.volrend_cuda import fused_render_weights_plain
+
+    dev = u.device
+    gen = _generator(dev, seed)
+    edges = torch.sort(torch.rand((R, Sp + 1), generator=gen, device=dev) * 2.9 + 0.1,
+                       dim=-1).values
+    target = torch.rand((R, Sp), generator=gen, device=dev)
+    target = 0.9 * target / target.sum(dim=-1, keepdim=True)
+    with torch.enable_grad():
+        h = fused_spectral_field_plain(prop.W, prop.phase, prop.mlp_base, u).detach()
+        h.requires_grad_(True)
+        w, _, _ = fused_render_weights_plain(
+            edges[:, :-1], edges[:, 1:], trunc_exp(h[:, 0] - 1.0).reshape(R, Sp))
+        (g,) = torch.autograd.grad(((w - target) ** 2).sum() / R, h)
+    return g.contiguous()
+
+
+def phase_k1_bwd(dev):
+    """The backward of the field kernel (encode + trunk) against autograd
+    through its plain version, at the main trunk's train shape and at the
+    proposal field's → (largest max-abs error with zero biases, kernel ms,
+    plain ms, bound, largest err / leaf scale) at the main trunk's shape."""
+    from apnerf_tpu_torch.models import spectral
+    from apnerf_tpu_torch.ops.cuda import fused_mlp as fm
+    from apnerf_tpu_torch.train.flagship import make_prop_config
+
+    gen, cfg, s_cfg, field, (u, sh, dt, tm) = _train_inputs(dev, 15)
+    R, S, Sp = cfg.num_rays, cfg.max_samples_train, cfg.num_prop_samples
+    p_cfg = make_prop_config(cfg)
+    prop = spectral.init_spectral_density(p_cfg, gen, dev)
+    u_prop = torch.rand((R * Sp, 3), generator=gen, device=dev)
+    record = None
+    for label, module, u_ in (("main trunk", field, u), ("proposal field", prop, u_prop)):
+        main = label == "main trunk"
+        tols = BWD_TOL["fused_spectral_field_bwd" if main
+                       else "fused_spectral_field_bwd, proposal field"]
+        W, phase, mlp = module.W, module.phase, module.mlp_base
+        layers = mlp.layers()
+        widths = [w.shape[0] for w, _ in layers] + [layers[-1][0].shape[1]]
+        N = u_.shape[0]
+        for case, (tol, leaf_tol) in tols.items():
+            if case == "random biases":
+                _set_random_biases(module, gen, dev)
+            if main:
+                g = _loss_cotangents(list(field.parameters()), u, sh, dt, tm, S,
+                                     cfg.num_semantic_classes, 15)[3]
+            else:
+                g = _proposal_cotangent(prop, u_, R, Sp, 15)
+
+            def flatten(out):
+                dW, dphase, grads, du = out
+                return [dW, dphase, *grads, du]
+
+            gk = flatten(fm.fused_spectral_field_bwd(W, phase, layers, u_, g, True))
+            torch.cuda.synchronize()
+            gp = flatten(fm.fused_spectral_field_bwd_plain(W, phase, layers, u_, g, True))
+            ms = cuda_ms(lambda: fm.fused_spectral_field_bwd(W, phase, layers, u_, g, True),
+                         reps=5, inner=3)
+            pms = cuda_ms(lambda: fm.fused_spectral_field_bwd_plain(W, phase, layers, u_, g, True),
+                          reps=3, inner=2)
+            print(f"fused_spectral_field_bwd [{label}, {case}] N={N} widths {widths}: kernel "
+                  f"{ms:.3f} ms, plain (forward and backward under autograd) {pms:.3f} ms",
+                  flush=True)
+            names = ["W", "phase"] + [n for n, _ in mlp.named_parameters()] + ["du"]
+            worst, rel = _check_grads(f"fused_spectral_field_bwd [{label}, {case}]", names, gk,
+                                      gp, tol, leaf_tol)
+            if main and case == "zero biases":
+                macs = 3 * W.shape[1] + sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+                w_bytes = 4 * sum(p.numel() for p in mlp.parameters()) + 16 * W.shape[1]
+                # u and g read, du written per row; parameters read, gradients written
+                n_bytes = N * (12 + 4 * widths[-1] + 12) + 2 * w_bytes
+                record = (worst, ms, pms, bound(6 * macs * N, n_bytes), rel)
+            del gk, gp, g
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_k3(dev):
+    """The MLP kernel, forward and backward, against its plain version at
+    the main trunk's train shape: x [262,144, 256] the spectral features of
+    a train step's positions, in bf16 and in f32 → (forward record, backward
+    record), each (max-abs error with zero biases, kernel ms, plain ms,
+    bound; the backward's also its largest err / leaf scale), for the bf16
+    x."""
+    from apnerf_tpu_torch.ops.cuda import fused_mlp as fm
+
+    gen, cfg, s_cfg, field, (u, sh, dt, tm) = _train_inputs(dev, 16)
+    N, S = u.shape[0], cfg.max_samples_train
+    mlp = field.mlp_base
+    layers = mlp.layers()
+    widths = [w.shape[0] for w, _ in layers] + [layers[-1][0].shape[1]]
+    with torch.no_grad():
+        xs = [fm.encode_plain(field.W, field.phase, u, dtype).contiguous()
+              for dtype in (torch.bfloat16, torch.float32)]
+    fwd_record = bwd_record = None
+    for case, (tol, leaf_tol) in BWD_TOL["fused_mlp_apply_bwd"].items():
+        if case == "random biases":
+            _set_random_biases(field, gen, dev)
+        g = _loss_cotangents(list(field.parameters()), u, sh, dt, tm, S,
+                             cfg.num_semantic_classes, 16)[3]
+        for x in xs:
+            kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
+            with torch.no_grad():
+                yk = fm.fused_mlp_apply(mlp, x)
+                torch.cuda.synchronize()
+                yp = fm.fused_mlp_apply_plain(mlp, x)
+                f_err, f_rel = _errs(yk, yp)
+                f_ms = cuda_ms(lambda: fm.fused_mlp_apply(mlp, x), reps=5, inner=5)
+                f_pms = cuda_ms(lambda: fm.fused_mlp_apply_plain(mlp, x), reps=5, inner=3)
+            zeroed, negated = _errs(torch.zeros_like(yk), yp)[1], _errs(-yk, yp)[1]
+            f_tol = K3_FWD_TOL[case]
+            print(f"fused_mlp_apply [{kind} x, {case}] N={N} widths {widths}: err/scale "
+                  f"{f_rel:.3e} (tol {f_tol}) max_abs {f_err:.3e}; zeroed reads {zeroed:.3e}, "
+                  f"negated {negated:.3e} | kernel {f_ms:.3f} ms, plain {f_pms:.3f} ms",
+                  flush=True)
+            if not (torch.isfinite(yk).all() and yk.shape == yp.shape and f_rel <= f_tol):
+                fail(f"fused_mlp_apply ({kind} x, {case}) disagrees with its plain version")
+            if not (zeroed > f_tol and negated > f_tol):
+                fail("the limit on fused_mlp_apply would pass a zeroed or negated output")
+            gk, dxk = fm.fused_mlp_apply_bwd(layers, x, g, True)
+            torch.cuda.synchronize()
+            gp, dxp = fm.fused_mlp_apply_bwd_plain(layers, x, g, True)
+            if dxk.dtype != x.dtype:
+                fail(f"fused_mlp_apply_bwd: dx is {dxk.dtype} for a {x.dtype} x")
+            ms = cuda_ms(lambda: fm.fused_mlp_apply_bwd(layers, x, g, True), reps=5, inner=3)
+            pms = cuda_ms(lambda: fm.fused_mlp_apply_bwd_plain(layers, x, g, True),
+                          reps=3, inner=2)
+            print(f"fused_mlp_apply_bwd [{kind} x, {case}]: kernel {ms:.3f} ms, plain (forward "
+                  f"and backward under autograd) {pms:.3f} ms", flush=True)
+            names = [n for n, _ in mlp.named_parameters()] + ["dx"]
+            worst, rel = _check_grads(f"fused_mlp_apply_bwd [{kind} x, {case}]", names,
+                                      [*gk, dxk], [*gp, dxp], tol, leaf_tol)
+            if kind == "bf16" and case == "zero biases":
+                macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+                w_bytes = 4 * sum(p.numel() for p in mlp.parameters())
+                xb = x.element_size() * widths[0]
+                fwd_record = (f_err, f_ms, f_pms,
+                              bound(2 * macs * N, N * (xb + 4 * widths[-1]) + w_bytes))
+                # x and g read, dx written per row; parameters read, gradients written
+                bwd_record = (worst, ms, pms,
+                              bound(6 * macs * N, N * (2 * xb + 4 * widths[-1]) + 2 * w_bytes),
+                              rel)
+            del yk, yp, gk, dxk, gp, dxp
+        del g
+    torch.cuda.empty_cache()
+    return fwd_record, bwd_record
+
+
 LOOP_ARTIFACTS = (
     "train/data0.npz", "test/data0.npz", "uncertainty.npy", "errors.npy", "metrics_ext.npy",
     "throughput.json", "checkpoints/model_0.npz", "checkpoints/model_1.npz",
@@ -1123,7 +1750,8 @@ def phase_loop(dev):
              f"{mapper.refit_discarded_steps} in {mapper.refit_rollbacks} rollbacks")
     renders = 2 * cfg.num_traj * N_VIEWS * E
     eval_renders = 3 * len(mapper._test_poses) * E
-    expected = {
+    expected = dict.fromkeys(counts, 0)  # no backward kernel runs on the default route
+    expected.update({
         "fused_field_volrend_lossgrad": E * ran,
         "fused_render_weights_bwd": E * ran,
         "fused_spectral_field": E * chunks,  # the occupancy update
@@ -1132,7 +1760,7 @@ def phase_loop(dev):
         # proposal sampling and its recompute per member step, proposal and
         # main weights per candidate render, proposal weights per evaluation render
         "fused_render_weights": 2 * E * ran + 2 * renders + eval_renders,
-    }
+    })
     if counts != expected:
         fail(f"loop launch counts {counts}, expected {expected}")
 

@@ -224,9 +224,10 @@ def test_renderer_packed_branches(dtype, with_variance):
 
 
 def test_packed_kernels_refuse_what_they_do_not_take():
-    """The CPU branch is taken for CPU tensors only; the forward kernels
-    have no backward, and say so for CUDA inputs. Here: shapes are checked
-    by the plain math, and the counters stay at zero."""
+    """The CPU branch is taken for CPU tensors only (on the card the same
+    calls go through the kernels' own backwards). Here: shapes are checked
+    by the plain math, autograd goes through the plain versions, and the
+    counters stay at zero."""
     _, cfg_t = cfgs(3)
     _, pt = fields(cfgs(3)[0])
     pos, dirs, t0, t1, miss = (T(a) for a in inputs(4, 8))

@@ -502,8 +502,8 @@ def test_member_step_matches_jax(field_dtype):
     # plain reference), each from the same initial member
     members = [state_t.members[0], copy.deepcopy(state_t.members[0])]
     rtol = 1e-5 if field_dtype == "float32" else 1e-2
-    for member, lossgrad in zip(members, (True, False)):
-        out_t = t_fl.make_flagship_member_core(cfg, lossgrad=lossgrad)(
+    for member, route in zip(members, ("lossgrad", "field")):
+        out_t = t_fl.make_flagship_member_core(cfg, route=route)(
             member, state_t.opt[0], t_ds.RayBatch(*map(T, arrays)), 0,
             noise=_noise(k_occ, 64, 8),
         )

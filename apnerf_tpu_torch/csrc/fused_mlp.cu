@@ -21,10 +21,11 @@
 // bf16 16x16x16 fragments with f32 accumulators; each warp owns a strip
 // of 16 output columns for all four 16-row sub-tiles, so every weight
 // fragment it loads (from global memory, the trunk is 384 KB and stays
-// in L2) feeds four MMAs. wgmma/TMA pipelines are later work.
+// in L2) feeds four MMAs. The main field's kernels run on a wgmma tile
+// with the weights staged in shared memory (field_tile.cuh); this tile
+// also serves the proposal field's 64-wide trunk, which that one does not.
 //
-// The encode, layer and constant definitions are shared with the
-// train-step kernel through spectral_tile.cuh.
+// The encode, layer and constant definitions are in spectral_tile.cuh.
 //
 // fused_mlp_apply is the same tile without the encode: x [N, Din] arrives
 // in bf16 or f32 and is rounded to bf16 on its way into shared memory (no
@@ -39,7 +40,7 @@
 //      pre-activation cotangent stored in bf16, per-tile f32 column sums
 //      for the biases; then the encode's backward (dproj, the dphase and
 //      dW_spec sums, du), or dx = gh0 w0^T in x's dtype;
-//   3. xt_dy_kernel and sum_rows_kernel (fused_field_volrend.cu): dW = X^T
+//   3. xt_dy_kernel and sum_rows_kernel (below): dW = X^T
 //      dY as per-chunk f32 partials added in a fixed order, so the
 //      gradients repeat from run to run.
 // Bounded by tensor-core math like the forward (the backward is the
@@ -250,6 +251,78 @@ __global__ void __launch_bounds__(kThreads) mlp_bwd_kernel(MlpArgs a) {
   }
 }
 
+// ---- weight gradients of the trunk kernels: dW = X^T dY over all rows ----------------
+
+constexpr int kGT = 64;  // output tile edge and rows staged per step
+constexpr int kGLd = kGT + kPad;
+
+// P[chunk, p_off + i * dout + j] = sum over the chunk's rows of X[row, i] * dY[row, j]
+// for i < din, j < dout. X has x_cols readable columns, dY has ldy; both
+// are read in 8-element vectors, so both widths are multiples of 8.
+__global__ void __launch_bounds__(kThreads)
+    xt_dy_kernel(const bf16* __restrict__ X, int ldx, int x_cols, int din,
+                 const bf16* __restrict__ Y, int ldy, int dout, int n_rows_pad,
+                 int rows_per_chunk, float* __restrict__ P, long long p_ld, long long p_off) {
+  __shared__ __align__(128) bf16 xs[kGT * kGLd];
+  __shared__ __align__(128) bf16 ys[kGT * kGLd];
+  __shared__ __align__(128) float sc[kWarps * 256];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i0 = blockIdx.x * kGT, j0 = blockIdx.y * kGT;
+  const int r_begin = blockIdx.z * rows_per_chunk;
+  const int r_end = min(r_begin + rows_per_chunk, n_rows_pad);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  wmma::fill_fragment(acc[0], 0.f);
+  wmma::fill_fragment(acc[1], 0.f);
+  for (int rb = r_begin; rb < r_end; rb += kGT) {
+    for (int e = threadIdx.x; e < kGT * (kGT / 8); e += kThreads) {
+      const int r = e / (kGT / 8), v = (e % (kGT / 8)) * 8;
+      uint4 xv = make_uint4(0, 0, 0, 0), yv = make_uint4(0, 0, 0, 0);
+      if (i0 + v + 8 <= x_cols)
+        xv = *reinterpret_cast<const uint4*>(X + (size_t)(rb + r) * ldx + i0 + v);
+      if (j0 + v + 8 <= ldy)
+        yv = *reinterpret_cast<const uint4*>(Y + (size_t)(rb + r) * ldy + j0 + v);
+      *reinterpret_cast<uint4*>(xs + r * kGLd + v) = xv;
+      *reinterpret_cast<uint4*>(ys + r * kGLd + v) = yv;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kGT; kk += 16) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int f = warp * 2 + q, fi = f / 4, fj = f % 4;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
+        wmma::load_matrix_sync(af, xs + kk * kGLd + fi * 16, kGLd);
+        wmma::load_matrix_sync(bfr, ys + kk * kGLd + fj * 16, kGLd);
+        wmma::mma_sync(acc[q], af, bfr, acc[q]);
+      }
+    }
+    __syncthreads();
+  }
+  float* s = sc + warp * 256;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int f = warp * 2 + q, fi = f / 4, fj = f % 4;
+    wmma::store_matrix_sync(s, acc[q], 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 256; e += 32) {
+      const int gi = i0 + fi * 16 + e / 16, gj = j0 + fj * 16 + e % 16;
+      if (gi < din && gj < dout)
+        P[(long long)blockIdx.z * p_ld + p_off + (long long)gi * dout + gj] = s[e];
+    }
+    __syncwarp();
+  }
+}
+
+// out[j] = sum_t P[t, j] for j < cols, t in order
+__global__ void sum_rows_kernel(const float* __restrict__ P, int n, long long ld, int cols,
+                                float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= cols) return;
+  float s = 0.f;
+  for (int t = 0; t < n; ++t) s += P[(long long)t * ld + j];
+  out[j] = s;
+}
+
 }  // namespace
 
 // Shared memory (bytes) of the kernels that take MlpArgs: which = 0 forward,
@@ -292,5 +365,22 @@ extern "C" int apnerf_mlp_bwd(const MlpArgs* a, int encode, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (encode) mlp_bwd_kernel<true><<<grid, kThreads, smem, st>>>(*a);
   else mlp_bwd_kernel<false><<<grid, kThreads, smem, st>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int apnerf_xt_dy(const void* X, int ldx, int x_cols, int din, const void* Y, int ldy,
+                            int dout, int n_rows_pad, int rows_per_chunk, int n_chunks,
+                            float* P, long long p_ld, long long p_off, void* stream) {
+  const dim3 grid((din + kGT - 1) / kGT, (dout + kGT - 1) / kGT, n_chunks);
+  xt_dy_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(X), ldx, x_cols, din, static_cast<const bf16*>(Y), ldy, dout,
+      n_rows_pad, rows_per_chunk, P, p_ld, p_off);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int apnerf_sum_rows(const float* P, int n, long long ld, int cols, float* out,
+                               void* stream) {
+  sum_rows_kernel<<<(cols + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      P, n, ld, cols, out);
   return (int)cudaGetLastError();
 }

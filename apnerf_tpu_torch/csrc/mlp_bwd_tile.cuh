@@ -1,5 +1,5 @@
-// Backward pieces on a 64-row tile, shared by the kernels that go back
-// through the spectral trunk (fused_field_volrend.cu, fused_mlp.cu): the
+// Backward pieces on a 64-row tile of the kernels that go back through the
+// spectral trunk (fused_mlp.cu): the
 // counterpart of spectral_tile.cuh's forward layers. dX = dY W^T reads the
 // native [in, out] weight transposed, as a col_major wmma operand, and
 // the ReLU mask comes from the saved bf16 forward activation. The encode's
@@ -9,22 +9,9 @@
 #pragma once
 
 #include "spectral_tile.cuh"
+#include "warp_reduce.cuh"
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
 
 // s[i, :cols] = g[row0 + i, :cols], zero for rows at or past n_valid
 __device__ void load_tile(const bf16* g, int cols, int row0, int n_valid, bf16* s, int ld_s) {

@@ -1,6 +1,5 @@
-// Device code shared by the spectral-field kernels (fused_mlp.cu and
-// fused_field_volrend.cu): one block of 8 warps owns a 64-row tile, the
-// spectral features are formed straight into shared memory, and each
+// Device code of the spectral-field and MLP kernels (fused_mlp.cu): one
+// block of 8 warps owns a 64-row tile, the
 // layer is an nvcuda::wmma bf16 16x16x16 product with f32 accumulators in
 // which a warp owns a strip of 16 output columns for all four 16-row
 // sub-tiles, so every weight fragment it loads (from global memory; the

@@ -108,13 +108,13 @@ def library() -> ctypes.CDLL:
     lib.apnerf_fused_render_weights_fwd.restype = i
     lib.apnerf_fused_render_weights_bwd.argtypes = [p, p, p, p, i, i, p, p, p, p]
     lib.apnerf_fused_render_weights_bwd.restype = i
-    lib.apnerf_fvr_smem.argtypes = [p, i]
-    lib.apnerf_fvr_smem.restype = ctypes.c_size_t
-    lib.apnerf_fvr_n_bias.argtypes = [p]
-    lib.apnerf_fvr_n_bias.restype = i
-    for name in ("apnerf_fvr_field_fwd", "apnerf_fvr_field_bwd", "apnerf_ffh_bwd_pack"):
-        getattr(lib, name).argtypes = [p, p]
+    lib.apnerf_field_layout.argtypes = [i, i]
+    lib.apnerf_field_layout.restype = i
+    for name in ("apnerf_fvr_field_fwd", "apnerf_fvr_field_bwd", "apnerf_dw"):
+        getattr(lib, name).argtypes = [p, i, p]
         getattr(lib, name).restype = i
+    lib.apnerf_ffh_bwd_pack.argtypes = [p, p]
+    lib.apnerf_ffh_bwd_pack.restype = i
     lib.apnerf_fvr_rays.argtypes = [p, i, p]
     lib.apnerf_fvr_rays.restype = i
     lib.apnerf_mlp_smem.argtypes = [p, i, i]
@@ -127,13 +127,12 @@ def library() -> ctypes.CDLL:
     lib.apnerf_mlp_bwd.restype = i
     lib.apnerf_fvr_fwd_rays.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.apnerf_fvr_fwd_rays.restype = i
-    lib.apnerf_ffh_smem.argtypes = [p]
-    lib.apnerf_ffh_smem.restype = ctypes.c_size_t
-    lib.apnerf_ffh_fwd.argtypes = [p, p]
+    lib.apnerf_ffh_fwd.argtypes = [p, i, p]
     lib.apnerf_ffh_fwd.restype = i
     lib.apnerf_xt_dy.argtypes = [p, i, i, i, p, i, i, i, i, i, p, ll, ll, p]
     lib.apnerf_xt_dy.restype = i
-    lib.apnerf_sum_rows.argtypes = [p, i, ll, i, p, p]
-    lib.apnerf_sum_rows.restype = i
+    for name in ("apnerf_sum_rows", "apnerf_col_sums"):
+        getattr(lib, name).argtypes = [p, i, ll, i, p, p]
+        getattr(lib, name).restype = i
     _lib = lib
     return lib

@@ -18,11 +18,13 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from . import build
-from .fused_field_heads import prepare_field
-from .launch import MAX_SMEM, check_tensor, launcher, weight_grads
+from . import build, field_images
+from .fused_field_heads import prepare_field, sm_count
+from .launch import check_tensor, launcher
 
 _p = ctypes.c_void_p
+_i, _ll = ctypes.c_int, ctypes.c_longlong
+_MAX_ITEMS = 16  # the length of DwArgs::items in csrc/fused_field_volrend.cu
 
 
 class _FvrArgs(ctypes.Structure):
@@ -30,21 +32,35 @@ class _FvrArgs(ctypes.Structure):
     ``csrc/field_train_args.cuh`` field by field."""
 
     _fields_ = (
-        [(n, _p) for n in ("u", "sh", "dt", "tm", "pix", "dgt", "lab", "bk", "W", "phase")]
-        + [("tw", _p * 4), ("tb", _p * 4), ("rw", _p * 3), ("rb", _p * 3),
-           ("sw", _p * 3), ("sb", _p * 3)]
-        + [("enc", _p), ("h", _p * 3)]
+        [(n, _p) for n in ("u", "sh", "dt", "tm", "pix", "dgt", "lab", "bk", "W", "phase",
+                           "wfwd", "wbwd", "bias", "enc")]
+        + [("h", _p * 3)]
+        + [(n, _p) for n in ("xs", "hid1", "hid2")]
+        + [("mask_t", _p * 3)]
         + [(n, _p) for n in (
-            "xr", "hr1", "hr2", "hs1", "hs2", "sigma", "dsd", "rgb", "sem", "graw",
-            "gout_rgb", "gout_sem", "ray_part", "gtrb")]
+            "mask_h", "sigma", "dsd", "rgb", "sem", "graw", "gout_rgb", "gout_sem", "ray_part",
+            "gout", "g2", "g1", "gt")]
         + [("gh", _p * 3)]
-        + [(n, _p) for n in ("gr1", "gr2", "gs1", "gs2", "tile_part", "w", "lossrows",
-                             "g_acc", "g_w", "g_packed", "du")]
-        + [(n, ctypes.c_int) for n in (
-            "n_rows", "n_rows_pad", "n_rays", "n_samples", "m", "hidden", "n_layers",
-            "trunk_out_pad", "geo", "head_hidden", "n_classes", "c_pad")]
+        + [(n, _p) for n in ("tile_part", "w", "lossrows", "g_acc", "g_w", "g_packed", "du")]
+        + [(n, _i) for n in ("n_rows", "n_rays", "n_samples", "n_hidden", "geo", "n_classes",
+                             "c_pad")]
         + [(n, ctypes.c_float) for n in ("c_rgb", "c_dep", "c_sem")]
     )
+
+
+class _DwItem(ctypes.Structure):
+    """Mirrors ``DwItem`` in ``csrc/fused_field_volrend.cu`` field by field."""
+
+    _fields_ = [("x", _p), ("y", _p), ("x_imgs", _i), ("y_imgs", _i), ("x_img", _i * 2),
+                ("y_img", _i * 2), ("n", _i), ("chunks", _i), ("chunk_tiles", _i),
+                ("first_block", _i), ("p_off", _ll), ("out_off", _ll)]
+
+
+class _DwArgs(ctypes.Structure):
+    """Mirrors ``DwArgs`` in ``csrc/fused_field_volrend.cu`` field by field."""
+
+    _fields_ = [("items", _DwItem * _MAX_ITEMS), ("n_items", _i), ("n_tiles", _i), ("P", _p),
+                ("out", _p), ("out_total", _ll)]
 
 
 class FieldTrainCall:
@@ -61,55 +77,55 @@ class FieldTrainCall:
         if S <= 0 or N == 0 or N % S:
             raise ValueError(f"{who}: N={N} must be a positive multiple of S={S}")
         R = N // S
-        f32, bf16 = torch.float32, torch.bfloat16
+        f32 = torch.float32
         check_tensor(who, u, "u", f32, (N, 3), dev)
         check_tensor(who, sh, "sh", f32, (R, 16), dev)
         self.dev, self.N, self.R = dev, N, R
         self.fld = fld = prepare_field(who, leaves, dev)
         self.lib = build.library()
         self.run = launcher(who, dev)
-        M, H, hh, C = fld.M, fld.H, fld.hh, fld.C
-        tpad, cpad, nh = fld.tpad, fld.cpad, fld.n_trunk - 1
-        self.Np = Np = -(-N // 64) * 64
-
-        def buf(shape, dtype=bf16):
-            return torch.empty(shape, dtype=dtype, device=dev)
-
-        self.buf = buf
-        self.s = s = {
-            "enc": buf((Np, 2 * M)), "h": [buf((Np, H)) for _ in range(nh)],
-            "xr": buf((Np, 32)), "hr1": buf((Np, hh)), "hr2": buf((Np, hh)),
-            "hs1": buf((Np, hh)), "hs2": buf((Np, hh)),
-            "sigma": buf((N,), f32), "dsd": buf((N,), f32), "rgb": buf((N, 3), f32),
-            "sem": buf((N, C), f32), "graw": buf((N,), f32),
-            "gout_rgb": buf((Np, 16)), "gout_sem": buf((Np, cpad)),
-            "ray_part": buf((R, 16 + cpad), f32), "gtrb": buf((Np, tpad)),
-            "gh": [buf((Np, H)) for _ in range(nh)],
-            "gr1": buf((Np, hh)), "gr2": buf((Np, hh)), "gs1": buf((Np, hh)),
-            "gs2": buf((Np, hh)),
-        }
-        self.du = buf((N, 3), f32) if need_du else None
+        C, nh = fld.C, fld.n_hidden
+        cpad = -(-C // 16) * 16
+        self.cpad = cpad
+        self.Np = Np = field_images.padded_rows(N)
+        self.n_tiles = T = Np // field_images.TILE_ROWS
+        self.grid = field_images.field_grid(N, sm_count(dev))
+        self.du = torch.empty((N, 3), dtype=f32, device=dev) if need_du else None
         self.a = a = _FvrArgs()
         a.u, a.sh = u.data_ptr(), sh.data_ptr()
-        a.W, a.phase = leaves[0].data_ptr(), leaves[1].data_ptr()
-        for dst, ts in ((a.tw, fld.tws), (a.tb, fld.tbs), (a.rw, fld.rws), (a.rb, fld.rbs),
-                        (a.sw, fld.sws), (a.sb, fld.sbs), (a.h, s["h"]), (a.gh, s["gh"])):
-            for i, t in enumerate(ts):
-                dst[i] = t.data_ptr()
-        for name, t in s.items():
-            if torch.is_tensor(t):
-                setattr(a, name, t.data_ptr())
+        w = fld.weights
+        a.W, a.phase, a.wfwd, a.wbwd, a.bias = w.W, w.phase, w.wfwd, w.wbwd, w.bias
         a.du = self.du.data_ptr() if need_du else None
-        a.n_rows, a.n_rows_pad, a.n_rays, a.n_samples = N, Np, R, S
-        a.m, a.hidden, a.n_layers, a.trunk_out_pad, a.geo = M, H, fld.n_trunk, tpad, fld.G
-        a.head_hidden, a.n_classes, a.c_pad = hh, C, cpad
+        a.n_rows, a.n_rays, a.n_samples = N, R, S
+        a.n_hidden, a.geo, a.n_classes, a.c_pad = nh, fld.G, C, cpad
         self.ref = ctypes.addressof(a)
-        for which in (0, 1):
-            if self.lib.apnerf_fvr_smem(self.ref, which) > MAX_SMEM:
-                raise ValueError(f"{who}: widths too large for shared memory")
-        self.n_bias = self.lib.apnerf_fvr_n_bias(self.ref)
-        self.tile_part = buf((Np // 64, self.n_bias), f32)
-        a.tile_part = self.tile_part.data_ptr()
+        self.n_bias = field_images.n_bias(nh)
+        # every scratch buffer of the call is a slice of one allocation (bytes)
+        img = field_images.IMG_BYTES
+        sizes = {"enc": T * 4 * img, "xs": T * img, "hid1": T * 2 * img, "hid2": T * 2 * img,
+                 "mask_h": Np * 32, "sigma": N * 4, "dsd": N * 4, "rgb": N * 12, "sem": N * C * 4,
+                 "graw": N * 4, "gout_rgb": Np * 32, "gout_sem": Np * cpad * 2,
+                 "ray_part": R * (16 + cpad) * 4, "gout": T * 2 * img, "g2": T * 2 * img,
+                 "g1": T * 2 * img, "gt": T * img, "tile_part": T * self.n_bias * 4}
+        for l in range(nh):
+            sizes.update({f"h{l}": T * 4 * img, f"gh{l}": T * 4 * img, f"mask_t{l}": Np * 32})
+        self._dw = field_images.dw_plan(nh, T, sm_count(dev))
+        sizes["dw_partials"] = self._dw.partial_floats * 4
+        self.ptr, total = {}, 0
+        for name, size in sizes.items():
+            self.ptr[name] = total
+            total += -(-size // 256) * 256
+        self.scratch = torch.empty((total,), dtype=torch.uint8, device=dev)
+        base = self.scratch.data_ptr()
+        self.ptr = {name: base + off for name, off in self.ptr.items()}
+        for name, ptr in self.ptr.items():
+            if name[-1].isdigit() and name[:-1] in ("h", "gh", "mask_t"):
+                getattr(a, name[:-1])[int(name[-1])] = ptr
+            elif name != "dw_partials":
+                setattr(a, name, ptr)
+
+    def buf(self, shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device=self.dev)
 
     def set_inputs(self, **tensors: Optional[torch.Tensor]):
         """Point the struct's members of these names at the tensors (``None``
@@ -118,39 +134,52 @@ class FieldTrainCall:
             setattr(self.a, name, None if t is None else t.data_ptr())
 
     def field_forward(self):
-        self.run(self.lib.apnerf_fvr_field_fwd, self.ref)
+        self.run(self.lib.apnerf_fvr_field_fwd, self.ref, self.grid)
+
+    def _weight_grads(self, out: torch.Tensor):
+        """dW = Xᵀ·dY of every weight in one launch and its fixed-order
+        reduction into ``out`` → where each item's [2, 64, n] block starts."""
+        plan = self._dw
+        d = _DwArgs()
+        for e, (it, chunks, chunk_tiles, block, p_off, out_off) in zip(d.items, plan.items):
+            e.x, e.y = self.ptr[it.x], self.ptr[it.y]
+            e.x_imgs, e.y_imgs, e.n = it.x_imgs, it.y_imgs, it.n
+            e.x_img[0], e.x_img[1] = it.x_img
+            e.y_img[0], e.y_img[1] = it.y_img
+            e.chunks, e.chunk_tiles = chunks, chunk_tiles
+            e.first_block, e.p_off, e.out_off = block, p_off, out_off
+        d.n_items, d.n_tiles, d.P, d.out, d.out_total = (
+            len(plan.items), self.n_tiles, self.ptr["dw_partials"], out.data_ptr(),
+            plan.out_floats)
+        self.run(self.lib.apnerf_dw, ctypes.addressof(d), plan.n_blocks)
+        return [row[5] for row in plan.items]
 
     def field_backward(self) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
         """The field backward from ``graw``, ``gout_rgb``, ``gout_sem`` and
         ``ray_part`` → (one gradient per leaf, in the leaves' order; du
         [N, 3] or None)."""
-        lib, run, s, fld = self.lib, self.run, self.s, self.fld
+        lib, run, fld = self.lib, self.run, self.fld
         M, H, out_t, G, hh, C = fld.M, fld.H, fld.out_t, fld.G, fld.hh, fld.C
-        tpad, cpad, nh = fld.tpad, fld.cpad, fld.n_trunk - 1
-        Np, n_bias = self.Np, self.n_bias
-        run(lib.apnerf_fvr_field_bwd, self.ref)
-        # weight gradients X^T dY, in the leaves' order
-        xr_geo = s["xr"].data_ptr() + 16 * 2  # the sem head's input: xr[:, 16:]
-        jobs = [(s["enc"].data_ptr(), 2 * M, 2 * M, 2 * M, s["gh"][0].data_ptr(), H, H)]
-        for l in range(1, nh):
-            jobs.append((s["h"][l - 1].data_ptr(), H, H, H, s["gh"][l].data_ptr(), H, H))
-        jobs += [
-            (s["h"][nh - 1].data_ptr(), H, H, H, s["gtrb"].data_ptr(), tpad, out_t),
-            (s["xr"].data_ptr(), 32, 32, 16 + G, s["gr1"].data_ptr(), hh, hh),
-            (s["hr1"].data_ptr(), hh, hh, hh, s["gr2"].data_ptr(), hh, hh),
-            (s["hr2"].data_ptr(), hh, hh, hh, s["gout_rgb"].data_ptr(), 16, 3),
-            (xr_geo, 32, 16, G, s["gs1"].data_ptr(), hh, hh),
-            (s["hs1"].data_ptr(), hh, hh, hh, s["gs2"].data_ptr(), hh, hh),
-            (s["hs2"].data_ptr(), hh, hh, hh, s["gout_sem"].data_ptr(), cpad, C),
-        ]
-        dws = weight_grads(lib, run, jobs, Np, self.dev)
-        gb, gr = self.buf((n_bias,), torch.float32), self.buf((16 + cpad,), torch.float32)
-        run(lib.apnerf_sum_rows, self.tile_part.data_ptr(), Np // 64, n_bias, n_bias,
+        cpad, nh, n_bias = self.cpad, fld.n_hidden, self.n_bias
+        run(lib.apnerf_fvr_field_bwd, self.ref, self.grid)
+        # one tensor holds every sum: the weights' blocks, then the two bias rows
+        n_dw = self._dw.out_floats
+        res = self.buf((n_dw + n_bias + 16 + cpad,), torch.float32)
+        out, gb, gr = res[:n_dw], res[n_dw: n_dw + n_bias], res[n_dw + n_bias:]
+        offs = self._weight_grads(out)
+        # a trunk matrix is two adjacent items: input columns 0:128 and 128:256
+        dws = [out[offs[2 * l]: offs[2 * l] + H * H].view(H, H) for l in range(nh)]
+        o = offs[2 * nh]
+        dws.append(out[o: o + H * 64].view(H, 64)[:, :out_t].contiguous())
+        l1, l2, l3 = (out[o: o + 2 * 64 * 64].view(2, 64, 64) for o in offs[2 * nh + 2:])
+        dws += [l1[0, : 16 + G], l2[0], l3[0, :, :3].contiguous(),
+                l1[1, 16: 16 + G], l2[1], l3[1, :, :C].contiguous()]
+        run(lib.apnerf_col_sums, self.ptr["tile_part"], self.n_tiles, n_bias, n_bias,
             gb.data_ptr())
-        run(lib.apnerf_sum_rows, s["ray_part"].data_ptr(), self.R, 16 + cpad, 16 + cpad,
+        run(lib.apnerf_col_sums, self.ptr["ray_part"], self.R, 16 + cpad, 16 + cpad,
             gr.data_ptr())
         off_gtr = nh * H
-        off_r1 = off_gtr + tpad
+        off_r1 = off_gtr + 16
         off_s1 = off_r1 + 2 * hh
         off_dph = off_s1 + 2 * hh
         dbs = [gb[l * H: (l + 1) * H] for l in range(nh)] + [

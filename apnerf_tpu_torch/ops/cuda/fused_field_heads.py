@@ -21,24 +21,24 @@ the SH features come per ray ``[R, 16]`` and sample ``n`` belongs to ray
 ``n // S``.
 
 The module also holds what every kernel of the main field shares on the
-Python side: the flat-list split, the plain field and the padded bf16
-weights the kernels read (``prepare_field``).
+Python side: the flat-list split, the plain field and the repacking of
+the weights into the tile images the kernels read (``prepare_field``,
+``field_images.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ...models.ngp import trunc_exp
 from ...models.nn import apply_layers
-from . import build
+from . import build, field_images
 from .fused_mlp import encode_plain
-from .launch import MAX_SMEM, check_tensor, needs_grad
-
-MAX_CLASSES = 64
+from .launch import check_tensor, needs_grad
 
 _p = ctypes.c_void_p
 
@@ -72,114 +72,73 @@ def fused_field_heads_plain(leaves, u, sh, S: int, compute_dtype=torch.bfloat16)
     return torch.cat([rgb, sigma[:, None], sem], dim=-1)
 
 
-class FieldParamsStruct(ctypes.Structure):
-    """Mirrors ``FieldParams`` in ``csrc/field_heads_tile.cuh`` field by field."""
+class FieldWeightsStruct(ctypes.Structure):
+    """Mirrors ``FieldWeights`` in ``csrc/field_tile.cuh`` field by field."""
 
-    _fields_ = (
-        [("W", _p), ("phase", _p), ("tw", _p * 4), ("tb", _p * 4), ("rw", _p * 3),
-         ("rb", _p * 3), ("sw", _p * 3), ("sb", _p * 3)]
-        + [(n, ctypes.c_int) for n in (
-            "m", "hidden", "n_layers", "trunk_out_pad", "geo", "head_hidden", "n_classes",
-            "c_pad")]
-    )
+    _fields_ = [("W", _p), ("phase", _p), ("wfwd", _p), ("wbwd", _p), ("bias", _p),
+                ("n_hidden", ctypes.c_int), ("geo", ctypes.c_int), ("n_classes", ctypes.c_int)]
 
 
 class _FfhArgs(ctypes.Structure):
     """Mirrors ``FfhArgs`` in ``csrc/fused_field_heads.cu`` field by field."""
 
-    _fields_ = [("u", _p), ("sh", _p), ("y", _p), ("p", FieldParamsStruct),
-                ("n_rows", ctypes.c_int), ("n_rows_pad", ctypes.c_int),
-                ("n_samples", ctypes.c_int)]
-
-
-def _ceil16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def _padded(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    out = torch.zeros((rows, cols), dtype=torch.bfloat16, device=w.device)
-    out[: w.shape[0], : w.shape[1]] = w
-    return out
-
-
-def _padded_bias(b: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros(n, dtype=torch.float32, device=b.device)
-    out[: b.shape[0]] = b
-    return out
+    _fields_ = [("u", _p), ("sh", _p), ("y", _p), ("p", FieldWeightsStruct),
+                ("n_rows", ctypes.c_int), ("n_samples", ctypes.c_int)]
 
 
 class PreparedField(NamedTuple):
-    """A main field as the kernels read it. The tensor lists keep the
-    padded copies alive for as long as ``params`` points at them."""
+    """A main field as the kernels read it. ``images`` keeps the repacked
+    buffers alive for as long as ``weights`` points at them."""
 
-    params: FieldParamsStruct
+    weights: FieldWeightsStruct
+    images: Tuple[torch.Tensor, ...]  # forward slabs, backward slabs, biases
     M: int
     H: int
     out_t: int  # trunk output width, 1 + G
     G: int
     hh: int  # head width
     C: int
-    tpad: int
-    cpad: int
-    n_trunk: int  # trunk weight matrices, 3 or 4
-    tws: List[torch.Tensor]
-    tbs: List[torch.Tensor]
-    rws: List[torch.Tensor]
-    rbs: List[torch.Tensor]
-    sws: List[torch.Tensor]
-    sbs: List[torch.Tensor]
+    n_hidden: int  # trunk hidden layers, 2 or 3
 
 
 def prepare_field(who: str, leaves: Sequence[torch.Tensor], dev) -> PreparedField:
-    """Check the field's leaves (f32, contiguous, on ``dev``, widths the
-    kernels take) and make the bf16 weights, zero-padded to the kernels'
-    widths, and the f32 biases."""
-    if len(leaves) % 2:
-        raise ValueError(f"{who}: W, phase, then (w, b) pairs")
-    W, phase, trunk, head, semh = split_leaves(leaves)
-    if len(trunk) not in (3, 4):
-        raise ValueError(f"{who}: the trunk needs 2 or 3 hidden layers and each head 2")
-    M, H = W.shape[1], trunk[0][0].shape[1]
-    out_t = trunk[-1][0].shape[1]
-    G = out_t - 1
-    hh = head[0][0].shape[1]
-    C = semh[-1][0].shape[1]
-    if M % 16 or H % 16 or hh % 16 or G > 16 or C > MAX_CLASSES:
-        raise ValueError(
-            f"{who}: unsupported widths M={M} H={H} head={hh} geo={G} classes={C} "
-            f"(M, H and the head multiples of 16, geo <= 16, classes <= {MAX_CLASSES})"
-        )
-    f32, bf16 = torch.float32, torch.bfloat16
-    check_tensor(who, W, "W", f32, (3, M), dev)
-    check_tensor(who, phase, "phase", f32, (M,), dev)
-    widths = [(2 * M, H)] + [(H, H)] * (len(trunk) - 2) + [(H, out_t)]
-    for mlp_name, layers, shapes in (
-        ("mlp_base", trunk, widths),
-        ("mlp_head", head, [(16 + G, hh), (hh, hh), (hh, 3)]),
-        ("mlp_sem", semh, [(G, hh), (hh, hh), (hh, C)]),
-    ):
-        for i, ((w, b), s) in enumerate(zip(layers, shapes)):
-            check_tensor(who, w, f"{mlp_name}.w{i}", f32, s, dev)
-            check_tensor(who, b, f"{mlp_name}.b{i}", f32, (s[1],), dev)
-    tpad, cpad = _ceil16(out_t), _ceil16(C)
-    tws = [w.to(bf16).contiguous() for w, _ in trunk[:-1]] + [_padded(trunk[-1][0], H, tpad)]
-    tbs = [b for _, b in trunk[:-1]] + [_padded_bias(trunk[-1][1], tpad)]
-    rws = [_padded(head[0][0], 32, hh), head[1][0].to(bf16).contiguous(),
-           _padded(head[2][0], hh, 16)]
-    rbs = [head[0][1], head[1][1], _padded_bias(head[2][1], 16)]
-    sws = [_padded(semh[0][0], 16, hh), semh[1][0].to(bf16).contiguous(),
-           _padded(semh[2][0], hh, cpad)]
-    sbs = [semh[0][1], semh[1][1], _padded_bias(semh[2][1], cpad)]
-    p = FieldParamsStruct()
-    p.W, p.phase = W.data_ptr(), phase.data_ptr()
-    for dst, ts in ((p.tw, tws), (p.tb, tbs), (p.rw, rws), (p.rb, rbs), (p.sw, sws),
-                    (p.sb, sbs)):
-        for i, t in enumerate(ts):
-            dst[i] = t.data_ptr()
-    p.m, p.hidden, p.n_layers, p.trunk_out_pad, p.geo = M, H, len(trunk), tpad, G
-    p.head_hidden, p.n_classes, p.c_pad = hh, C, cpad
-    return PreparedField(p, M, H, out_t, G, hh, C, tpad, cpad, len(trunk),
-                         tws, tbs, rws, rbs, sws, sbs)
+    """Check the field's leaves (f32, contiguous, on ``dev``, the widths the
+    kernels take) and repack them for the kernels (``field_weights``)."""
+    n_hidden, G, C = field_images.check_widths(who, [tuple(t.shape) for t in leaves])
+    lay = field_images.leaf_layout(n_hidden, G, C)
+    for i, (t, shape) in enumerate(zip(leaves, lay.shapes)):
+        check_tensor(who, t, f"leaf {i}", torch.float32, shape, dev)
+    weights, images = field_weights(leaves, dev, n_hidden, G, C)
+    return PreparedField(weights, images, field_images.M, field_images.H, 1 + G, G,
+                         field_images.HH, C, n_hidden)
+
+
+@functools.lru_cache(maxsize=None)
+def _index_tables(dev: torch.device, n_hidden: int, G: int, C: int):
+    """``field_images.index_tables`` as tensors on ``dev``, made once."""
+    return tuple(torch.from_numpy(t).to(dev) for t in field_images.index_tables(n_hidden, G, C))
+
+
+@torch.no_grad()
+def field_weights(leaves, dev, n_hidden: int, G: int, C: int):
+    """The leaves as the Hopper tile reads them: every weight repacked into
+    bf16 tile images in the order the kernels consume them (one gather each
+    for the forward and the backward slabs) and the padded f32 biases →
+    (the kernels' struct, the tensors it points at)."""
+    fwd, bwd, bias = _index_tables(dev, n_hidden, G, C)
+    flat = torch.cat([t.detach().reshape(-1) for t in leaves] + [leaves[0].new_zeros(1)])
+    flat16 = flat.to(torch.bfloat16)
+    images = (flat16[fwd], flat16[bwd], flat[bias])
+    w = FieldWeightsStruct()
+    w.W, w.phase = leaves[0].data_ptr(), leaves[1].data_ptr()
+    w.wfwd, w.wbwd, w.bias = (t.data_ptr() for t in images)
+    w.n_hidden, w.geo, w.n_classes = n_hidden, G, C
+    return w, images
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def launch_field_rows(lib, fld: PreparedField, u_ptr: int, sh_ptr: int, y_ptr: int,
@@ -187,16 +146,10 @@ def launch_field_rows(lib, fld: PreparedField, u_ptr: int, sh_ptr: int, y_ptr: i
     """Launch the packed field kernel on ``n_rows`` rows starting at the
     given addresses → the CUDA error code."""
     a = _FfhArgs()
-    a.u, a.sh, a.y, a.p = u_ptr, sh_ptr, y_ptr, fld.params
-    a.n_rows, a.n_rows_pad, a.n_samples = n_rows, -(-n_rows // 64) * 64, S
-    return lib.apnerf_ffh_fwd(ctypes.addressof(a), stream)
-
-
-def check_field_smem(who: str, lib, fld: PreparedField):
-    a = _FfhArgs()
-    a.p = fld.params
-    if lib.apnerf_ffh_smem(ctypes.addressof(a)) > MAX_SMEM:
-        raise ValueError(f"{who}: widths too large for shared memory")
+    a.u, a.sh, a.y, a.p = u_ptr, sh_ptr, y_ptr, fld.weights
+    a.n_rows, a.n_samples = n_rows, S
+    grid = field_images.field_grid(n_rows, sm_count(fld.images[0].device))
+    return lib.apnerf_ffh_fwd(ctypes.addressof(a), grid, stream)
 
 
 def _launch_forward(leaves, u, sh, S):
@@ -204,7 +157,6 @@ def _launch_forward(leaves, u, sh, S):
     dev, N = u.device, u.shape[0]
     fld = prepare_field(who, leaves, dev)
     lib = build.library()
-    check_field_smem(who, lib, fld)
     y = torch.empty((N, 4 + fld.C), dtype=torch.float32, device=dev)
     err = launch_field_rows(lib, fld, u.data_ptr(), sh.data_ptr(), y.data_ptr(), N, S,
                             torch.cuda.current_stream(dev).cuda_stream)

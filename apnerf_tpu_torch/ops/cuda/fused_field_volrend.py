@@ -49,7 +49,7 @@ import torch.nn.functional as F
 
 from . import build
 from .field_train import FieldTrainCall
-from .fused_field_heads import check_field_smem, field_plain, launch_field_rows, prepare_field
+from .fused_field_heads import field_plain, launch_field_rows, prepare_field
 from .launch import check_tensor, needs_grad
 from .volrend_cuda import fused_render_weights_plain
 
@@ -209,7 +209,6 @@ def _launch_forward(leaves, u, sh, dt, tm, S):
     f32 = torch.float32
     fld = prepare_field(who, leaves, dev)
     lib = build.library()
-    check_field_smem(who, lib, fld)
     C = fld.C
     rays_per_chunk = max(FWD_CHUNK_ROWS // S, 1)
     y = torch.empty((min(R, rays_per_chunk) * S, 4 + C), dtype=f32, device=dev)

@@ -14,7 +14,7 @@ A call that asks for gradients goes through a ``torch.autograd.Function``
 that keeps its inputs only. The backwards (``fused_spectral_field_bwd``,
 ``fused_mlp_apply_bwd``) recompute the forward with the bf16 activations
 saved, go back through the trunk on 64-row tiles and reduce the weight
-gradients in a fixed order (``field_train.weight_grads``): every layer's
+gradients in a fixed order (``launch.weight_grads``): every layer's
 dW and db, then dW_spec, dphase and du, or dx in x's dtype. The plain
 backwards are autograd through the plain forwards.
 """

@@ -1,8 +1,9 @@
 """What the kernel wrappers share around a launch: the check of a tensor a
 kernel reads through a raw pointer, the error-checked call of a library
 entry on the current stream, and the weight-gradient pass dW = Xᵀ·dY of
-every backward (``csrc/fused_field_volrend.cu``: ``xt_dy_kernel``,
-``sum_rows_kernel``).
+the trunk kernels' backwards (``csrc/fused_mlp.cu``: ``xt_dy_kernel``,
+``sum_rows_kernel``; the main field's kernels have their own, in
+``field_train.py``).
 """
 
 from __future__ import annotations

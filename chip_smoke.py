@@ -3,6 +3,8 @@ mapping loop on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase below but 12
     python3 chip_smoke.py --modes    # and phase 12
+    python3 chip_smoke.py --field-kernels   # phase 1, then only the main
+                                     # field's kernels and their times
 
 Phases, each of which must pass:
   1. the device, its power limit and the kernels' build from
@@ -28,7 +30,8 @@ Phases, each of which must pass:
   6. the train-step kernel against its plain version at the train shape
      (2048 rays x 128 samples, the shipping main field, 29 classes) with
      seeded random weights, zero-initialised and random biases: loss
-     terms and rows, weights and every gradient leaf;
+     terms and rows, weights and every gradient leaf, and two runs of the
+     same inputs that agree to the last bit;
   7. the train path: ``apnerf_tpu_torch.bench``'s protocol in process
      (FakeSim 39-view scan at 640^2, 2 members x 2048 rays x 128 samples,
      a warm-up chunk and 4 timed chunks of 100 steps, each with the
@@ -82,7 +85,10 @@ Phases, each of which must pass:
      member step with the forward kernels and the plain backwards between
      the two sides of phase 14's comparison: how much of a difference is
      the backward kernel's and how much the forwards'.
-Phases 13 to 15 run after phase 9.
+Phases 13 to 15 run after phase 9. ``--field-kernels`` runs phase 1 and
+the kernel comparisons of phases 6, 8, 9 and 13's two render backwards,
+prints one line of times for each and no ``ok`` line: for comparing two
+trees in one call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and before that one JSON object
@@ -221,6 +227,21 @@ def main(argv=None) -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    # the host-side mirrors of the field kernels' layouts, against the kernels' own
+    from apnerf_tpu_torch.ops.cuda import field_images
+
+    lib = build.library()
+    for n_hidden in (2, 3):
+        mirror = (field_images.fwd_smem_bytes(n_hidden), field_images.bwd_smem_bytes(),
+                  field_images.dw_smem_bytes(), field_images.n_bias(n_hidden))
+        own = tuple(lib.apnerf_field_layout(which, n_hidden) for which in range(4))
+        if mirror != own or max(own[:3]) > field_images.MAX_SMEM:
+            fail(f"field kernel layouts {own} differ from their mirrors {mirror}")
+    print(f"field kernels: shared memory forward / backward / dW {own[:3]} bytes of "
+          f"{field_images.MAX_SMEM}", flush=True)
+
+    if "--field-kernels" in argv:
+        return field_kernels_alone(dev)
 
     from apnerf_tpu_torch import native
     from apnerf_tpu_torch.active.mapper import ActiveNeRFMapper
@@ -493,6 +514,50 @@ def main(argv=None) -> int:
     return 0
 
 
+def field_kernels_alone(dev) -> int:
+    """(``--field-kernels`` only) The main field's five kernels against
+    their plain versions at their main shapes and nothing else, one line
+    each, then the packed field kernel's launch alone with the weights
+    repacked once: the short run for comparing two trees in one call. Prints
+    no ``ok`` line."""
+    from apnerf_tpu_torch.config import PipelineConfig
+    from apnerf_tpu_torch.models import spectral
+    from apnerf_tpu_torch.ops.cuda import build, fused_field_heads as ffh
+    from apnerf_tpu_torch.train.flagship import make_spectral_config
+
+    for name, phase in (
+        ("fused_field_heads", lambda: phase_k4(dev)),
+        ("fused_field_volrend_lossgrad", lambda: phase_k6(dev)),
+        ("fused_field_volrend", lambda: phase_k5(dev)),
+        ("fused_field_heads_bwd", lambda: phase_render_bwd(dev, "heads")),
+        ("fused_field_volrend_bwd", lambda: phase_render_bwd(dev, "volrend")),
+    ):
+        err, ms, pms, (bound_ms, _), *_ = phase()
+        print(f"field kernels alone: {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms, max_abs_err {err:.3e}", flush=True)
+    gen = _generator(dev, 8)
+    cfg = PipelineConfig()
+    s_cfg = make_spectral_config(cfg)
+    R, S = 4096, 256
+    field = spectral.init_spectral(s_cfg, gen, dev)
+    pos, dirs, _, _, _ = _render_inputs(gen, dev, R, S, cfg.aabb)
+    with torch.inference_mode():
+        u, sh = spectral._packed_inputs(s_cfg, pos, dirs)
+        fld = ffh.prepare_field("fused_field_heads", list(field.parameters()), dev)
+        y = torch.empty((R * S, 4 + fld.C), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch():
+            if ffh.launch_field_rows(build.library(), fld, u.data_ptr(), sh.data_ptr(),
+                                     y.data_ptr(), R * S, S, stream) != 0:
+                fail("the packed field kernel did not launch")
+
+        print(f"field kernels alone: fused_field_heads without the wrapper (weights repacked "
+              f"once) N={R * S}: {cuda_ms(launch):.4f} ms", flush=True)
+    print(nvidia_smi())
+    return 0
+
+
 def all_counters():
     """Every kernel wrapper of the port, by name: each counts its launches."""
     from apnerf_tpu_torch.ops.cuda.fused_field_heads import (
@@ -676,6 +741,16 @@ def phase_k6(dev):
 
         lk, wk, gk = kernel()
         torch.cuda.synchronize()
+        # nothing is accumulated across blocks in an order that the timing
+        # decides: a second run gives the same bits
+        lk2, wk2, gk2 = kernel()
+        again = _flat(gk2)
+        same = (torch.equal(lk, lk2) and torch.equal(wk, wk2)
+                and all(torch.equal(v, again[k]) for k, v in _flat(gk).items()))
+        print(f"train-step kernel [{case}]: two runs bit-identical: {same}", flush=True)
+        if not same:
+            fail(f"train-step kernel ({case}): two runs of the same inputs differ")
+        del lk2, wk2, gk2, again
         lp, wp, gp = plain()
         w_err, _ = _errs(wk, wp)
         l_errs = [

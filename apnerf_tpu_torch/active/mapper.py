@@ -62,6 +62,7 @@ from ..planning.cost_map import depth_scan_angles, update_cost_map
 from ..planning.traj import sample_traj
 from ..render.prop_renderer import render_rays_prop
 from ..train.flagship import (
+    default_route,
     default_spectral_schedule,
     init_flagship_ensemble,
     make_flagship_occ_update,
@@ -239,16 +240,19 @@ class ActiveNeRFMapper:
         """→ ``render(members, occ, origins [V,P,3], viewdirs, bkgd)`` →
         dict of [E, V, P, ...] tensors (``n_samples`` [E, V]). The
         occupancy grids are accepted for signature parity: the flagship
-        sampler does not read them. The device alone picks the route. On
-        the card every render goes through the packed kernels: with
-        variance the packed field, without it the fused field and render;
-        a field they do not take (no semantic classes, f32 compute, another
-        trunk depth) makes their wrappers raise. On the CPU the plain
+        sampler does not read them. The device and the field's
+        configuration pick the route: on the card a field whose member
+        core takes the combined kernel (``default_route`` is ``lossgrad``)
+        renders through the packed kernels, with variance the packed field,
+        without it the fused field and render; any other field renders
+        through ``spectral.forward``, as the JAX mapper renders every field
+        (encode + trunk in the field kernel for a bf16 field with 2 or 3
+        hidden layers, the plain chain for the rest). On the CPU the plain
         ``spectral.forward`` renders."""
         cfg = self.cfg
         s_cfg, p_cfg = self.spectral_cfg, self.prop_cfg
         aabb = torch.as_tensor(cfg.aabb, dtype=torch.float32, device=self.device)
-        packed = self.device.type != "cpu"
+        packed = self.device.type != "cpu" and default_route(s_cfg) == "lossgrad"
 
         @torch.inference_mode()
         def render(members, occ, origins, viewdirs, bkgd) -> Dict[str, torch.Tensor]:

@@ -1,8 +1,10 @@
-// The argument struct of the main field's train-side kernels: the field
+// The argument struct of the field tile's train-side kernels: the field
 // forward that saves its activations, the per-ray and per-sample kernels
 // that turn cotangents of the outputs into cotangents of the field's
 // per-sample values, the field backward and the weight gradients
-// (fused_field_volrend.cu, fused_field_heads.cu).
+// (fused_field_volrend.cu, fused_field_heads.cu); and the same forward and
+// backward over the trunk alone, the trunk kernels' backwards
+// (field_train.py::TrunkTrainCall).
 
 #pragma once
 
@@ -25,14 +27,14 @@ struct FvrArgs {
   const int* lab;      // [R]
   const float* bk;     // [3]
   // the field (the members of FieldWeights)
-  const float* W;      // [3, 128]
-  const float* phase;  // [128]
+  const float* W;      // [3, M]
+  const float* phase;  // [M]
   const __nv_bfloat16* wfwd;
   const __nv_bfloat16* wbwd;
   const float* bias;
   // saved activations
-  __nv_bfloat16* enc;   // 4 images a tile: [cos | sin]
-  __nv_bfloat16* h[3];  // 4 images a tile: trunk hidden activations
+  __nv_bfloat16* enc;   // 2M / 64 images a tile: [cos | sin], or x zero-padded
+  __nv_bfloat16* h[3];  // H / 64 images a tile: trunk hidden activations
   __nv_bfloat16* xs;    // 1 image: the heads' input [SH | geo | 0]
   __nv_bfloat16* hid1;  // 2 images: first hidden layer of the rgb | the sem head
   __nv_bfloat16* hid2;  // 2 images: second hidden layer
@@ -52,7 +54,7 @@ struct FvrArgs {
   __nv_bfloat16* g2;     // 2 images: second hidden layer's pre-activation, rgb | sem
   __nv_bfloat16* g1;     // 2 images: first hidden layer's
   __nv_bfloat16* gt;     // 1 image: trunk output [graw | d geo | 0]
-  __nv_bfloat16* gh[3];  // 4 images: trunk pre-activations
+  __nv_bfloat16* gh[3];  // H / 64 images: trunk pre-activations
   float* tile_part;     // [Np / 64, n_bias] per-tile column sums (see bias layout)
   // outputs
   float* w;             // [N] weights
@@ -63,8 +65,16 @@ struct FvrArgs {
   const float* g_w;       // [N] cotangent of the weights
   const float* g_packed;  // [N, 4 + C] cotangent of the packed field output
   float* du;              // [N, 3] gradient of u
+  // the trunk alone (heads = 0): its input x in place of the encode of u
+  // where given, the cotangent of its output, and dx where asked for
+  const void* x;          // [N, din] bf16 or f32, or null
+  const float* g_trunk;   // [N, out] f32
+  void* dx;               // [N, din] in x's dtype, or null
   // sizes
   int n_rows, n_rays, n_samples;
+  int tile_m, tile_h;  // the instance: frequencies and trunk width
   int n_hidden, geo, n_classes, c_pad;  // c_pad: classes padded to a multiple of 16
+  int heads;  // 1: the whole field; 0: the trunk alone
+  int x_f32, din, out;  // x's dtype and width; the trunk output's width
   float c_rgb, c_dep, c_sem;  // loss weight / mean norm of each term
 };

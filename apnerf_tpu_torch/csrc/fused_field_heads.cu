@@ -9,9 +9,11 @@
 // features arrive per ray [R, 16] (row r belongs to ray r / n_samples)
 // instead of broadcast per sample.
 //
-// What bounds it on an H100: tensor-core math. A row costs ~0.45 MFLOP
-// (the 3x256 trunk and both 64-wide heads) against 12 B read and 132 B
-// written, ~3,300 FLOP/B, far above the card's ~295 FLOP/B balance. The
+// What bounds it on an H100: tensor-core math. A row of the shipping field
+// costs ~0.45 MFLOP (the 3x256 trunk and both 64-wide heads) against 12 B
+// read and 132 B written, ~3,300 FLOP/B, far above the card's ~295 FLOP/B
+// balance. The kernel is a template on the field's widths (M, H), one
+// instance for each pair field_tile.cuh takes. The
 // design is field_tile.cuh's: persistent blocks of two wgmma consumer
 // warpgroups and a producer warp that streams the weights' tile images
 // through a shared-memory ring with cp.async.bulk; no activation is
@@ -61,11 +63,21 @@ struct PackedEpilogue {
   }
 };
 
+template <int M, int H>
 __global__ void __launch_bounds__(kFieldThreads, 1)
     ffh_fwd_kernel(const __grid_constant__ FfhArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  field_forward(a.p, NoSave{}, a.u, a.sh, a.n_rows, a.n_samples, smem,
-                PackedEpilogue{a.y, 4 + a.p.n_classes});
+  field_forward<M, H>(a.p, NoSave{}, a.u, nullptr, 0, 0, true, a.sh, a.n_rows, a.n_samples, smem,
+                      PackedEpilogue{a.y, 4 + a.p.n_classes});
+}
+
+template <int M, int H>
+int launch_ffh_fwd(const FfhArgs* a, int grid, cudaStream_t stream) {
+  const size_t smem = fwd_smem(H, a->p.n_hidden).total;
+  int err = set_smem((const void*)ffh_fwd_kernel<M, H>, smem);
+  if (err) return err;
+  ffh_fwd_kernel<M, H><<<grid, kFieldThreads, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kPackWarps = 8;  // rays per block of ffh_bwd_pack_kernel
@@ -113,14 +125,15 @@ __global__ void __launch_bounds__(kPackWarps * 32) ffh_bwd_pack_kernel(FvrArgs a
 
 }  // namespace
 
-// Launches `grid` persistent blocks on `stream` and returns
-// cudaGetLastError(); allocates nothing.
+// Launches `grid` persistent blocks of the instance (a->p.tile_m, a->p.tile_h) on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for
+// another pair); allocates nothing.
 extern "C" int apnerf_ffh_fwd(const FfhArgs* a, int grid, void* stream) {
-  const size_t smem = fwd_smem(a->p.n_hidden).total;
-  int err = set_smem((const void*)ffh_fwd_kernel, smem);
-  if (err) return err;
-  ffh_fwd_kernel<<<grid, kFieldThreads, smem, static_cast<cudaStream_t>(stream)>>>(*a);
-  return (int)cudaGetLastError();
+#define APNERF_CASE(M_, H_) \
+  if (a->p.tile_m == M_ && a->p.tile_h == H_) return launch_ffh_fwd<M_, H_>(a, grid, (cudaStream_t)stream);
+  APNERF_TILE_WIDTHS(APNERF_CASE)
+#undef APNERF_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // The packed cotangent a->g_packed to the per-sample cotangents of the field

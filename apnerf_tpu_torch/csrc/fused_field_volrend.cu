@@ -25,7 +25,7 @@
 // launches from one wrapper, all written here, no library product; every
 // matrix pass is wgmma on 128-byte-swizzled tile images, its weights
 // streamed through a shared-memory ring by cp.async.bulk (hopper_tile.cuh,
-// field_tile.cuh):
+// field_tile.cuh), at each of the tile's nine (M, H) instances:
 //   1. fvr_field_fwd_kernel: the whole field (field_tile.cuh) with a save
 //      struct: the bf16 activations leave as tile images by bulk stores
 //      (~0.7 GB per call at the shipping shape), the ReLU masks as bits,
@@ -52,6 +52,15 @@
 // 1.8 GB a call at the card's 3.35 TB/s. From the wrapper the call is
 // bound by the host, not by these kernels.
 //
+// Launches 1, 3 and 4 with heads = 0 are the backwards of the trunk
+// kernels (fused_mlp.py: fused_spectral_field_bwd, replacing
+// apnerf_tpu/ops/pallas/fused_mlp.py::_call_enc_bwd, and
+// fused_mlp_apply_bwd, replacing ::_call_bwd): the forward stops after
+// the trunk's hidden layers, the backward enters at the trunk output's
+// cotangent g (rounded to bf16, as the TPU kernels round it) and ends at
+// the encode's backward or at dx = gh0 w0^T, and dW covers the bare trunk.
+// The trunk kernels' input x enters as zero-padded first-layer images.
+//
 // The file also holds the ray kernel of the forward-only render
 // (fused_field_volrend's forward, section 2b below), which shares the
 // per-ray scan with fvr_ray_kernel and stops after the sums, and that
@@ -73,10 +82,10 @@ constexpr int kRayWarps = 8;    // rays per block of fvr_ray_kernel
 constexpr int kRayChan = 128;   // per-ray channel slots in shared memory (3 + C <= 64, twice)
 
 // bias layout of a tile_part row: trunk pre-activation sums (n_hidden x H),
-// trunk output (16), rgb head (hh, hh), sem head (hh, hh), dphase (M),
+// trunk output (16), rgb head (H/4, H/4), sem head (H/4, H/4), dphase (M),
 // dW_spec (3 x M, scaled by 2 pi)
-__host__ __device__ inline int n_bias(int n_hidden) {
-  return n_hidden * kH + kTOut + 4 * kHh + 4 * kM;
+__host__ __device__ inline int n_bias(int n_hidden, int m, int h) {
+  return n_hidden * h + kTOut + h + 4 * m;
 }
 
 // ---- 1. field forward -------------------------------------------------------
@@ -105,12 +114,13 @@ struct TrainEpilogue {
   }
 };
 
+template <int M, int H>
 __global__ void __launch_bounds__(kFieldThreads, 1)
     fvr_field_fwd_kernel(const __grid_constant__ FvrArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
   // the call's arguments are the field's weights and its save buffers
-  field_forward(a, a, a.u, a.sh, a.n_rows, a.n_samples, smem,
-                TrainEpilogue{a.sigma, a.dsd, a.rgb, a.sem, a.n_classes});
+  field_forward<M, H>(a, a, a.u, a.x, a.x_f32, a.din, a.heads != 0, a.sh, a.n_rows, a.n_samples,
+                      smem, TrainEpilogue{a.sigma, a.dsd, a.rgb, a.sem, a.n_classes});
 }
 
 // ---- 2. per-ray volume rendering, loss and cotangents -------------------------
@@ -344,45 +354,61 @@ __global__ void __launch_bounds__(kRayWarps * 32)
 //
 // The forward's block design run backwards: per 128-row pass the producer
 // warp streams the backward slabs (B[n][k] = w[n][k0 + k], so the product
-// is dX = dY W^T) and then the two tiles' saved encodings; each consumer
-// warpgroup walks its 64 rows from the head outputs down to the spectral
-// phase with its cotangent buffer (four images) as the A operand. The ReLU
-// masks come as bits in the accumulator's own order, two words a thread a
-// layer. Image slots of the buffer over time:
+// is dX = dY W^T) and then, with the encode, the two tiles' saved
+// encodings; each consumer warpgroup walks its 64 rows from the head
+// outputs (or, for the trunk alone, from the trunk output's cotangent)
+// down to the spectral phase or to dx, with its cotangent buffer (four
+// images) as the A operand. The ReLU masks come as bits in the
+// accumulator's own order, two words a thread a layer. Image slots of the
+// buffer over time:
 //   0 gout_rgb -> g1 rgb   1 gout_sem -> g1 sem   2 g2 rgb -> gt
 //   3 g2 sem -> f32 trunk-output cotangent (for its column sums)
-// then all four hold gh[l], and at the end the f32 dproj [64, 128].
+// then the first H / 64 hold gh[l], and at the end the f32 dproj [64, M].
 
 constexpr int kBwdStages = 4;
+
+// bytes of a backward ring slot: a trunk slab, or a first-layer slab
+// [2M, 64] (the encode's, or dx's) and a tile's saved encoding
+__host__ __device__ constexpr int bwd_slot(int m, int h) {
+  return h * kImgRowBytes > 2 * m * kImgRowBytes ? h * kImgRowBytes : 2 * m * kImgRowBytes;
+}
 
 struct BwdSmem {
   int ring, act, u, bars, total;
 };
 
-__host__ __device__ inline BwdSmem bwd_smem() {
+__host__ __device__ inline BwdSmem bwd_smem(int m, int h) {
   BwdSmem s;
   s.ring = 0;
-  s.act = kBwdStages * kSlabBytes;
+  s.act = kBwdStages * bwd_slot(m, h);
   s.u = s.act + 2 * kActBytes;
   s.bars = s.u + 2 * kUTileBytes;  // a tile's coordinates per warpgroup
   s.total = s.bars + 16 * kBwdStages + kAlignSlack;
   return s;
 }
 
-// backward weight slab s of the schedule (field_images.py::bwd_slabs)
-__device__ __forceinline__ void bwd_slab(int s, uint32_t& off, uint32_t& bytes) {
-  if (s == 0) {
-    off = 0;
-    bytes = 2 * kImgBytes64;
-  } else if (s == 1) {
-    off = 16384;
-    bytes = 2 * kImgBytes64;
+// backward weight slab s of the whole field's schedule
+// (field_images.py::bwd_slabs): the heads from the top, the trunk output,
+// the hidden layers downwards, the first layer. The trunk alone has no
+// head slabs: its schedule is this one from s = 3 on, its buffer this one
+// less the heads' bytes.
+template <int M, int H>
+__device__ __forceinline__ void bwd_slab(int s, int n_hidden, uint32_t& off, uint32_t& bytes) {
+  using T = Tile<M, H>;
+  const uint32_t heads = 4 * T::kHeadImg + 2 * 32 * kImgRowBytes;
+  const int first = 4 + (n_hidden - 1) * T::kHImgs;  // the first layer's slabs start here
+  if (s < 2) {
+    off = (uint32_t)s * 2 * T::kHeadImg;
+    bytes = 2 * T::kHeadImg;
   } else if (s == 2) {
-    off = 32768;
+    off = 4 * T::kHeadImg;
     bytes = 2 * 32 * kImgRowBytes;
+  } else if (s < first) {
+    off = heads + (uint32_t)(s - 3) * T::kTrunkSlab;
+    bytes = T::kTrunkSlab;
   } else {
-    off = 40960 + (uint32_t)(s - 3) * kSlabBytes;
-    bytes = kSlabBytes;
+    off = heads + (uint32_t)(first - 3) * T::kTrunkSlab + (uint32_t)(s - first) * 2 * M * kImgRowBytes;
+    bytes = 2 * M * kImgRowBytes;
   }
 }
 
@@ -401,21 +427,35 @@ __device__ __forceinline__ uint32_t masked_pack(float lo, float hi, uint32_t bit
   return pack_bf16((bits & 1u) ? lo : 0.f, (bits & 2u) ? hi : 0.f);
 }
 
-// f32 dproj element (i, j) of the swizzled [64, 128] buffer
-__device__ __forceinline__ int dp_at(int i, int j) { return i * kM + (j ^ ((i & 7) << 3)); }
+// f32 dproj element (i, j) of the swizzled [64, M] buffer
+template <int M>
+__device__ __forceinline__ int dp_at(int i, int j) {
+  return i * M + (j ^ (((i & 7) << 3) & (M - 1)));
+}
 
+// byte offset of encoding column `col` of row i in a tile's saved images
+__device__ __forceinline__ int enc_off(int i, int col) {
+  return (col / 64) * kImgBytes64 + img_off(i, col % 64);
+}
+
+template <int M, int H>
 __global__ void __launch_bounds__(kFieldThreads, 1)
     fvr_field_bwd_kernel(const __grid_constant__ FvrArgs a) {
+  using T = Tile<M, H>;
+  constexpr int kHh = T::kHh;
+  constexpr int kSlot = bwd_slot(M, H);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
-  const BwdSmem L = bwd_smem();
+  const BwdSmem L = bwd_smem(M, H);
   const int nh = a.n_hidden;
+  const bool heads = a.heads != 0, encode = a.x == nullptr;
   const uint32_t full = smem_u32(smem + L.bars), empty = full + 8 * kBwdStages;
   const uint32_t ring_base = smem_u32(smem + L.ring);
   if (threadIdx.x == 0) ring_init<kBwdStages>(full, empty, 2);
   __syncthreads();
   const int n_pass = (a.n_rows + kPassRows - 1) / kPassRows;
-  const int n_slabs = 4 + 4 * nh;
+  const int s0 = heads ? 0 : 3;  // the trunk alone starts at the trunk output
+  const int n_slabs = 4 + nh * T::kHImgs;  // of the whole field's schedule
   Ring<kBwdStages> ring;
   ring.full = full;
   ring.empty = empty;
@@ -425,21 +465,22 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
     reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 2 * kWg) {
       const unsigned char* w = reinterpret_cast<const unsigned char*>(a.wbwd);
+      const uint32_t skip = heads ? 0u : 4 * T::kHeadImg + 2 * 32 * kImgRowBytes;
       for (int pass = blockIdx.x; pass < n_pass; pass += gridDim.x) {
-        for (int s = 0; s < n_slabs + 2; ++s) {
+        for (int s = s0; s < n_slabs + (encode ? 2 : 0); ++s) {
           uint32_t off, bytes;
           const unsigned char* src;
           if (s < n_slabs) {
-            bwd_slab(s, off, bytes);
-            src = w + off;
+            bwd_slab<M, H>(s, nh, off, bytes);
+            src = w + (off - skip);
           } else {
-            bytes = kActBytes;
+            bytes = T::kEncBytes;
             src = reinterpret_cast<const unsigned char*>(a.enc) +
-                  (size_t)(2 * pass + (s - n_slabs)) * kActBytes;
+                  (size_t)(2 * pass + (s - n_slabs)) * T::kEncBytes;
           }
           ring.wait_empty();
           mbar_expect_tx(ring.full_bar(), bytes);
-          bulk_load(ring_base + ring.stage * kSlabBytes, src, bytes, ring.full_bar());
+          bulk_load(ring_base + ring.stage * kSlot, src, bytes, ring.full_bar());
           ring.advance();
         }
       }
@@ -456,7 +497,7 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
   unsigned char* act = smem + L.act + wg * kActBytes;
   const uint32_t act_a = smem_u32(act);
   const int G = a.geo, cp = a.c_pad;
-  const int off_gtr = nh * kH;
+  const int off_gtr = nh * H;
   const int off_r1 = off_gtr + kTOut;
   const int off_r2 = off_r1 + kHh, off_s1 = off_r2 + kHh, off_s2 = off_s1 + kHh;
   const int off_dph = off_s2 + kHh;  // then dW_spec at off_dph + M
@@ -474,106 +515,120 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
   for (int pass = blockIdx.x; pass < n_pass; pass += gridDim.x) {
     const int row0 = pass * kPassRows + wg * kTileRows;
     const size_t tile = (size_t)(row0 / kTileRows);
-    float* part = a.tile_part + tile * n_bias(nh);
-    const uint2 mh_lo = a.mask_h[(size_t)(row0 + r_lo) * 4 + q];
-    const uint2 mh_hi = a.mask_h[(size_t)(row0 + r_lo + 8) * 4 + q];
+    float* part = a.tile_part + tile * n_bias(nh, M, H);
     // what the end of the pass reads from device memory is fetched now
-    stash_u(u_s, fetch_u(a.u, row0, a.n_rows, tid), tid);
-    float graw[2] = {0.f, 0.f};
-    if (q == 0) {
-      if (row0 + r_lo < a.n_rows) graw[0] = a.graw[row0 + r_lo];
-      if (row0 + r_lo + 8 < a.n_rows) graw[1] = a.graw[row0 + r_lo + 8];
-    }
+    if (encode) stash_u(u_s, fetch_u(a.u, row0, a.n_rows, tid), tid);
+    unsigned char* gt = act + 2 * kImgBytes64;
+    float* gtf = reinterpret_cast<float*>(act + 3 * kImgBytes64);  // [64, 16]
 
-    // head output cotangents into images 0 (rgb) and 1 (sem), zero-padded
-    // (rows past n_rows are zero)
-    // (eight 16-byte chunks a thread, every load issued before the first store)
-    uint4 gv[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int e = tid + k * kWg;
-      const int i = e / 16, ch = e % 8, which = (e / 8) % 2;
-      const int row = row0 + i;
-      gv[k] = make_uint4(0u, 0u, 0u, 0u);
-      if (row < a.n_rows) {
-        if (which == 0 && ch < kRgbPad / 8)
-          gv[k] = *reinterpret_cast<const uint4*>(a.gout_rgb + (size_t)row * kRgbPad + ch * 8);
-        if (which == 1 && ch < cp / 8)
-          gv[k] = *reinterpret_cast<const uint4*>(a.gout_sem + (size_t)row * cp + ch * 8);
+    if (heads) {
+      const uint2 mh_lo = a.mask_h[(size_t)(row0 + r_lo) * 4 + q];
+      const uint2 mh_hi = a.mask_h[(size_t)(row0 + r_lo + 8) * 4 + q];
+      float graw[2] = {0.f, 0.f};
+      if (q == 0) {
+        if (row0 + r_lo < a.n_rows) graw[0] = a.graw[row0 + r_lo];
+        if (row0 + r_lo + 8 < a.n_rows) graw[1] = a.graw[row0 + r_lo + 8];
       }
-    }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int e = tid + k * kWg;
-      const int i = e / 16, ch = e % 8, which = (e / 8) % 2;
-      *reinterpret_cast<uint4*>(act + which * kImgBytes64 + img_off(i, ch * 8)) = gv[k];
-    }
-    after_write();
-    if (tid == 0) bulk_store(a.gout + tile * kImgBytes64, act_a, 2 * kImgBytes64);
 
-    // heads, from the top: layer 2's and layer 1's pre-activation cotangents
-    for (int l = 1; l >= 0; --l) {
-      float dr[32], ds[32];
-      const uint32_t src = act_a + (l == 1 ? 0 : 2 * kImgBytes64);
-      {
-        const uint32_t slab = slab_begin(ring, ring_base, kSlabBytes);
-        if (l == 1) {
-          wgmma_n64<0, 0>(dr, kmajor_desc(src, 0), kmajor_desc(slab, 0), 0);
-          for (int ks = 0; ks < cp / 16; ++ks)
-            wgmma_n64<0, 0>(ds, kmajor_desc(src + kImgBytes64, ks),
-                            kmajor_desc(slab + kImgBytes64, ks), ks != 0);
-        } else {
+      // head output cotangents into images 0 (rgb) and 1 (sem), zero-padded
+      // (rows past n_rows are zero)
+      // (eight 16-byte chunks a thread, every load issued before the first store)
+      uint4 gv[8];
 #pragma unroll
-          for (int ks = 0; ks < 4; ++ks) {
-            wgmma_n64<0, 0>(dr, kmajor_desc(src, ks), kmajor_desc(slab, ks), ks != 0);
-            wgmma_n64<0, 0>(ds, kmajor_desc(src + kImgBytes64, ks),
-                            kmajor_desc(slab + kImgBytes64, ks), ks != 0);
-          }
+      for (int k = 0; k < 8; ++k) {
+        const int e = tid + k * kWg;
+        const int i = e / 16, ch = e % 8, which = (e / 8) % 2;
+        const int row = row0 + i;
+        gv[k] = make_uint4(0u, 0u, 0u, 0u);
+        if (row < a.n_rows) {
+          if (which == 0 && ch < kRgbPad / 8)
+            gv[k] = *reinterpret_cast<const uint4*>(a.gout_rgb + (size_t)row * kRgbPad + ch * 8);
+          if (which == 1 && ch < cp / 8)
+            gv[k] = *reinterpret_cast<const uint4*>(a.gout_sem + (size_t)row * cp + ch * 8);
         }
-        slab_end(ring, tid);
       }
-      before_overwrite();
-      unsigned char* dst = act + (l == 1 ? 2 * kImgBytes64 : 0);
-      const int sft = 16 * l;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * q, at = sft + 2 * j;
-        *reinterpret_cast<uint32_t*>(dst + img_off(r_lo, c)) =
-            masked_pack(dr[4 * j], dr[4 * j + 1], mh_lo.x >> at);
-        *reinterpret_cast<uint32_t*>(dst + img_off(r_lo + 8, c)) =
-            masked_pack(dr[4 * j + 2], dr[4 * j + 3], mh_hi.x >> at);
-        *reinterpret_cast<uint32_t*>(dst + kImgBytes64 + img_off(r_lo, c)) =
-            masked_pack(ds[4 * j], ds[4 * j + 1], mh_lo.y >> at);
-        *reinterpret_cast<uint32_t*>(dst + kImgBytes64 + img_off(r_lo + 8, c)) =
-            masked_pack(ds[4 * j + 2], ds[4 * j + 3], mh_hi.y >> at);
+      for (int k = 0; k < 8; ++k) {
+        const int e = tid + k * kWg;
+        const int i = e / 16, ch = e % 8, which = (e / 8) % 2;
+        *reinterpret_cast<uint4*>(act + which * kImgBytes64 + img_off(i, ch * 8)) = gv[k];
       }
       after_write();
-      if (tid == 0)
-        bulk_store((l == 1 ? a.g2 : a.g1) + tile * kImgBytes64,
-                   act_a + (l == 1 ? 2 * kImgBytes64 : 0), 2 * kImgBytes64);
-      part[(l == 1 ? (tid < 64 ? off_r2 : off_s2 - 64) : (tid < 64 ? off_r1 : off_s1 - 64)) + tid] =
-          image_column_sum(dst + (tid / 64) * kImgBytes64, tid % 64);
-    }
+      if (tid == 0) bulk_store(a.gout + tile * kImgBytes64, act_a, 2 * kImgBytes64);
 
-    // heads' first layers back to their input: d[SH | geo] from both heads in
-    // one accumulator; the trunk output's cotangent [graw | d geo | 0] as
-    // image 2 (bf16) and in image 3's place (f32, for its column sums)
-    {
+      // heads, from the top: layer 2's and layer 1's pre-activation cotangents
+      // (columns H/4 .. 63 of the images zero)
+      for (int l = 1; l >= 0; --l) {
+        float dr[kHh / 2], ds[kHh / 2];
+        const uint32_t src = act_a + (l == 1 ? 0 : 2 * kImgBytes64);
+        {
+          const uint32_t slab = slab_begin(ring, ring_base, kSlot);
+          if (l == 1) {
+            wgmma<kHh, 0, 0>(dr, kmajor_desc(src, 0), kmajor_desc(slab, 0), 0);
+            for (int ks = 0; ks < cp / 16; ++ks)
+              wgmma<kHh, 0, 0>(ds, kmajor_desc(src + kImgBytes64, ks),
+                               kmajor_desc(slab + T::kHeadImg, ks), ks != 0);
+          } else {
+#pragma unroll
+            for (int ks = 0; ks < kHh / 16; ++ks) {
+              wgmma<kHh, 0, 0>(dr, kmajor_desc(src, ks), kmajor_desc(slab, ks), ks != 0);
+              wgmma<kHh, 0, 0>(ds, kmajor_desc(src + kImgBytes64, ks),
+                               kmajor_desc(slab + T::kHeadImg, ks), ks != 0);
+            }
+          }
+          slab_end(ring, tid);
+        }
+        before_overwrite();
+        unsigned char* dst = act + (l == 1 ? 2 * kImgBytes64 : 0);
+        const int sft = 16 * l;
+#pragma unroll
+        for (int j = 0; j < kHh / 8; ++j) {
+          const int c = 8 * j + 2 * q, at = sft + 2 * j;
+          *reinterpret_cast<uint32_t*>(dst + img_off(r_lo, c)) =
+              masked_pack(dr[4 * j], dr[4 * j + 1], mh_lo.x >> at);
+          *reinterpret_cast<uint32_t*>(dst + img_off(r_lo + 8, c)) =
+              masked_pack(dr[4 * j + 2], dr[4 * j + 3], mh_hi.x >> at);
+          *reinterpret_cast<uint32_t*>(dst + kImgBytes64 + img_off(r_lo, c)) =
+              masked_pack(ds[4 * j], ds[4 * j + 1], mh_lo.y >> at);
+          *reinterpret_cast<uint32_t*>(dst + kImgBytes64 + img_off(r_lo + 8, c)) =
+              masked_pack(ds[4 * j + 2], ds[4 * j + 3], mh_hi.y >> at);
+        }
+        if constexpr (kHh < 64) {
+#pragma unroll
+          for (int j = kHh / 8; j < 8; ++j) {
+            const int c = 8 * j + 2 * q;
+#pragma unroll
+            for (int w = 0; w < 2; ++w) {
+              *reinterpret_cast<uint32_t*>(dst + w * kImgBytes64 + img_off(r_lo, c)) = 0u;
+              *reinterpret_cast<uint32_t*>(dst + w * kImgBytes64 + img_off(r_lo + 8, c)) = 0u;
+            }
+          }
+        }
+        after_write();
+        if (tid == 0)
+          bulk_store((l == 1 ? a.g2 : a.g1) + tile * kImgBytes64,
+                     act_a + (l == 1 ? 2 * kImgBytes64 : 0), 2 * kImgBytes64);
+        if (tid % 64 < kHh)
+          part[(l == 1 ? (tid < 64 ? off_r2 : off_s2) : (tid < 64 ? off_r1 : off_s1)) + tid % 64] =
+              image_column_sum(dst + (tid / 64) * kImgBytes64, tid % 64);
+      }
+
+      // heads' first layers back to their input: d[SH | geo] from both heads in
+      // one accumulator; the trunk output's cotangent [graw | d geo | 0] as
+      // image 2 (bf16) and in image 3's place (f32, for its column sums)
       float dx[16];
       {
-        const uint32_t slab = slab_begin(ring, ring_base, kSlabBytes);
+        const uint32_t slab = slab_begin(ring, ring_base, kSlot);
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
+        for (int ks = 0; ks < kHh / 16; ++ks)
           wgmma_n32<0, 0>(dx, kmajor_desc(act_a, ks), kmajor_desc(slab, ks), ks != 0);
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
+        for (int ks = 0; ks < kHh / 16; ++ks)
           wgmma_n32<0, 0>(dx, kmajor_desc(act_a + kImgBytes64, ks),
                           kmajor_desc(slab + 32 * kImgRowBytes, ks), 1);
         slab_end(ring, tid);
       }
       before_overwrite();
-      unsigned char* gt = act + 2 * kImgBytes64;
-      float* gtf = reinterpret_cast<float*>(act + 3 * kImgBytes64);  // [64, 16]
 #pragma unroll
       for (int e = 8; e < 16; ++e) {
         const int c = 8 * (e / 4) + 2 * q + (e & 1);  // column of [SH | geo], 16..31
@@ -593,40 +648,50 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
           *reinterpret_cast<bf16*>(gt + img_off(i, 0)) = __float2bfloat16(v);
         }
       }
-      for (int e = tid; e < kTileRows * 6; e += kWg)
-        *reinterpret_cast<uint4*>(gt + img_off(e / 6, (2 + e % 6) * 8)) = make_uint4(0u, 0u, 0u, 0u);
-      after_write();
-      if (tid == 0) bulk_store(a.gt + tile * (kImgBytes64 / 2), act_a + 2 * kImgBytes64, kImgBytes64);
-      if (tid < kTOut) {
-        float s = 0.f;
-#pragma unroll 16
-        for (int i = 0; i < kTileRows; ++i) s += gtf[i * kTOut + tid];
-        part[off_gtr + tid] = s;
+    } else {
+      // the trunk alone: its output's cotangent g [64, out] (f32, zero past
+      // out and past n_rows) as image 2 (bf16) and in image 3's place (f32)
+      for (int e = tid; e < kTileRows * kTOut; e += kWg) {
+        const int i = e / kTOut, c = e % kTOut;
+        const int row = row0 + i;
+        const float v = (row < a.n_rows && c < a.out) ? a.g_trunk[(size_t)row * a.out + c] : 0.f;
+        gtf[e] = v;
+        *reinterpret_cast<bf16*>(gt + img_off(i, c)) = __float2bfloat16(v);
       }
+    }
+    for (int e = tid; e < kTileRows * 6; e += kWg)
+      *reinterpret_cast<uint4*>(gt + img_off(e / 6, (2 + e % 6) * 8)) = make_uint4(0u, 0u, 0u, 0u);
+    after_write();
+    if (tid == 0) bulk_store(a.gt + tile * (kImgBytes64 / 2), act_a + 2 * kImgBytes64, kImgBytes64);
+    if (tid < kTOut) {
+      float s = 0.f;
+#pragma unroll 16
+      for (int i = 0; i < kTileRows; ++i) s += gtf[i * kTOut + tid];
+      part[off_gtr + tid] = s;
     }
 
     // trunk: gh[l] = bf16((gh[l + 1] @ w[l + 1]^T) * (h[l] > 0)), from the top
     for (int l = nh - 1; l >= 0; --l) {
       const uint2 m_lo = a.mask_t[l][(size_t)(row0 + r_lo) * 4 + q];
       const uint2 m_hi = a.mask_t[l][(size_t)(row0 + r_lo + 8) * 4 + q];
-      float d[128];
+      float d[H / 2];
       if (l == nh - 1) {
-        const uint32_t slab = slab_begin(ring, ring_base, kSlabBytes);
-        wgmma_n256<0, 0>(d, kmajor_desc(act_a + 2 * kImgBytes64, 0), kmajor_desc(slab, 0), 0);
+        const uint32_t slab = slab_begin(ring, ring_base, kSlot);
+        wgmma<H, 0, 0>(d, kmajor_desc(act_a + 2 * kImgBytes64, 0), kmajor_desc(slab, 0), 0);
         slab_end(ring, tid);
       } else {
-        for (int kb = 0; kb < 4; ++kb) {
-          const uint32_t slab = slab_begin(ring, ring_base, kSlabBytes);
+        for (int kb = 0; kb < T::kHImgs; ++kb) {
+          const uint32_t slab = slab_begin(ring, ring_base, kSlot);
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
-            wgmma_n256<0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
-                             (kb | ks) != 0);
+            wgmma<H, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
+                           (kb | ks) != 0);
           slab_end(ring, tid);
         }
       }
       before_overwrite();
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
+      for (int j = 0; j < H / 8; ++j) {
         const int c = 8 * j + 2 * q, at = 2 * (j % 16);
         const uint32_t b_lo = (j < 16 ? m_lo.x : m_lo.y) >> at;
         const uint32_t b_hi = (j < 16 ? m_hi.x : m_hi.y) >> at;
@@ -637,22 +702,47 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
             masked_pack(d[4 * j + 2], d[4 * j + 3], b_hi);
       }
       after_write();
-      if (tid == 0) bulk_store(a.gh[l] + tile * (kActBytes / 2), act_a, kActBytes);
-      for (int c = tid; c < kH; c += kWg)
-        part[l * kH + c] = image_column_sum(act + (c / 64) * kImgBytes64, c % 64);
+      if (tid == 0) bulk_store(a.gh[l] + tile * (T::kHBytes / 2), act_a, T::kHBytes);
+      for (int c = tid; c < H; c += kWg)
+        part[l * H + c] = image_column_sum(act + (c / 64) * kImgBytes64, c % 64);
     }
 
-    // encode: g_enc = gh[0] @ w0^T; dproj = cos * g_sin - sin * g_cos, the
-    // dphase and dW_spec sums, and du where asked for
+    // the first layer back: g_x = gh[0] @ w0^T, [64, 2M]. With the encode,
+    // dproj = cos * g_sin - sin * g_cos, the dphase and dW_spec sums, and
+    // du where asked for; for the trunk alone, dx where asked for
     {
-      float d[128];
-      for (int kb = 0; kb < 4; ++kb) {
-        const uint32_t slab = slab_begin(ring, ring_base, kSlabBytes);
+      float d[M];
+      for (int kb = 0; kb < T::kHImgs; ++kb) {
+        const uint32_t slab = slab_begin(ring, ring_base, kSlot);
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
-          wgmma_n256<0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
-                           (kb | ks) != 0);
+          wgmma<2 * M, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
+                             (kb | ks) != 0);
         slab_end(ring, tid);
+      }
+      if (!encode) {
+        before_overwrite();
+        if (a.dx != nullptr) {
+          const int din = a.din;
+#pragma unroll
+          for (int j = 0; j < M / 4; ++j) {
+            const int c = 8 * j + 2 * q;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int row = row0 + r_lo + 8 * half;
+              if (c < din && row < a.n_rows) {
+                const size_t at = (size_t)row * din + c;
+                const float v0 = d[4 * j + 2 * half], v1 = d[4 * j + 2 * half + 1];
+                if (a.x_f32)
+                  *reinterpret_cast<float2*>(static_cast<float*>(a.dx) + at) = make_float2(v0, v1);
+                else
+                  *reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.dx) + at) = pack_bf16(v0, v1);
+              }
+            }
+          }
+        }
+        named_barrier(bar_id, kWg);
+        continue;
       }
       // the two tiles' encodings arrive in the next two slots; this
       // warpgroup reads its own
@@ -664,24 +754,22 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
       ring.wait_full();
       const uint32_t bar1 = ring.empty_bar();
       ring.advance();
-      const unsigned char* enc = smem + L.ring + (wg == 0 ? st0 : st1) * kSlabBytes;
+      const unsigned char* enc = smem + L.ring + (wg == 0 ? st0 : st1) * kSlot;
       before_overwrite();
       float* dp = reinterpret_cast<float*>(act);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < M / 8; ++j) {
         const int c = 8 * j + 2 * q;
-        const unsigned char* ic = enc + (c / 64) * kImgBytes64;
-        const unsigned char* is = ic + 2 * kImgBytes64;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int i = r_lo + 8 * half;
           const float2 co = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(ic + img_off(i, c % 64)));
+              *reinterpret_cast<const __nv_bfloat162*>(enc + enc_off(i, c)));
           const float2 si = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(is + img_off(i, c % 64)));
+              *reinterpret_cast<const __nv_bfloat162*>(enc + enc_off(i, M + c)));
           const float gc0 = d[4 * j + 2 * half], gc1 = d[4 * j + 2 * half + 1];
-          const float gs0 = d[4 * (j + 16) + 2 * half], gs1 = d[4 * (j + 16) + 2 * half + 1];
-          *reinterpret_cast<float2*>(dp + dp_at(i, c)) =
+          const float gs0 = d[4 * (j + M / 8) + 2 * half], gs1 = d[4 * (j + M / 8) + 2 * half + 1];
+          *reinterpret_cast<float2*>(dp + dp_at<M>(i, c)) =
               make_float2(co.x * gs0 - si.x * gc0, co.y * gs1 - si.y * gc1);
         }
       }
@@ -690,13 +778,13 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
         mbar_arrive(bar0);
         mbar_arrive(bar1);
       }
-      {
+      if (tid < M) {
         // thread tid owns frequency tid: dphase and the three rows of dW_spec
         float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll 16
         for (int i = 0; i < kTileRows; ++i) {
           const int row = row0 + i;
-          const float v = dp[dp_at(i, tid)];
+          const float v = dp[dp_at<M>(i, tid)];
           s0 += v;
           if (row < a.n_rows) {
             const float vb = round_bf16(v);
@@ -706,9 +794,9 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
           }
         }
         part[off_dph + tid] = s0;
-        part[off_dph + kM + tid] = s1 * kTwoPi;
-        part[off_dph + 2 * kM + tid] = s2 * kTwoPi;
-        part[off_dph + 3 * kM + tid] = s3 * kTwoPi;
+        part[off_dph + M + tid] = s1 * kTwoPi;
+        part[off_dph + 2 * M + tid] = s2 * kTwoPi;
+        part[off_dph + 3 * M + tid] = s3 * kTwoPi;
       }
       if (a.du != nullptr) {
         for (int e = tid; e < kTileRows * 3; e += kWg) {
@@ -717,8 +805,8 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
           if (row < a.n_rows) {
             float s = 0.f;
 #pragma unroll 16
-            for (int j = 0; j < kM; ++j)
-              s += round_bf16(dp[dp_at(i, j)]) * round_bf16(a.W[dd * kM + j]);
+            for (int j = 0; j < M; ++j)
+              s += round_bf16(dp[dp_at<M>(i, j)]) * round_bf16(a.W[dd * M + j]);
             a.du[(size_t)row * 3 + dd] = s * kTwoPi;
           }
         }
@@ -731,15 +819,16 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
 
 // ---- 4. weight gradients: dW = X^T dY over all rows ---------------------------------
 //
-// One launch for every weight of the field. The saved activations X and
-// the cotangents dY lie in global memory as tile images whose rows are
-// samples: exactly the MN-major wgmma operands of a product whose K runs
-// over samples. An item is one product per consumer warpgroup w,
-// P[64, n] = image(x, x_img[w])^T @ images(y, y_img[w] ...), n = 256 (four
-// dY images shared by both warpgroups) or 64 (one image each). A block
-// takes one chunk of an item's row tiles; the producer warp brings each
-// tile's images by bulk copies; the partial products go to P in f32 and
-// dw_reduce_kernel adds an item's chunks in order.
+// One launch for every weight of the field (or of the trunk alone). The
+// saved activations X and the cotangents dY lie in global memory as tile
+// images whose rows are samples: exactly the MN-major wgmma operands of a
+// product whose K runs over samples. An item is one product per consumer
+// warpgroup w, P[64, n] = image(x, x_img[w])^T @ images(y, y_img[w] ...),
+// n = 64, 128 or 256 (n / 64 dY images; above 64 shared by both
+// warpgroups). A block takes one chunk of an item's row tiles; the
+// producer warp brings each tile's images by bulk copies; the partial
+// products go to P in f32 and dw_reduce_kernel adds an item's chunks in
+// order.
 
 constexpr int kDwStages = 3;
 constexpr int kDwStageBytes = 6 * kImgBytes64;
@@ -753,7 +842,7 @@ struct DwItem {
   const __nv_bfloat16* y;  // dY images, y_imgs a row tile
   int x_imgs, y_imgs;
   int x_img[2], y_img[2];  // per warpgroup: the X image and the first dY image
-  int n;                   // 256 or 64
+  int n;                   // 64, 128 or 256
   int chunks, chunk_tiles;  // row chunks and row tiles a chunk
   int first_block;         // blocks first_block .. first_block + chunks - 1
   long long p_off;         // floats: this item's partials [chunks][2][64][n] in P
@@ -794,6 +883,24 @@ __device__ __forceinline__ void dw_store(const float (&d)[N / 2], float* dst, in
   }
 }
 
+// a consumer warpgroup's product over row tiles t0 .. t1 - 1: its X image
+// at xw, its dY images from 2 + yw in each ring stage
+template <int N>
+__device__ __forceinline__ void dw_product(Ring<kDwStages>& ring, uint32_t ring_base, int t0,
+                                           int t1, int xw, int yw, float* dst, int tid) {
+  float d[N / 2];
+  for (int t = t0; t < t1; ++t) {
+    const uint32_t st = slab_begin(ring, ring_base, kDwStageBytes);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma<N, 1, 1>(d, mnmajor_desc(st + xw * kImgBytes64, ks, kImgBytes64),
+                     mnmajor_desc(st + (2 + yw) * kImgBytes64, ks, kImgBytes64),
+                     (t != t0) | ks);
+    slab_end(ring, tid);
+  }
+  dw_store<N>(d, dst, tid);
+}
+
 __global__ void __launch_bounds__(kFieldThreads, 1) dw_kernel(const __grid_constant__ DwArgs a) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
@@ -808,8 +915,8 @@ __global__ void __launch_bounds__(kFieldThreads, 1) dw_kernel(const __grid_const
   const int chunk = blockIdx.x - item.first_block;
   const int t0 = chunk * item.chunk_tiles;
   const int t1 = min(t0 + item.chunk_tiles, a.n_tiles);
-  const bool wide = item.n == 256;
-  // an image both warpgroups read is brought once
+  // an image both warpgroups read is brought once; above n = 64 the dY
+  // images are shared
   const bool x_shared = item.x_img[0] == item.x_img[1];
   const bool y_shared = item.y_img[0] == item.y_img[1];
   Ring<kDwStages> ring;
@@ -821,7 +928,7 @@ __global__ void __launch_bounds__(kFieldThreads, 1) dw_kernel(const __grid_const
     if (threadIdx.x == 2 * kWg) {
       const unsigned char* x = reinterpret_cast<const unsigned char*>(item.x);
       const unsigned char* y = reinterpret_cast<const unsigned char*>(item.y);
-      const int nx = x_shared ? 1 : 2, ny = wide ? 4 : (y_shared ? 1 : 2);
+      const int nx = x_shared ? 1 : 2, ny = y_shared ? item.n / 64 : 2;
       for (int t = t0; t < t1; ++t) {
         ring.wait_empty();
         const uint32_t dst = ring_base + ring.stage * kDwStageBytes;
@@ -830,11 +937,12 @@ __global__ void __launch_bounds__(kFieldThreads, 1) dw_kernel(const __grid_const
           bulk_load(dst + w * kImgBytes64,
                     x + ((size_t)t * item.x_imgs + item.x_img[w]) * kImgBytes64, kImgBytes64,
                     ring.full_bar());
-        if (wide) {
-          bulk_load(dst + 2 * kImgBytes64, y + (size_t)t * 4 * kImgBytes64, 4 * kImgBytes64,
+        if (y_shared) {
+          bulk_load(dst + 2 * kImgBytes64,
+                    y + ((size_t)t * item.y_imgs + item.y_img[0]) * kImgBytes64, ny * kImgBytes64,
                     ring.full_bar());
         } else {
-          for (int w = 0; w < ny; ++w)
+          for (int w = 0; w < 2; ++w)
             bulk_load(dst + (2 + w) * kImgBytes64,
                       y + ((size_t)t * item.y_imgs + item.y_img[w]) * kImgBytes64, kImgBytes64,
                       ring.full_bar());
@@ -849,30 +957,12 @@ __global__ void __launch_bounds__(kFieldThreads, 1) dw_kernel(const __grid_const
   const int wg = threadIdx.x / kWg, tid = threadIdx.x % kWg;
   const int xw = x_shared ? 0 : wg, yw = y_shared ? 0 : wg;
   float* dst = a.P + item.p_off + ((size_t)chunk * 2 + wg) * kTileRows * item.n;
-  if (wide) {
-    float d[128];
-    for (int t = t0; t < t1; ++t) {
-      const uint32_t st = slab_begin(ring, ring_base, kDwStageBytes);
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        wgmma_n256<1, 1>(d, mnmajor_desc(st + xw * kImgBytes64, ks, kImgBytes64),
-                         mnmajor_desc(st + 2 * kImgBytes64, ks, kImgBytes64), (t != t0) | ks);
-      slab_end(ring, tid);
-    }
-    dw_store<256>(d, dst, tid);
-  } else {
-    float d[32];
-    for (int t = t0; t < t1; ++t) {
-      const uint32_t st = slab_begin(ring, ring_base, kDwStageBytes);
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        wgmma_n64<1, 1>(d, mnmajor_desc(st + xw * kImgBytes64, ks, kImgBytes64),
-                        mnmajor_desc(st + (2 + yw) * kImgBytes64, ks, kImgBytes64),
-                        (t != t0) | ks);
-      slab_end(ring, tid);
-    }
-    dw_store<64>(d, dst, tid);
-  }
+  if (item.n == 256)
+    dw_product<256>(ring, ring_base, t0, t1, xw, yw, dst, tid);
+  else if (item.n == 128)
+    dw_product<128>(ring, ring_base, t0, t1, xw, yw, dst, tid);
+  else
+    dw_product<64>(ring, ring_base, t0, t1, xw, yw, dst, tid);
 }
 
 // out[j] = sum_t P[t, j] for j < cols, in a fixed order: thread (x, y) of a
@@ -910,26 +1000,54 @@ __global__ void dw_reduce_kernel(const __grid_constant__ DwArgs a) {
   a.out[e] = s;
 }
 
+template <int M, int H>
+int launch_field_fwd(const FvrArgs* a, int grid, cudaStream_t stream) {
+  const size_t smem = fwd_smem(H, a->n_hidden).total;
+  int err = set_smem((const void*)fvr_field_fwd_kernel<M, H>, smem);
+  if (err) return err;
+  fvr_field_fwd_kernel<M, H><<<grid, kFieldThreads, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+template <int M, int H>
+int launch_field_bwd(const FvrArgs* a, int grid, cudaStream_t stream) {
+  const size_t smem = bwd_smem(M, H).total;
+  int err = set_smem((const void*)fvr_field_bwd_kernel<M, H>, smem);
+  if (err) return err;
+  fvr_field_bwd_kernel<M, H><<<grid, kFieldThreads, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // What field_images.py mirrors, for a check on the card: shared memory
 // (bytes) of the field forward (which = 0), the field backward (1) and the
-// weight gradients (2), and the width of a tile_part row (3).
-extern "C" int apnerf_field_layout(int which, int n_hidden) {
-  return which == 0   ? fwd_smem(n_hidden).total
-         : which == 1 ? bwd_smem().total
+// weight gradients (2), and the width of a tile_part row (3), at the
+// instance (m, h).
+extern "C" int apnerf_field_layout(int which, int m, int h, int n_hidden) {
+  return which == 0   ? fwd_smem(h, n_hidden).total
+         : which == 1 ? bwd_smem(m, h).total
          : which == 2 ? dw_smem().total
-                      : n_bias(n_hidden);
+                      : n_bias(n_hidden, m, h);
 }
 
 // Each entry launches on `stream` and returns cudaGetLastError(); none
-// allocates. `grid` is the number of persistent blocks.
+// allocates. `grid` is the number of persistent blocks. The field kernels
+// run the instance (a->tile_m, a->tile_h); another pair is cudaErrorInvalidValue.
 extern "C" int apnerf_fvr_field_fwd(const FvrArgs* a, int grid, void* stream) {
-  const size_t smem = fwd_smem(a->n_hidden).total;
-  int err = set_smem((const void*)fvr_field_fwd_kernel, smem);
-  if (err) return err;
-  fvr_field_fwd_kernel<<<grid, kFieldThreads, smem, static_cast<cudaStream_t>(stream)>>>(*a);
-  return (int)cudaGetLastError();
+#define APNERF_CASE(M_, H_) \
+  if (a->tile_m == M_ && a->tile_h == H_) return launch_field_fwd<M_, H_>(a, grid, (cudaStream_t)stream);
+  APNERF_TILE_WIDTHS(APNERF_CASE)
+#undef APNERF_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int apnerf_fvr_field_bwd(const FvrArgs* a, int grid, void* stream) {
+#define APNERF_CASE(M_, H_) \
+  if (a->tile_m == M_ && a->tile_h == H_) return launch_field_bwd<M_, H_>(a, grid, (cudaStream_t)stream);
+  APNERF_TILE_WIDTHS(APNERF_CASE)
+#undef APNERF_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // with_loss = 1: the train step's ray kernel; 0: the render's backward
@@ -957,14 +1075,6 @@ extern "C" int apnerf_fvr_fwd_rays(const float* y, const float* dt, const float*
   fvr_fwd_ray_kernel<<<(n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32, smem,
                        static_cast<cudaStream_t>(stream)>>>(y, dt, tm, acc, w, n_rays,
                                                             n_samples, n_classes);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int apnerf_fvr_field_bwd(const FvrArgs* a, int grid, void* stream) {
-  const size_t smem = bwd_smem().total;
-  int err = set_smem((const void*)fvr_field_bwd_kernel, smem);
-  if (err) return err;
-  fvr_field_bwd_kernel<<<grid, kFieldThreads, smem, static_cast<cudaStream_t>(stream)>>>(*a);
   return (int)cudaGetLastError();
 }
 

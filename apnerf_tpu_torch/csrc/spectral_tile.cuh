@@ -1,4 +1,4 @@
-// Device code of the spectral-field and MLP kernels (fused_mlp.cu): one
+// Device code of the spectral-field and MLP forwards (fused_mlp.cu): one
 // block of 8 warps owns a 64-row tile, the
 // layer is an nvcuda::wmma bf16 16x16x16 product with f32 accumulators in
 // which a warp owns a strip of 16 output columns for all four 16-row
@@ -38,18 +38,6 @@ inline int set_smem(const void* kernel, size_t bytes) {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float bf(const bf16 x) { return __bfloat162float(x); }
-
-// g[row0 + i, :cols] = s[i, :cols] for the 64 rows of a tile (cols % 8 == 0)
-__device__ void store_tile(const bf16* s, int ld_s, int cols, bf16* g, int row0) {
-  const int vpr = cols / 8;
-  for (int e = threadIdx.x; e < kTileRows * vpr; e += kThreads) {
-    const int i = e / vpr, v = e % vpr;
-    *reinterpret_cast<uint4*>(g + (size_t)(row0 + i) * cols + v * 8) =
-        *reinterpret_cast<const uint4*>(s + i * ld_s + v * 8);
-  }
 }
 
 // dst[64, 2m] = [bf16(cos proj), bf16(sin proj)] for rows row0.. of u

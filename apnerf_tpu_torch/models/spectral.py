@@ -6,11 +6,15 @@ whole-field forwards ``forward_packed`` (the candidate render's, through
 evaluation render's, through ``ops/cuda/fused_field_volrend.py``), both
 differentiable, and the train step's ``forward_packed_lossgrad``, which
 runs the whole main-field render, loss and backward through the CUDA
-train-step kernel. The TPU routing gates (``use_packed_*``,
-``supports_fused_volrend``, the ``APNERF_*`` switches) are not carried
-over: a caller names its route with a plain argument (``trunk=`` of
+train-step kernel. The TPU routing gates' environment switches
+(``APNERF_*``) and their row-count and tiling conditions
+(``supports_fused_volrend``, ``n_rows % 256``) are not carried over: a
+caller names its route with a plain argument (``trunk=`` of
 ``query_density`` and ``forward``, ``fused=`` of ``query_density_field``)
-and on the card each route's kernels are its path. The encoding is
+and on the card each route's kernels are its path; a caller that names
+none gets the branch JAX's configuration gates pick (``_kernel_route``,
+and ``train/flagship.py::default_route`` for the packed kernels). The
+encoding is
 
     enc(x) = [cos(2π x·W + φ), sin(2π x·W + φ)]      W: [3, M]
 
@@ -21,10 +25,12 @@ Parameters live in ``nn.Module``s with the JAX layout (``W`` [3, M],
 ``phase`` [M], MLPs ``w{i}`` [in, out] / ``b{i}`` [out]); the functions
 take (params, cfg, ...) as the JAX functions do. ``query_density`` runs
 encode + trunk through the CUDA kernel (``ops/cuda/fused_mlp.py``) for a
-bf16 field with a 2- or 3-hidden-layer trunk, at any row count: the TPU
-path's ``n_rows % 256`` gate (``spectral.py:256``) is not carried over.
-Any other field raises on the card and runs the plain chain in its own
-dtype for CPU tensors: no route becomes the plain chain on a CUDA tensor.
+bf16 field with a 2- or 3-hidden-layer trunk, at any row count, as the
+JAX package's ``_use_fused_field`` does on its chip; any other field (f32
+compute, another depth) runs the plain chain in its own dtype, as the
+JAX package runs its XLA chain for it. A caller that names the kernel
+route (``trunk="field"`` or ``"mlp"``) for such a field gets an error off
+the CPU instead: a named route never becomes the plain chain on the card.
 With ``trunk="mlp"`` the encode stays outside and the trunk alone goes
 through the MLP kernel (``_trunk_apply``, ``spectral.py:207-220``). The
 encode outside a kernel is ``encode_plain`` under autograd: the JAX
@@ -208,13 +214,18 @@ def _use_fused_field(cfg, params_mlp: MLP) -> bool:
     return cfg.compute_dtype == "bfloat16" and params_mlp.n_layers in (3, 4)
 
 
-def _kernel_route(who: str, cfg, params_mlp: MLP, x: torch.Tensor) -> bool:
-    """Whether a call that asks for a trunk kernel goes to its wrapper. A
-    field the kernels do not take (f32, another depth) runs the plain chain
-    in its own dtype for CPU tensors only; on any other device the route
-    raises: it never becomes the plain chain on the card."""
+def _kernel_route(who: str, cfg, params_mlp: MLP, x: torch.Tensor, named: bool) -> bool:
+    """Whether encode + trunk go to a trunk kernel's wrapper, decided from
+    the configuration as the JAX package's ``_use_fused_field`` decides it
+    on its chip: a bf16 field with 2 or 3 hidden layers does. Another field
+    (f32 compute, another depth) runs the plain chain in its own dtype,
+    where the JAX package runs its XLA chain, unless the caller ``named``
+    the kernel route: then it runs the plain chain for CPU tensors only and
+    raises on any other device, so a named route never becomes the plain
+    chain on the card. Nothing here catches a kernel's failure: a field the
+    kernel refuses on its widths raises from the kernel's wrapper."""
     ok = _use_fused_field(cfg, params_mlp)
-    if not ok and x.device.type != "cpu":
+    if not ok and named and x.device.type != "cpu":
         raise ValueError(
             f"{who}: the kernel route takes a bfloat16 field with 2 or 3 hidden layers, got "
             f"{cfg.compute_dtype} with {params_mlp.n_layers - 1}")
@@ -229,19 +240,25 @@ def _trunk_apply(params_mlp: MLP, enc: torch.Tensor, cfg: SpectralConfig, fused:
     return apply_mlp(params_mlp, enc, compute_dtype=cfg.dtype)
 
 
+TRUNK_ROUTES = (None, "field", "mlp")
+
+
 def query_density(params: SpectralField, cfg: SpectralConfig, x: torch.Tensor,
-                  return_feat: bool = False, trunk: str = "field"):
+                  return_feat: bool = False, trunk: Optional[str] = None):
     """``trunk`` names the route of encode + trunk: "field", both in the
     field kernel; "mlp", the encode outside and the trunk in the MLP
     kernel. A field neither kernel takes (f32, another depth) runs the
-    plain chain for CPU tensors and raises on the card."""
-    if trunk not in ("field", "mlp"):
+    plain chain for CPU tensors and raises on the card on a named route.
+    The default, None, is the route JAX's gates pick (``_kernel_route``):
+    the field kernel where it takes the field, else the plain chain."""
+    if trunk not in TRUNK_ROUTES:
         raise ValueError(f"query_density: unknown trunk route {trunk!r}")
     batch_shape = x.shape[:-1]
     u, selector = _normalize(cfg, x)
     u = u.reshape(-1, 3)
-    kernel = _kernel_route(f"query_density(trunk={trunk!r})", cfg, params.mlp_base, u)
-    if kernel and trunk == "field":
+    kernel = _kernel_route(
+        f"query_density(trunk={trunk!r})", cfg, params.mlp_base, u, named=trunk is not None)
+    if kernel and trunk != "mlp":
         h = fused_spectral_field(params.W, params.phase, params.mlp_base, u.contiguous())
     else:
         h = _trunk_apply(params.mlp_base, spectral_encode(params, cfg, u), cfg, kernel)
@@ -273,7 +290,7 @@ def query_semantic(params: SpectralField, cfg: SpectralConfig, geo_feat):
 
 
 def forward(params: SpectralField, cfg: SpectralConfig, positions, directions=None,
-            trunk: str = "field"):
+            trunk: Optional[str] = None):
     """→ (rgb, density[, sem_logits]); ``trunk`` as in ``query_density``."""
     density, geo_feat = query_density(params, cfg, positions, return_feat=True, trunk=trunk)
     rgb = query_rgb(params, cfg, directions, geo_feat)
@@ -403,7 +420,8 @@ def query_density_field(params: SpectralDensityField, cfg: SpectralDensityConfig
     u, selector = _normalize(cfg, x)
     dt = cfg.dtype
     u = u.reshape(-1, 3)
-    if fused and _kernel_route("query_density_field(fused=True)", cfg, params.mlp_base, u):
+    if fused and _kernel_route("query_density_field(fused=True)", cfg, params.mlp_base, u,
+                               named=True):
         h = fused_spectral_field(params.W, params.phase, params.mlp_base, u.contiguous())
     else:
         proj = (u.to(dt).float() @ params.W.to(dt).float()) * (2 * np.pi) + params.phase

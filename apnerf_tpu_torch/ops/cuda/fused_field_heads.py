@@ -75,8 +75,8 @@ def fused_field_heads_plain(leaves, u, sh, S: int, compute_dtype=torch.bfloat16)
 class FieldWeightsStruct(ctypes.Structure):
     """Mirrors ``FieldWeights`` in ``csrc/field_tile.cuh`` field by field."""
 
-    _fields_ = [("W", _p), ("phase", _p), ("wfwd", _p), ("wbwd", _p), ("bias", _p),
-                ("n_hidden", ctypes.c_int), ("geo", ctypes.c_int), ("n_classes", ctypes.c_int)]
+    _fields_ = [("W", _p), ("phase", _p), ("wfwd", _p), ("wbwd", _p), ("bias", _p)] + [
+        (n, ctypes.c_int) for n in ("tile_m", "tile_h", "n_hidden", "geo", "n_classes")]
 
 
 class _FfhArgs(ctypes.Structure):
@@ -103,36 +103,48 @@ class PreparedField(NamedTuple):
 
 def prepare_field(who: str, leaves: Sequence[torch.Tensor], dev) -> PreparedField:
     """Check the field's leaves (f32, contiguous, on ``dev``, the widths the
-    kernels take) and repack them for the kernels (``field_weights``)."""
-    n_hidden, G, C = field_images.check_widths(who, [tuple(t.shape) for t in leaves])
-    lay = field_images.leaf_layout(n_hidden, G, C)
+    kernels take: ``field_images.check_widths``) and repack them for the
+    kernels (``field_weights``)."""
+    M, H, n_hidden, G, C = field_images.check_widths(who, [tuple(t.shape) for t in leaves])
+    lay = field_images.leaf_layout(M, H, n_hidden, G, C)
     for i, (t, shape) in enumerate(zip(leaves, lay.shapes)):
         check_tensor(who, t, f"leaf {i}", torch.float32, shape, dev)
-    weights, images = field_weights(leaves, dev, n_hidden, G, C)
-    return PreparedField(weights, images, field_images.M, field_images.H, 1 + G, G,
-                         field_images.HH, C, n_hidden)
+    weights, images = field_weights(leaves, dev, M, H, n_hidden, G, C)
+    return PreparedField(weights, images, M, H, 1 + G, G, field_images.head_width(H), C,
+                         n_hidden)
 
 
 @functools.lru_cache(maxsize=None)
-def _index_tables(dev: torch.device, n_hidden: int, G: int, C: int):
-    """``field_images.index_tables`` as tensors on ``dev``, made once."""
-    return tuple(torch.from_numpy(t).to(dev) for t in field_images.index_tables(n_hidden, G, C))
+def _index_tables(dev: torch.device, key: tuple):
+    """``field_images.index_tables(*key)`` (``trunk_index_tables`` for a
+    key that starts with "trunk") as tensors on ``dev``, made once."""
+    if key[0] == "trunk":
+        tables = field_images.trunk_index_tables(*key[1:])
+    else:
+        tables = field_images.index_tables(*key)
+    return tuple(torch.from_numpy(t).to(dev) for t in tables)
 
 
 @torch.no_grad()
-def field_weights(leaves, dev, n_hidden: int, G: int, C: int):
+def repack(leaves, dev, key: tuple):
     """The leaves as the Hopper tile reads them: every weight repacked into
     bf16 tile images in the order the kernels consume them (one gather each
     for the forward and the backward slabs) and the padded f32 biases →
-    (the kernels' struct, the tensors it points at)."""
-    fwd, bwd, bias = _index_tables(dev, n_hidden, G, C)
+    (forward slabs, backward slabs, biases)."""
+    fwd, bwd, bias = _index_tables(dev, key)
     flat = torch.cat([t.detach().reshape(-1) for t in leaves] + [leaves[0].new_zeros(1)])
     flat16 = flat.to(torch.bfloat16)
-    images = (flat16[fwd], flat16[bwd], flat[bias])
+    return flat16[fwd], flat16[bwd], flat[bias]
+
+
+def field_weights(leaves, dev, M: int, H: int, n_hidden: int, G: int, C: int):
+    """The whole field's leaves repacked (``repack``) → (the kernels'
+    struct, the tensors it points at)."""
+    images = repack(leaves, dev, (M, H, n_hidden, G, C))
     w = FieldWeightsStruct()
     w.W, w.phase = leaves[0].data_ptr(), leaves[1].data_ptr()
     w.wfwd, w.wbwd, w.bias = (t.data_ptr() for t in images)
-    w.n_hidden, w.geo, w.n_classes = n_hidden, G, C
+    w.tile_m, w.tile_h, w.n_hidden, w.geo, w.n_classes = M, H, n_hidden, G, C
     return w, images
 
 

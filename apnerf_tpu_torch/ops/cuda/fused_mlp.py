@@ -10,13 +10,22 @@ TPU (``spectral._encode_math``, then ``apply_mlp`` in bf16), which add
 each hidden bias in bf16 after rounding; the kernels, like the Pallas
 kernels, add it in f32 before rounding. The two agree to bf16 precision.
 
-A call that asks for gradients goes through a ``torch.autograd.Function``
-that keeps its inputs only. The backwards (``fused_spectral_field_bwd``,
-``fused_mlp_apply_bwd``) recompute the forward with the bf16 activations
-saved, go back through the trunk on 64-row tiles and reduce the weight
-gradients in a fixed order (``launch.weight_grads``): every layer's
-dW and db, then dW_spec, dphase and du, or dx in x's dtype. The plain
-backwards are autograd through the plain forwards.
+The forwards take any width that is a multiple of 16 (``csrc/fused_mlp.cu``,
+a wmma tile). A call that asks for gradients goes through a
+``torch.autograd.Function`` that keeps its inputs only. The backwards
+(``fused_spectral_field_bwd``, ``fused_mlp_apply_bwd``) run on the field's
+wgmma tile with the heads left out (``field_train.TrunkTrainCall``):
+they recompute the encode (or read x) and the hidden layers with the bf16
+activations saved, go back from the output's cotangent, rounded to bf16,
+through the trunk, and reduce the weight gradients in a fixed order: every
+layer's dW and db, then dW_spec, dphase and du, or dx in x's dtype. They
+take the tile's widths (``field_images.check_trunk``): H a multiple of 16
+up to 256, 2 or 3 hidden layers, an output of at most 16, and the encode
+of a multiple of 8 up to 128 frequencies or an input x a multiple of 16
+up to 256 wide, zero-padded up to the next of the tile's instances (H in
+64, 128, 256; M in 32, 64, 128). A wider trunk, which the forwards take,
+raises on the card. The plain backwards are autograd through the plain
+forwards.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import torch
 
 from ...models.nn import MLP, apply_layers, apply_mlp
 from . import build
-from .launch import MAX_SMEM, check_tensor, launcher, needs_grad, weight_grads
+from .launch import MAX_SMEM, check_tensor, launcher, needs_grad
 
 
 def encode_plain(W, phase, u, dtype):
@@ -59,9 +68,7 @@ class _MlpArgs(ctypes.Structure):
 
     _fields_ = (
         [(n, _p) for n in ("u", "W", "phase", "x")]
-        + [("w", _p * 4), ("b", _p * 4), ("g", _p), ("xs", _p), ("h", _p * 3), ("gout", _p),
-           ("gh", _p * 3)]
-        + [(n, _p) for n in ("tile_part", "y", "du", "dx")]
+        + [("w", _p * 4), ("b", _p * 4), ("y", _p)]
         + [(n, ctypes.c_int) for n in (
             "n_rows", "n_rows_pad", "m", "din", "hidden", "n_layers", "out_pad", "out",
             "x_f32")]
@@ -69,12 +76,12 @@ class _MlpArgs(ctypes.Structure):
 
 
 class _Call:
-    """One launch sequence over ``N`` rows of an MLP [din, H, ..., H, out]:
-    the checked layers as the kernels read them (bf16 weights, the last
+    """One forward launch over ``N`` rows of an MLP [din, H, ..., H, out]:
+    the checked layers as the kernel reads them (bf16 weights, the last
     zero-padded to 16 columns, f32 biases) and the argument struct."""
 
     def __init__(self, who: str, layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                 N: int, din: int, dev, m: int = 0, backward: bool = False):
+                 N: int, din: int, dev, m: int = 0):
         if len(layers) not in (3, 4):
             raise ValueError(f"{who}: the MLP needs 2 or 3 hidden layers")
         H, out = layers[0][0].shape[1], layers[-1][0].shape[1]
@@ -84,10 +91,8 @@ class _Call:
         for i, ((w, b), s) in enumerate(zip(layers, shapes)):
             check_tensor(who, w, f"w{i}", torch.float32, s, dev)
             check_tensor(who, b, f"b{i}", torch.float32, (s[1],), dev)
-        self.who, self.dev, self.N, self.din, self.H, self.out = who, dev, N, din, H, out
-        self.encode, self.nh = int(m > 0), len(layers) - 1  # m: frequencies of the encode
-        self.Np = -(-N // 64) * 64
-        self.out_pad = out_pad = -(-out // 16) * 16
+        self.dev, self.N, self.out = dev, N, out
+        out_pad = -(-out // 16) * 16
         bf16 = torch.bfloat16
         self.ws = [w.to(bf16).contiguous() for w, _ in layers[:-1]]
         w_last = torch.zeros((H, out_pad), dtype=bf16, device=dev)
@@ -99,56 +104,21 @@ class _Call:
         self.a = a = _MlpArgs()
         for i, (w, b) in enumerate(zip(self.ws, self.bs)):
             a.w[i], a.b[i] = w.data_ptr(), b.data_ptr()
-        a.n_rows, a.n_rows_pad, a.m, a.din, a.hidden = N, self.Np, m, din, H
+        a.n_rows, a.n_rows_pad, a.m, a.din, a.hidden = N, -(-N // 64) * 64, m, din, H
         a.n_layers, a.out_pad, a.out = len(layers), out_pad, out
         self.ref = ctypes.addressof(a)
         self.lib = build.library()
-        for which in (0, 1) if backward else (0,):
-            if self.lib.apnerf_mlp_smem(self.ref, which, self.encode) > MAX_SMEM:
-                raise ValueError(f"{who}: the MLP is too wide for shared memory")
+        if self.lib.apnerf_mlp_smem(self.ref) > MAX_SMEM:
+            raise ValueError(f"{who}: the MLP is too wide for shared memory")
         self.run = launcher(who, dev)
 
-    def backward(self, g: torch.Tensor):
-        """Recompute with saves, go back through the trunk and reduce →
-        (the layers' [dw0, db0, dw1, ...], the summed tile partials past
-        the biases: dphase and dW_spec with the encode)."""
-        a, lib, run, dev = self.a, self.lib, self.run, self.dev
-        Np, H, nh, din, out_pad = self.Np, self.H, self.nh, self.din, self.out_pad
-        check_tensor(self.who, g, "g", torch.float32, (self.N, self.out), dev)
 
-        def buf(shape, dtype=torch.bfloat16):
-            return torch.empty(shape, dtype=dtype, device=dev)
-
-        xs, gout = buf((Np, din)), buf((Np, out_pad))
-        hs, ghs = [buf((Np, H)) for _ in range(nh)], [buf((Np, H)) for _ in range(nh)]
-        n_bias = lib.apnerf_mlp_n_bias(self.ref, self.encode)
-        tile_part = buf((Np // 64, n_bias), torch.float32)
-        a.g, a.xs, a.gout, a.tile_part = (t.data_ptr() for t in (g, xs, gout, tile_part))
-        for i in range(nh):
-            a.h[i], a.gh[i] = hs[i].data_ptr(), ghs[i].data_ptr()
-        a.y = None
-        run(lib.apnerf_mlp_fwd, self.ref, self.encode, 1)
-        run(lib.apnerf_mlp_bwd, self.ref, self.encode)
-        jobs = [(xs.data_ptr(), din, din, din, ghs[0].data_ptr(), H, H)]
-        for l in range(1, nh):
-            jobs.append((hs[l - 1].data_ptr(), H, H, H, ghs[l].data_ptr(), H, H))
-        jobs.append((hs[nh - 1].data_ptr(), H, H, H, gout.data_ptr(), out_pad, self.out))
-        dws = weight_grads(lib, run, jobs, Np, dev)
-        gb = buf((n_bias,), torch.float32)
-        run(lib.apnerf_sum_rows, tile_part.data_ptr(), Np // 64, n_bias, n_bias, gb.data_ptr())
-        grads = []
-        for l, dw in enumerate(dws):
-            width = H if l < nh else self.out
-            grads += [dw, gb[l * H: l * H + width]]
-        return grads, gb[nh * H + out_pad:]
-
-
-def _spectral_call(who, W, phase, layers, u, backward=False) -> _Call:
+def _spectral_call(who, W, phase, layers, u) -> _Call:
     dev, N, M = u.device, u.shape[0], W.shape[1]
     check_tensor(who, u, "u", torch.float32, (N, 3), dev)
     check_tensor(who, W, "W", torch.float32, (3, M), dev)
     check_tensor(who, phase, "phase", torch.float32, (M,), dev)
-    call = _Call(who, layers, N, 2 * M, dev, m=M, backward=backward)
+    call = _Call(who, layers, N, 2 * M, dev, m=M)
     call.a.u, call.a.W, call.a.phase = u.data_ptr(), W.data_ptr(), phase.data_ptr()
     return call
 
@@ -159,7 +129,7 @@ def _launch_spectral_forward(W, phase, layers, u):
     if call.N == 0:
         return y
     call.a.y = y.data_ptr()
-    call.run(call.lib.apnerf_mlp_fwd, call.ref, 1, 0)
+    call.run(call.lib.apnerf_mlp_fwd, call.ref, 1)
     fused_spectral_field.launches += 1
     return y
 
@@ -192,19 +162,19 @@ def fused_spectral_field_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], Optional[torch.Tensor]]:
     """The backward of ``fused_spectral_field`` → (dW_spec [3, M], dphase
     [M], [dw0, db0, dw1, ...] of the trunk, du [N, 3] or None). A CUDA
-    tensor launches the kernels or raises."""
+    tensor launches the kernels or raises: the tile takes M up to 128 and
+    the trunks of ``field_images.check_trunk``."""
     who = "fused_spectral_field_bwd"
     if u.device.type == "cpu":
         return fused_spectral_field_bwd_plain(W, phase, layers, u, g, need_du)
     if u.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {u.device}")
-    call = _spectral_call(who, W, phase, layers, u, backward=True)
-    M = W.shape[1]
-    du = torch.empty((call.N, 3), dtype=torch.float32, device=call.dev) if need_du else None
-    call.a.du = du.data_ptr() if need_du else None
-    grads, rest = call.backward(g)
+    from .field_train import TrunkTrainCall  # field_train imports this module
+
+    call = TrunkTrainCall(who, layers, g, W=W, phase=phase, u=u, need_du=need_du)
+    grads, (dW, dphase), du, _ = call.run_all()
     fused_spectral_field_bwd.launches += 1
-    return rest[M: 4 * M].view(3, M), rest[:M], grads, du
+    return dW, dphase, grads, du
 
 
 class _SpectralField(torch.autograd.Function):
@@ -242,12 +212,16 @@ def fused_spectral_field(
     return _launch_spectral_forward(W, phase, layers, u)
 
 
-def _mlp_call(who, layers, x, backward=False) -> _Call:
+def _check_x(who, x):
     if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{who}: x must be [N, Din] bf16 or f32, got {x.dtype} "
                          f"{tuple(x.shape)}")
     check_tensor(who, x, "x", x.dtype, x.shape, x.device)
-    call = _Call(who, layers, x.shape[0], x.shape[1], x.device, backward=backward)
+
+
+def _mlp_call(who, layers, x) -> _Call:
+    _check_x(who, x)
+    call = _Call(who, layers, x.shape[0], x.shape[1], x.device)
     call.a.x, call.a.x_f32 = x.data_ptr(), int(x.dtype == torch.float32)
     return call
 
@@ -258,7 +232,7 @@ def _launch_mlp_forward(layers, x):
     if call.N == 0:
         return y
     call.a.y = y.data_ptr()
-    call.run(call.lib.apnerf_mlp_fwd, call.ref, 0, 0)
+    call.run(call.lib.apnerf_mlp_fwd, call.ref, 0)
     fused_mlp_apply.launches += 1
     return y
 
@@ -283,16 +257,18 @@ def fused_mlp_apply_bwd(
 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
     """The backward of ``fused_mlp_apply`` → ([dw0, db0, dw1, ...] in f32, dx
     [N, Din] in x's dtype or None). A CUDA tensor launches the kernels or
-    raises."""
+    raises: the tile takes Din up to 256 and the trunks of
+    ``field_images.check_trunk``."""
     who = "fused_mlp_apply_bwd"
     if x.device.type == "cpu":
         return fused_mlp_apply_bwd_plain(layers, x, g, need_dx)
     if x.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {x.device}")
-    call = _mlp_call(who, layers, x, backward=True)
-    dx = torch.empty_like(x) if need_dx else None
-    call.a.dx = dx.data_ptr() if need_dx else None
-    grads, _ = call.backward(g)
+    _check_x(who, x)
+    from .field_train import TrunkTrainCall  # field_train imports this module
+
+    call = TrunkTrainCall(who, layers, g, x=x, need_dx=need_dx)
+    grads, _, _, dx = call.run_all()
     fused_mlp_apply_bwd.launches += 1
     return grads, dx
 

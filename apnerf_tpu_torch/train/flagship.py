@@ -15,7 +15,7 @@ branch (``flagship.py:119-194``):
      detached) and the proposal-matching loss differentiated by autograd,
      through the CUDA weights kernel's backward on the card;
   4. ``finish``: Adam with the NaN guard, on the device.
-The four other routes are the JAX member core's ``loss_fn`` branch
+The other routes are the JAX member core's ``loss_fn`` branch
 (``flagship.py:243-311``): one loss by autograd through
 ``render_rays_prop``, differing in the renderer branch and field call
 each takes, and so in the kernels whose forward and backward it runs:
@@ -24,9 +24,13 @@ each takes, and so in the kernels whose forward and backward it runs:
   ``field``    the plain branch, encode + trunk in the field kernel, heads
                outside;
   ``trunk``    the plain branch, the encode outside, the trunk in the MLP
-               kernel.
-The JAX package picks among them with environment switches; here the route
-is a plain argument, and a route whose kernels refuse the field raises
+               kernel;
+  ``plain``    the plain branch with no field kernel: the plain chain, the
+               route of a field no field kernel takes (``default_route``)
+               and of no other.
+A caller that names no route gets ``default_route``: the branch the JAX
+package's configuration gates pick on its chip, decided from the field's
+configuration alone. A named route whose kernels refuse the field raises
 rather than becoming another. With the kernels' plain versions in their
 place, each is the reference ``chip_smoke.py`` holds that route to.
 
@@ -146,14 +150,34 @@ def _main_loss(terms) -> torch.Tensor:
     return sum(c * t for c, t in zip(LOSS_WEIGHTS, terms))
 
 
-ROUTES = ("lossgrad", "volrend", "packed", "field", "trunk")
+ROUTES = ("lossgrad", "volrend", "packed", "field", "trunk", "plain")
 
 
-def make_flagship_member_core(cfg: PipelineConfig, route: str = "lossgrad", schedule=None,
+def default_route(s_cfg: spectral.SpectralConfig) -> str:
+    """The member core's route for a main field configuration, as the JAX
+    package's gates pick its branch on its chip (``use_packed_lossgrad``,
+    ``_use_fused_field``; their row-count and tiling conditions are the
+    TPU's and are not carried over): the combined kernel ``lossgrad`` for
+    a bf16 field with 2 or 3 hidden layers, viewdirs and semantic classes;
+    ``field`` (encode + trunk in the field kernel, heads outside) for such
+    a field without classes or without viewdirs; ``plain`` for f32 compute
+    or another depth, where the JAX package runs its XLA chain. The
+    renderers of the mapper take the packed kernels exactly where this is
+    ``lossgrad``. A field at widths the kernels refuse raises from their
+    wrappers: its route is not changed for it."""
+    if s_cfg.compute_dtype != "bfloat16" or s_cfg.layers not in (2, 3):
+        return "plain"
+    if s_cfg.use_viewdirs and s_cfg.num_semantic_classes > 0:
+        return "lossgrad"
+    return "field"
+
+
+def make_flagship_member_core(cfg: PipelineConfig, route: Optional[str] = None, schedule=None,
                               fused_prop: bool = False):
     """One member's train step → ``member_core(member, opt_state, batch,
     step, generator=None, noise=None) -> CoreOutput``. ``route`` is one of
-    ``ROUTES`` (see the module docstring); ``fused_prop`` takes the
+    ``ROUTES`` (see the module docstring), or None for
+    ``default_route(make_spectral_config(cfg))``; ``fused_prop`` takes the
     proposal field through the field kernel too, in sampling and in the
     proposal loss (the JAX package's opt-in route). ``schedule`` replaces
     the default cyclic LR (the final refit's). The member's parameters
@@ -161,9 +185,15 @@ def make_flagship_member_core(cfg: PipelineConfig, route: str = "lossgrad", sche
     proposal sampling. The occupancy grid is not touched here: the planner
     reads it, and ``make_flagship_occ_update`` refreshes it once per chunk
     (``flagship.py:196-204``)."""
+    s_cfg, p_cfg = make_spectral_config(cfg), make_prop_config(cfg)
+    if route is None:
+        route = default_route(s_cfg)
     if route not in ROUTES:
         raise ValueError(f"unknown train route {route!r}: one of {ROUTES}")
-    s_cfg, p_cfg = make_spectral_config(cfg), make_prop_config(cfg)
+    if route == "plain" and default_route(s_cfg) != "plain":
+        raise ValueError("train route 'plain' is the route of a field the field kernels do not "
+                         "take (f32 compute, another depth); this one takes "
+                         f"{default_route(s_cfg)!r}")
     opt = make_optimizer(cfg, schedule or default_spectral_schedule(cfg))
     S = cfg.max_samples_train
 
@@ -205,7 +235,7 @@ def make_flagship_member_core(cfg: PipelineConfig, route: str = "lossgrad", sche
 
     def autograd_loss_and_grads(member, batch, generator, noise):
         main = member.main
-        trunk = "mlp" if route == "trunk" else "field"
+        trunk = {"trunk": "mlp", "plain": None}.get(route, "field")
 
         def field_fn(pos, dirs):
             return spectral.forward(main, s_cfg, pos, dirs, trunk=trunk)
@@ -256,7 +286,7 @@ def make_flagship_member_core(cfg: PipelineConfig, route: str = "lossgrad", sche
     return member_core
 
 
-def make_flagship_train_phase(cfg: PipelineConfig, schedule=None, route: str = "lossgrad",
+def make_flagship_train_phase(cfg: PipelineConfig, schedule=None, route: Optional[str] = None,
                               fused_prop: bool = False):
     """The chunk of steps over the flagship member core on ``route`` (same
     signature as ``phase.make_train_phase``'s ``phase_fn``). Pair it with

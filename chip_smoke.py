@@ -3,8 +3,10 @@ mapping loop on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase below but 12
     python3 chip_smoke.py --modes    # and phase 12
-    python3 chip_smoke.py --field-kernels   # phase 1, then only the main
-                                     # field's kernels and their times
+    python3 chip_smoke.py --field-kernels   # phase 1, then only the tile's
+                                     # kernels and their times
+    python3 chip_smoke.py --tree DIR --field-kernels   # the same against the
+                                     # package of another checkout in DIR
 
 Phases, each of which must pass:
   1. the device, its power limit and the kernels' build from
@@ -79,16 +81,37 @@ Phases, each of which must pass:
      of phase 7, one warm-up and one timed chunk of 100 steps each, ms per
      step, a finite falling loss, exact launch counts, one member step of
      the route against the same route on the plain versions (the main
-     field's tensors and the proposal field's each at their limits), and
-     one member step traced.
+     field's tensors and the proposal field's each at their limits; with
+     the proposal field through the field kernel, its update against the
+     same step with that kernel's plain backward on the same cotangents),
+     and one member step traced.
  15. (``--diagnose`` only) for the routes ``packed`` and ``volrend``, one
      member step with the forward kernels and the plain backwards between
      the two sides of phase 14's comparison: how much of a difference is
      the backward kernel's and how much the forwards'.
-Phases 13 to 15 run after phase 9. ``--field-kernels`` runs phase 1 and
-the kernel comparisons of phases 6, 8, 9 and 13's two render backwards,
-prints one line of times for each and no ``ok`` line: for comparing two
-trees in one call.
+ 16. the tile's nine (M, H) instances (M frequencies in 32, 64, 128, trunk
+     width H in 64, 128, 256, heads H / 4) at 512 rays x 128 samples, zero
+     and random biases: K4 fwd, K5 fwd, K6, K4 bwd, K5 bwd and the field
+     kernel's backward against their plain versions, each limit shown to
+     catch a zeroed and a negated output, and two runs of K6 at (64, 128)
+     that agree to the last bit; then the backwards of the field kernel and
+     of the MLP kernel at trunks between two instances, zero-padded to the
+     next;
+ 17. one member step at ``spectral_neurons=128`` on the default route,
+     from members trained one chunk of 100 steps on the kernels, against
+     the autograd branch on the plain versions;
+ 18. the whole loop through the CLI at ``configs/config_faketiny.yaml``
+     (M = 32, the tile's (32, 256) instance) on the card: finite falling
+     losses, finite evaluation rows, exact launch counts.
+Phases 13 to 17 run after phase 9, phase 18 after phase 11. Phase 1 also
+holds the host's mirrors of the tile's shared-memory layouts to the
+kernels' own at every instance. ``--field-kernels`` runs phase 1 and the
+kernel comparisons of phases 6, 8, 9 and 13 (the two render backwards and
+the trunk kernels' backwards) and the device time of K6's kernels, prints
+one line of times for each and no ``ok`` line: for comparing two trees in
+one call. With ``--tree DIR`` it runs against the package (and builds the
+kernels) of the checkout in DIR, whose layout mirrors it does not check:
+the same script times an older tree and this one.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and before that one JSON object
@@ -207,10 +230,25 @@ def field_weight_bytes(field) -> int:
     return sum(p.numel() * 4 for p in field.parameters())
 
 
+def k1_fwd_bound(M: int, mlp, N: int):
+    """The field kernel's (encode + trunk) bound at N rows: its multiply-adds;
+    u read, y written, the weights and the spectrum read."""
+    layers = mlp.layers()
+    widths = [w.shape[0] for w, _ in layers] + [layers[-1][0].shape[1]]
+    macs = 3 * M + sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    w_bytes = 4 * sum(p.numel() for p in mlp.parameters()) + 16 * M
+    return bound(2 * macs * N, N * (12 + 4 * widths[-1]) + w_bytes)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs only on a GPU")
+    tree = argv[argv.index("--tree") + 1] if "--tree" in argv else None
+    if tree is not None:
+        if "--field-kernels" not in argv:
+            fail("--tree runs with --field-kernels only")
+        sys.path.insert(0, os.path.abspath(tree))
 
     # ---- 1. device and build -------------------------------------------------
     from apnerf_tpu_torch.ops.cuda import build
@@ -230,15 +268,8 @@ def main(argv=None) -> int:
     # the host-side mirrors of the field kernels' layouts, against the kernels' own
     from apnerf_tpu_torch.ops.cuda import field_images
 
-    lib = build.library()
-    for n_hidden in (2, 3):
-        mirror = (field_images.fwd_smem_bytes(n_hidden), field_images.bwd_smem_bytes(),
-                  field_images.dw_smem_bytes(), field_images.n_bias(n_hidden))
-        own = tuple(lib.apnerf_field_layout(which, n_hidden) for which in range(4))
-        if mirror != own or max(own[:3]) > field_images.MAX_SMEM:
-            fail(f"field kernel layouts {own} differ from their mirrors {mirror}")
-    print(f"field kernels: shared memory forward / backward / dW {own[:3]} bytes of "
-          f"{field_images.MAX_SMEM}", flush=True)
+    if tree is None:
+        check_layouts()
 
     if "--field-kernels" in argv:
         return field_kernels_alone(dev)
@@ -313,20 +344,17 @@ def main(argv=None) -> int:
             rel = abs_err / max(float(yp.abs().max()), 1e-12)
             ms = cuda_ms(lambda: fused_spectral_field(*args_))
             pms = cuda_ms(lambda: fused_spectral_field_plain(*args_))
+            bnd = k1_fwd_bound(main_field.W.shape[1], mlp, N)
             print(f"field kernel [{label}] N={N} layers={mlp.n_layers - 1}: "
                   f"err/scale {rel:.3e} (tol {tol}) max_abs {abs_err:.3e} | "
-                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
+                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})",
+                  flush=True)
             if not rel <= tol:
                 fail(f"field kernel ({label}) disagrees with its plain version: {rel}")
             if label == "the loop's occupancy grid":
                 # the shape the main path gives it: every cell of the loop's
-                # grid, once per member per chunk. Encode + trunk
-                # multiply-adds; u read, y written, the weights read
-                M, H = main_field.W.shape[1], widths[1]
-                macs = 3 * M + sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-                w_bytes = 4 * sum(p.numel() for p in mlp.parameters()) + 16 * M
-                records["fused_spectral_field"] = (
-                    abs_err, ms, pms, bound(2 * macs * N, N * (12 + 4 * widths[-1]) + w_bytes))
+                # grid, once per member per chunk
+                records["fused_spectral_field"] = (abs_err, ms, pms, bnd)
 
         # ---- 3. weights kernel against its plain version ------------------------
         for n_s in (S, Sp):
@@ -445,6 +473,10 @@ def main(argv=None) -> int:
     route_launches = phase_routes(dev, bench_run)
     if "--diagnose" in argv:
         phase_backward_alone(dev, bench_run)
+
+    # ---- 16-17. the tile's other widths ---------------------------------------------
+    phase_widths(dev)
+    phase_member_widths(dev, bench_run)
     del bench_run
 
     # ---- 10-11. the loop through the CLI, and its renders on both routes ----------
@@ -452,6 +484,9 @@ def main(argv=None) -> int:
     phase_loop_routes(loop_mapper)
     if "--modes" in argv:
         phase_modes(loop_mapper)
+    del loop_mapper
+    # ---- 18. the loop at config_faketiny.yaml's widths ------------------------------
+    phase_faketiny(dev)
 
     kernels = [
         {"name": "fused_spectral_field", "route": "cuda",
@@ -479,13 +514,13 @@ def main(argv=None) -> int:
          "source": "apnerf_tpu_torch/csrc/fused_field_heads.cu",
          "replaces": "apnerf_tpu/ops/pallas/fused_field_heads.py:438"},
         {"name": "fused_spectral_field_bwd", "route": "cuda",
-         "source": "apnerf_tpu_torch/csrc/fused_mlp.cu",
+         "source": "apnerf_tpu_torch/csrc/fused_field_volrend.cu",
          "replaces": "apnerf_tpu/ops/pallas/fused_mlp.py:348"},
         {"name": "fused_mlp_apply", "route": "cuda",
          "source": "apnerf_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "apnerf_tpu/ops/pallas/fused_mlp.py:433"},
         {"name": "fused_mlp_apply_bwd", "route": "cuda",
-         "source": "apnerf_tpu_torch/csrc/fused_mlp.cu",
+         "source": "apnerf_tpu_torch/csrc/fused_field_volrend.cu",
          "replaces": "apnerf_tpu/ops/pallas/fused_mlp.py:292"},
     ]
     for k in kernels:
@@ -514,12 +549,31 @@ def main(argv=None) -> int:
     return 0
 
 
+def check_layouts():
+    """The host-side mirrors of the field kernels' layouts, against the
+    kernels' own, at every instance and depth."""
+    from apnerf_tpu_torch.ops.cuda import build, field_images
+
+    lib = build.library()
+    for m, h in field_images.WIDTHS:
+        for n_hidden in (2, 3):
+            mirror = (field_images.fwd_smem_bytes(h, n_hidden), field_images.bwd_smem_bytes(m, h),
+                      field_images.dw_smem_bytes(), field_images.n_bias(m, h, n_hidden))
+            own = tuple(lib.apnerf_field_layout(which, m, h, n_hidden) for which in range(4))
+            if mirror != own or max(own[:3]) > field_images.MAX_SMEM:
+                fail(f"field kernel layouts {own} at M={m} H={h} differ from their mirrors "
+                     f"{mirror}")
+        print(f"field kernels M={m} H={h}: shared memory forward / backward / dW {own[:3]} bytes "
+              f"of {field_images.MAX_SMEM}", flush=True)
+
+
 def field_kernels_alone(dev) -> int:
-    """(``--field-kernels`` only) The main field's five kernels against
-    their plain versions at their main shapes and nothing else, one line
-    each, then the packed field kernel's launch alone with the weights
-    repacked once: the short run for comparing two trees in one call. Prints
-    no ``ok`` line."""
+    """(``--field-kernels`` only) The tile's seven kernels against their
+    plain versions at their main shapes and nothing else, one line each
+    (the trunk kernels' backwards at the main trunk's shape; the proposal
+    field's shape is printed by their phase), then the packed field
+    kernel's launch alone with the weights repacked once: the short run
+    for comparing two trees in one call. Prints no ``ok`` line."""
     from apnerf_tpu_torch.config import PipelineConfig
     from apnerf_tpu_torch.models import spectral
     from apnerf_tpu_torch.ops.cuda import build, fused_field_heads as ffh
@@ -531,10 +585,13 @@ def field_kernels_alone(dev) -> int:
         ("fused_field_volrend", lambda: phase_k5(dev)),
         ("fused_field_heads_bwd", lambda: phase_render_bwd(dev, "heads")),
         ("fused_field_volrend_bwd", lambda: phase_render_bwd(dev, "volrend")),
+        ("fused_spectral_field_bwd", lambda: phase_k1_bwd(dev)),
+        ("fused_mlp_apply_bwd", lambda: phase_k3(dev)[1]),
     ):
         err, ms, pms, (bound_ms, _), *_ = phase()
         print(f"field kernels alone: {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
               f"{bound_ms:.4f} ms, max_abs_err {err:.3e}", flush=True)
+    k6_device_time(dev)
     gen = _generator(dev, 8)
     cfg = PipelineConfig()
     s_cfg = make_spectral_config(cfg)
@@ -556,6 +613,40 @@ def field_kernels_alone(dev) -> int:
               f"once) N={R * S}: {cuda_ms(launch):.4f} ms", flush=True)
     print(nvidia_smi())
     return 0
+
+
+def k6_device_time(dev, calls=5):
+    """The device time of K6's own kernels in one call of the train-step
+    wrapper at the bench shape (``torch.profiler`` over ``calls`` calls),
+    by kernel: the wrapper's ``kernel_ms`` is a host time (PERF.md)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from apnerf_tpu_torch import bench
+    from apnerf_tpu_torch.models import spectral
+    from apnerf_tpu_torch.train.flagship import make_spectral_config
+
+    gen = _generator(dev, 6)
+    cfg = bench.bench_config()
+    s_cfg = make_spectral_config(cfg)
+    field = spectral.init_spectral(s_cfg, gen, dev)
+    inputs = _k6_inputs(gen, dev, cfg.num_rays, cfg.max_samples_train, cfg.num_semantic_classes,
+                        cfg.aabb)
+    for _ in range(3):
+        spectral.forward_packed_lossgrad(field, s_cfg, *inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            spectral.forward_packed_lossgrad(field, s_cfg, *inputs)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.events():
+        name = e.name.split("::")[-1].split("<")[0].split("(")[0]
+        if e.device_type == DeviceType.CUDA and name.startswith(("fvr_", "dw_", "col_sums")):
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / calls / 1e3
+    print(f"field kernels alone: fused_field_volrend_lossgrad's kernels: "
+          f"{sum(by_kernel.values()):.4f} ms of device time a call ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_kernel.items())) + ")", flush=True)
 
 
 def all_counters():
@@ -811,8 +902,23 @@ def _step_inputs(dev, ds, seed):
     return batch, noise
 
 
+@contextlib.contextmanager
+def plain_trunk_backward():
+    """The field kernel keeps its forward and takes its plain backward on
+    the same cotangents, where its ``autograd.Function`` looks it up."""
+    from apnerf_tpu_torch.ops.cuda import fused_mlp as fm
+
+    saved = fm.fused_spectral_field_bwd
+    fm.fused_spectral_field_bwd = fm.fused_spectral_field_bwd_plain
+    try:
+        yield
+    finally:
+        fm.fused_spectral_field_bwd = saved
+
+
 def compare_member_step(dev, state, ds, seed, route="lossgrad", fused_prop=False,
-                        tols=(STEP_LOSS_RTOL, STEP_UPDATE_TOL, STEP_GRAD_TOL), prop_tols=None):
+                        tols=(STEP_LOSS_RTOL, STEP_UPDATE_TOL, STEP_GRAD_TOL), prop_tols=None,
+                        cfg=None):
     """One member step of member 0 from ``state`` on a batch drawn with
     ``seed``: ``route`` on the kernels against the same route with the
     plain versions in place of the kernels (for the combined-kernel branch,
@@ -820,72 +926,101 @@ def compare_member_step(dev, state, ds, seed, route="lossgrad", fused_prop=False
     ``field`` on the plain versions). Holds the loss (relative) to
     ``tols[0]`` and every tensor's update and gradient (err / max-abs) to
     ``tols[1:]``; ``prop_tols``, where given, are the (update, gradient)
-    limits of the proposal field's tensors. → (loss relative error, worst
-    update and worst gradient over the main field's tensors, the same over
-    the proposal field's). The gradient is recovered from Adam's first
-    moment, g = (mu' - b1 mu) / (1 - b1)."""
+    limits of the proposal field's tensors. With ``fused_prop`` the
+    proposal field's update is held on the field kernel's backward alone:
+    against the same step with that backward's plain version on the same
+    cotangents (``ROUTE_STEP_TOL``); its gradient on both comparisons. →
+    (loss relative error, worst update and worst gradient over the main
+    field's tensors, the same over the proposal field's). The gradient is
+    recovered from Adam's first moment, g = (mu' - b1 mu) / (1 - b1).
+    ``cfg`` replaces the bench configuration (the members' widths)."""
     import copy
 
     from apnerf_tpu_torch import bench
     from apnerf_tpu_torch.train.flagship import make_flagship_member_core
     from apnerf_tpu_torch.train.step import AdamState
 
-    cfg = bench.bench_config()
+    cfg = cfg or bench.bench_config()
     batch, noise = _step_inputs(dev, ds, seed)
     old = state.members[0]
     opt0 = state.opt[0]
+    b1 = 0.9
+    sizes = [p.numel() for p in old.parameters()]
 
     def one_step(core):
         member = copy.deepcopy(old)
         out = core(member, AdamState(*(t.clone() for t in opt0)), batch, state.step,
                    noise=noise)
+        if bool(out.skipped):
+            fail("the member step met a non-finite gradient")
         return member, out
 
-    mk, ok = one_step(make_flagship_member_core(cfg, route, fused_prop=fused_prop))
+    def rows(got, ref):
+        """(name, update err / scale, gradient err / scale) of every tensor."""
+        (mk, ok), (mp, op_) = got, ref
+        gk = torch.split((ok.opt.mu - b1 * opt0.mu) / (1 - b1), sizes)
+        gp = torch.split((op_.opt.mu - b1 * opt0.mu) / (1 - b1), sizes)
+        out = []
+        for i, ((name, p0), a, b) in enumerate(zip(old.named_parameters(), mk.parameters(),
+                                                   mp.parameters())):
+            _, ru = _errs(a.detach() - p0.detach(), b.detach() - p0.detach())
+            eg, rg = _errs(gk[i], gp[i])
+            if gp[i].numel() == 1:
+                # a one-element leaf (the proposal field's output bias) has no
+                # scale of its own: its gradient is one sum over every sample,
+                # and near a sign change the ratio to itself reads anything
+                # (6.5e-4, 2.7e-3 and 3.6e-1 in three runs on an H100). Held at
+                # its layer's scale, the larger max-abs of its weight's
+                # gradient and its own.
+                rg = eg / max(float(gp[i].abs().max()), float(gp[i - 1].abs().max()), 1e-30)
+            out.append((name, ru, rg))
+        return out
+
+    def worst(rs, part):
+        return (max(r[1] for r in rs if r[0].startswith(part)),
+                max(r[2] for r in rs if r[0].startswith(part)))
+
+    kernels = one_step(make_flagship_member_core(cfg, route, fused_prop=fused_prop))
     with plain_routes():
-        mp, op_ = one_step(make_flagship_member_core(
+        plain = one_step(make_flagship_member_core(
             cfg, "field" if route == "lossgrad" else route, fused_prop=fused_prop))
-    if bool(ok.skipped) or bool(op_.skipped):
-        fail("the member step met a non-finite gradient")
-    b1 = 0.9
-    sizes = [p.numel() for p in old.parameters()]
-    gk = torch.split((ok.opt.mu - b1 * opt0.mu) / (1 - b1), sizes)
-    gp = torch.split((op_.opt.mu - b1 * opt0.mu) / (1 - b1), sizes)
-    loss_rel = abs(float(ok.loss) - float(op_.loss)) / abs(float(op_.loss))
-    rows = []
-    for i, ((name, p0), a, b) in enumerate(zip(old.named_parameters(), mk.parameters(),
-                                               mp.parameters())):
-        _, ru = _errs(a.detach() - p0.detach(), b.detach() - p0.detach())
-        eg, rg = _errs(gk[i], gp[i])
-        if gp[i].numel() == 1:
-            # a one-element leaf (the proposal field's output bias) has no scale
-            # of its own: its gradient is one sum over every sample, and near a
-            # sign change the ratio to itself reads anything (6.5e-4, 2.7e-3 and
-            # 3.6e-1 in three runs on an H100). Held at its layer's scale, the
-            # larger max-abs of its weight's gradient and its own.
-            rg = eg / max(float(gp[i].abs().max()), float(gp[i - 1].abs().max()), 1e-30)
-        rows.append((name, ru, rg))
+    loss_rel = abs(float(kernels[1].loss) - float(plain[1].loss)) / abs(float(plain[1].loss))
+    rs = rows(kernels, plain)
     limits = {"main": tuple(tols[1:]), "prop": tuple(prop_tols or tols[1:])}
-    worst = {
-        part: (max(r[1] for r in rows if r[0].startswith(part)),
-               max(r[2] for r in rows if r[0].startswith(part)))
-        for part in limits
-    }
+    worsts = {part: worst(rs, part) for part in limits}
     print(f"  member step on route {route}{' with fused_prop' if fused_prop else ''} (batch seed "
-          f"{seed}), kernels vs plain versions: loss {float(ok.loss):.6f} vs "
-          f"{float(op_.loss):.6f} (rel {loss_rel:.3e}, tol {tols[0]}); "
+          f"{seed}), kernels vs plain versions: loss {float(kernels[1].loss):.6f} vs "
+          f"{float(plain[1].loss):.6f} (rel {loss_rel:.3e}, tol {tols[0]}); "
           + "; ".join(
-              f"{part} field: update worst err/scale {worst[part][0]:.3e} (tol "
-              f"{limits[part][0]}), gradient {worst[part][1]:.3e} (tol {limits[part][1]})"
+              f"{part} field: update worst err/scale {worsts[part][0]:.3e} (tol "
+              f"{'see below' if part == 'prop' and fused_prop else limits[part][0]}), gradient "
+              f"{worsts[part][1]:.3e} (tol {limits[part][1]})"
               for part in limits), flush=True)
-    for name, ru, rg in rows:
+    for name, ru, rg in rs:
         print(f"    {name:24s} update {ru:.3e} gradient {rg:.3e}")
+    held = {"main": worsts["main"], "prop": worsts["prop"]}
+    if fused_prop:
+        # the proposal field's update against the same step with the field
+        # kernel's plain backward (B): the two sides sample alike, so what
+        # is left is the backward kernel's own
+        with plain_trunk_backward():
+            share = rows(kernels, one_step(make_flagship_member_core(cfg, route,
+                                                                     fused_prop=True)))
+        w_share = worst(share, "prop")
+        print(f"  the same step against the field kernel's plain backward on the same "
+              f"cotangents: prop field update worst err/scale {w_share[0]:.3e} (tol "
+              f"{limits['prop'][0]}), gradient {w_share[1]:.3e} (tol {limits['prop'][1]})",
+              flush=True)
+        for name, ru, rg in share:
+            if name.startswith("prop"):
+                print(f"    {name:24s} update {ru:.3e} gradient {rg:.3e}")
+        held["prop"] = (w_share[0], max(worsts["prop"][1], w_share[1]))
     over = [part for part in limits
-            if not (worst[part][0] <= limits[part][0] and worst[part][1] <= limits[part][1])]
+            if not (held[part][0] <= limits[part][0] and held[part][1] <= limits[part][1])]
     if not loss_rel <= tols[0] or over:
         fail(f"the member step on route {route} with the kernels disagrees with the plain "
              f"versions (loss {loss_rel:.3e}, tensors of {over or 'no'} field over their limits)")
-    return loss_rel, worst["main"], worst["prop"]
+    return loss_rel, worsts["main"], held["prop"]
 
 
 def phase_train(dev):
@@ -985,9 +1120,14 @@ def profile_member_step(dev, state, ds, route, fused_prop=False, rows=20):
 # reads 0.75 (1.47) for the update and 1 (2) for the gradient, over every
 # limit here. With ``fused_prop`` the two sides sample from proposal
 # densities that differ by the bias convention, so they render other
-# samples: the main field's tensors read higher than without, and the
-# proposal field's, whose gradients come through the proposal loss alone,
-# highest.
+# samples, and the proposal field, whose gradients come through the
+# proposal loss alone, takes Adam's update from a state whose conditioning
+# the route's training decides: its update against the plain versions read
+# 1.9e-2 to 1.8e-1 over five trained states on an H100, most of it the
+# forwards' (PERF.md). So its update is held on the backward kernel's own
+# share, against the same step with the kernel's plain backward on the
+# same cotangents (read 1.9e-2 to 3.8e-2), and its gradient on both
+# comparisons.
 ROUTE_STEP_TOL = {
     ("volrend", False): ((4e-4, 3.5e-1, 3.2e-2), None),
     ("packed", False): ((2.5e-4, 2e-1, 9e-2), None),
@@ -1326,9 +1466,16 @@ def phase_k5(dev):
                 pms = cuda_ms(lambda: fused_field_volrend_plain(leaves, u, sh, dt, tm, S),
                               reps=3, inner=2)
                 chunks = -(-R // max(FWD_CHUNK_ROWS // S, 1))
+                macs = field_macs(s_cfg.n_freqs, s_cfg.neurons, s_cfg.layers,
+                                  s_cfg.geo_feat_dim, s_cfg.neurons // 4, C)
+                # u, dt, t_mid read and the weights written per sample; SH
+                # read and the sums written per ray; the parameters read
+                n_bytes = (R * S * (12 + 8 + 4) + R * (64 + 4 * (5 + C))
+                           + field_weight_bytes(field))
+                bnd = bound(2 * macs * R * S, n_bytes)
                 print(f"fused field-and-render kernel [{case}] R={R} S={S} C={C} "
                       f"({chunks} ray chunks per call): kernel {ms:.3f} ms, plain "
-                      f"{pms:.3f} ms", flush=True)
+                      f"{pms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
                 if acc_k.shape != acc_p.shape or w_k.shape != w_p.shape:
                     fail(f"fused field-and-render kernel ({case}): misshapen output")
                 label = f"field-and-render [{case}, {R} x {S}]"
@@ -1339,13 +1486,7 @@ def phase_k5(dev):
                 if float(missed.abs().max()) != 0.0 or float(w_k.reshape(R, S)[miss].abs().max()):
                     fail(f"{label}: a ray that misses the box has weight")
                 if case == "zero biases" and S == 256:
-                    macs = field_macs(s_cfg.n_freqs, s_cfg.neurons, s_cfg.layers,
-                                      s_cfg.geo_feat_dim, s_cfg.neurons // 4, C)
-                    # u, dt, t_mid read and the weights written per sample; SH
-                    # read and the sums written per ray; the parameters read
-                    n_bytes = (R * S * (12 + 8 + 4) + R * (64 + 4 * (5 + C))
-                               + field_weight_bytes(field))
-                    record = (_errs(w_k, w_p)[0], ms, pms, bound(2 * macs * R * S, n_bytes))
+                    record = (_errs(w_k, w_p)[0], ms, pms, bnd)
                 del acc_k, w_k, acc_p, w_p
         del u, sh, dt, tm
         torch.cuda.empty_cache()
@@ -1617,23 +1758,38 @@ def phase_k1_bwd(dev):
 
             gk = flatten(fm.fused_spectral_field_bwd(W, phase, layers, u_, g, True))
             torch.cuda.synchronize()
+            # dW's partials are added in a fixed order: a second run gives the same bits
+            again = flatten(fm.fused_spectral_field_bwd(W, phase, layers, u_, g, True))
+            same = all(torch.equal(a, b) for a, b in zip(gk, again))
+            print(f"fused_spectral_field_bwd [{label}, {case}]: two runs bit-identical: {same}",
+                  flush=True)
+            if not same:
+                fail(f"fused_spectral_field_bwd ({label}, {case}): two runs differ")
+            del again
             gp = flatten(fm.fused_spectral_field_bwd_plain(W, phase, layers, u_, g, True))
             ms = cuda_ms(lambda: fm.fused_spectral_field_bwd(W, phase, layers, u_, g, True),
                          reps=5, inner=3)
             pms = cuda_ms(lambda: fm.fused_spectral_field_bwd_plain(W, phase, layers, u_, g, True),
                           reps=3, inner=2)
+            macs = 3 * W.shape[1] + sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+            w_bytes = 4 * sum(p.numel() for p in mlp.parameters()) + 16 * W.shape[1]
+            # u and g read, du written per row; parameters read, gradients written
+            bnd = bound(6 * macs * N, N * (12 + 4 * widths[-1] + 12) + 2 * w_bytes)
             print(f"fused_spectral_field_bwd [{label}, {case}] N={N} widths {widths}: kernel "
-                  f"{ms:.3f} ms, plain (forward and backward under autograd) {pms:.3f} ms",
-                  flush=True)
+                  f"{ms:.3f} ms, plain (forward and backward under autograd) {pms:.3f} ms, "
+                  f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+            if case == "zero biases":
+                with torch.no_grad():
+                    f_ms = cuda_ms(lambda: fm.fused_spectral_field(W, phase, mlp, u_), reps=5,
+                                   inner=3)
+                f_bnd = k1_fwd_bound(W.shape[1], mlp, N)
+                print(f"fused_spectral_field [{label}] N={N}: kernel {f_ms:.3f} ms, bound "
+                      f"{f_bnd[0]:.4f} ms ({f_bnd[1]})", flush=True)
             names = ["W", "phase"] + [n for n, _ in mlp.named_parameters()] + ["du"]
             worst, rel = _check_grads(f"fused_spectral_field_bwd [{label}, {case}]", names, gk,
                                       gp, tol, leaf_tol)
             if main and case == "zero biases":
-                macs = 3 * W.shape[1] + sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-                w_bytes = 4 * sum(p.numel() for p in mlp.parameters()) + 16 * W.shape[1]
-                # u and g read, du written per row; parameters read, gradients written
-                n_bytes = N * (12 + 4 * widths[-1] + 12) + 2 * w_bytes
-                record = (worst, ms, pms, bound(6 * macs * N, n_bytes), rel)
+                record = (worst, ms, pms, bnd, rel)
             del gk, gp, g
     torch.cuda.empty_cache()
     return record
@@ -1683,6 +1839,13 @@ def phase_k3(dev):
                 fail("the limit on fused_mlp_apply would pass a zeroed or negated output")
             gk, dxk = fm.fused_mlp_apply_bwd(layers, x, g, True)
             torch.cuda.synchronize()
+            gk2, dxk2 = fm.fused_mlp_apply_bwd(layers, x, g, True)
+            same = torch.equal(dxk, dxk2) and all(torch.equal(a, b) for a, b in zip(gk, gk2))
+            print(f"fused_mlp_apply_bwd [{kind} x, {case}]: two runs bit-identical: {same}",
+                  flush=True)
+            if not same:
+                fail(f"fused_mlp_apply_bwd ({kind} x, {case}): two runs differ")
+            del gk2, dxk2
             gp, dxp = fm.fused_mlp_apply_bwd_plain(layers, x, g, True)
             if dxk.dtype != x.dtype:
                 fail(f"fused_mlp_apply_bwd: dx is {dxk.dtype} for a {x.dtype} x")
@@ -1708,6 +1871,300 @@ def phase_k3(dev):
         del g
     torch.cuda.empty_cache()
     return fwd_record, bwd_record
+
+
+# The tile's nine (M, H) instances, each against the plain versions at 512
+# rays x 128 samples (65,536 rows: several 128-row passes per block), 29
+# classes, 15 geometry features, 3 hidden layers (2 at H = 128), with zero
+# biases and then random ones: K4 fwd, K5 fwd, K6 (weights max-abs, loss
+# terms relative, gradient leaves err / leaf scale) and the backwards of K4,
+# K5 and K1 (every leaf and du). With zero biases K4 and K5 fwd are held to
+# their limits above; every other limit is about 2x the largest reading over
+# the nine instances on an H100 (PERF.md; with zero biases the loss terms
+# read up to 9.7e-5, K6's phase gradient 1.05e-2 at (32, 64), the
+# backwards' leaves up to 8.3e-3; with random biases, where the two bias
+# conventions meet, the readings at 65,536 rows run up to 2x those of the
+# shipping shapes above). Each limit is shown at run time to catch a zeroed
+# and a negated output or gradient; two runs of K6 at (64, 128) agree to the
+# last bit. The shipping instance (128, 256) runs here too, at this shape.
+# Then the trunk kernels' backwards at trunks between two instances, which
+# run zero-padded to the next one, at the same limits as K1 bwd's.
+WIDTH_RAYS, WIDTH_SAMPLES = 512, 128
+WIDTH_K6_TOL = (6e-7, 2e-4, 2e-2)
+WIDTH_BWD_TOL = 1.6e-2
+_WIDTH_RENDER_BWD_RANDOM = (4.2e-2, {"W": 2.3e-1, "phase": 2.8e-1, "mlp_base.w0": 1.3e-1,
+                                     "mlp_base.w1": 8e-2, "du": 4.4e-1})
+WIDTH_RANDOM_TOL = {
+    "fused_field_heads": {"rgb": 2.2e-2, "sigma": 3.3e-2, "sem": 3.1e-2},
+    "fused_field_volrend": {"weights": 4.3e-3, "rgb": 1.2e-2, "opacity": 7.8e-3,
+                            "depth": 7.1e-3, "sem": 2.2e-2},
+    "fused_field_volrend_lossgrad": (6e-3, 3e-4, 7e-2, {"W": 3e-1, "phase": 3.2e-1,
+                                                         "mlp_base.w0": 1.5e-1}),
+    "fused_field_heads_bwd": _WIDTH_RENDER_BWD_RANDOM,
+    "fused_field_volrend_bwd": _WIDTH_RENDER_BWD_RANDOM,
+    "fused_spectral_field_bwd": (2e-2, {"W": 2e-1, "phase": 1.7e-1, "w0": 1.1e-1, "w1": 7.2e-2,
+                                        "du": 4.4e-1}),
+}
+WIDTH_BWDS = ("fused_field_heads_bwd", "fused_field_volrend_bwd", "fused_spectral_field_bwd")
+# (the encode's frequencies or 0 for an input x, its width, H, hidden
+# layers, output): K1 bwd on the (64, 128) instance, K3 bwd on (32, 128)
+PADDED_TRUNKS = ((48, 96, 96, 3, 16), (0, 48, 112, 2, 1))
+
+
+def _width_tols(case):
+    """(K4's, K5's, K6's (weights, loss, gradient, leaf limits), each
+    backward's (limit, leaf limits)) for a bias case of the widths phase."""
+    if case == "zero biases":
+        return (K4_TOL[case], K5_TOL[case], WIDTH_K6_TOL + ({},),
+                dict.fromkeys(WIDTH_BWDS, (WIDTH_BWD_TOL, {})))
+    t = WIDTH_RANDOM_TOL
+    return (t["fused_field_heads"], t["fused_field_volrend"], t["fused_field_volrend_lossgrad"],
+            {k: t[k] for k in WIDTH_BWDS})
+
+
+def _width_config(M, H):
+    """``PipelineConfig()`` at M frequencies and an H-wide trunk."""
+    from apnerf_tpu_torch.config import PipelineConfig
+    from apnerf_tpu_torch.train.flagship import make_spectral_config
+
+    cfg = dataclasses.replace(PipelineConfig(), n_levels=M // 8, spectral_neurons=H,
+                              spectral_layers=2 if H == 128 else 3)
+    s_cfg = make_spectral_config(cfg)
+    if (s_cfg.n_freqs, s_cfg.neurons) != (M, H):
+        fail(f"the width configuration gives M={s_cfg.n_freqs} H={s_cfg.neurons}, not {M}, {H}")
+    return cfg, s_cfg
+
+
+def phase_widths(dev, pairs=None):
+    """Every instance of the tile, and the padded trunks, against the plain
+    versions (above) → {(M, H): {kernel: ms}}, zero biases."""
+    from apnerf_tpu_torch.models import spectral
+    from apnerf_tpu_torch.ops.cuda import field_images
+    from apnerf_tpu_torch.ops.cuda import fused_field_heads as ffh
+    from apnerf_tpu_torch.ops.cuda import fused_field_volrend as fvr
+    from apnerf_tpu_torch.ops.cuda import fused_mlp as fm
+
+    R, S = WIDTH_RAYS, WIDTH_SAMPLES
+    times = {}
+    for M, H in pairs or field_images.WIDTHS:
+        gen = _generator(dev, 17)
+        cfg, s_cfg = _width_config(M, H)
+        C = cfg.num_semantic_classes
+        field = spectral.init_spectral(s_cfg, gen, dev)
+        names = [n for n, _ in field.named_parameters()]
+        pos, dirs, t0_, t1_, miss = _render_inputs(gen, dev, R, S, cfg.aabb)
+        u, sh = spectral._packed_inputs(s_cfg, pos, dirs)
+        dt = ((t1_ - t0_) * (~miss)[:, None]).reshape(-1).contiguous()
+        tm = (0.5 * (t0_ + t1_)).reshape(-1).contiguous()
+        inputs = _k6_inputs(gen, dev, R, S, C, cfg.aabb)
+        ms = {}
+        for case in ("zero biases", "random biases"):
+            if case == "random biases":
+                _set_random_biases(field, gen, dev)
+            timed = case == "zero biases"
+            k4_tol, k5_tol, (w_tol, l_tol, g_tol, g_leaf), bwd_tols = _width_tols(case)
+            leaves = list(field.parameters())
+            label = f"widths M={M} H={H} layers={s_cfg.layers} [{case}]"
+            with torch.inference_mode():
+                yk = ffh.fused_field_heads(leaves, u, sh, S)
+                torch.cuda.synchronize()
+                yp = ffh.fused_field_heads_plain(leaves, u, sh, S)
+                _check_groups(f"{label} K4", yk, yp, {
+                    "rgb": slice(0, 3), "sigma": slice(3, 4), "sem": slice(4, 4 + C)}, k4_tol)
+                if timed:
+                    ms["fused_field_heads"] = cuda_ms(
+                        lambda: ffh.fused_field_heads(leaves, u, sh, S), reps=3, inner=3)
+                acc_k, w_k = fvr.fused_field_volrend(leaves, u, sh, dt, tm, S)
+                torch.cuda.synchronize()
+                acc_p, w_p = fvr.fused_field_volrend_plain(leaves, u, sh, dt, tm, S)
+                _check_groups(f"{label} K5", acc_k, acc_p, {
+                    "rgb": slice(0, 3), "opacity": slice(3, 4), "depth": slice(4, 5),
+                    "sem": slice(5, 5 + C)}, k5_tol)
+                _check_groups(f"{label} K5", w_k[:, None], w_p[:, None],
+                              {"weights": slice(0, 1)}, k5_tol, absolute=("weights",))
+                del yk, yp, acc_k, w_k, acc_p, w_p
+
+            lk, wk, gk = spectral.forward_packed_lossgrad(field, s_cfg, *inputs)
+            torch.cuda.synchronize()
+            if (M, H) == (64, 128) and timed:
+                lk2, wk2, gk2 = spectral.forward_packed_lossgrad(field, s_cfg, *inputs)
+                again = _flat(gk2)
+                same = (torch.equal(lk, lk2) and torch.equal(wk, wk2)
+                        and all(torch.equal(v, again[k]) for k, v in _flat(gk).items()))
+                print(f"{label} K6: two runs bit-identical: {same}", flush=True)
+                if not same:
+                    fail(f"{label}: two runs of the train-step kernel differ")
+            spectral.fused_field_volrend_lossgrad = fvr.fused_field_volrend_lossgrad_plain
+            try:
+                lp, wp, gp = spectral.forward_packed_lossgrad(field, s_cfg, *inputs)
+            finally:
+                spectral.fused_field_volrend_lossgrad = fvr.fused_field_volrend_lossgrad
+            w_err = _errs(wk, wp)[0]
+            l_err = max(abs(float(lk[i].sum()) - float(lp[i].sum())) / abs(float(lp[i].sum()))
+                        for i in range(3))
+            print(f"{label} K6: weights max_abs {w_err:.3e} (tol {w_tol}), loss terms rel "
+                  f"{l_err:.3e} (tol {l_tol})", flush=True)
+            if not (w_err <= w_tol and l_err <= l_tol):
+                fail(f"{label}: the train-step kernel disagrees with its plain version")
+            fk, fp = _flat(gk), _flat(gp)
+            _check_grads(f"{label} K6", list(fp), [fk[k] for k in fp], list(fp.values()), g_tol,
+                         g_leaf)
+            if timed:
+                ms["fused_field_volrend_lossgrad"] = cuda_ms(
+                    lambda: spectral.forward_packed_lossgrad(field, s_cfg, *inputs), reps=3,
+                    inner=3)
+            del lk, wk, gk, lp, wp, gp, fk, fp
+
+            g_acc, g_w, g_y, g_h = _loss_cotangents(leaves, u, sh, dt, tm, S, C, 17)
+            mlp = field.mlp_base
+            layers = mlp.layers()
+
+            def k1(fn):
+                dW, dphase, grads, du = fn(field.W, field.phase, layers, u, g_h, True)
+                return [dW, dphase, *grads], du
+
+            for name, kernel, plain, leaf_names in (
+                ("fused_field_heads_bwd",
+                 lambda: ffh.fused_field_heads_bwd(leaves, u, sh, S, g_y, True),
+                 lambda: ffh.fused_field_heads_bwd_plain(leaves, u, sh, S, g_y, True), names),
+                ("fused_field_volrend_bwd",
+                 lambda: fvr.fused_field_volrend_bwd(leaves, u, sh, dt, tm, S, g_acc, g_w, True),
+                 lambda: fvr.fused_field_volrend_bwd_plain(leaves, u, sh, dt, tm, S, g_acc, g_w,
+                                                           True), names),
+                ("fused_spectral_field_bwd", lambda: k1(fm.fused_spectral_field_bwd),
+                 lambda: k1(fm.fused_spectral_field_bwd_plain),
+                 ["W", "phase"] + [n for n, _ in mlp.named_parameters()]),
+            ):
+                gk, duk = kernel()
+                torch.cuda.synchronize()
+                gp, dup = plain()
+                _check_grads(f"{label} {name}", leaf_names + ["du"], [*gk, duk], [*gp, dup],
+                             *bwd_tols[name])
+                if timed:
+                    ms[name] = cuda_ms(kernel, reps=3, inner=3)
+                del gk, duk, gp, dup
+            del g_acc, g_w, g_y, g_h
+        print(f"widths M={M} H={H}: kernel ms at {R} x {S} "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+        times[M, H] = ms
+        del field, leaves, inputs, u, sh, dt, tm, pos
+        torch.cuda.empty_cache()
+    if pairs is None:
+        phase_padded_trunks(dev)
+    return times
+
+
+def phase_padded_trunks(dev):
+    """The trunk kernels' backwards at trunks between two of the tile's
+    instances (``PADDED_TRUNKS``: they run zero-padded to the next one)
+    against autograd through their plain versions, 65,536 rows, bf16 x for
+    K3, from the cotangent of half the mean squared output, zero and then
+    random biases at the nine instances' limits of K1 bwd (dx at du's); two
+    runs agree to the last bit."""
+    from apnerf_tpu_torch.models.nn import init_mlp
+    from apnerf_tpu_torch.ops.cuda import field_images
+    from apnerf_tpu_torch.ops.cuda import fused_mlp as fm
+
+    N = WIDTH_RAYS * WIDTH_SAMPLES
+    for m, din, h, n_hidden, out in PADDED_TRUNKS:
+        gen = _generator(dev, 19)
+        mlp = init_mlp([din] + [h] * n_hidden + [out], gen, dev)
+        layers = mlp.layers()
+        _, M, H, _, _ = field_images.check_trunk(
+            "chip_smoke", [tuple(t.shape) for pair in layers for t in pair], m)
+        W = torch.randn((3, m), generator=gen, device=dev) * 8.0 if m else None
+        phase = torch.rand((m,), generator=gen, device=dev) if m else None
+        u = torch.rand((N, 3), generator=gen, device=dev)
+        x = torch.randn((N, din), generator=gen, device=dev).to(torch.bfloat16)
+        names = [n for n, _ in mlp.named_parameters()]
+        if m:
+            names = ["W", "phase"] + names + ["du"]
+
+            def kernel(fn=fm.fused_spectral_field_bwd):
+                dW, dphase, grads, du = fn(W, phase, layers, u, g, True)
+                return [dW, dphase, *grads, du]
+
+            def plain():
+                return kernel(fm.fused_spectral_field_bwd_plain)
+
+            def output():
+                return fm.fused_spectral_field_plain(W, phase, mlp, u)
+        else:
+            names = names + ["dx"]
+
+            def kernel(fn=fm.fused_mlp_apply_bwd):
+                grads, dx = fn(layers, x, g, True)
+                return [*grads, dx]
+
+            def plain():
+                return kernel(fm.fused_mlp_apply_bwd_plain)
+
+            def output():
+                return fm.fused_mlp_apply_plain(mlp, x)
+        who = "fused_spectral_field_bwd" if m else "fused_mlp_apply_bwd"
+        for case in ("zero biases", "random biases"):
+            if case == "random biases":
+                _set_random_biases(mlp, gen, dev)
+            label = (f"padded trunk {'M=' + str(m) if m else 'din=' + str(din)} H={h} "
+                     f"layers={n_hidden} out={out} on the ({M}, {H}) instance: {who} [{case}]")
+            with torch.no_grad():
+                g = (output() / N).contiguous()
+            gk = kernel()
+            torch.cuda.synchronize()
+            again = kernel()
+            same = all(torch.equal(a, b) for a, b in zip(gk, again))
+            print(f"{label}: two runs bit-identical: {same}", flush=True)
+            if not same:
+                fail(f"{label}: two runs differ")
+            del again
+            gp = plain()
+            tol, leaf_tol = _width_tols(case)[3]["fused_spectral_field_bwd"]
+            _check_grads(label, names, gk, gp, tol, dict(leaf_tol, dx=leaf_tol.get("du", tol)))
+            del gk, gp, g
+
+
+# one member step at spectral_neurons=128 against the plain versions: (loss
+# relative, update and gradient err / max-abs), about 2x one reading on an
+# H100 (PERF.md; the member step's readings repeat run to run). Its biases
+# are trained, so the two bias conventions meet as in phase 14's routes.
+WIDTH_STEP_TOL = (7e-4, 4e-1, 4e-2)
+
+
+def phase_member_widths(dev, bench_run):
+    """One member step of the default route at ``spectral_neurons=128``
+    (the (128, 128) instance: K6 on the kernels against the autograd branch
+    on the plain versions) at ``WIDTH_STEP_TOL``, from members trained
+    one chunk of 100 steps on the kernels on the bench's scan (as phase 14's
+    routes are: from a fresh state Adam's first update is -lr sign(g), whose
+    sign flips wherever a gradient element is near zero)."""
+    from apnerf_tpu_torch import bench
+    from apnerf_tpu_torch.train.flagship import (
+        default_route,
+        init_flagship_ensemble,
+        make_flagship_train_phase,
+        make_spectral_config,
+    )
+    from apnerf_tpu_torch.train.phase import pools_from_dataset
+
+    cfg = dataclasses.replace(bench.bench_config(), spectral_neurons=128)
+    s_cfg = make_spectral_config(cfg)
+    if (s_cfg.n_freqs, s_cfg.neurons, default_route(s_cfg)) != (128, 128, "lossgrad"):
+        fail(f"the member step runs M={s_cfg.n_freqs} H={s_cfg.neurons} on "
+             f"{default_route(s_cfg)}")
+    gen = _generator(dev, 18)
+    ds = bench_run[1].dataset
+    state = init_flagship_ensemble(cfg, gen, dev)._replace(step=1000)
+    pools, counts = pools_from_dataset(ds)
+    state, losses = make_flagship_train_phase(cfg)(
+        state, ds.images, ds.depths, ds.semantics, ds.camtoworlds, ds.K, pools, counts, ds.size,
+        bench.STEPS_PER_CALL, False, gen)
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    print(f"member step at spectral_neurons=128 (M={s_cfg.n_freqs}, H={s_cfg.neurons}, heads "
+          f"{s_cfg.neurons // 4}), after {bench.STEPS_PER_CALL} steps on the kernels (loss "
+          f"{first:.6f} over the first 10, {last:.6f} over the last 10):", flush=True)
+    if not (np.isfinite(last) and last < first):
+        fail(f"training at spectral_neurons=128 did not lower the loss ({first} -> {last})")
+    compare_member_step(dev, state, ds, seed=123, cfg=cfg, tols=WIDTH_STEP_TOL)
 
 
 LOOP_ARTIFACTS = (
@@ -1854,6 +2311,73 @@ def phase_loop(dev):
     if not same:
         fail("load_checkpoints does not reproduce the members")
     return mapper, counts
+
+
+def phase_faketiny(dev):
+    """The whole loop through the CLI at ``configs/config_faketiny.yaml``
+    on the card: M = 32 frequencies and a 256-wide trunk, the tile's
+    (32, 256) instance in every render and train step (the proposal
+    field's trunk forward on the wmma tile), depth as the file sets it.
+    Finite falling losses, finite evaluation rows, and launch counts
+    exact against what the run did (its kept and discarded train steps,
+    the candidates it scored, its evaluations) → the mapper."""
+    import yaml
+
+    from apnerf_tpu_torch.active import pipeline
+    from apnerf_tpu_torch.ops.cuda import build
+
+    with open(build.REPO_ROOT / "configs" / "config_faketiny.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw.update(save_path=str(build.BUILD_DIR / "chip_smoke_faketiny"))
+    cfg_path = build.BUILD_DIR / "chip_smoke_faketiny.yaml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    counters = all_counters()
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mapper = pipeline.main(["--sim", "fake", "--device", str(dev), "--config", str(cfg_path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(counters)
+    cfg, s_cfg = mapper.cfg, mapper.spectral_cfg
+    print(f"faketiny loop: {wall:.1f} s of wall; M={s_cfg.n_freqs} H={s_cfg.neurons} "
+          f"layers={s_cfg.layers} classes={s_cfg.num_semantic_classes}; launches: {counts}",
+          flush=True)
+    for row, ext in zip(mapper.errors_hist, mapper.metrics_ext_hist):
+        print(f"  evaluation at planning step {row[0]:.0f}: PSNR {row[1]:.4f} dB, depth MSE "
+              f"{row[2]:.6f}, semantic CE {row[3]:.6f}, mIoU {ext[2]:.6f}")
+    per = mapper.steps_per_call
+    chunk_means = [float(np.mean(phase[i:i + per])) for phase in mapper.loss_hist
+                   for i in range(0, len(phase), per)]
+    print(f"  chunk-mean losses: {' '.join(f'{m:.4f}' for m in chunk_means)}; refit "
+          f"rollbacks {mapper.refit_rollbacks}", flush=True)
+    if (s_cfg.n_freqs, s_cfg.neurons) != (32, 256):
+        fail(f"faketiny runs M={s_cfg.n_freqs} H={s_cfg.neurons}, not the (32, 256) instance")
+    if not np.isfinite(chunk_means).all() or not chunk_means[-1] < chunk_means[0]:
+        fail(f"the faketiny loop's losses are not finite or did not fall: {chunk_means}")
+    rows = np.asarray(mapper.errors_hist)
+    if rows.ndim != 2 or len(rows) < 2 or not np.isfinite(rows).all():
+        fail(f"expected finite evaluation rows, got {rows}")
+    E = cfg.n_ensembles
+    steps = sum(len(phase) for phase in mapper.loss_hist)
+    ran = steps + mapper.refit_discarded_steps
+    scored = sum(len(c) for c in mapper.trajector_uncertainty_list)
+    renders = scored * N_VIEWS * E
+    eval_renders = len(mapper.errors_hist) * len(mapper._test_poses) * E
+    expected = dict.fromkeys(counts, 0)
+    expected.update({
+        "fused_field_volrend_lossgrad": E * ran,
+        "fused_render_weights_bwd": E * ran,
+        "fused_spectral_field": E * len(chunk_means),  # the occupancy update
+        "fused_field_heads": renders,
+        "fused_field_volrend": eval_renders,
+        "fused_render_weights": 2 * E * ran + 2 * renders + eval_renders,
+    })
+    if scored == 0 or counts != expected:
+        fail(f"faketiny loop launch counts {counts}, expected {expected} ({scored} candidates "
+             f"scored)")
+    return mapper
 
 
 def phase_loop_routes(mapper):

@@ -377,10 +377,12 @@ def test_mapper_options_that_are_not_ported(tmp):
 
 @pytest.mark.parametrize("with_variance", [True, False])
 def test_renderer_routes_by_device_alone(tmp, monkeypatch, with_variance):
-    """Off the CPU every render asks for the packed kernels, whatever the
-    field (here one without semantic classes, which they do not take): the
-    caller never gives way to the plain field on the card. On the CPU the
-    plain field renders. The meta device stands in for the card."""
+    """Off the CPU a field whose member core takes the combined kernel
+    renders through the packed kernels, from its configuration alone (not
+    by catching a kernel's refusal); one without semantic classes, which
+    the JAX package renders through its plain branch, renders through
+    ``spectral.forward`` there too. On the CPU the plain field renders. The
+    meta device stands in for the card."""
     from apnerf_tpu_torch.active import mapper as mapper_mod
 
     seen = []
@@ -390,25 +392,28 @@ def test_renderer_routes_by_device_alone(tmp, monkeypatch, with_variance):
         return {"rgb": torch.zeros(rays_o.shape[0], 3, device=rays_o.device)}
 
     monkeypatch.setattr(mapper_mod, "render_rays_prop", capture)
-    cfg = dataclasses.replace(tiny_cfg(PipelineConfig, tmp), num_semantic_classes=0)
-    m = mapper_mod.ActiveNeRFMapper(cfg, None, save_path=str(tmp / "route"), device="cpu", **KW)
-    for device, packed in (("cpu", False), ("meta", True)):
-        m.device = torch.device(device)
-        render = m._build_ensemble_renderer(16, with_variance=with_variance)
-        rays = torch.zeros(1, 4, 3, device=device)
-        seen.clear()
-        out = render(m.members, m.occ, rays, rays, torch.ones(3, device=device))
-        assert out["rgb"].shape == (2, 1, 4, 3)
-        assert seen == [(packed and with_variance, packed and not with_variance)] * 2
+    for classes in (8, 0):
+        cfg = dataclasses.replace(tiny_cfg(PipelineConfig, tmp), num_semantic_classes=classes)
+        m = mapper_mod.ActiveNeRFMapper(cfg, None, save_path=str(tmp / "route"), device="cpu",
+                                        **KW)
+        for device, packed in (("cpu", False), ("meta", classes > 0)):
+            m.device = torch.device(device)
+            render = m._build_ensemble_renderer(16, with_variance=with_variance)
+            rays = torch.zeros(1, 4, 3, device=device)
+            seen.clear()
+            out = render(m.members, m.occ, rays, rays, torch.ones(3, device=device))
+            assert out["rgb"].shape == (2, 1, 4, 3)
+            assert seen == [(packed and with_variance, packed and not with_variance)] * 2
 
 
 @pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA device")
 def test_unsupported_field_raises_on_the_card(tmp):
-    """A field the packed kernels do not take raises on the card: no render
-    falls back to the plain field there."""
+    """A field at widths the packed kernels do not take (here 8 frequencies
+    and a 32-wide trunk) raises on the card: no render falls back to the
+    plain field there."""
     from apnerf_tpu_torch.active.mapper import ActiveNeRFMapper
 
-    cfg = dataclasses.replace(tiny_cfg(PipelineConfig, tmp), num_semantic_classes=0)
+    cfg = tiny_cfg(PipelineConfig, tmp)
     m = ActiveNeRFMapper(cfg, None, save_path=str(tmp / "card"), device="cuda", **KW)
     rays = m._pose7_to_grid_rays(np.asarray([m.global_origin]), 4, 4)
     for render in (m._render_unc, m._render_eval):

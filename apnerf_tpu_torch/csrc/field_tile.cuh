@@ -1,8 +1,10 @@
 // The spectral field on the H100, shared by the kernels that evaluate it
-// (fused_field_heads.cu, fused_field_volrend.cu): the whole main field,
-// or its trunk alone for the trunk kernels' backwards (fused_mlp.py). Same
-// math as apnerf_tpu/ops/pallas/fused_field_heads.py::_make_field_fwd_kernel,
-// rows as samples, the two heads formed and rounded as two heads:
+// (fused_field_heads.cu, fused_field_volrend.cu): the whole main field, or
+// its trunk alone for the trunk kernels (fused_mlp.py, forward and
+// backward). Same math as apnerf_tpu/ops/pallas/fused_field_heads.py::
+// _make_field_fwd_kernel and apnerf_tpu/ops/pallas/fused_mlp.py::
+// _make_enc_fwd_kernel / _make_fwd_kernel, rows as samples, the two heads
+// formed and rounded as two heads:
 //
 //   proj = 2*pi * (bf16(u) . bf16(W)) + phase;  enc = bf16[cos, sin]
 //   trunk: bf16(relu(. @ w + b)) hidden layers, f32 last layer
@@ -15,50 +17,62 @@
 // frequencies, so the precise sincosf is required. Biases are added in f32
 // before the bf16 rounding, as Pallas does.
 //
-// Widths. The kernels are templates on the frequency count M (the encoding
-// is 2M wide) and the trunk width H, with heads H/4 wide: M in {32, 64,
-// 128} and H in {64, 128, 256}, nine instances (APNERF_TILE_WIDTHS). The
-// first layer has 2M/64 k-blocks of 64 columns, every other trunk layer
-// H/64; a warpgroup's trunk accumulator is H/2 floats a thread. The trunk
-// kernels' input x (no encode) enters as the instance's first-layer
-// images, zero-padded to 2M columns.
+// Widths. The kernels are templates on the trunk width H in {64, 128, 256,
+// 512} (APNERF_TILE_WIDTHS), with heads H/4 wide; a narrower field runs on
+// the next instance with its weights zero-padded by the host
+// (field_images.py). The first layer's input is not part of the instance:
+// it is multiplied one 64-column k-block at a time, a run-time count of
+// them (n_kb). The encoding of m frequencies is [cos of m | sin of m],
+// zero past 2m: the plain chain's own column order, so the kernel's f32
+// sums are the plain chain's, 16-column step by step (a reordered encoding
+// changes the sums' rounding, and with it bf16 roundings of the hidden
+// layers). Where the encoding fits the tile's buffer it is formed in place
+// at once (each sincosf gives a cos and a sin column); a wider one is
+// formed block by block into two staging images in turn, block b + 1
+// while block b's product runs, one sincosf a column. The trunk kernels'
+// input x enters as ceil(din / 64) staged blocks the same way, zero past
+// din. An encoding in place of exactly the buffer's images (the shipping
+// widths) is a kernel instance of its own (kWhole), whose k-block loop has
+// a compile-time count: a wgmma chain in a loop of run-time length (or
+// under a run-time guard) costs ptxas spills of the whole tile. The trunk
+// alone (K1, K3) writes any output width, 16 columns at a time.
 //
-// Design. A persistent block per SM: two consumer warpgroups, each owning
-// a 64-row tile of a 128-row pass, and a producer warpgroup of which one
-// thread works (setmaxnreg moves its registers to the consumers). Every layer is a
-// wgmma product m64 x n (n = H in the trunk, one instruction chain per
-// 64-column k-block) whose A operand is the warpgroup's own activation
+// Design. A persistent block per SM: two consumer warpgroups and a
+// producer warpgroup of which one thread works (setmaxnreg moves its
+// registers to the consumers). Up to H = 256 each consumer warpgroup owns a
+// 64-row tile of a 128-row pass and every column; at H = 512 both own the
+// one 64-row tile of a pass, and each forms one n = 256 half of every
+// trunk layer's columns (an m64n512 accumulator would be 256 registers a
+// thread), both halves multiplying the same activation buffer. Every layer
+// is a wgmma product m64 x n whose A operand is the tile's activation
 // buffer in shared memory and whose B operand is a weight slab that the
-// producer streams through a 4-slot ring with cp.async.bulk and mbarriers
-// (the weights lie in global memory as ready tile images, hopper_tile.cuh),
-// so the next slab's copy overlaps this slab's product and both
-// warpgroups multiply against every slab. The accumulators stay in
-// registers: bias, ReLU and the bf16 rounding are applied there and the
-// result goes back, swizzled, over the layer's own input as the next A
-// operand. Both heads run on the warpgroup's own rows, rgb and semantics
-// as two n = H/4 chains of one batch. What a kernel does with a tile's
-// values is its epilogue struct: it stages them in shared memory and
-// writes them out as 16-byte stores. A kernel with a backward passes a
-// save struct: the activations leave as whole tile images by bulk stores
-// (the layout the weight-gradient kernel multiplies from) and the ReLU
-// masks as two words per thread, in the accumulator's own bit order.
+// producer streams through a ring (4 slots, 2 of 64 KB at H = 512) with
+// cp.async.bulk and mbarriers (the weights lie in global memory as ready
+// tile images, hopper_tile.cuh), so the next slab's copy overlaps this
+// slab's product and both warpgroups multiply against every slab. The
+// accumulators stay in registers: bias, ReLU and the bf16 rounding are
+// applied there and the result goes back, swizzled, over the layer's own
+// input as the next A operand (a fresh accumulator is declared as such,
+// hopper_tile.cuh::fresh, or ptxas keeps the last pass's values alive).
+// Both heads run on the tile's own rows, rgb and semantics as two chains
+// of one batch. What a kernel does with a tile's values is its
+// epilogue struct: it stages them in shared memory and writes them out as
+// 16-byte stores. A kernel with a backward passes a save struct: the
+// activations leave as whole tile images by bulk stores (the layout the
+// weight-gradient kernel multiplies from) and the ReLU masks as two words
+// per thread, in the accumulator's own bit order.
 //
 // What bounds it: on paper tensor-core math (a row of the shipping field
 // costs ~0.45 MFLOP against ~150 bytes). On the card the shipping instance
 // reaches about a third of that bound (PERF.md), and a pass of 128 rows
 // splits into three parts of about equal size: the trunk's products,
 // during which the tensor pipe is busy for one warpgroup or the other; the
-// encode, 128 precise sincosf a row, bound by instruction issue, which both
-// warpgroups run at the same time and which therefore hides behind no
-// product (without it the kernel takes 27 % less); and the latency chain
-// of the five small products and epilogues after the trunk. The slab ring
-// is not in the way: the kernel takes the same time with the ring's copies
-// left out, and with the hidden layers' epilogue stores left out. Letting
-// the warpgroups take turns at the tensor cores, and keeping two slabs'
-// products in flight, each moved it by under 3 % and were taken out again.
-// The ring re-reads the ~440 KB of weight images from L2 once per 128
-// rows, ~2.6 TB/s at this speed; a faster tile would need a cluster's
-// multicast or more rows a block.
+// encode, 128 precise sincosf a row, bound by instruction issue; and the
+// latency chain of the five small products and epilogues after the trunk.
+// The slab ring is not in the way: the kernel took the same time with the
+// ring's copies left out. The ring re-reads the weight images from L2 once
+// per pass; a faster tile would need a cluster's multicast or more rows a
+// block.
 
 #pragma once
 
@@ -68,14 +82,16 @@
 // the buffers). At namespace scope: extern "C" entries take structs that
 // hold it.
 struct FieldWeights {
-  const float* W;      // [3, M]
-  const float* phase;  // [M]
+  const float* W;      // [3, n_freq]
+  const float* phase;  // [n_freq]
   const __nv_bfloat16* wfwd;  // forward slabs
   const __nv_bfloat16* wbwd;  // backward slabs
   const float* bias;          // every layer's bias, padded (bias_offsets)
-  int tile_m, tile_h;         // frequencies M and trunk width H: the instance
+  int tile_h;                 // trunk width H: the instance
   int n_hidden;               // trunk hidden layers, 2 or 3
   int geo, n_classes;
+  int n_freq, n_kb;           // frequencies of the encode; the first layer's 64-column k-blocks
+  int out;                    // the trunk alone: its output width
 };
 
 // The save struct of a kernel that keeps no activation.
@@ -83,52 +99,59 @@ struct NoSave {
   static constexpr bool kSaves = false;
 };
 
-// the (M, H) instances of the tile's kernels
-#define APNERF_TILE_WIDTHS(X) \
-  X(32, 64) X(32, 128) X(32, 256) X(64, 64) X(64, 128) X(64, 256) X(128, 64) X(128, 128) X(128, 256)
+// the trunk widths H of the tile's kernels
+#define APNERF_TILE_WIDTHS(X) X(64) X(128) X(256) X(512)
 
 namespace {
 
 using namespace hopper;
 
 constexpr int kShw = 16;     // SH features of a ray direction
-constexpr int kTOut = 16;    // trunk output width, padded
+constexpr int kTOut = 16;    // the whole field's trunk output width, padded (1 + geo <= 16)
 constexpr int kRgbPad = 16;  // rgb-head output width, padded
 constexpr int kCPad = 64;    // semantic-head output width, padded
 constexpr float kTwoPi = 6.283185307179586f;
 
 constexpr int kTileRows = 64;
-constexpr int kPassRows = 128;
-constexpr int kWg = 128;                       // threads of a warpgroup
+constexpr int kWg = 128;                // threads of a warpgroup
 constexpr int kFieldThreads = 3 * kWg;  // two consumer warpgroups and the producer's
 // 2 x 128 x 232 + 128 x 40 registers fit the SM's 65,536 at every instance;
 // the shipping one needs them (ptxas refused it at 128), the narrower ones
 // leave some unused
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kActBytes = 4 * kImgBytes64;      // a warpgroup's activation buffer
-constexpr int kFwdStages = 4;
+constexpr int kBufBytes = 8 * kImgBytes64;  // the consumers' activation buffers, together
+constexpr int kBlockFreqs = 32;             // frequencies of a k-block of the encoding
 constexpr int kAlignSlack = 1024;
-constexpr int kUTileBytes = kTileRows * 3 * 4;  // a tile's coordinates
+constexpr int kUTileBytes = kTileRows * 3 * 4;       // a tile's coordinates
+constexpr int kYStageBytes = kTileRows * 16 * 4;     // a tile's 16 trunk-output columns, f32
 
 // The widths of one instance, in images and bytes.
-template <int M, int H>
+template <int H>
 struct Tile {
-  static_assert(M == 32 || M == 64 || M == 128, "M is 32, 64 or 128");
-  static_assert(H == 64 || H == 128 || H == 256, "H is 64, 128 or 256");
-  static constexpr int kHh = H / 4;                          // head width
-  static constexpr int kEncImgs = 2 * M / 64;                // k-blocks of the first layer
-  static constexpr int kHImgs = H / 64;                      // k-blocks of the other layers
-  static constexpr int kEncBytes = kEncImgs * kImgBytes64;   // a tile's encoding
-  static constexpr int kHBytes = kHImgs * kImgBytes64;       // a tile's hidden activation
-  static constexpr int kTrunkSlab = H * kImgRowBytes;        // a trunk slab: [H, 64]
-  static constexpr int kHeadImg = kHh * kImgRowBytes;        // a head layer's [H/4, 64]
+  static_assert(H == 64 || H == 128 || H == 256 || H == 512, "H is 64, 128, 256 or 512");
+  static constexpr int kSplit = H > 256 ? 2 : 1;       // warpgroups that share a tile's columns
+  static constexpr int kTiles = 2 / kSplit;            // 64-row tiles of a pass
+  static constexpr int kPassRows = kTileRows * kTiles;
+  static constexpr int kTT = kWg * kSplit;             // threads of a tile
+  static constexpr int kHw = H / kSplit;               // trunk columns a warpgroup forms
+  static constexpr int kHh = H / 4;                    // head width
+  static constexpr int kHhw = kHh / kSplit;            // head columns a warpgroup forms
+  static constexpr int kHI = (kHh + 63) / 64;          // images of a head's activation
+  static constexpr int kHImgs = H / 64;                // k-blocks of a hidden layer
+  static constexpr int kHBytes = kHImgs * kImgBytes64;  // a tile's hidden activation
+  static constexpr int kTrunkSlab = H * kImgRowBytes;   // a trunk slab: [H, 64]
+  static constexpr int kHeadImg = kHh * kImgRowBytes;   // a head image: [H/4, 64]
+  static constexpr int kActBytes = kBufBytes / kTiles;  // a tile's activation buffer
+  static constexpr int kXsImg = kActBytes / kImgBytes64 - 1;  // the heads' input image
+  static constexpr int kStages = kSplit == 2 ? 2 : 4;  // forward and backward rings
+  // a forward ring slot: a trunk slab, or the heads' second layers or outputs
+  static constexpr int kFwdSlot =
+      kTrunkSlab > 2 * kHI * kHeadImg
+          ? (kTrunkSlab > kHI * (kRgbPad + kCPad) * kImgRowBytes
+                 ? kTrunkSlab
+                 : kHI * (kRgbPad + kCPad) * kImgRowBytes)
+          : 2 * kHI * kHeadImg;
 };
-
-// bytes of a forward ring slot: a trunk slab or the heads' output slab
-__host__ __device__ constexpr int fwd_slot(int h) {
-  return h * kImgRowBytes > (kRgbPad + kCPad) * kImgRowBytes ? h * kImgRowBytes
-                                                             : (kRgbPad + kCPad) * kImgRowBytes;
-}
 
 // allow `kernel` that much dynamic shared memory -> the CUDA error code
 inline int set_smem(const void* kernel, size_t bytes) {
@@ -157,51 +180,71 @@ __device__ __forceinline__ uint32_t pos_bits(uint32_t packed) {
 
 // shared-memory layout of the forward kernels, from the aligned base
 struct FwdSmem {
-  int ring, act, bias, u, bars, total;
+  int ring, act, bias, u, y, bars, total;
 };
 
 // biases: the hidden layers', the trunk output's (16), the heads' first and
-// second layers (rgb, sem: H/4 each) and their outputs (16, 64)
+// second layers (rgb, sem: H/4 each) and their outputs (16, 64). The trunk
+// alone's output bias (any width) follows the hidden ones in global memory.
 __host__ __device__ inline int bias_floats(int n_hidden, int h) {
   return n_hidden * h + kTOut + h + kRgbPad + kCPad;
+}
+
+__host__ __device__ inline int fwd_stages(int h) { return h > 256 ? 2 : 4; }
+
+// whether a forward at the instance h is the kWhole instance: its first
+// layer the encoding in place, n_kb = a tile buffer's images
+inline bool whole_enc(int h, bool encode, int n_kb) {
+  return encode && n_kb == (h > 256 ? 8 : 4);
+}
+
+__host__ __device__ inline int fwd_slot(int h) {
+  const int hh = h / 4, hi = (hh + 63) / 64;
+  int s = h * kImgRowBytes;
+  if (2 * hi * hh * kImgRowBytes > s) s = 2 * hi * hh * kImgRowBytes;
+  if (hi * (kRgbPad + kCPad) * kImgRowBytes > s) s = hi * (kRgbPad + kCPad) * kImgRowBytes;
+  return s;
 }
 
 __host__ __device__ inline FwdSmem fwd_smem(int h, int n_hidden) {
   FwdSmem s;
   s.ring = 0;
-  s.act = kFwdStages * fwd_slot(h);
-  s.bias = s.act + 2 * kActBytes;
+  s.act = fwd_stages(h) * fwd_slot(h);
+  s.bias = s.act + kBufBytes;
   s.u = s.bias + (bias_floats(n_hidden, h) * 4 + 127) / 128 * 128;
-  s.bars = s.u + 2 * 2 * kUTileBytes;  // per warpgroup: this pass's and the next one's
-  s.total = s.bars + 16 * kFwdStages + kAlignSlack;
+  s.y = s.u + 2 * 2 * kUTileBytes;  // per tile: this pass's coordinates and the next one's
+  s.bars = s.y + 2 * kYStageBytes;
+  s.total = s.bars + 16 * fwd_stages(h) + kAlignSlack;
   return s;
 }
 
-// forward slab s of the schedule (field_images.py::fwd_slabs): the trunk's
-// hidden layers, then with the heads the trunk output, the heads' two
-// layers and their outputs
-template <int M, int H>
-__device__ __forceinline__ void fwd_slab(int s, int n_hidden, uint32_t& off, uint32_t& bytes) {
-  using T = Tile<M, H>;
-  const int n_trunk = T::kEncImgs + (n_hidden - 1) * T::kHImgs;
+// (byte offset, bytes) of forward slab s of the schedule (field_images.py::
+// fwd_slabs): the first layer's n_kb slabs, the hidden layers', then with
+// the heads the trunk output, the heads' two layers and their outputs, or
+// for the trunk alone its output layer 16 columns a slab
+template <int H>
+__device__ __forceinline__ void fwd_slab(int s, int n_trunk, bool heads, uint32_t& off,
+                                         uint32_t& bytes) {
+  using T = Tile<H>;
   const int t = s - n_trunk;
   const uint32_t base = (uint32_t)n_trunk * T::kTrunkSlab;
   const uint32_t out_t = T::kHImgs * kTOut * kImgRowBytes;
+  const uint32_t l1 = 2 * T::kHeadImg, l2 = 2 * T::kHI * T::kHeadImg;
   if (t < 0) {
     off = (uint32_t)s * T::kTrunkSlab;
     bytes = T::kTrunkSlab;
-  } else if (t == 0) {
-    off = base;
+  } else if (!heads || t == 0) {
+    off = base + (uint32_t)t * out_t;
     bytes = out_t;
   } else if (t == 1) {
     off = base + out_t;
-    bytes = 2 * T::kHeadImg;
+    bytes = l1;
   } else if (t == 2) {
-    off = base + out_t + 2 * T::kHeadImg;
-    bytes = 2 * T::kHeadImg;
+    off = base + out_t + l1;
+    bytes = l2;
   } else {
-    off = base + out_t + 4 * T::kHeadImg;
-    bytes = kRgbPad * kImgRowBytes + kImgBytes64;
+    off = base + out_t + l1 + l2;
+    bytes = T::kHI * (kRgbPad + kCPad) * kImgRowBytes;
   }
 }
 
@@ -217,24 +260,31 @@ __device__ __forceinline__ uint32_t slab_begin(const Ring<kStages>& ring, uint32
 }
 
 template <int kStages>
-__device__ __forceinline__ void slab_end(Ring<kStages>& ring, int tid) {
-  wgmma_commit();
-  wgmma_wait<0>();
+__device__ __forceinline__ void slab_release(Ring<kStages>& ring, int tid) {
   if (tid == 0) mbar_arrive(ring.empty_bar());
   ring.advance();
 }
 
-// st[0 .. n) -> g[0 .. n) by the warpgroup's threads, 16 bytes at a time
-// (g is 16-byte aligned)
-__device__ __forceinline__ void copy_out(float* __restrict__ g, const float* st, int n, int tid) {
+template <int kStages>
+__device__ __forceinline__ void slab_end(Ring<kStages>& ring, int tid) {
+  wgmma_commit();
+  wgmma_wait<0>();
+  slab_release(ring, tid);
+}
+
+// st[0 .. n) -> g[0 .. n) by threads t of nt, 16 bytes at a time (g is
+// 16-byte aligned)
+__device__ __forceinline__ void copy_out(float* __restrict__ g, const float* st, int n, int t,
+                                         int nt) {
   const int n4 = n / 4;
-  for (int e = tid; e < n4; e += kWg)
+  for (int e = t; e < n4; e += nt)
     reinterpret_cast<float4*>(g)[e] = reinterpret_cast<const float4*>(st)[e];
-  for (int e = 4 * n4 + tid; e < n; e += kWg) g[e] = st[e];
+  for (int e = 4 * n4 + t; e < n; e += nt) g[e] = st[e];
 }
 
 // A tile's coordinates u[row0 .. row0 + 63, :] as 192 floats, two a thread
-// (zero past n_rows): fetch issues the loads, stash puts them in shared memory.
+// of the first 128 (zero past n_rows): fetch issues the loads, stash puts
+// them in shared memory.
 __device__ __forceinline__ float2 fetch_u(const float* __restrict__ u, int row0, int n_rows,
                                           int tid) {
   const long long first = (long long)row0 * 3, end = (long long)n_rows * 3;
@@ -249,14 +299,14 @@ __device__ __forceinline__ void stash_u(float* dst, float2 v, int tid) {
   if (tid < kTileRows * 3 - kWg) dst[kWg + tid] = v.y;
 }
 
-// x[row0 .. row0 + 63, :din] (bf16, or f32 rounded to bf16) into the first
-// `cols` / 64 images of `act`, zero past din and past n_rows; din is a
-// multiple of 16 and every row 16-byte aligned
-__device__ __forceinline__ void load_x_tile(const void* x, int x_f32, int din, int row0, int n_rows,
-                                            int cols, unsigned char* act, int tid) {
-  const int per_row = cols / 8;
-  for (int e = tid; e < kTileRows * per_row; e += kWg) {
-    const int i = e / per_row, col = 8 * (e % per_row);
+// columns 64 b .. 64 b + 63 of x[row0 .. row0 + 63, :din] (bf16, or f32
+// rounded to bf16) as the image `img`, zero past din and past n_rows; din
+// is a multiple of 16 and every row 16-byte aligned; threads t of nt
+__device__ __forceinline__ void load_x_block(const void* x, int x_f32, int din, int row0,
+                                             int n_rows, int b, unsigned char* img, int t,
+                                             int nt) {
+  for (int e = t; e < kTileRows * 8; e += nt) {
+    const int i = e / 8, ch = e % 8, col = 64 * b + 8 * ch;
     const int row = row0 + i;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row < n_rows && col < din) {
@@ -270,44 +320,151 @@ __device__ __forceinline__ void load_x_tile(const void* x, int x_f32, int din, i
         val = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(x) + (size_t)row * din + col);
       }
     }
-    *reinterpret_cast<uint4*>(act + (col / 64) * kImgBytes64 + img_off(i, col % 64)) = val;
+    *reinterpret_cast<uint4*>(img + img_off(i, 8 * ch)) = val;
   }
 }
 
-// The field over every pass of this block, at the instance (M, H). P holds
-// the FieldWeights members; S is NoSave or holds
-//   enc, h[3], xs, hid1, hid2   bf16 tile images per 64-row tile: 2M/64,
-//                               H/64, 1, 2, 2 images (hid: rgb | sem)
-//   mask_t[3], mask_h           uint2 per (row, lane % 4): the ReLU masks
+// the phases of frequency f (weights w0..w2 and phase ph, bf16-rounded
+// already) at rows i0 .. i0 + 7 of the tile's coordinates ut
+__device__ __forceinline__ void phases8(const float* ut, int i0, float w0, float w1, float w2,
+                                        float ph, float (&proj)[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float* ur = ut + (i0 + k) * 3;  // zero past n_rows
+    const float dot = round_bf16(ur[0]) * w0 + round_bf16(ur[1]) * w1 + round_bf16(ur[2]) * w2;
+    proj[k] = __fadd_rn(__fmul_rn(dot, kTwoPi), ph);
+  }
+}
+
+// frequency f's weights and phase (zero past n_freq) → whether it exists
+__device__ __forceinline__ bool freq_weights(const float* __restrict__ W,
+                                             const float* __restrict__ phase, int n_freq, int f,
+                                             float& w0, float& w1, float& w2, float& ph) {
+  if (f >= n_freq) return false;
+  w0 = round_bf16(W[f]);
+  w1 = round_bf16(W[n_freq + f]);
+  w2 = round_bf16(W[2 * n_freq + f]);
+  ph = phase[f];
+  return true;
+}
+
+__device__ __forceinline__ void put_bf16(unsigned char* act, int i, int col, float v) {
+  *reinterpret_cast<bf16*>(act + (col / 64) * kImgBytes64 + img_off(i, col % 64)) =
+      __float2bfloat16(v);
+}
+
+// The whole encoding of the tile's 64 rows `ut`, [cos of m | sin of m]
+// and zero up to 64 n_kb columns, in place as images 0 .. n_kb - 1 of
+// `act`; threads t of nt >= m: thread t owns frequency t % m (its weights
+// and phase in w, loaded once a kernel) of every (nt / m)-th block of
+// eight rows, so that eight sincosf chains overlap. kM: m at compile time
+// (the shipping widths), or 0
+template <int kM = 0>
+__device__ __forceinline__ void encode_all(const float4& w, int m_rt, int n_kb, const float* ut,
+                                           unsigned char* act, int t, int nt) {
+  const int m = kM ? kM : m_rt;
+  const int groups = nt / m, f = t % m, grp = t / m;
+  for (int e = t; e < kTileRows * (64 * n_kb - 2 * m); e += nt)
+    put_bf16(act, e % kTileRows, 2 * m + e / kTileRows, 0.f);
+  if (grp >= groups) return;
+  const float w0 = w.x, w1 = w.y, w2 = w.z, ph = w.w;
+  for (int rb = grp; rb < kTileRows / 8; rb += groups) {
+    const int i0 = 8 * rb;
+    float proj[8];
+    phases8(ut, i0, w0, w1, w2, ph, proj);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float s, c;
+      sincosf(proj[k], &s, &c);
+      put_bf16(act, i0 + k, f, c);
+      put_bf16(act, i0 + k, m + f, s);
+    }
+  }
+}
+
+// The encoding's k-block b (columns 64 b .. 64 b + 63 of [cos of m | sin
+// of m | 0]) as the image `img`; threads t of nt: thread t owns column
+// t % 64 of every (nt / 64)-th block of eight rows, one sincosf a column
+__device__ __forceinline__ void encode_block(const float* __restrict__ W,
+                                             const float* __restrict__ phase, int m, int b,
+                                             const float* ut, unsigned char* img, int t, int nt) {
+  const int col = 64 * b + t % 64;
+  const bool is_sin = col >= m;
+  float w0 = 0.f, w1 = 0.f, w2 = 0.f, ph = 0.f;
+  const bool real = freq_weights(W, phase, m, is_sin ? col - m : col, w0, w1, w2, ph) &&
+                    col < 2 * m;
+  for (int rb = t / 64; rb < kTileRows / 8; rb += nt / 64) {
+    const int i0 = 8 * rb;
+    float proj[8];
+    phases8(ut, i0, w0, w1, w2, ph, proj);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float s = 0.f, c = 0.f;
+      if (real) sincosf(proj[k], &s, &c);
+      *reinterpret_cast<bf16*>(img + img_off(i0 + k, t % 64)) = __float2bfloat16(is_sin ? s : c);
+    }
+  }
+}
+
+// The first layer's k-block b of a tile into staging image b % 2 of act:
+// the encoding's or x's
+template <class P>
+__device__ __forceinline__ void form_block(const P& a, const void* x, int x_f32, int din, int row0,
+                                           int n_rows, int b, const float* ut,
+                                           unsigned char* act, int t, int nt) {
+  unsigned char* img = act + (b & 1) * kImgBytes64;
+  if (x == nullptr)
+    encode_block(a.W, a.phase, a.n_freq, b, ut, img, t, nt);
+  else
+    load_x_block(x, x_f32, din, row0, n_rows, b, img, t, nt);
+}
+
+// The field over every pass of this block, at the instance H. P holds the
+// FieldWeights members; S is NoSave or holds
+//   enc, h[3], xs, hid1, hid2   bf16 tile images per 64-row tile: n_kb,
+//                               H/64, 1, 2 kHI, 2 kHI images (hid: rgb | sem)
+//   mask_t[3], mask_h           uint2 per (row, lane % 4, column half): the ReLU masks
 // The first layer's input is the encoding of u or, where x is given, x
-// itself [n_rows, din] (bf16, or f32 when x_f32; din <= 2M). With `heads`
-// false the pass ends after the trunk's hidden layers (the trunk kernels'
-// backwards: Epi is then not called). Epi stages a tile's values in shared
-// memory (density, rgb, sem) and writes them out (flush). smem is the
-// block's dynamic shared memory, fwd_smem().total bytes. Every thread of
-// the block calls it.
-template <int M, int H, class P, class S, class Epi>
+// itself [n_rows, din] (bf16, or f32 when x_f32). With `heads` false the
+// pass ends after the trunk's hidden layers (the trunk kernels'
+// backwards: Epi is then not called) or, where Epi::kTrunkOut, after the
+// trunk's output layer (the trunk kernels' forwards: Epi writes y). Epi
+// stages a tile's values in shared memory (density, rgb, sem) and writes
+// them out (flush). kWhole: the first layer is the encoding in place in
+// all of the buffer's images (n_kb = their count); else any first layer.
+// smem is the block's dynamic shared memory, fwd_smem().total bytes. Every
+// thread of the block calls it.
+template <int H, bool kWhole, class P, class S, class Epi>
 __device__ __forceinline__ void field_forward(const P& a, const S& sv,
                                               const float* __restrict__ u, const void* x,
                                               int x_f32, int din, bool heads,
                                               const float* __restrict__ sh, int n_rows,
                                               int n_samples, unsigned char* smem_raw, Epi epi) {
-  using T = Tile<M, H>;
-  constexpr int kHh = T::kHh;
-  constexpr int kSlot = fwd_slot(H);
+  using T = Tile<H>;
+  constexpr int kHw = T::kHw, kHhw = T::kHhw, kHh = T::kHh, kHI = T::kHI, kTT = T::kTT;
+  constexpr int kSlot = T::kFwdSlot;
+  constexpr int kSt = T::kStages;
   unsigned char* smem = align_smem(smem_raw);
-  const int nh = a.n_hidden;
+  const int nh = a.n_hidden, nkb = a.n_kb;
   const FwdSmem L = fwd_smem(H, nh);
   float* bias_s = reinterpret_cast<float*>(smem + L.bias);
-  const uint32_t full = smem_u32(smem + L.bars), empty = full + 8 * kFwdStages;
+  const uint32_t full = smem_u32(smem + L.bars), empty = full + 8 * kSt;
   const uint32_t ring_base = smem_u32(smem + L.ring);
   const bool encode = x == nullptr;
-  for (int i = threadIdx.x; i < bias_floats(nh, H); i += kFieldThreads) bias_s[i] = a.bias[i];
-  if (threadIdx.x == 0) ring_init<kFwdStages>(full, empty, 2);
+  constexpr int kImgs = T::kActBytes / kImgBytes64;  // a tile buffer's images
+  // the whole encoding at once, or block by block
+  const bool in_place = kWhole || (encode && nkb <= kImgs);
+  const int n_bias_s = heads ? bias_floats(nh, H) : nh * H;
+  for (int i = threadIdx.x; i < n_bias_s; i += kFieldThreads) bias_s[i] = a.bias[i];
+  if (threadIdx.x == 0) ring_init<kSt>(full, empty, 2);
   __syncthreads();
-  const int n_pass = (n_rows + kPassRows - 1) / kPassRows;
-  const int n_slabs = T::kEncImgs + (nh - 1) * T::kHImgs + (heads ? 4 : 0);
-  Ring<kFwdStages> ring;
+  const int n_pass = (n_rows + T::kPassRows - 1) / T::kPassRows;
+  const int n_trunk = nkb + (nh - 1) * T::kHImgs;
+  bool out_layer = heads;
+  if constexpr (Epi::kTrunkOut) out_layer = true;
+  const int n_out = heads ? 4 : (Epi::kTrunkOut ? (a.out + 15) / 16 : 0);
+  const int n_slabs = n_trunk + n_out;
+  Ring<kSt> ring;
   ring.full = full;
   ring.empty = empty;
 
@@ -319,7 +476,7 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
       for (int pass = blockIdx.x; pass < n_pass; pass += gridDim.x) {
         for (int s = 0; s < n_slabs; ++s) {
           uint32_t off, bytes;
-          fwd_slab<M, H>(s, nh, off, bytes);
+          fwd_slab<H>(s, n_trunk, heads, off, bytes);
           ring.wait_empty();
           mbar_expect_tx(ring.full_bar(), bytes);
           bulk_load(ring_base + ring.stage * kSlot, w + off, bytes, ring.full_bar());
@@ -333,107 +490,154 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
   // ---- consumers
   reg_alloc<kConsumerRegs>();
   const int wg = threadIdx.x / kWg, tid = threadIdx.x % kWg;
+  const int tl = wg / T::kSplit, cw = wg % T::kSplit;  // the warpgroup's tile and column half
+  const int tt = tid + cw * kWg;                       // thread of the tile
   const int g = (tid % 32) / 4, q = tid % 4;
   const int r_lo = 16 * (tid / 32) + g;  // this thread's accumulator rows: r_lo, r_lo + 8
-  const int bar_id = 1 + wg;
-  unsigned char* act = smem + L.act + wg * kActBytes;
+  const int bar_id = 1 + tl;
+  unsigned char* act = smem + L.act + tl * T::kActBytes;
   const uint32_t act_a = smem_u32(act);
   const int G = a.geo, C = a.n_classes;
-  // the encode: thread tid owns frequency f of the rows of its group
-  constexpr int kGroups = kWg / M;
-  const int f = tid % M, grp = tid / M;
-  float w0 = 0.f, w1 = 0.f, w2 = 0.f, ph = 0.f;
-  if (encode) {
-    w0 = round_bf16(a.W[f]);
-    w1 = round_bf16(a.W[M + f]);
-    w2 = round_bf16(a.W[2 * M + f]);
-    ph = a.phase[f];
-  }
 
+  auto tile_sync = [&]() { named_barrier(bar_id, kTT); };
   // a bulk store of the buffer may still read it: wait before overwriting
   auto before_overwrite = [&]() {
     if constexpr (S::kSaves) {
-      if (tid == 0) bulk_store_wait_read();
+      if (tt == 0) bulk_store_wait_read();
     }
-    named_barrier(bar_id, kWg);
+    tile_sync();
   };
-  // the warpgroup's writes are visible to wgmma and to bulk stores
+  // the tile's writes are visible to wgmma and to bulk stores
   auto after_write = [&]() {
     fence_async_smem();
-    named_barrier(bar_id, kWg);
+    tile_sync();
   };
+
+  // the in-place encode's weights and phase of this thread's frequency
+  float4 enc_w = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (in_place && encode)
+    freq_weights(a.W, a.phase, a.n_freq, tt % a.n_freq, enc_w.x, enc_w.y, enc_w.z, enc_w.w);
 
   // the coordinates of a pass are fetched a pass ahead, so that the encode
   // does not wait on device memory
-  float* u_s = reinterpret_cast<float*>(smem + L.u) + wg * 2 * (kUTileBytes / 4);
+  float* u_s = reinterpret_cast<float*>(smem + L.u) + tl * 2 * (kUTileBytes / 4);
   int slot = 0;
-  if (encode && (int)blockIdx.x < n_pass)
-    stash_u(u_s, fetch_u(u, blockIdx.x * kPassRows + wg * kTileRows, n_rows, tid), tid);
-  named_barrier(bar_id, kWg);
+  if (encode && cw == 0 && (int)blockIdx.x < n_pass)
+    stash_u(u_s, fetch_u(u, blockIdx.x * T::kPassRows + tl * kTileRows, n_rows, tid), tid);
+  tile_sync();
 
   for (int pass = blockIdx.x; pass < n_pass; pass += gridDim.x, slot ^= 1) {
-    const int row0 = pass * kPassRows + wg * kTileRows;
+    const int row0 = pass * T::kPassRows + tl * kTileRows;
     const size_t tile = (size_t)(row0 / kTileRows);
     const float* ut = u_s + slot * (kUTileBytes / 4);
-    if (encode) {
-      const int next = pass + gridDim.x;
-      float2 u_next = make_float2(0.f, 0.f);
-      if (next < n_pass) u_next = fetch_u(u, next * kPassRows + wg * kTileRows, n_rows, tid);
 
-      // eight rows at a time, so that their sincosf chains overlap; the
-      // groups of threads take every kGroups-th block of eight rows
-      for (int b = grp; b < kTileRows / 8; b += kGroups) {
-        const int i0 = 8 * b;
-        float proj[8];
+    // the first layer's k-block b formed into staging image b % 2, and saved
+    auto save_block = [&](int b) {
+      if constexpr (S::kSaves) {
+        if (tt == 0)
+          bulk_store(sv.enc + (tile * nkb + b) * (kImgBytes64 / 2), act_a + (b & 1) * kImgBytes64,
+                     kImgBytes64);
+      }
+    };
+
+    float2 u_next = make_float2(0.f, 0.f);
+    if (encode && cw == 0) {
+      const int next = pass + gridDim.x;
+      if (next < n_pass) u_next = fetch_u(u, next * T::kPassRows + tl * kTileRows, n_rows, tid);
+    }
+    if (kWhole && a.n_freq == 32 * kImgs) {
+      // the shipping widths: every loop of the encode of a compile-time length
+      encode_all<32 * kImgs>(enc_w, 0, kImgs, ut, act, tt, kTT);
+      after_write();
+      if constexpr (S::kSaves) {
+        if (tt == 0)
+          bulk_store(sv.enc + tile * nkb * (kImgBytes64 / 2), act_a, nkb * kImgBytes64);
+      }
+    } else if (in_place) {
+      encode_all(enc_w, a.n_freq, nkb, ut, act, tt, kTT);
+      after_write();
+      if constexpr (S::kSaves) {
+        if (tt == 0)
+          bulk_store(sv.enc + tile * nkb * (kImgBytes64 / 2), act_a, nkb * kImgBytes64);
+      }
+    } else {
+      form_block(a, x, x_f32, din, row0, n_rows, 0, ut, act, tt, kTT);
+      after_write();
+      save_block(0);
+    }
+    // the next pass's coordinates go to the other slot (the streamed
+    // encode reads this pass's until the first layer ends)
+    if (encode && cw == 0) stash_u(u_s + (slot ^ 1) * (kUTileBytes / 4), u_next, tid);
+
+    // the trunk's hidden layers, in place; the first layer's k-blocks either
+    // lie in place or are staged, block kb + 1 formed while kb's product runs
+    for (int l = 0; l < nh; ++l) {
+      float d[kHw / 2];
+      fresh(d);
+      const bool staged = l == 0 && !in_place;
+      // the products in place: compile-time k-block counts for every hidden
+      // layer and kWhole's first layer (one loop where the two counts agree)
+      if (l > 0 || (kWhole && kImgs == T::kHImgs)) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float* ur = ut + (i0 + k) * 3;  // zero past n_rows
-          const float dot =
-              round_bf16(ur[0]) * w0 + round_bf16(ur[1]) * w1 + round_bf16(ur[2]) * w2;
-          proj[k] = __fadd_rn(__fmul_rn(dot, kTwoPi), ph);
+        for (int kb = 0; kb < T::kHImgs; ++kb) {
+          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
+                             (kb | ks) != 0);
+          slab_end(ring, tid);
         }
+      } else if (kWhole) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          float s, c;
-          sincosf(proj[k], &s, &c);
-          *reinterpret_cast<bf16*>(act + (f / 64) * kImgBytes64 + img_off(i0 + k, f % 64)) =
-              __float2bfloat16(c);
-          *reinterpret_cast<bf16*>(act + ((M + f) / 64) * kImgBytes64 +
-                                   img_off(i0 + k, (M + f) % 64)) = __float2bfloat16(s);
+        for (int kb = 0; kb < kImgs; ++kb) {
+          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
+                             (kb | ks) != 0);
+          slab_end(ring, tid);
+        }
+      } else if (!staged) {
+        for (int kb = 0; kb < nkb; ++kb) {
+          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
+                             (kb | ks) != 0);
+          slab_end(ring, tid);
         }
       }
-      stash_u(u_s + (slot ^ 1) * (kUTileBytes / 4), u_next, tid);
-    } else {
-      load_x_tile(x, x_f32, din, row0, n_rows, 2 * M, act, tid);
-    }
-    after_write();
-    if constexpr (S::kSaves) {
-      if (tid == 0) bulk_store(sv.enc + tile * (T::kEncBytes / 2), act_a, T::kEncBytes);
-    }
-
-    // trunk hidden layers, in place
-    for (int l = 0; l < nh; ++l) {
-      float d[H / 2];
-      const int n_kb = l == 0 ? T::kEncImgs : T::kHImgs;
-      for (int kb = 0; kb < n_kb; ++kb) {
-        const uint32_t slab = slab_begin(ring, ring_base, kSlot);
+      const int n_k = kWhole ? 0 : nkb;
+      for (int kb = 0; staged && kb < n_k; ++kb) {
+        const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
+        const uint32_t img = act_a + (kb & 1) * kImgBytes64;
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
-          wgmma<H, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
-                         (kb | ks) != 0);
-        slab_end(ring, tid);
+          wgmma<kHw, 0, 0>(d, kmajor_desc(img, ks), kmajor_desc(slab, ks), (kb | ks) != 0);
+        wgmma_commit();
+        const bool next = kb + 1 < n_k;
+        if (next) {
+          if constexpr (S::kSaves) before_overwrite();
+          form_block(a, x, x_f32, din, row0, n_rows, kb + 1, ut, act, tt, kTT);
+        }
+        wgmma_wait<0>();
+        slab_release(ring, tid);
+        if (next) {
+          after_write();
+          save_block(kb + 1);
+        }
       }
       before_overwrite();
-      const float* b = bias_s + l * H;
+      const float* b = bias_s + l * H + cw * kHw;
       uint32_t mk[4] = {0u, 0u, 0u, 0u};  // [row half][word]
 #pragma unroll
-      for (int j = 0; j < H / 8; ++j) {
+      for (int j = 0; j < kHw / 8; ++j) {
         const int c = 8 * j + 2 * q;
         const float2 bb = *reinterpret_cast<const float2*>(b + c);
         const uint32_t lo = pack_bf16(fmaxf(d[4 * j] + bb.x, 0.f), fmaxf(d[4 * j + 1] + bb.y, 0.f));
         const uint32_t hi =
             pack_bf16(fmaxf(d[4 * j + 2] + bb.x, 0.f), fmaxf(d[4 * j + 3] + bb.y, 0.f));
-        unsigned char* img = act + (j / 8) * kImgBytes64;
+        unsigned char* img = act + (cw * kHw / 64 + j / 8) * kImgBytes64;
         *reinterpret_cast<uint32_t*>(img + img_off(r_lo, c % 64)) = lo;
         *reinterpret_cast<uint32_t*>(img + img_off(r_lo + 8, c % 64)) = hi;
         if constexpr (S::kSaves) {
@@ -443,56 +647,93 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
       }
       after_write();
       if constexpr (S::kSaves) {
-        sv.mask_t[l][(size_t)(row0 + r_lo) * 4 + q] = make_uint2(mk[0], mk[1]);
-        sv.mask_t[l][(size_t)(row0 + r_lo + 8) * 4 + q] = make_uint2(mk[2], mk[3]);
-        if (tid == 0) bulk_store(sv.h[l] + tile * (T::kHBytes / 2), act_a, T::kHBytes);
+        sv.mask_t[l][((size_t)(row0 + r_lo) * 4 + q) * T::kSplit + cw] = make_uint2(mk[0], mk[1]);
+        sv.mask_t[l][((size_t)(row0 + r_lo + 8) * 4 + q) * T::kSplit + cw] =
+            make_uint2(mk[2], mk[3]);
+        if (tt == 0) bulk_store(sv.h[l] + tile * (T::kHBytes / 2), act_a, T::kHBytes);
       }
     }
-    if (!heads) {
-      // the next pass's encode overwrites the buffer the last store reads
+    if (!out_layer) {
+      // the next pass's first block overwrites the buffer the last store reads
       before_overwrite();
       continue;
     }
 
+    if constexpr (Epi::kTrunkOut) {
+      // the trunk alone: y = h @ w_out + b_out (f32), 16 columns a slab; both
+      // column halves form the whole product, the first writes it
+      float* ys = reinterpret_cast<float*>(smem + L.y) + tl * (kYStageBytes / 4);
+      const float* b_out = a.bias + nh * H;
+      for (int ch = 0; ch < n_out; ++ch) {
+        float dd[8];
+        fresh(dd);
+        const uint32_t slab = slab_begin(ring, ring_base, kSlot);
+#pragma unroll
+        for (int kb = 0; kb < T::kHImgs; ++kb) {
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_n16<0, 0>(dd, kmajor_desc(act_a + kb * kImgBytes64, ks),
+                            kmajor_desc(slab + kb * kTOut * kImgRowBytes, ks), (kb | ks) != 0);
+        }
+        slab_end(ring, tid);
+        if (cw == 0) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int c = 8 * (e / 4) + 2 * q + (e & 1), i = r_lo + 8 * ((e >> 1) & 1);
+            const int col = 16 * ch + c;
+            ys[i * 16 + c] = dd[e] + (col < a.out ? b_out[col] : 0.f);
+          }
+        }
+        tile_sync();
+        epi.flush_chunk(ys, row0, min(kTileRows, n_rows - row0), ch, tt, kTT);
+        tile_sync();
+      }
+      continue;
+    }
+
     // trunk output (f32), density, and the heads' input [bf16 SH | bf16 geo | 0]
-    // as image 3 of the buffer
+    // as image kXsImg of the buffer; both column halves form the product, the
+    // first writes what follows from it
     float sig[2] = {0.f, 0.f}, dsd[2] = {0.f, 0.f};
     {
-      float d[8];
+      float dd[8];
+      fresh(dd);
       {
         const uint32_t slab = slab_begin(ring, ring_base, kSlot);
 #pragma unroll
         for (int kb = 0; kb < T::kHImgs; ++kb) {
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
-            wgmma_n16<0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks),
+            wgmma_n16<0, 0>(dd, kmajor_desc(act_a + kb * kImgBytes64, ks),
                             kmajor_desc(slab + kb * kTOut * kImgRowBytes, ks), (kb | ks) != 0);
         }
         slab_end(ring, tid);
       }
       before_overwrite();
       const float* b = bias_s + nh * H;
-      unsigned char* xs = act + 3 * kImgBytes64;
+      unsigned char* xs = act + T::kXsImg * kImgBytes64;
+      if (cw == 0) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int c = 8 * (e / 4) + 2 * q + (e & 1), half = (e >> 1) & 1;
-        const int i = r_lo + 8 * half;
-        const float v = d[e] + b[c];
-        if (c == 0) {
-          const int row = row0 + i;
-          const float* ur = ut + i * 3;
-          const bool in = row < n_rows && ur[0] > 0.f && ur[0] < 1.f && ur[1] > 0.f &&
-                          ur[1] < 1.f && ur[2] > 0.f && ur[2] < 1.f;
-          sig[half] = in ? expf(v - 1.f) : 0.f;
-          dsd[half] = in ? expf(fminf(v - 1.f, 15.f)) : 0.f;
-          *reinterpret_cast<bf16*>(xs + img_off(i, 2 * kShw - 1)) = __float2bfloat16(0.f);
-        } else {
-          *reinterpret_cast<bf16*>(xs + img_off(i, kShw - 1 + c)) =
-              __float2bfloat16(c <= G ? v : 0.f);
+        for (int e = 0; e < 8; ++e) {
+          const int c = 8 * (e / 4) + 2 * q + (e & 1), half = (e >> 1) & 1;
+          const int i = r_lo + 8 * half;
+          const float v = dd[e] + b[c];
+          if (c == 0) {
+            const int row = row0 + i;
+            const float* ur = ut + i * 3;
+            const bool in = row < n_rows && ur[0] > 0.f && ur[0] < 1.f && ur[1] > 0.f &&
+                            ur[1] < 1.f && ur[2] > 0.f && ur[2] < 1.f;
+            sig[half] = in ? expf(v - 1.f) : 0.f;
+            dsd[half] = in ? expf(fminf(v - 1.f, 15.f)) : 0.f;
+            *reinterpret_cast<bf16*>(xs + img_off(i, 2 * kShw - 1)) = __float2bfloat16(0.f);
+          } else {
+            *reinterpret_cast<bf16*>(xs + img_off(i, kShw - 1 + c)) =
+                __float2bfloat16(c <= G ? v : 0.f);
+          }
         }
       }
       // chunks 0, 1: SH of the row's ray; chunks 4..7: zero
-      for (int e = tid; e < kTileRows * 6; e += kWg) {
+      for (int e = tt; e < kTileRows * 6; e += kTT) {
         const int i = e / 6, ch = e % 6 < 2 ? e % 6 : e % 6 + 2;
         const int row = row0 + i;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -507,32 +748,37 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
       }
       after_write();
       if constexpr (S::kSaves) {
-        if (tid == 0) bulk_store(sv.xs + tile * (kImgBytes64 / 2), act_a + 3 * kImgBytes64,
-                                 kImgBytes64);
+        if (tt == 0)
+          bulk_store(sv.xs + tile * (kImgBytes64 / 2), act_a + T::kXsImg * kImgBytes64,
+                     kImgBytes64);
       }
     }
 
     // heads: rgb on [SH | geo], semantics on geo; hidden activations in
-    // images 0 (rgb), 1 (sem), columns H/4 .. 63 zero
+    // images 0 .. kHI - 1 (rgb) and kHI .. 2 kHI - 1 (sem), columns past H/4 zero
     uint32_t mh[4] = {0u, 0u, 0u, 0u};  // [row half][rgb, sem]; layer 1 low 16 bits, layer 2 high
+    const uint32_t xs_a = act_a + T::kXsImg * kImgBytes64;
     for (int l = 0; l < 2; ++l) {
-      float dr[kHh / 2], ds[kHh / 2];
+      float dr[kHhw / 2], ds[kHhw / 2];
+      fresh(dr);
+      fresh(ds);
       {
-        const uint32_t slab = slab_begin(ring, ring_base, kSlot);
+        const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHhw * kImgRowBytes;
         if (l == 0) {
 #pragma unroll
           for (int ks = 0; ks < 2; ++ks) {
-            wgmma<kHh, 0, 0>(dr, kmajor_desc(act_a + 3 * kImgBytes64, ks), kmajor_desc(slab, ks),
-                             ks != 0);
-            wgmma<kHh, 0, 0>(ds, kmajor_desc(act_a + 3 * kImgBytes64, ks),
-                             kmajor_desc(slab + T::kHeadImg, ks), ks != 0);
+            wgmma<kHhw, 0, 0>(dr, kmajor_desc(xs_a, ks), kmajor_desc(slab, ks), ks != 0);
+            wgmma<kHhw, 0, 0>(ds, kmajor_desc(xs_a, ks), kmajor_desc(slab + T::kHeadImg, ks),
+                              ks != 0);
           }
         } else {
 #pragma unroll
           for (int ks = 0; ks < kHh / 16; ++ks) {
-            wgmma<kHh, 0, 0>(dr, kmajor_desc(act_a, ks), kmajor_desc(slab, ks), ks != 0);
-            wgmma<kHh, 0, 0>(ds, kmajor_desc(act_a + kImgBytes64, ks),
-                             kmajor_desc(slab + T::kHeadImg, ks), ks != 0);
+            const int kb = ks / 4;
+            wgmma<kHhw, 0, 0>(dr, kmajor_desc(act_a + kb * kImgBytes64, ks % 4),
+                              kmajor_desc(slab + kb * T::kHeadImg, ks % 4), ks != 0);
+            wgmma<kHhw, 0, 0>(ds, kmajor_desc(act_a + (kHI + kb) * kImgBytes64, ks % 4),
+                              kmajor_desc(slab + (kHI + kb) * T::kHeadImg, ks % 4), ks != 0);
           }
         }
         slab_end(ring, tid);
@@ -541,20 +787,23 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
       const float* br = bias_s + nh * H + kTOut + l * 2 * kHh;
       const float* bs = br + kHh;
 #pragma unroll
-      for (int j = 0; j < kHh / 8; ++j) {
-        const int c = 8 * j + 2 * q;
-        const float2 b0 = *reinterpret_cast<const float2*>(br + c);
-        const float2 b1 = *reinterpret_cast<const float2*>(bs + c);
+      for (int j = 0; j < kHhw / 8; ++j) {
+        const int c0 = cw * kHhw + 8 * j, col = c0 + 2 * q;  // c0: a whole 8-column chunk
+        const float2 b0 = *reinterpret_cast<const float2*>(br + col);
+        const float2 b1 = *reinterpret_cast<const float2*>(bs + col);
         const uint32_t rl = pack_bf16(fmaxf(dr[4 * j] + b0.x, 0.f), fmaxf(dr[4 * j + 1] + b0.y, 0.f));
         const uint32_t rh =
             pack_bf16(fmaxf(dr[4 * j + 2] + b0.x, 0.f), fmaxf(dr[4 * j + 3] + b0.y, 0.f));
         const uint32_t sl = pack_bf16(fmaxf(ds[4 * j] + b1.x, 0.f), fmaxf(ds[4 * j + 1] + b1.y, 0.f));
         const uint32_t sh_ =
             pack_bf16(fmaxf(ds[4 * j + 2] + b1.x, 0.f), fmaxf(ds[4 * j + 3] + b1.y, 0.f));
-        *reinterpret_cast<uint32_t*>(act + img_off(r_lo, c)) = rl;
-        *reinterpret_cast<uint32_t*>(act + img_off(r_lo + 8, c)) = rh;
-        *reinterpret_cast<uint32_t*>(act + kImgBytes64 + img_off(r_lo, c)) = sl;
-        *reinterpret_cast<uint32_t*>(act + kImgBytes64 + img_off(r_lo + 8, c)) = sh_;
+        unsigned char* ri = act + (c0 / 64) * kImgBytes64;
+        unsigned char* si = act + (kHI + c0 / 64) * kImgBytes64;
+        const int cc = c0 % 64 + 2 * q;
+        *reinterpret_cast<uint32_t*>(ri + img_off(r_lo, cc)) = rl;
+        *reinterpret_cast<uint32_t*>(ri + img_off(r_lo + 8, cc)) = rh;
+        *reinterpret_cast<uint32_t*>(si + img_off(r_lo, cc)) = sl;
+        *reinterpret_cast<uint32_t*>(si + img_off(r_lo + 8, cc)) = sh_;
         if constexpr (S::kSaves) {
           const int at = 16 * l + 2 * j;
           mh[0] |= pos_bits(rl) << at;
@@ -578,24 +827,35 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
       after_write();
       if constexpr (S::kSaves) {
         bf16* dst = l == 0 ? sv.hid1 : sv.hid2;
-        if (tid == 0) bulk_store(dst + tile * kImgBytes64, act_a, 2 * kImgBytes64);
+        if (tt == 0)
+          bulk_store(dst + tile * (kHI * kImgBytes64), act_a, 2 * kHI * kImgBytes64);
       }
     }
     if constexpr (S::kSaves) {
-      sv.mask_h[(size_t)(row0 + r_lo) * 4 + q] = make_uint2(mh[0], mh[1]);
-      sv.mask_h[(size_t)(row0 + r_lo + 8) * 4 + q] = make_uint2(mh[2], mh[3]);
+      sv.mask_h[((size_t)(row0 + r_lo) * 4 + q) * T::kSplit + cw] = make_uint2(mh[0], mh[1]);
+      sv.mask_h[((size_t)(row0 + r_lo + 8) * 4 + q) * T::kSplit + cw] = make_uint2(mh[2], mh[3]);
     }
 
-    // head outputs into the staging area (the whole buffer is free by then)
+    // head outputs into the staging area (the whole buffer is free by then);
+    // with two column halves the first forms rgb, the second the semantics
     {
       float dr[8], ds[32];
+      fresh(dr);
+      fresh(ds);
+      const bool do_rgb = cw == 0, do_sem = cw == T::kSplit - 1;
       {
         const uint32_t slab = slab_begin(ring, ring_base, kSlot);
 #pragma unroll
         for (int ks = 0; ks < kHh / 16; ++ks) {
-          wgmma_n16<0, 0>(dr, kmajor_desc(act_a, ks), kmajor_desc(slab, ks), ks != 0);
-          wgmma_n64<0, 0>(ds, kmajor_desc(act_a + kImgBytes64, ks),
-                          kmajor_desc(slab + kRgbPad * kImgRowBytes, ks), ks != 0);
+          const int kb = ks / 4;
+          if (do_rgb)
+            wgmma_n16<0, 0>(dr, kmajor_desc(act_a + kb * kImgBytes64, ks % 4),
+                            kmajor_desc(slab + kb * kRgbPad * kImgRowBytes, ks % 4), ks != 0);
+          if (do_sem)
+            wgmma_n64<0, 0>(ds, kmajor_desc(act_a + (kHI + kb) * kImgBytes64, ks % 4),
+                            kmajor_desc(slab + kHI * kRgbPad * kImgRowBytes + kb * kImgBytes64,
+                                        ks % 4),
+                            ks != 0);
         }
         slab_end(ring, tid);
       }
@@ -603,31 +863,35 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
       float* st = reinterpret_cast<float*>(act);
       const float* br = bias_s + nh * H + kTOut + 4 * kHh;
       const float* bs = br + kRgbPad;
-      if (q == 0) {
-        epi.density(st, r_lo, sig[0], dsd[0]);
-        epi.density(st, r_lo + 8, sig[1], dsd[1]);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 2 * q + (e & 1);
-        if (c < 3) epi.rgb(st, r_lo + 8 * (e >> 1), c, 1.f / (1.f + expf(-(dr[e] + br[c]))));
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      if (do_rgb) {
+        if (q == 0) {
+          epi.density(st, r_lo, sig[0], dsd[0]);
+          epi.density(st, r_lo + 8, sig[1], dsd[1]);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = 8 * j + 2 * q + (e & 1);
-          if (c < C) epi.sem(st, r_lo + 8 * (e >> 1), c, ds[4 * j + e] + bs[c]);
+          const int c = 2 * q + (e & 1);
+          if (c < 3) epi.rgb(st, r_lo + 8 * (e >> 1), c, 1.f / (1.f + expf(-(dr[e] + br[c]))));
         }
       }
-      named_barrier(bar_id, kWg);
+      if (do_sem) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * q + (e & 1);
+            if (c < C) epi.sem(st, r_lo + 8 * (e >> 1), c, ds[4 * j + e] + bs[c]);
+          }
+        }
+      }
+      tile_sync();
       const int n_valid = min(kTileRows, n_rows - row0);
-      if (n_valid > 0) epi.flush(st, row0, n_valid, tid);
-      named_barrier(bar_id, kWg);
+      if (n_valid > 0) epi.flush(st, row0, n_valid, tt, kTT);
+      tile_sync();
     }
   }
   if constexpr (S::kSaves) {
-    if (tid == 0) bulk_store_wait();
+    if (tt == 0) bulk_store_wait();
   }
 }
 

@@ -14,7 +14,9 @@
 // apnerf_tpu_torch/ops/cuda/field_train.py field by field. At namespace
 // scope, so the extern "C" entries that take it keep external linkage.
 // "Images" are bf16 tile images (hopper_tile.cuh), so many per 64-row
-// tile; Np is the row count padded to whole 128-row passes.
+// tile; Np is the row count padded to whole passes. kHI is the number of
+// images of a head's activation (2 at H = 512, else 1), kSplit the
+// warpgroups that share a tile's columns (2 at H = 512, else 1).
 struct FvrArgs {
   static constexpr bool kSaves = true;  // field_forward stores the activations below
   // inputs
@@ -33,13 +35,14 @@ struct FvrArgs {
   const __nv_bfloat16* wbwd;
   const float* bias;
   // saved activations
-  __nv_bfloat16* enc;   // 2M / 64 images a tile: [cos | sin], or x zero-padded
+  __nv_bfloat16* enc;   // n_kb images a tile: the encoding's k-blocks, or x's zero-padded
   __nv_bfloat16* h[3];  // H / 64 images a tile: trunk hidden activations
   __nv_bfloat16* xs;    // 1 image: the heads' input [SH | geo | 0]
-  __nv_bfloat16* hid1;  // 2 images: first hidden layer of the rgb | the sem head
-  __nv_bfloat16* hid2;  // 2 images: second hidden layer
-  uint2* mask_t[3];     // [Np, 4] ReLU masks of h[l], in the accumulator's bit order
-  uint2* mask_h;        // [Np, 4] x: rgb head, y: sem head; low 16 bits layer 1, high layer 2
+  __nv_bfloat16* hid1;  // 2 kHI images: first hidden layer of the rgb | the sem head
+  __nv_bfloat16* hid2;  // 2 kHI images: second hidden layer
+  uint2* mask_t[3];     // [Np, 4, kSplit] ReLU masks of h[l], in the accumulator's bit order
+  uint2* mask_h;        // [Np, 4, kSplit] x: rgb head, y: sem head; low 16 bits layer 1,
+                        // high layer 2
   // per-sample values
   float* sigma;         // [N]
   float* dsd;           // [N] d sigma / d raw = exp(min(raw - 1, 15)) * in-cube
@@ -51,9 +54,9 @@ struct FvrArgs {
   float* ray_part;      // [R, 16 + c_pad] per-ray f32 sums of those cotangents
   // cotangents as images, the dY operands of the weight gradients
   __nv_bfloat16* gout;   // 2 images: gout_rgb | gout_sem, zero-padded
-  __nv_bfloat16* g2;     // 2 images: second hidden layer's pre-activation, rgb | sem
-  __nv_bfloat16* g1;     // 2 images: first hidden layer's
-  __nv_bfloat16* gt;     // 1 image: trunk output [graw | d geo | 0]
+  __nv_bfloat16* g2;     // 2 kHI images: second hidden layer's pre-activation, rgb | sem
+  __nv_bfloat16* g1;     // 2 kHI images: first hidden layer's
+  __nv_bfloat16* gt;     // 1 image: trunk output [graw | d geo | 0]; the trunk alone ceil(out / 64)
   __nv_bfloat16* gh[3];  // H / 64 images: trunk pre-activations
   float* tile_part;     // [Np / 64, n_bias] per-tile column sums (see bias layout)
   // outputs
@@ -72,9 +75,10 @@ struct FvrArgs {
   void* dx;               // [N, din] in x's dtype, or null
   // sizes
   int n_rows, n_rays, n_samples;
-  int tile_m, tile_h;  // the instance: frequencies and trunk width
+  int tile_h;  // the instance: trunk width
   int n_hidden, geo, n_classes, c_pad;  // c_pad: classes padded to a multiple of 16
   int heads;  // 1: the whole field; 0: the trunk alone
   int x_f32, din, out;  // x's dtype and width; the trunk output's width
+  int n_freq, n_kb;     // frequencies of the encode; the first layer's 64-column k-blocks
   float c_rgb, c_dep, c_sem;  // loss weight / mean norm of each term
 };

@@ -12,9 +12,9 @@
 // What bounds it on an H100: tensor-core math. A row of the shipping field
 // costs ~0.45 MFLOP (the 3x256 trunk and both 64-wide heads) against 12 B
 // read and 132 B written, ~3,300 FLOP/B, far above the card's ~295 FLOP/B
-// balance. The kernel is a template on the field's widths (M, H), one
-// instance for each pair field_tile.cuh takes. The
-// design is field_tile.cuh's: persistent blocks of two wgmma consumer
+// balance. The kernel is a template on the trunk width H, one instance for
+// each width field_tile.cuh takes. The design is field_tile.cuh's:
+// persistent blocks of two wgmma consumer
 // warpgroups and a producer warp that streams the weights' tile images
 // through a shared-memory ring with cp.async.bulk; no activation is
 // written back, and a tile's packed rows [64, 4 + C] are staged in shared
@@ -35,6 +35,18 @@
 //   semantic logits                 g_sem
 // with the per-ray f32 sums that the last layers' bias gradients need.
 // That pass is memory-bound: 4 (4 + C) + 16 + 4 C bytes read per sample.
+//
+// The file also holds the forwards of the trunk kernels (trunk_fwd_kernel,
+// fused_mlp.py: fused_spectral_field, replacing apnerf_tpu/ops/pallas/
+// fused_mlp.py::_call_enc_fwd, and fused_mlp_apply, replacing ::_call_fwd):
+// the same field_forward without saves and without the heads, y = the
+// trunk's f32 output layer on the encode of u or on x (bf16, or f32
+// rounded to bf16). What bounds them is the same tensor-core math (a row of
+// the shipping trunk costs ~0.4 MFLOP against 12 B in and 64 B out); the
+// output layer's product is formed 16 columns a slab, its f32 bias added
+// to the accumulators, and a tile's 16 columns are staged in shared memory
+// and leave as 16-byte stores where the row width allows (any width
+// goes), rows past n_rows never written.
 
 #include "field_train_args.cuh"
 #include "warp_reduce.cuh"
@@ -44,39 +56,87 @@
 struct FfhArgs {
   const float* u;   // [N, 3] unit-cube coordinates
   const float* sh;  // [R, 16] SH of the ray directions
-  float* y;         // [N, 4 + C] packed output
+  float* y;         // [N, 4 + C] packed output; the trunk alone [N, out]
   FieldWeights p;
   int n_rows, n_samples;
+  // the trunk alone without the encode: its input [N, din], bf16 or f32
+  const void* x;
+  int x_f32, din;
 };
 
 namespace {
 
 // stages a tile's packed rows [64, 4 + C]; they are one contiguous run of y
 struct PackedEpilogue {
+  static constexpr bool kTrunkOut = false;
   float* y;
   int ld;  // 4 + C
   __device__ void density(float* st, int i, float sigma, float) { st[i * ld + 3] = sigma; }
   __device__ void rgb(float* st, int i, int c, float v) { st[i * ld + c] = v; }
   __device__ void sem(float* st, int i, int c, float v) { st[i * ld + 4 + c] = v; }
-  __device__ void flush(const float* st, int row0, int n_valid, int tid) {
-    copy_out(y + (size_t)row0 * ld, st, n_valid * ld, tid);
+  __device__ void flush(const float* st, int row0, int n_valid, int t, int nt) {
+    copy_out(y + (size_t)row0 * ld, st, n_valid * ld, t, nt);
   }
 };
 
-template <int M, int H>
+// writes a tile's 16 staged output columns ch of the trunk alone, y [N, out]
+struct TrunkEpilogue {
+  static constexpr bool kTrunkOut = true;
+  float* y;
+  int out;
+  __device__ void flush_chunk(const float* ys, int row0, int n_valid, int ch, int t, int nt) {
+    if (out % 4 == 0) {
+      for (int e = t; e < kTileRows * 4; e += nt) {
+        const int i = e / 4, c = 4 * (e % 4);
+        if (i < n_valid && 16 * ch + c < out)
+          *reinterpret_cast<float4*>(y + (size_t)(row0 + i) * out + 16 * ch + c) =
+              *reinterpret_cast<const float4*>(ys + i * 16 + c);
+      }
+    } else {
+      for (int e = t; e < kTileRows * 16; e += nt) {
+        const int i = e / 16, c = e % 16;
+        if (i < n_valid && 16 * ch + c < out) y[(size_t)(row0 + i) * out + 16 * ch + c] = ys[e];
+      }
+    }
+  }
+  // the heads' epilogue, never reached with the heads off
+  __device__ void density(float*, int, float, float) {}
+  __device__ void rgb(float*, int, int, float) {}
+  __device__ void sem(float*, int, int, float) {}
+  __device__ void flush(const float*, int, int, int, int) {}
+};
+
+template <int H, bool kWhole>
 __global__ void __launch_bounds__(kFieldThreads, 1)
     ffh_fwd_kernel(const __grid_constant__ FfhArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  field_forward<M, H>(a.p, NoSave{}, a.u, nullptr, 0, 0, true, a.sh, a.n_rows, a.n_samples, smem,
-                      PackedEpilogue{a.y, 4 + a.p.n_classes});
+  field_forward<H, kWhole>(a.p, NoSave{}, a.u, nullptr, 0, 0, true, a.sh, a.n_rows,
+                               a.n_samples, smem, PackedEpilogue{a.y, 4 + a.p.n_classes});
 }
 
-template <int M, int H>
+template <int H, bool kWhole>
+__global__ void __launch_bounds__(kFieldThreads, 1)
+    trunk_fwd_kernel(const __grid_constant__ FfhArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  field_forward<H, kWhole>(a.p, NoSave{}, a.u, a.x, a.x_f32, a.din, false, nullptr, a.n_rows,
+                               1, smem, TrunkEpilogue{a.y, a.p.out});
+}
+
+template <int H, bool kWhole>
 int launch_ffh_fwd(const FfhArgs* a, int grid, cudaStream_t stream) {
   const size_t smem = fwd_smem(H, a->p.n_hidden).total;
-  int err = set_smem((const void*)ffh_fwd_kernel<M, H>, smem);
+  int err = set_smem((const void*)ffh_fwd_kernel<H, kWhole>, smem);
   if (err) return err;
-  ffh_fwd_kernel<M, H><<<grid, kFieldThreads, smem, stream>>>(*a);
+  ffh_fwd_kernel<H, kWhole><<<grid, kFieldThreads, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+template <int H, bool kWhole>
+int launch_trunk_fwd(const FfhArgs* a, int grid, cudaStream_t stream) {
+  const size_t smem = fwd_smem(H, a->p.n_hidden).total;
+  int err = set_smem((const void*)trunk_fwd_kernel<H, kWhole>, smem);
+  if (err) return err;
+  trunk_fwd_kernel<H, kWhole><<<grid, kFieldThreads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
@@ -125,12 +185,27 @@ __global__ void __launch_bounds__(kPackWarps * 32) ffh_bwd_pack_kernel(FvrArgs a
 
 }  // namespace
 
-// Launches `grid` persistent blocks of the instance (a->p.tile_m, a->p.tile_h) on
-// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for
-// another pair); allocates nothing.
+// Launch `grid` persistent blocks of the instance a->p.tile_h on `stream`
+// and return cudaGetLastError() (cudaErrorInvalidValue for another width);
+// allocate nothing. apnerf_ffh_fwd: the packed field; apnerf_trunk_fwd:
+// the trunk alone, on the encode of a->u or, where a->x is given, on x.
 extern "C" int apnerf_ffh_fwd(const FfhArgs* a, int grid, void* stream) {
-#define APNERF_CASE(M_, H_) \
-  if (a->p.tile_m == M_ && a->p.tile_h == H_) return launch_ffh_fwd<M_, H_>(a, grid, (cudaStream_t)stream);
+#define APNERF_CASE(H_)                                                                 \
+  if (a->p.tile_h == H_)                                                                \
+    return whole_enc(H_, a->x == nullptr, a->p.n_kb)                                   \
+               ? launch_ffh_fwd<H_, true>(a, grid, (cudaStream_t)stream)                \
+               : launch_ffh_fwd<H_, false>(a, grid, (cudaStream_t)stream);
+  APNERF_TILE_WIDTHS(APNERF_CASE)
+#undef APNERF_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int apnerf_trunk_fwd(const FfhArgs* a, int grid, void* stream) {
+#define APNERF_CASE(H_)                                                                 \
+  if (a->p.tile_h == H_)                                                                \
+    return whole_enc(H_, a->x == nullptr, a->p.n_kb)                                   \
+               ? launch_trunk_fwd<H_, true>(a, grid, (cudaStream_t)stream)              \
+               : launch_trunk_fwd<H_, false>(a, grid, (cudaStream_t)stream);
   APNERF_TILE_WIDTHS(APNERF_CASE)
 #undef APNERF_CASE
   return (int)cudaErrorInvalidValue;

@@ -25,7 +25,8 @@
 // launches from one wrapper, all written here, no library product; every
 // matrix pass is wgmma on 128-byte-swizzled tile images, its weights
 // streamed through a shared-memory ring by cp.async.bulk (hopper_tile.cuh,
-// field_tile.cuh), at each of the tile's nine (M, H) instances:
+// field_tile.cuh), at each of the tile's four instances H in 64, 128, 256,
+// 512 (the first layer's width is a run-time count of k-blocks):
 //   1. fvr_field_fwd_kernel: the whole field (field_tile.cuh) with a save
 //      struct: the bf16 activations leave as tile images by bulk stores
 //      (~0.7 GB per call at the shipping shape), the ReLU masks as bits,
@@ -57,9 +58,10 @@
 // apnerf_tpu/ops/pallas/fused_mlp.py::_call_enc_bwd, and
 // fused_mlp_apply_bwd, replacing ::_call_bwd): the forward stops after
 // the trunk's hidden layers, the backward enters at the trunk output's
-// cotangent g (rounded to bf16, as the TPU kernels round it) and ends at
-// the encode's backward or at dx = gh0 w0^T, and dW covers the bare trunk.
-// The trunk kernels' input x enters as zero-padded first-layer images.
+// cotangent g (any width, 64 columns a k-block, rounded to bf16 as the TPU
+// kernels round it) and ends at the encode's backward or at dx = gh0 w0^T,
+// and dW covers the bare trunk. The trunk kernels' input x enters as
+// zero-padded first-layer k-blocks.
 //
 // The file also holds the ray kernel of the forward-only render
 // (fused_field_volrend's forward, section 2b below), which shares the
@@ -82,10 +84,11 @@ constexpr int kRayWarps = 8;    // rays per block of fvr_ray_kernel
 constexpr int kRayChan = 128;   // per-ray channel slots in shared memory (3 + C <= 64, twice)
 
 // bias layout of a tile_part row: trunk pre-activation sums (n_hidden x H),
-// trunk output (16), rgb head (H/4, H/4), sem head (H/4, H/4), dphase (M),
-// dW_spec (3 x M, scaled by 2 pi)
-__host__ __device__ inline int n_bias(int n_hidden, int m, int h) {
-  return n_hidden * h + kTOut + h + 4 * m;
+// trunk output (t_pad: 16, or the trunk alone's output padded to 64), rgb
+// head (H/4, H/4), sem head (H/4, H/4), dphase (mp), dW_spec (3 x mp, scaled
+// by 2 pi); mp = 32 n_kb with the encode, else 0
+__host__ __device__ inline int n_bias(int n_hidden, int h, int t_pad, int mp) {
+  return n_hidden * h + t_pad + h + 4 * mp;
 }
 
 // ---- 1. field forward -------------------------------------------------------
@@ -93,6 +96,7 @@ __host__ __device__ inline int n_bias(int n_hidden, int m, int h) {
 // per-sample outputs of the train step's field pass: each staged as the
 // tile's contiguous run of its array
 struct TrainEpilogue {
+  static constexpr bool kTrunkOut = false;
   float* sigma;
   float* dsd;
   float* rgb_out;
@@ -106,21 +110,22 @@ struct TrainEpilogue {
   __device__ void sem(float* st, int i, int c, float v) {
     st[5 * kTileRows + i * n_classes + c] = v;
   }
-  __device__ void flush(const float* st, int row0, int n_valid, int tid) {
-    copy_out(sigma + row0, st, n_valid, tid);
-    copy_out(dsd + row0, st + kTileRows, n_valid, tid);
-    copy_out(rgb_out + (size_t)row0 * 3, st + 2 * kTileRows, n_valid * 3, tid);
-    copy_out(sem_out + (size_t)row0 * n_classes, st + 5 * kTileRows, n_valid * n_classes, tid);
+  __device__ void flush(const float* st, int row0, int n_valid, int t, int nt) {
+    copy_out(sigma + row0, st, n_valid, t, nt);
+    copy_out(dsd + row0, st + kTileRows, n_valid, t, nt);
+    copy_out(rgb_out + (size_t)row0 * 3, st + 2 * kTileRows, n_valid * 3, t, nt);
+    copy_out(sem_out + (size_t)row0 * n_classes, st + 5 * kTileRows, n_valid * n_classes, t, nt);
   }
 };
 
-template <int M, int H>
+template <int H, bool kWhole>
 __global__ void __launch_bounds__(kFieldThreads, 1)
     fvr_field_fwd_kernel(const __grid_constant__ FvrArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
   // the call's arguments are the field's weights and its save buffers
-  field_forward<M, H>(a, a, a.u, a.x, a.x_f32, a.din, a.heads != 0, a.sh, a.n_rows, a.n_samples,
-                      smem, TrainEpilogue{a.sigma, a.dsd, a.rgb, a.sem, a.n_classes});
+  field_forward<H, kWhole>(a, a, a.u, a.x, a.x_f32, a.din, a.heads != 0, a.sh, a.n_rows,
+                               a.n_samples, smem,
+                               TrainEpilogue{a.sigma, a.dsd, a.rgb, a.sem, a.n_classes});
 }
 
 // ---- 2. per-ray volume rendering, loss and cotangents -------------------------
@@ -352,64 +357,60 @@ __global__ void __launch_bounds__(kRayWarps * 32)
 
 // ---- 3. field backward ------------------------------------------------------------
 //
-// The forward's block design run backwards: per 128-row pass the producer
-// warp streams the backward slabs (B[n][k] = w[n][k0 + k], so the product
-// is dX = dY W^T) and then, with the encode, the two tiles' saved
-// encodings; each consumer warpgroup walks its 64 rows from the head
-// outputs (or, for the trunk alone, from the trunk output's cotangent)
-// down to the spectral phase or to dx, with its cotangent buffer (four
-// images) as the A operand. The ReLU masks come as bits in the
-// accumulator's own order, two words a thread a layer. Image slots of the
-// buffer over time:
-//   0 gout_rgb -> g1 rgb   1 gout_sem -> g1 sem   2 g2 rgb -> gt
-//   3 g2 sem -> f32 trunk-output cotangent (for its column sums)
-// then the first H / 64 hold gh[l], and at the end the f32 dproj [64, M].
+// The forward's block design run backwards: per pass the producer warp
+// streams the backward slabs (B[n][k] = w[n][k0 + k], so the product is
+// dX = dY W^T) and, with the encode, after each first-layer slab the
+// tiles' saved encoding of that k-block; each tile walks its 64 rows from
+// the head outputs (or, for the trunk alone, from the trunk output's
+// cotangent) down to the spectral phase or to dx, with its cotangent buffer
+// as the A operand, at H = 512 both warpgroups on one tile, each forming
+// one column half. The ReLU masks come as bits in the accumulator's own
+// order, two words a thread a layer. Image slots of a tile's buffer over
+// time (kHI = images of a head's activation):
+//   0 gout_rgb, 1 gout_sem -> g2 at 2 kHI .. 4 kHI -> g1 at 0 .. 2 kHI
+//   -> gt at 2 kHI, its f32 copy (for its column sums) at 2 kHI + 1
+// then the first H / 64 hold gh[l]. The trunk alone forms its output's
+// cotangent 64 columns at a time in images 0 and 1. The first layer goes
+// back in blocks of 64 columns: x's, for dx, or with the encode 32
+// frequencies a block, each two groups of 16 as [cos 16 | sin 16] (the
+// backward slabs' own order, not the forward's), so that a thread holds a
+// frequency's cos and sin cotangents in its registers. Up to four blocks
+// are one product, n = 64 kG (kG a template parameter: 1, 2 or 4), the
+// producer bringing the tiles' saved encodings after its slabs, so that
+// the f32 dproj [64, 32 kG] goes over the buffer (gh[0] is done with) and
+// gives the dphase and dW_spec sums and du; more than four blocks go one at
+// a time (kG = 0: one block a product, gh[0] kept, the saved cos and sin
+// read from device memory and the block's dproj in a buffer of its own).
 
-constexpr int kBwdStages = 4;
-
-// bytes of a backward ring slot: a trunk slab, or a first-layer slab
-// [2M, 64] (the encode's, or dx's) and a tile's saved encoding
-__host__ __device__ constexpr int bwd_slot(int m, int h) {
-  return h * kImgRowBytes > 2 * m * kImgRowBytes ? h * kImgRowBytes : 2 * m * kImgRowBytes;
+// bytes of a backward ring slot: a trunk slab, a first-layer slab [64 kG,
+// 64], the heads' slabs, or a tile's saved encoding (up to four images)
+__host__ __device__ inline int bwd_slot(int h) {
+  return h * kImgRowBytes > 4 * kImgBytes64 ? h * kImgRowBytes : 4 * kImgBytes64;
 }
+
+// the instance of the backward for n_back first-layer blocks and n_gt
+// blocks of the trunk output's cotangent: kG blocks in one product (all of
+// them, up to four) with one trunk-output block, or 0: one block a product
+// and any number of trunk-output blocks
+inline int back_group(int n_back, int n_gt) {
+  return n_gt > 1 ? 0 : n_back == 1 ? 1 : n_back == 2 ? 2 : n_back <= 4 ? 4 : 0;
+}
+
+constexpr int kDpBytes = kTileRows * kBlockFreqs * 4;  // a tile's dproj of one k-block
 
 struct BwdSmem {
-  int ring, act, u, bars, total;
+  int ring, act, u, dp, bars, total;
 };
 
-__host__ __device__ inline BwdSmem bwd_smem(int m, int h) {
+__host__ __device__ inline BwdSmem bwd_smem(int h) {
   BwdSmem s;
   s.ring = 0;
-  s.act = kBwdStages * bwd_slot(m, h);
-  s.u = s.act + 2 * kActBytes;
-  s.bars = s.u + 2 * kUTileBytes;  // a tile's coordinates per warpgroup
-  s.total = s.bars + 16 * kBwdStages + kAlignSlack;
+  s.act = fwd_stages(h) * bwd_slot(h);
+  s.u = s.act + kBufBytes;
+  s.dp = s.u + 2 * kUTileBytes;  // a tile's coordinates, then its dproj
+  s.bars = s.dp + 2 * kDpBytes;
+  s.total = s.bars + 16 * fwd_stages(h) + kAlignSlack;
   return s;
-}
-
-// backward weight slab s of the whole field's schedule
-// (field_images.py::bwd_slabs): the heads from the top, the trunk output,
-// the hidden layers downwards, the first layer. The trunk alone has no
-// head slabs: its schedule is this one from s = 3 on, its buffer this one
-// less the heads' bytes.
-template <int M, int H>
-__device__ __forceinline__ void bwd_slab(int s, int n_hidden, uint32_t& off, uint32_t& bytes) {
-  using T = Tile<M, H>;
-  const uint32_t heads = 4 * T::kHeadImg + 2 * 32 * kImgRowBytes;
-  const int first = 4 + (n_hidden - 1) * T::kHImgs;  // the first layer's slabs start here
-  if (s < 2) {
-    off = (uint32_t)s * 2 * T::kHeadImg;
-    bytes = 2 * T::kHeadImg;
-  } else if (s == 2) {
-    off = 4 * T::kHeadImg;
-    bytes = 2 * 32 * kImgRowBytes;
-  } else if (s < first) {
-    off = heads + (uint32_t)(s - 3) * T::kTrunkSlab;
-    bytes = T::kTrunkSlab;
-  } else {
-    off = heads + (uint32_t)(first - 3) * T::kTrunkSlab + (uint32_t)(s - first) * 2 * M * kImgRowBytes;
-    bytes = 2 * M * kImgRowBytes;
-  }
 }
 
 // part[c] = sum over the image's 64 rows of column c (bf16 values, f32 sum,
@@ -427,61 +428,103 @@ __device__ __forceinline__ uint32_t masked_pack(float lo, float hi, uint32_t bit
   return pack_bf16((bits & 1u) ? lo : 0.f, (bits & 2u) ? hi : 0.f);
 }
 
-// f32 dproj element (i, j) of the swizzled [64, M] buffer
-template <int M>
-__device__ __forceinline__ int dp_at(int i, int j) {
-  return i * M + (j ^ (((i & 7) << 3) & (M - 1)));
+// the saved bf16 pair (i, col), (i, col + 1) of a tile's encoding images at enc
+__device__ __forceinline__ float2 saved_pair(const unsigned char* enc, int i, int col) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      enc + (col / 64) * kImgBytes64 + img_off(i, col % 64)));
 }
 
-// byte offset of encoding column `col` of row i in a tile's saved images
-__device__ __forceinline__ int enc_off(int i, int col) {
-  return (col / 64) * kImgBytes64 + img_off(i, col % 64);
+// f32 dproj element (i, f) of a tile's swizzled [64, kW] buffer
+template <int kW>
+__device__ __forceinline__ int dp_at(int i, int f) { return i * kW + (f ^ ((i & 7) << 2)); }
+
+// A group's dproj = cos * g_sin - sin * g_cos from the first layer's
+// cotangent dg (a warpgroup's kBw columns: c = 8 j + 2 q + e holds g_cos for
+// j % 4 < 2 and g_sin of the same frequency at j + 2) and the saved cos (at
+// column f0 + f of the encoding images at enc) and sin (at m + f0 + f; kSin:
+// m at compile time, or 0 for sin_rt), into dp [64, kGF]
+template <int kBw, int kGF, int kSin>
+__device__ __forceinline__ void group_dproj(const float (&dg)[kBw / 2], const unsigned char* enc,
+                                            int sin_rt, float* dp, int cw, int q, int r_lo,
+                                            int f0) {
+  const int sin_off = kSin ? kSin : sin_rt;
+#pragma unroll
+  for (int j = 0; j < kBw / 8; ++j) {
+    if (j % 4 >= 2) continue;
+    const int bc = cw * kBw + 8 * j + 2 * q;  // the group's cos column
+    const int fl = 16 * (bc / 32) + bc % 32;   // frequency in the group
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = r_lo + 8 * half;
+      const float2 co = saved_pair(enc, i, f0 + fl), si = saved_pair(enc, i, sin_off + f0 + fl);
+      const float gc0 = dg[4 * j + 2 * half], gc1 = dg[4 * j + 2 * half + 1];
+      const float gs0 = dg[4 * (j + 2) + 2 * half], gs1 = dg[4 * (j + 2) + 2 * half + 1];
+      *reinterpret_cast<float2*>(dp + dp_at<kGF>(i, fl)) =
+          make_float2(co.x * gs0 - si.x * gc0, co.y * gs1 - si.y * gc1);
+    }
+  }
 }
 
-template <int M, int H>
+template <int H, int kG>
 __global__ void __launch_bounds__(kFieldThreads, 1)
     fvr_field_bwd_kernel(const __grid_constant__ FvrArgs a) {
-  using T = Tile<M, H>;
-  constexpr int kHh = T::kHh;
-  constexpr int kSlot = bwd_slot(M, H);
+  using T = Tile<H>;
+  constexpr int kHw = T::kHw, kHh = T::kHh, kHhw = T::kHhw, kHI = T::kHI, kTT = T::kTT;
+  constexpr int kSt = T::kStages;
+  constexpr int kOne = kG > 0;                        // every block in one product
+  constexpr int kGB = kG > 0 ? kG : 1;                // blocks a product
+  constexpr int kBw = 64 * kGB / T::kSplit;           // first-layer columns a warpgroup forms
+  constexpr int kGF = kBlockFreqs * kGB;              // frequencies of a product
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
-  const BwdSmem L = bwd_smem(M, H);
-  const int nh = a.n_hidden;
+  const BwdSmem L = bwd_smem(H);
+  const int kSlot = bwd_slot(H);
+  const int nh = a.n_hidden, nkb = a.n_kb;
   const bool heads = a.heads != 0, encode = a.x == nullptr;
-  const uint32_t full = smem_u32(smem + L.bars), empty = full + 8 * kBwdStages;
+  const uint32_t full = smem_u32(smem + L.bars), empty = full + 8 * kSt;
   const uint32_t ring_base = smem_u32(smem + L.ring);
-  if (threadIdx.x == 0) ring_init<kBwdStages>(full, empty, 2);
+  if (threadIdx.x == 0) ring_init<kSt>(full, empty, 2);
   __syncthreads();
-  const int n_pass = (a.n_rows + kPassRows - 1) / kPassRows;
-  const int s0 = heads ? 0 : 3;  // the trunk alone starts at the trunk output
-  const int n_slabs = 4 + nh * T::kHImgs;  // of the whole field's schedule
-  Ring<kBwdStages> ring;
+  const int n_pass = (a.n_rows + T::kPassRows - 1) / T::kPassRows;
+  const int n_gt = heads ? 1 : (a.out + 63) / 64;  // the trunk output's k-blocks
+  // the first layer's blocks back (32 frequencies each, or x's 64 columns),
+  // in groups of kG: one group where they fit, else one block a group
+  const int n_back = encode ? (a.n_freq + kBlockFreqs - 1) / kBlockFreqs : nkb;
+  const int n_groups = kOne ? 1 : n_back;
+  Ring<kSt> ring;
   ring.full = full;
   ring.empty = empty;
 
   if (threadIdx.x >= 2 * kWg) {
-    // ---- producer: the weight slabs, then the two tiles' saved encodings
+    // ---- producer: the weight slabs
     reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 2 * kWg) {
       const unsigned char* w = reinterpret_cast<const unsigned char*>(a.wbwd);
-      const uint32_t skip = heads ? 0u : 4 * T::kHeadImg + 2 * 32 * kImgRowBytes;
+      auto push = [&](const unsigned char* src, uint32_t bytes) {
+        ring.wait_empty();
+        mbar_expect_tx(ring.full_bar(), bytes);
+        bulk_load(ring_base + ring.stage * kSlot, src, bytes, ring.full_bar());
+        ring.advance();
+      };
       for (int pass = blockIdx.x; pass < n_pass; pass += gridDim.x) {
-        for (int s = s0; s < n_slabs + (encode ? 2 : 0); ++s) {
-          uint32_t off, bytes;
-          const unsigned char* src;
-          if (s < n_slabs) {
-            bwd_slab<M, H>(s, nh, off, bytes);
-            src = w + (off - skip);
-          } else {
-            bytes = T::kEncBytes;
-            src = reinterpret_cast<const unsigned char*>(a.enc) +
-                  (size_t)(2 * pass + (s - n_slabs)) * T::kEncBytes;
+        const unsigned char* src = w;
+        if (heads) {
+          const uint32_t sizes[3] = {2u * T::kHeadImg, 2u * kHI * T::kHeadImg,
+                                     2u * kHI * 32 * kImgRowBytes};
+          for (int s = 0; s < 3; ++s) {
+            push(src, sizes[s]);
+            src += sizes[s];
           }
-          ring.wait_empty();
-          mbar_expect_tx(ring.full_bar(), bytes);
-          bulk_load(ring_base + ring.stage * kSlot, src, bytes, ring.full_bar());
-          ring.advance();
+        }
+        for (int s = 0; s < n_gt + (nh - 1) * T::kHImgs; ++s, src += T::kTrunkSlab)
+          push(src, T::kTrunkSlab);
+        for (int s = 0; s < n_groups * T::kHImgs; ++s, src += 64 * kGB * kImgRowBytes)
+          push(src, 64 * kGB * kImgRowBytes);
+        if (encode && kOne) {
+          for (int t = 0; t < T::kTiles; ++t)
+            push(reinterpret_cast<const unsigned char*>(a.enc) +
+                     (size_t)(pass * T::kTiles + t) * nkb * kImgBytes64,
+                 nkb * kImgBytes64);
         }
       }
     }
@@ -491,52 +534,59 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
   // ---- consumers
   reg_alloc<kConsumerRegs>();
   const int wg = threadIdx.x / kWg, tid = threadIdx.x % kWg;
+  const int tl = wg / T::kSplit, cw = wg % T::kSplit;
+  const int tt = tid + cw * kWg;
   const int g = (tid % 32) / 4, q = tid % 4;
   const int r_lo = 16 * (tid / 32) + g;  // this thread's accumulator rows: r_lo, r_lo + 8
-  const int bar_id = 1 + wg;
-  unsigned char* act = smem + L.act + wg * kActBytes;
+  const int bar_id = 1 + tl;
+  unsigned char* act = smem + L.act + tl * T::kActBytes;
   const uint32_t act_a = smem_u32(act);
   const int G = a.geo, cp = a.c_pad;
+  const int t_pad = heads ? kTOut : 64 * n_gt, mp = encode ? kGF * n_groups : 0;
+  const int mc = a.n_freq;  // the forward's encoding: [cos of m | sin of m]
+  const int nb = n_bias(nh, H, t_pad, mp);
   const int off_gtr = nh * H;
-  const int off_r1 = off_gtr + kTOut;
+  const int off_r1 = off_gtr + t_pad;
   const int off_r2 = off_r1 + kHh, off_s1 = off_r2 + kHh, off_s2 = off_s1 + kHh;
-  const int off_dph = off_s2 + kHh;  // then dW_spec at off_dph + M
-  float* u_s = reinterpret_cast<float*>(smem + L.u) + wg * (kUTileBytes / 4);
+  const int off_dph = off_s2 + kHh;  // then dW_spec at off_dph + mp
+  float* u_s = reinterpret_cast<float*>(smem + L.u) + tl * (kUTileBytes / 4);
+  float* dp = reinterpret_cast<float*>(smem + L.dp) + tl * (kDpBytes / 4);
+  const size_t mrow = (size_t)4 * T::kSplit;  // mask words a row
 
+  auto tile_sync = [&]() { named_barrier(bar_id, kTT); };
   auto before_overwrite = [&]() {
-    if (tid == 0) bulk_store_wait_read();
-    named_barrier(bar_id, kWg);
+    if (tt == 0) bulk_store_wait_read();
+    tile_sync();
   };
   auto after_write = [&]() {
     fence_async_smem();
-    named_barrier(bar_id, kWg);
+    tile_sync();
   };
-
   for (int pass = blockIdx.x; pass < n_pass; pass += gridDim.x) {
-    const int row0 = pass * kPassRows + wg * kTileRows;
+    const int row0 = pass * T::kPassRows + tl * kTileRows;
     const size_t tile = (size_t)(row0 / kTileRows);
-    float* part = a.tile_part + tile * n_bias(nh, M, H);
+    float* part = a.tile_part + tile * nb;
     // what the end of the pass reads from device memory is fetched now
-    if (encode) stash_u(u_s, fetch_u(a.u, row0, a.n_rows, tid), tid);
-    unsigned char* gt = act + 2 * kImgBytes64;
-    float* gtf = reinterpret_cast<float*>(act + 3 * kImgBytes64);  // [64, 16]
-
+    if (encode && cw == 0) stash_u(u_s, fetch_u(a.u, row0, a.n_rows, tid), tid);
+    const int gti = 2 * kHI;  // gt's image, its f32 copy in the next
+    unsigned char* gt = act + gti * kImgBytes64;
+    float* gtf = reinterpret_cast<float*>(act + (gti + 1) * kImgBytes64);  // [64, 16]
     if (heads) {
-      const uint2 mh_lo = a.mask_h[(size_t)(row0 + r_lo) * 4 + q];
-      const uint2 mh_hi = a.mask_h[(size_t)(row0 + r_lo + 8) * 4 + q];
+      const uint2 mh_lo = a.mask_h[(size_t)(row0 + r_lo) * mrow + q * T::kSplit + cw];
+      const uint2 mh_hi = a.mask_h[(size_t)(row0 + r_lo + 8) * mrow + q * T::kSplit + cw];
       float graw[2] = {0.f, 0.f};
-      if (q == 0) {
+      if (q == 0 && cw == 0) {
         if (row0 + r_lo < a.n_rows) graw[0] = a.graw[row0 + r_lo];
         if (row0 + r_lo + 8 < a.n_rows) graw[1] = a.graw[row0 + r_lo + 8];
       }
 
       // head output cotangents into images 0 (rgb) and 1 (sem), zero-padded
-      // (rows past n_rows are zero)
-      // (eight 16-byte chunks a thread, every load issued before the first store)
-      uint4 gv[8];
+      // (rows past n_rows are zero), every load issued before the first store
+      constexpr int kPer = 2 * kTileRows * 8 / kTT;
+      uint4 gv[kPer];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int e = tid + k * kWg;
+      for (int k = 0; k < kPer; ++k) {
+        const int e = tt + k * kTT;
         const int i = e / 16, ch = e % 8, which = (e / 8) % 2;
         const int row = row0 + i;
         gv[k] = make_uint4(0u, 0u, 0u, 0u);
@@ -548,49 +598,55 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
         }
       }
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int e = tid + k * kWg;
+      for (int k = 0; k < kPer; ++k) {
+        const int e = tt + k * kTT;
         const int i = e / 16, ch = e % 8, which = (e / 8) % 2;
         *reinterpret_cast<uint4*>(act + which * kImgBytes64 + img_off(i, ch * 8)) = gv[k];
       }
       after_write();
-      if (tid == 0) bulk_store(a.gout + tile * kImgBytes64, act_a, 2 * kImgBytes64);
+      if (tt == 0) bulk_store(a.gout + tile * kImgBytes64, act_a, 2 * kImgBytes64);
 
       // heads, from the top: layer 2's and layer 1's pre-activation cotangents
-      // (columns H/4 .. 63 of the images zero)
+      // (columns past H/4 zero)
       for (int l = 1; l >= 0; --l) {
-        float dr[kHh / 2], ds[kHh / 2];
-        const uint32_t src = act_a + (l == 1 ? 0 : 2 * kImgBytes64);
+        float dr[kHhw / 2], ds[kHhw / 2];
+        fresh(dr);
+        fresh(ds);
         {
-          const uint32_t slab = slab_begin(ring, ring_base, kSlot);
+          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHhw * kImgRowBytes;
           if (l == 1) {
-            wgmma<kHh, 0, 0>(dr, kmajor_desc(src, 0), kmajor_desc(slab, 0), 0);
+            wgmma<kHhw, 0, 0>(dr, kmajor_desc(act_a, 0), kmajor_desc(slab, 0), 0);
             for (int ks = 0; ks < cp / 16; ++ks)
-              wgmma<kHh, 0, 0>(ds, kmajor_desc(src + kImgBytes64, ks),
-                               kmajor_desc(slab + T::kHeadImg, ks), ks != 0);
+              wgmma<kHhw, 0, 0>(ds, kmajor_desc(act_a + kImgBytes64, ks),
+                                kmajor_desc(slab + T::kHeadImg, ks), ks != 0);
           } else {
+            const uint32_t src = act_a + 2 * kHI * kImgBytes64;
 #pragma unroll
             for (int ks = 0; ks < kHh / 16; ++ks) {
-              wgmma<kHh, 0, 0>(dr, kmajor_desc(src, ks), kmajor_desc(slab, ks), ks != 0);
-              wgmma<kHh, 0, 0>(ds, kmajor_desc(src + kImgBytes64, ks),
-                               kmajor_desc(slab + T::kHeadImg, ks), ks != 0);
+              const int kb = ks / 4;
+              wgmma<kHhw, 0, 0>(dr, kmajor_desc(src + kb * kImgBytes64, ks % 4),
+                                kmajor_desc(slab + kb * T::kHeadImg, ks % 4), ks != 0);
+              wgmma<kHhw, 0, 0>(ds, kmajor_desc(src + (kHI + kb) * kImgBytes64, ks % 4),
+                                kmajor_desc(slab + (kHI + kb) * T::kHeadImg, ks % 4), ks != 0);
             }
           }
           slab_end(ring, tid);
         }
         before_overwrite();
-        unsigned char* dst = act + (l == 1 ? 2 * kImgBytes64 : 0);
+        unsigned char* dst = act + (l == 1 ? 2 * kHI * kImgBytes64 : 0);
         const int sft = 16 * l;
 #pragma unroll
-        for (int j = 0; j < kHh / 8; ++j) {
-          const int c = 8 * j + 2 * q, at = sft + 2 * j;
-          *reinterpret_cast<uint32_t*>(dst + img_off(r_lo, c)) =
+        for (int j = 0; j < kHhw / 8; ++j) {
+          const int col = cw * kHhw + 8 * j + 2 * q, at = sft + 2 * j;
+          unsigned char* ri = dst + (col / 64) * kImgBytes64;
+          unsigned char* si = dst + (kHI + col / 64) * kImgBytes64;
+          *reinterpret_cast<uint32_t*>(ri + img_off(r_lo, col % 64)) =
               masked_pack(dr[4 * j], dr[4 * j + 1], mh_lo.x >> at);
-          *reinterpret_cast<uint32_t*>(dst + img_off(r_lo + 8, c)) =
+          *reinterpret_cast<uint32_t*>(ri + img_off(r_lo + 8, col % 64)) =
               masked_pack(dr[4 * j + 2], dr[4 * j + 3], mh_hi.x >> at);
-          *reinterpret_cast<uint32_t*>(dst + kImgBytes64 + img_off(r_lo, c)) =
+          *reinterpret_cast<uint32_t*>(si + img_off(r_lo, col % 64)) =
               masked_pack(ds[4 * j], ds[4 * j + 1], mh_lo.y >> at);
-          *reinterpret_cast<uint32_t*>(dst + kImgBytes64 + img_off(r_lo + 8, c)) =
+          *reinterpret_cast<uint32_t*>(si + img_off(r_lo + 8, col % 64)) =
               masked_pack(ds[4 * j + 2], ds[4 * j + 3], mh_hi.y >> at);
         }
         if constexpr (kHh < 64) {
@@ -605,134 +661,179 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
           }
         }
         after_write();
-        if (tid == 0)
-          bulk_store((l == 1 ? a.g2 : a.g1) + tile * kImgBytes64,
-                     act_a + (l == 1 ? 2 * kImgBytes64 : 0), 2 * kImgBytes64);
-        if (tid % 64 < kHh)
-          part[(l == 1 ? (tid < 64 ? off_r2 : off_s2) : (tid < 64 ? off_r1 : off_s1)) + tid % 64] =
-              image_column_sum(dst + (tid / 64) * kImgBytes64, tid % 64);
+        if (tt == 0)
+          bulk_store((l == 1 ? a.g2 : a.g1) + tile * (kHI * kImgBytes64),
+                     act_a + (l == 1 ? 2 * kHI * kImgBytes64 : 0), 2 * kHI * kImgBytes64);
+        for (int e = tt; e < 2 * kHh; e += kTT) {
+          const int head = e / kHh, col = e % kHh;
+          part[(l == 1 ? (head ? off_s2 : off_r2) : (head ? off_s1 : off_r1)) + col] =
+              image_column_sum(dst + (head * kHI + col / 64) * kImgBytes64, col % 64);
+        }
       }
 
       // heads' first layers back to their input: d[SH | geo] from both heads in
-      // one accumulator; the trunk output's cotangent [graw | d geo | 0] as
-      // image 2 (bf16) and in image 3's place (f32, for its column sums)
+      // one accumulator (both column halves form it, the first writes it); the
+      // trunk output's cotangent [graw | d geo | 0] as image gti (bf16) and in
+      // the next image (f32, for its column sums)
       float dx[16];
+      fresh(dx);
       {
         const uint32_t slab = slab_begin(ring, ring_base, kSlot);
 #pragma unroll
         for (int ks = 0; ks < kHh / 16; ++ks)
-          wgmma_n32<0, 0>(dx, kmajor_desc(act_a, ks), kmajor_desc(slab, ks), ks != 0);
+          wgmma_n32<0, 0>(dx, kmajor_desc(act_a + (ks / 4) * kImgBytes64, ks % 4),
+                          kmajor_desc(slab + (ks / 4) * 32 * kImgRowBytes, ks % 4), ks != 0);
 #pragma unroll
         for (int ks = 0; ks < kHh / 16; ++ks)
-          wgmma_n32<0, 0>(dx, kmajor_desc(act_a + kImgBytes64, ks),
-                          kmajor_desc(slab + 32 * kImgRowBytes, ks), 1);
+          wgmma_n32<0, 0>(dx, kmajor_desc(act_a + (kHI + ks / 4) * kImgBytes64, ks % 4),
+                          kmajor_desc(slab + (kHI + ks / 4) * 32 * kImgRowBytes, ks % 4), 1);
         slab_end(ring, tid);
       }
       before_overwrite();
+      if (cw == 0) {
 #pragma unroll
-      for (int e = 8; e < 16; ++e) {
-        const int c = 8 * (e / 4) + 2 * q + (e & 1);  // column of [SH | geo], 16..31
-        const int i = r_lo + 8 * ((e >> 1) & 1), k = c - kShw;
-        if (k < kTOut - 1) {
-          const float v = k < G ? dx[e] : 0.f;
-          gtf[i * kTOut + 1 + k] = v;
-          *reinterpret_cast<bf16*>(gt + img_off(i, 1 + k)) = __float2bfloat16(v);
+        for (int e = 8; e < 16; ++e) {
+          const int c = 8 * (e / 4) + 2 * q + (e & 1);  // column of [SH | geo], 16..31
+          const int i = r_lo + 8 * ((e >> 1) & 1), k = c - kShw;
+          if (k < kTOut - 1) {
+            const float v = k < G ? dx[e] : 0.f;
+            gtf[i * kTOut + 1 + k] = v;
+            *reinterpret_cast<bf16*>(gt + img_off(i, 1 + k)) = __float2bfloat16(v);
+          }
+        }
+        if (q == 0) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int i = r_lo + 8 * half;
+            const float v = graw[half];
+            gtf[i * kTOut] = v;
+            *reinterpret_cast<bf16*>(gt + img_off(i, 0)) = __float2bfloat16(v);
+          }
         }
       }
-      if (q == 0) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int i = r_lo + 8 * half;
-          const float v = graw[half];
-          gtf[i * kTOut] = v;
-          *reinterpret_cast<bf16*>(gt + img_off(i, 0)) = __float2bfloat16(v);
-        }
+      for (int e = tt; e < kTileRows * 6; e += kTT)
+        *reinterpret_cast<uint4*>(gt + img_off(e / 6, (2 + e % 6) * 8)) =
+            make_uint4(0u, 0u, 0u, 0u);
+      after_write();
+      if (tt == 0)
+        bulk_store(a.gt + tile * (kImgBytes64 / 2), act_a + gti * kImgBytes64, kImgBytes64);
+      if (tt < kTOut) {
+        float s = 0.f;
+#pragma unroll 16
+        for (int i = 0; i < kTileRows; ++i) s += gtf[i * kTOut + tt];
+        part[off_gtr + tt] = s;
       }
     } else {
-      // the trunk alone: its output's cotangent g [64, out] (f32, zero past
-      // out and past n_rows) as image 2 (bf16) and in image 3's place (f32)
-      for (int e = tid; e < kTileRows * kTOut; e += kWg) {
-        const int i = e / kTOut, c = e % kTOut;
-        const int row = row0 + i;
-        const float v = (row < a.n_rows && c < a.out) ? a.g_trunk[(size_t)row * a.out + c] : 0.f;
-        gtf[e] = v;
-        *reinterpret_cast<bf16*>(gt + img_off(i, c)) = __float2bfloat16(v);
+      // the trunk alone: its output's bias gradient, the column sums of g
+      // (f32, from device memory); the blocks of g are formed below
+      for (int c = tt; c < 64 * n_gt; c += kTT) {
+        float s = 0.f;
+        if (c < a.out)
+          for (int i = 0; i < kTileRows && row0 + i < a.n_rows; ++i)
+            s += a.g_trunk[(size_t)(row0 + i) * a.out + c];
+        part[off_gtr + c] = s;
       }
-    }
-    for (int e = tid; e < kTileRows * 6; e += kWg)
-      *reinterpret_cast<uint4*>(gt + img_off(e / 6, (2 + e % 6) * 8)) = make_uint4(0u, 0u, 0u, 0u);
-    after_write();
-    if (tid == 0) bulk_store(a.gt + tile * (kImgBytes64 / 2), act_a + 2 * kImgBytes64, kImgBytes64);
-    if (tid < kTOut) {
-      float s = 0.f;
-#pragma unroll 16
-      for (int i = 0; i < kTileRows; ++i) s += gtf[i * kTOut + tid];
-      part[off_gtr + tid] = s;
     }
 
     // trunk: gh[l] = bf16((gh[l + 1] @ w[l + 1]^T) * (h[l] > 0)), from the top
     for (int l = nh - 1; l >= 0; --l) {
-      const uint2 m_lo = a.mask_t[l][(size_t)(row0 + r_lo) * 4 + q];
-      const uint2 m_hi = a.mask_t[l][(size_t)(row0 + r_lo + 8) * 4 + q];
-      float d[H / 2];
-      if (l == nh - 1) {
-        const uint32_t slab = slab_begin(ring, ring_base, kSlot);
-        wgmma<H, 0, 0>(d, kmajor_desc(act_a + 2 * kImgBytes64, 0), kmajor_desc(slab, 0), 0);
+      const uint2 m_lo = a.mask_t[l][(size_t)(row0 + r_lo) * mrow + q * T::kSplit + cw];
+      const uint2 m_hi = a.mask_t[l][(size_t)(row0 + r_lo + 8) * mrow + q * T::kSplit + cw];
+      float d[kHw / 2];
+      fresh(d);
+      if (l == nh - 1 && heads) {
+        // gh[nh - 1] = gt @ w_out^T: one k-step (16 columns)
+        const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
+        wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + gti * kImgBytes64, 0), kmajor_desc(slab, 0), 0);
         slab_end(ring, tid);
-      } else {
-        for (int kb = 0; kb < T::kHImgs; ++kb) {
-          const uint32_t slab = slab_begin(ring, ring_base, kSlot);
+      } else if (l == nh - 1) {
+        // the trunk alone: g [64, out] (zero past out and past n_rows) 64
+        // columns at a time as image k % 2 (bf16), saved; gh[nh - 1] = g @ w_out^T
+        // (one block in the one-product instances: a compile-time count)
+        for (int k = 0; k < (kOne ? 1 : n_gt); ++k) {
+          if (k > 0) before_overwrite();
+          unsigned char* img = act + (k & 1) * kImgBytes64;
+          for (int e = tt; e < kTileRows * 32; e += kTT) {
+            const int i = e / 32, c = 64 * k + 2 * (e % 32);
+            const int row = row0 + i;
+            float v0 = 0.f, v1 = 0.f;
+            if (row < a.n_rows) {
+              const float* gr = a.g_trunk + (size_t)row * a.out;
+              if (c < a.out) v0 = gr[c];
+              if (c + 1 < a.out) v1 = gr[c + 1];
+            }
+            *reinterpret_cast<uint32_t*>(img + img_off(i, c % 64)) = pack_bf16(v0, v1);
+          }
+          after_write();
+          if (tt == 0)
+            bulk_store(a.gt + (tile * n_gt + k) * (kImgBytes64 / 2), act_a + (k & 1) * kImgBytes64,
+                       kImgBytes64);
+          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
-            wgmma<H, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
-                           (kb | ks) != 0);
+            wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + (k & 1) * kImgBytes64, ks),
+                             kmajor_desc(slab, ks), (k | ks) != 0);
+          slab_end(ring, tid);
+        }
+      } else {
+        for (int kb = 0; kb < T::kHImgs; ++kb) {
+          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
+                             (kb | ks) != 0);
           slab_end(ring, tid);
         }
       }
       before_overwrite();
+      // the masked bf16 cotangent over images 0 .. H / 64 - 1
 #pragma unroll
-      for (int j = 0; j < H / 8; ++j) {
+      for (int j = 0; j < kHw / 8; ++j) {
         const int c = 8 * j + 2 * q, at = 2 * (j % 16);
         const uint32_t b_lo = (j < 16 ? m_lo.x : m_lo.y) >> at;
         const uint32_t b_hi = (j < 16 ? m_hi.x : m_hi.y) >> at;
-        unsigned char* img = act + (j / 8) * kImgBytes64;
+        unsigned char* img = act + (cw * kHw / 64 + j / 8) * kImgBytes64;
         *reinterpret_cast<uint32_t*>(img + img_off(r_lo, c % 64)) =
             masked_pack(d[4 * j], d[4 * j + 1], b_lo);
         *reinterpret_cast<uint32_t*>(img + img_off(r_lo + 8, c % 64)) =
             masked_pack(d[4 * j + 2], d[4 * j + 3], b_hi);
       }
       after_write();
-      if (tid == 0) bulk_store(a.gh[l] + tile * (T::kHBytes / 2), act_a, T::kHBytes);
-      for (int c = tid; c < H; c += kWg)
+      if (tt == 0) bulk_store(a.gh[l] + tile * (T::kHBytes / 2), act_a, T::kHBytes);
+      for (int c = tt; c < H; c += kTT)
         part[l * H + c] = image_column_sum(act + (c / 64) * kImgBytes64, c % 64);
     }
 
-    // the first layer back: g_x = gh[0] @ w0^T, [64, 2M]. With the encode,
-    // dproj = cos * g_sin - sin * g_cos, the dphase and dW_spec sums, and
-    // du where asked for; for the trunk alone, dx where asked for
-    {
-      float d[M];
+    // the first layer back, a group of kG blocks at a time: g_x = gh[0] @
+    // w0^T [64, 64 kG]. With the encode, dproj = cos * g_sin - sin * g_cos
+    // of the group's 32 kG frequencies, their dphase and dW_spec sums, and
+    // du where asked for (summed over the frequencies in order); for the
+    // trunk alone, dx where asked for
+    float du_acc[2] = {0.f, 0.f};  // (row, dim) pairs tt and tt + kTT of 192
+    const bf16* enc_t = a.enc + tile * nkb * (kImgBytes64 / 2);  // the tile's saved encoding
+    for (int gq = 0; gq < n_groups; ++gq) {
+      float dg[kBw / 2];
+      fresh(dg);
       for (int kb = 0; kb < T::kHImgs; ++kb) {
-        const uint32_t slab = slab_begin(ring, ring_base, kSlot);
+        const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kBw * kImgRowBytes;
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
-          wgmma<2 * M, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
-                             (kb | ks) != 0);
+          wgmma<kBw, 0, 0>(dg, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
+                           (kb | ks) != 0);
         slab_end(ring, tid);
       }
       if (!encode) {
-        before_overwrite();
         if (a.dx != nullptr) {
           const int din = a.din;
 #pragma unroll
-          for (int j = 0; j < M / 4; ++j) {
-            const int c = 8 * j + 2 * q;
+          for (int j = 0; j < kBw / 8; ++j) {
+            const int c = 64 * kGB * gq + cw * kBw + 8 * j + 2 * q;
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
               const int row = row0 + r_lo + 8 * half;
               if (c < din && row < a.n_rows) {
                 const size_t at = (size_t)row * din + c;
-                const float v0 = d[4 * j + 2 * half], v1 = d[4 * j + 2 * half + 1];
+                const float v0 = dg[4 * j + 2 * half], v1 = dg[4 * j + 2 * half + 1];
                 if (a.x_f32)
                   *reinterpret_cast<float2*>(static_cast<float*>(a.dx) + at) = make_float2(v0, v1);
                 else
@@ -741,50 +842,44 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
             }
           }
         }
-        named_barrier(bar_id, kWg);
         continue;
       }
-      // the two tiles' encodings arrive in the next two slots; this
-      // warpgroup reads its own
-      const int st0 = ring.stage;
-      ring.wait_full();
-      const uint32_t bar0 = ring.empty_bar();
-      ring.advance();
-      const int st1 = ring.stage;
-      ring.wait_full();
-      const uint32_t bar1 = ring.empty_bar();
-      ring.advance();
-      const unsigned char* enc = smem + L.ring + (wg == 0 ? st0 : st1) * kSlot;
-      before_overwrite();
-      float* dp = reinterpret_cast<float*>(act);
+      // the saved cos of frequency f sits at column f of the encoding, its
+      // sin at m + f: in the ring (one product), or in device memory
+      const unsigned char* enc_s = reinterpret_cast<const unsigned char*>(enc_t);
+      uint32_t enc_bar[T::kTiles];
+      float* dpp = dp;
+      if constexpr (kOne) {
+        int st = 0;
 #pragma unroll
-      for (int j = 0; j < M / 8; ++j) {
-        const int c = 8 * j + 2 * q;
+        for (int t = 0; t < T::kTiles; ++t) {
+          ring.wait_full();
+          if (t == tl) st = ring.stage;
+          enc_bar[t] = ring.empty_bar();
+          ring.advance();
+        }
+        enc_s = smem + L.ring + st * kSlot;
+        before_overwrite();  // gh[0]'s store reads the buffer dproj goes over
+        dpp = reinterpret_cast<float*>(act);
+      }
+      if (kOne && mc == kGF)  // m fills the product: the sin half at a compile-time offset
+        group_dproj<kBw, kGF, kGF>(dg, enc_s, 0, dpp, cw, q, r_lo, kGF * gq);
+      else
+        group_dproj<kBw, kGF, 0>(dg, enc_s, mc, dpp, cw, q, r_lo, kGF * gq);
+      tile_sync();
+      if constexpr (kOne) {
+        if (tid == 0) {
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int i = r_lo + 8 * half;
-          const float2 co = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(enc + enc_off(i, c)));
-          const float2 si = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(enc + enc_off(i, M + c)));
-          const float gc0 = d[4 * j + 2 * half], gc1 = d[4 * j + 2 * half + 1];
-          const float gs0 = d[4 * (j + M / 8) + 2 * half], gs1 = d[4 * (j + M / 8) + 2 * half + 1];
-          *reinterpret_cast<float2*>(dp + dp_at<M>(i, c)) =
-              make_float2(co.x * gs0 - si.x * gc0, co.y * gs1 - si.y * gc1);
+          for (int t = 0; t < T::kTiles; ++t) mbar_arrive(enc_bar[t]);
         }
       }
-      named_barrier(bar_id, kWg);
-      if (tid == 0) {
-        mbar_arrive(bar0);
-        mbar_arrive(bar1);
-      }
-      if (tid < M) {
-        // thread tid owns frequency tid: dphase and the three rows of dW_spec
+      if (tt < kGF) {
+        // thread tt owns frequency kGF gq + tt: dphase and the three rows of dW_spec
         float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll 16
         for (int i = 0; i < kTileRows; ++i) {
           const int row = row0 + i;
-          const float v = dp[dp_at<M>(i, tid)];
+          const float v = dpp[dp_at<kGF>(i, tt)];
           s0 += v;
           if (row < a.n_rows) {
             const float vb = round_bf16(v);
@@ -793,42 +888,55 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
             s3 += round_bf16(u_s[i * 3 + 2]) * vb;
           }
         }
-        part[off_dph + tid] = s0;
-        part[off_dph + M + tid] = s1 * kTwoPi;
-        part[off_dph + 2 * M + tid] = s2 * kTwoPi;
-        part[off_dph + 3 * M + tid] = s3 * kTwoPi;
+        const int f = kGF * gq + tt;
+        part[off_dph + f] = s0;
+        part[off_dph + mp + f] = s1 * kTwoPi;
+        part[off_dph + 2 * mp + f] = s2 * kTwoPi;
+        part[off_dph + 3 * mp + f] = s3 * kTwoPi;
       }
       if (a.du != nullptr) {
-        for (int e = tid; e < kTileRows * 3; e += kWg) {
-          const int i = e / 3, dd = e % 3;
-          const int row = row0 + i;
-          if (row < a.n_rows) {
-            float s = 0.f;
-#pragma unroll 16
-            for (int j = 0; j < M; ++j)
-              s += round_bf16(dp[dp_at<M>(i, j)]) * round_bf16(a.W[dd * M + j]);
-            a.du[(size_t)row * 3 + dd] = s * kTwoPi;
+        const int nf = min(kGF, a.n_freq - kGF * gq);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int e = tt + k * kTT;
+          if (e < kTileRows * 3) {
+            const int i = e / 3, dd = e % 3;
+            const float* w = a.W + dd * a.n_freq + kGF * gq;
+            float s = du_acc[k];
+            for (int j = 0; j < nf; ++j) s += round_bf16(dpp[dp_at<kGF>(i, j)]) * round_bf16(w[j]);
+            du_acc[k] = s;
           }
         }
       }
-      named_barrier(bar_id, kWg);
+      tile_sync();
     }
+    if (encode && a.du != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int e = tt + k * kTT;
+        if (e < kTileRows * 3 && row0 + e / 3 < a.n_rows)
+          a.du[(size_t)(row0 + e / 3) * 3 + e % 3] = du_acc[k] * kTwoPi;
+      }
+    }
+    // the next pass overwrites the buffer the last stores read
+    before_overwrite();
   }
-  if (tid == 0) bulk_store_wait();
+  if (tt == 0) bulk_store_wait();
 }
 
 // ---- 4. weight gradients: dW = X^T dY over all rows ---------------------------------
 //
-// One launch for every weight of the field (or of the trunk alone). The
-// saved activations X and the cotangents dY lie in global memory as tile
-// images whose rows are samples: exactly the MN-major wgmma operands of a
-// product whose K runs over samples. An item is one product per consumer
-// warpgroup w, P[64, n] = image(x, x_img[w])^T @ images(y, y_img[w] ...),
-// n = 64, 128 or 256 (n / 64 dY images; above 64 shared by both
-// warpgroups). A block takes one chunk of an item's row tiles; the
-// producer warp brings each tile's images by bulk copies; the partial
-// products go to P in f32 and dw_reduce_kernel adds an item's chunks in
-// order.
+// One launch for up to kDwItems products of the field (or of the trunk
+// alone; the host launches again for more). The saved activations X and
+// the cotangents dY lie in global memory as tile images whose rows are
+// samples: exactly the MN-major wgmma operands of a product whose K runs
+// over samples. An item is one product per consumer warpgroup w, P[64, n]
+// = image(x, x_img[w])^T @ images(y, y_img[w] ...), n = 64, 128 or 256
+// (n / 64 dY images, shared by both warpgroups where y_img[0] ==
+// y_img[1], else n <= 128 each). A block takes one chunk of an item's row
+// tiles; the producer warp brings each tile's images by bulk copies; the
+// partial products go to P in f32 and dw_reduce_kernel adds an item's
+// chunks in order.
 
 constexpr int kDwStages = 3;
 constexpr int kDwStageBytes = 6 * kImgBytes64;
@@ -842,7 +950,7 @@ struct DwItem {
   const __nv_bfloat16* y;  // dY images, y_imgs a row tile
   int x_imgs, y_imgs;
   int x_img[2], y_img[2];  // per warpgroup: the X image and the first dY image
-  int n;                   // 64, 128 or 256
+  int n;                   // 64, 128 or 256 (at most 128 where y_img[0] != y_img[1])
   int chunks, chunk_tiles;  // row chunks and row tiles a chunk
   int first_block;         // blocks first_block .. first_block + chunks - 1
   long long p_off;         // floats: this item's partials [chunks][2][64][n] in P
@@ -850,7 +958,7 @@ struct DwItem {
 };
 
 struct DwArgs {
-  DwItem items[16];  // _MAX_ITEMS in field_train.py
+  DwItem items[32];  // _MAX_ITEMS in field_train.py
   int n_items, n_tiles;
   float* P;
   float* out;
@@ -889,6 +997,7 @@ template <int N>
 __device__ __forceinline__ void dw_product(Ring<kDwStages>& ring, uint32_t ring_base, int t0,
                                            int t1, int xw, int yw, float* dst, int tid) {
   float d[N / 2];
+  fresh(d);
   for (int t = t0; t < t1; ++t) {
     const uint32_t st = slab_begin(ring, ring_base, kDwStageBytes);
 #pragma unroll
@@ -915,10 +1024,10 @@ __global__ void __launch_bounds__(kFieldThreads, 1) dw_kernel(const __grid_const
   const int chunk = blockIdx.x - item.first_block;
   const int t0 = chunk * item.chunk_tiles;
   const int t1 = min(t0 + item.chunk_tiles, a.n_tiles);
-  // an image both warpgroups read is brought once; above n = 64 the dY
-  // images are shared
+  // an image both warpgroups read is brought once
   const bool x_shared = item.x_img[0] == item.x_img[1];
   const bool y_shared = item.y_img[0] == item.y_img[1];
+  const int ny = item.n / 64;  // dY images a warpgroup reads
   Ring<kDwStages> ring;
   ring.full = full;
   ring.empty = empty;
@@ -928,25 +1037,19 @@ __global__ void __launch_bounds__(kFieldThreads, 1) dw_kernel(const __grid_const
     if (threadIdx.x == 2 * kWg) {
       const unsigned char* x = reinterpret_cast<const unsigned char*>(item.x);
       const unsigned char* y = reinterpret_cast<const unsigned char*>(item.y);
-      const int nx = x_shared ? 1 : 2, ny = y_shared ? item.n / 64 : 2;
+      const int nx = x_shared ? 1 : 2, nyw = y_shared ? 1 : 2;
       for (int t = t0; t < t1; ++t) {
         ring.wait_empty();
         const uint32_t dst = ring_base + ring.stage * kDwStageBytes;
-        mbar_expect_tx(ring.full_bar(), (nx + ny) * kImgBytes64);
+        mbar_expect_tx(ring.full_bar(), (nx + nyw * ny) * kImgBytes64);
         for (int w = 0; w < nx; ++w)
           bulk_load(dst + w * kImgBytes64,
                     x + ((size_t)t * item.x_imgs + item.x_img[w]) * kImgBytes64, kImgBytes64,
                     ring.full_bar());
-        if (y_shared) {
-          bulk_load(dst + 2 * kImgBytes64,
-                    y + ((size_t)t * item.y_imgs + item.y_img[0]) * kImgBytes64, ny * kImgBytes64,
+        for (int w = 0; w < nyw; ++w)
+          bulk_load(dst + (2 + w * ny) * kImgBytes64,
+                    y + ((size_t)t * item.y_imgs + item.y_img[w]) * kImgBytes64, ny * kImgBytes64,
                     ring.full_bar());
-        } else {
-          for (int w = 0; w < 2; ++w)
-            bulk_load(dst + (2 + w) * kImgBytes64,
-                      y + ((size_t)t * item.y_imgs + item.y_img[w]) * kImgBytes64, kImgBytes64,
-                      ring.full_bar());
-        }
         ring.advance();
       }
     }
@@ -955,7 +1058,7 @@ __global__ void __launch_bounds__(kFieldThreads, 1) dw_kernel(const __grid_const
 
   reg_alloc<kConsumerRegs>();
   const int wg = threadIdx.x / kWg, tid = threadIdx.x % kWg;
-  const int xw = x_shared ? 0 : wg, yw = y_shared ? 0 : wg;
+  const int xw = x_shared ? 0 : wg, yw = y_shared ? 0 : wg * ny;
   float* dst = a.P + item.p_off + ((size_t)chunk * 2 + wg) * kTileRows * item.n;
   if (item.n == 256)
     dw_product<256>(ring, ring_base, t0, t1, xw, yw, dst, tid);
@@ -1000,22 +1103,33 @@ __global__ void dw_reduce_kernel(const __grid_constant__ DwArgs a) {
   a.out[e] = s;
 }
 
-template <int M, int H>
+template <int H, bool kWhole>
 int launch_field_fwd(const FvrArgs* a, int grid, cudaStream_t stream) {
   const size_t smem = fwd_smem(H, a->n_hidden).total;
-  int err = set_smem((const void*)fvr_field_fwd_kernel<M, H>, smem);
+  int err = set_smem((const void*)fvr_field_fwd_kernel<H, kWhole>, smem);
   if (err) return err;
-  fvr_field_fwd_kernel<M, H><<<grid, kFieldThreads, smem, stream>>>(*a);
+  fvr_field_fwd_kernel<H, kWhole><<<grid, kFieldThreads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
-template <int M, int H>
+template <int H, int kG>
 int launch_field_bwd(const FvrArgs* a, int grid, cudaStream_t stream) {
-  const size_t smem = bwd_smem(M, H).total;
-  int err = set_smem((const void*)fvr_field_bwd_kernel<M, H>, smem);
+  const size_t smem = bwd_smem(H).total;
+  int err = set_smem((const void*)fvr_field_bwd_kernel<H, kG>, smem);
   if (err) return err;
-  fvr_field_bwd_kernel<M, H><<<grid, kFieldThreads, smem, stream>>>(*a);
+  fvr_field_bwd_kernel<H, kG><<<grid, kFieldThreads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+template <int H>
+int launch_field_bwd(const FvrArgs* a, int grid, cudaStream_t stream) {
+  const int n_back = a->x == nullptr ? (a->n_freq + kBlockFreqs - 1) / kBlockFreqs : a->n_kb;
+  switch (back_group(n_back, a->heads ? 1 : (a->out + 63) / 64)) {
+    case 4: return launch_field_bwd<H, 4>(a, grid, stream);
+    case 2: return launch_field_bwd<H, 2>(a, grid, stream);
+    case 1: return launch_field_bwd<H, 1>(a, grid, stream);
+    default: return launch_field_bwd<H, 0>(a, grid, stream);
+  }
 }
 
 }  // namespace
@@ -1023,28 +1137,31 @@ int launch_field_bwd(const FvrArgs* a, int grid, cudaStream_t stream) {
 // What field_images.py mirrors, for a check on the card: shared memory
 // (bytes) of the field forward (which = 0), the field backward (1) and the
 // weight gradients (2), and the width of a tile_part row (3), at the
-// instance (m, h).
-extern "C" int apnerf_field_layout(int which, int m, int h, int n_hidden) {
+// instance h, a trunk output padded to t_pad and mp frequencies.
+extern "C" int apnerf_field_layout(int which, int h, int n_hidden, int t_pad, int mp) {
   return which == 0   ? fwd_smem(h, n_hidden).total
-         : which == 1 ? bwd_smem(m, h).total
+         : which == 1 ? bwd_smem(h).total
          : which == 2 ? dw_smem().total
-                      : n_bias(n_hidden, m, h);
+                      : n_bias(n_hidden, h, t_pad, mp);
 }
 
 // Each entry launches on `stream` and returns cudaGetLastError(); none
 // allocates. `grid` is the number of persistent blocks. The field kernels
-// run the instance (a->tile_m, a->tile_h); another pair is cudaErrorInvalidValue.
+// run the instance a->tile_h; another width is cudaErrorInvalidValue.
 extern "C" int apnerf_fvr_field_fwd(const FvrArgs* a, int grid, void* stream) {
-#define APNERF_CASE(M_, H_) \
-  if (a->tile_m == M_ && a->tile_h == H_) return launch_field_fwd<M_, H_>(a, grid, (cudaStream_t)stream);
+#define APNERF_CASE(H_)                                                                 \
+  if (a->tile_h == H_)                                                                  \
+    return whole_enc(H_, a->x == nullptr, a->n_kb)                                     \
+               ? launch_field_fwd<H_, true>(a, grid, (cudaStream_t)stream)              \
+               : launch_field_fwd<H_, false>(a, grid, (cudaStream_t)stream);
   APNERF_TILE_WIDTHS(APNERF_CASE)
 #undef APNERF_CASE
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int apnerf_fvr_field_bwd(const FvrArgs* a, int grid, void* stream) {
-#define APNERF_CASE(M_, H_) \
-  if (a->tile_m == M_ && a->tile_h == H_) return launch_field_bwd<M_, H_>(a, grid, (cudaStream_t)stream);
+#define APNERF_CASE(H_) \
+  if (a->tile_h == H_) return launch_field_bwd<H_>(a, grid, (cudaStream_t)stream);
   APNERF_TILE_WIDTHS(APNERF_CASE)
 #undef APNERF_CASE
   return (int)cudaErrorInvalidValue;

@@ -1,6 +1,7 @@
-// Hopper building blocks of the main field's kernels (field_tile.cuh,
-// fused_field_volrend.cu): warpgroup matrix products (wgmma) on operands
-// that lie in shared memory as 128-byte-swizzled tile images, 1-D bulk
+// Hopper building blocks of the field tile's kernels (field_tile.cuh,
+// fused_field_heads.cu, fused_field_volrend.cu: the main field, and the
+// trunk kernels forward and backward): warpgroup matrix products (wgmma)
+// on operands that lie in shared memory as 128-byte-swizzled tile images, 1-D bulk
 // asynchronous copies (cp.async.bulk) that bring such images from global
 // memory and take them back, and the mbarrier ring that lets one producer
 // warp keep copies in flight while the consumer warpgroups multiply.
@@ -128,6 +129,17 @@ __device__ __forceinline__ void reg_alloc() {
 }
 
 // ---- wgmma --------------------------------------------------------------------
+
+// A fresh accumulator, to be overwritten by a product with scale-d 0: an
+// empty asm defines its registers, so that the "+f" operands of the wgmma
+// wrappers below do not keep the last pass's values alive around a loop
+// (ptxas would hold them, and spill, through everything in between). No
+// instruction is emitted.
+template <int N>
+__device__ __forceinline__ void fresh(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "=f"(d[i]));
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

@@ -223,7 +223,10 @@ def _kernel_route(who: str, cfg, params_mlp: MLP, x: torch.Tensor, named: bool) 
     the kernel route: then it runs the plain chain for CPU tensors only and
     raises on any other device, so a named route never becomes the plain
     chain on the card. Nothing here catches a kernel's failure: a field the
-    kernel refuses on its widths raises from the kernel's wrapper."""
+    kernel refuses on its widths (a trunk over 512 wide;
+    ``ops/cuda/field_images.check_trunk``) raises from the kernel's
+    wrapper, and every narrower one runs, zero-padded to the tile's next
+    instance."""
     ok = _use_fused_field(cfg, params_mlp)
     if not ok and named and x.device.type != "cpu":
         raise ValueError(

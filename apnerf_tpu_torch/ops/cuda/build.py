@@ -108,23 +108,18 @@ def library() -> ctypes.CDLL:
     lib.apnerf_fused_render_weights_fwd.restype = i
     lib.apnerf_fused_render_weights_bwd.argtypes = [p, p, p, p, i, i, p, p, p, p]
     lib.apnerf_fused_render_weights_bwd.restype = i
-    lib.apnerf_field_layout.argtypes = [i, i, i, i]
+    lib.apnerf_field_layout.argtypes = [i, i, i, i, i]
     lib.apnerf_field_layout.restype = i
-    for name in ("apnerf_fvr_field_fwd", "apnerf_fvr_field_bwd", "apnerf_dw"):
+    for name in ("apnerf_fvr_field_fwd", "apnerf_fvr_field_bwd", "apnerf_dw", "apnerf_ffh_fwd",
+                 "apnerf_trunk_fwd"):
         getattr(lib, name).argtypes = [p, i, p]
         getattr(lib, name).restype = i
     lib.apnerf_ffh_bwd_pack.argtypes = [p, p]
     lib.apnerf_ffh_bwd_pack.restype = i
     lib.apnerf_fvr_rays.argtypes = [p, i, p]
     lib.apnerf_fvr_rays.restype = i
-    lib.apnerf_mlp_smem.argtypes = [p]
-    lib.apnerf_mlp_smem.restype = ctypes.c_size_t
-    lib.apnerf_mlp_fwd.argtypes = [p, i, p]
-    lib.apnerf_mlp_fwd.restype = i
     lib.apnerf_fvr_fwd_rays.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.apnerf_fvr_fwd_rays.restype = i
-    lib.apnerf_ffh_fwd.argtypes = [p, i, p]
-    lib.apnerf_ffh_fwd.restype = i
     lib.apnerf_col_sums.argtypes = [p, i, ll, i, p, p]
     lib.apnerf_col_sums.restype = i
     _lib = lib

@@ -11,57 +11,74 @@ chunks of row ``r`` stored at chunk index ``c ^ (r & 7)``: the layout
 per call into such images, in the order the kernel consumes them, so one
 1-D ``cp.async.bulk`` per slab brings it to shared memory.
 
-**Forward slabs** (``B[n][k] = w[k0 + k][n]``, rows are output units):
-each trunk hidden layer as one ``[H, 64]`` image per 64 input columns
-(2M / 64 for the first, H / 64 for the others), then with the heads the
-trunk's last layer as H / 64 ``[16, 64]`` images and per head layer the
-rgb and the semantic image side by side. The semantic head's first layer
-sits at input rows 16.. so both heads read the same ``[SH | geo]`` tile.
+**The first layer** is multiplied one 64-column k-block of its input at a
+time, a run-time count ``n_kb`` of them: the encoding of m frequencies is
+``[cos of m | sin of m]`` zero-padded to ``ceil(2m / 64)`` blocks, the
+plain chain's own column order, so the kernels sum what it sums, 16-column
+step by step (another order changes the sums' f32 rounding and with it
+bf16 roundings of hidden units); an input x is ``ceil(din / 64)`` blocks.
+Where the blocks do not fit a tile's buffer the forward forms them one at
+a time. The backward walks
+the first layer in other blocks: 32 frequencies each, two groups of 16 as
+``[cos 16 | sin 16]`` (``pair_rows``), so that one thread holds a
+frequency's cos and sin cotangents.
+
+**Forward slabs** (``B[n][k] = w[k0 + k][n]``, rows are output units): a
+trunk layer as one ``[H, 64]`` image per k-block of its input, then with
+the heads the trunk's last layer as H / 64 ``[16, 64]`` images and per head
+layer the rgb and the semantic images side by side (the semantic head's
+first layer at input rows 16.., so both heads read the same ``[SH | geo]``
+tile), or for the trunk alone its output layer 16 columns a slab.
 
 **Backward slabs** (``B[n][k] = w[n][k0 + k]``, rows are input units), in
 the order the field backward walks: heads from the top, the trunk's last
-layer, the hidden layers downwards, the first layer for the encode (or
-for dx: the trunk alone has no head slabs).
+layer (64 of its columns a slab), the hidden layers downwards, then the
+first layer: per group of ``back_group`` blocks (up to four in one
+product) one ``[64 G, 64]`` slab per 64 of the trunk's units (the trunk
+alone has no head slabs).
 
-**Widths.** The kernels are instances of the frequency count M (the
-encoding is 2M wide) and the trunk width H: M in ``M_SET``, H in
-``H_SET``, heads H / 4 wide, 2 or 3 hidden layers, at most 15 geometry
-features and 64 classes (``check_widths``); the trunk alone takes an
-output of at most 16 and, without the encode, an input of at most 256
-(``check_trunk``). A field between two instances (H = 96, say) is refused,
-not padded; a trunk alone between two is zero-padded up to the next.
+**Widths.** The kernels are instances of the trunk width H in ``H_SET``,
+with heads H / 4 wide. A field or a trunk runs on the smallest instance at
+least as wide as it, its units past its own width zero (zero weights and
+biases, which stay zero through every ReLU, so every output and every
+gradient of its own entries is exact): the index tables here do the
+padding, for the whole field (``prepare_field``) and for the trunk alone
+(``field_train.TrunkCall``) alike. So a field takes any H from 4 to 512
+with heads H // 4, any number of frequencies, at most 15 geometry features
+and 64 classes, 2 or 3 hidden layers (``check_widths``); a trunk alone any
+H from 1 to 512, the encode of any number of frequencies or an input that
+is a multiple of 16 wide, and any output width (``check_trunk``).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .launch import MAX_SMEM
 
-M_SET = (32, 64, 128)  # spectral frequencies: the encoding is 2 M wide
-H_SET = (64, 128, 256)  # trunk widths; the heads are H / 4 wide
-WIDTHS = tuple((m, h) for m in M_SET for h in H_SET)  # APNERF_TILE_WIDTHS
+H_SET = (64, 128, 256, 512)  # trunk widths of the instances; the heads are H / 4 wide
+WIDTHS = H_SET  # APNERF_TILE_WIDTHS
 SHW = 16  # SH features of a direction
-T_OUT = 16  # trunk output width, padded (1 + geo <= 16)
+T_OUT = 16  # the whole field's trunk output width, padded (1 + geo <= 16)
 RGB_PAD = 16  # rgb head output width, padded
 C_PAD = 64  # semantic head output width, padded
 MAX_GEO = 15
 MAX_CLASSES = 64
-MAX_DIN = 2 * max(M_SET)  # the trunk alone: its input's widest instance
+BLOCK_FREQS = 32  # frequencies of a k-block of the encoding
 
 IMG_COLS = 64
 IMG_ROW_BYTES = 128
-TILE_ROWS = 64  # rows of one warpgroup's tile
-PASS_ROWS = 128  # rows a block handles per pass: two consumer warpgroups
+TILE_ROWS = 64  # rows of one tile
 IMG_BYTES = TILE_ROWS * IMG_ROW_BYTES  # a 64-row image
 
 ALIGN_SLACK = 1024  # the kernels align their dynamic shared memory themselves
-ACT_BYTES = 4 * IMG_BYTES  # a consumer warpgroup's activation buffer
-FWD_STAGES = 4
-BWD_STAGES = 4
+BUF_BYTES = 8 * IMG_BYTES  # the consumers' activation buffers, together
+U_TILE_BYTES = TILE_ROWS * 3 * 4
+Y_STAGE_BYTES = TILE_ROWS * 16 * 4
+DP_BYTES = TILE_ROWS * BLOCK_FREQS * 4
 DW_STAGES = 3
 DW_STAGE_BYTES = 6 * IMG_BYTES  # two X images and up to four dY images
 
@@ -71,67 +88,170 @@ def img_off(r, c):
     return r * IMG_ROW_BYTES + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1)
 
 
+def instance(h: int) -> int:
+    """The instance a trunk ``h`` wide runs on: the smallest in ``H_SET``
+    at least as wide."""
+    return min(x for x in H_SET if x >= h)
+
+
 def head_width(H: int) -> int:
     return H // 4
 
 
+def split(H: int) -> int:
+    """Warpgroups that share a tile's columns (``Tile::kSplit``)."""
+    return 2 if H > 256 else 1
+
+
+def pass_rows(H: int) -> int:
+    """Rows a block handles per pass (``Tile::kPassRows``): two tiles, one at
+    H = 512."""
+    return TILE_ROWS * 2 // split(H)
+
+
+def head_imgs(H: int) -> int:
+    """Images of a head's activation (``Tile::kHI``)."""
+    return -(-head_width(H) // 64)
+
+
+def stages(H: int) -> int:
+    """Slots of the forward and backward rings (``fwd_stages``)."""
+    return 2 if H > 256 else 4
+
+
 def fwd_slot_bytes(H: int) -> int:
-    """A forward ring slot (``fwd_slot``): a trunk slab ``[H, 64]`` or the
-    heads' output slab ``[16 + 64, 64]``."""
-    return max(H, RGB_PAD + C_PAD) * IMG_ROW_BYTES
+    """A forward ring slot (``fwd_slot``): a trunk slab ``[H, 64]``, the
+    heads' second layers or their output slab."""
+    hh, hi = head_width(H), head_imgs(H)
+    return max(H, 2 * hi * hh, hi * (RGB_PAD + C_PAD)) * IMG_ROW_BYTES
 
 
-def bwd_slot_bytes(M: int, H: int) -> int:
-    """A backward ring slot (``bwd_slot``): a trunk slab ``[H, 64]``, or a
-    first-layer slab ``[2M, 64]`` and a tile's saved encoding."""
-    return max(H, 2 * M) * IMG_ROW_BYTES
+def bwd_slot_bytes(H: int) -> int:
+    """A backward ring slot (``bwd_slot``): a trunk slab ``[H, 64]``, a
+    first-layer slab ``[64 G, 64]``, the heads' slabs or a tile's saved
+    encoding (up to four images)."""
+    return max(H * IMG_ROW_BYTES, 4 * IMG_BYTES)
+
+
+def back_group(n_back: int, n_gt: int = 1) -> int:
+    """The kernel instance of the backward (``back_group``, its kG) for
+    ``n_back`` first-layer blocks and ``n_gt`` blocks of the trunk output's
+    cotangent: all first-layer blocks in one product of kG blocks, up to
+    four, with one trunk-output block; or 0: one block a product, any
+    number of trunk-output blocks."""
+    if n_gt > 1:
+        return 0
+    return 1 if n_back == 1 else 2 if n_back == 2 else 4 if n_back <= 4 else 0
+
+
+def back_blocks(n_back: int, n_gt: int = 1) -> int:
+    """The backward's first-layer blocks, whole products (``back_group``)."""
+    g = back_group(n_back, n_gt) or 1
+    return -(-n_back // g) * g
+
+
+def enc_blocks(m: int) -> int:
+    """Forward k-blocks of the encoding of m frequencies, [cos | sin]."""
+    return -(-2 * m // 64)
+
+
+def x_blocks(din: int) -> int:
+    """k-blocks of an input x ``din`` wide."""
+    return -(-din // 64)
+
+
+def pair_blocks(m: int) -> int:
+    """The backward's first-layer blocks of the encode: 32 frequencies each."""
+    return -(-m // BLOCK_FREQS)
+
+
+@functools.lru_cache(maxsize=None)
+def enc_rows(m: int) -> np.ndarray:
+    """Column r of the kernels' forward encoding → the row of w0 ([cos of m
+    | sin of m]) it multiplies, or -1 past them."""
+    r = np.arange(64 * enc_blocks(m))
+    return np.where(r < 2 * m, r, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def pair_rows(m: int) -> np.ndarray:
+    """Column r of the backward's first-layer blocks → the row of w0, or -1:
+    blocks of 32 frequencies, each two groups ``[cos 16 | sin 16]``."""
+    r = np.arange(BLOCK_FREQS * 2 * pair_blocks(m))
+    f = 16 * (r // 32) + r % 16
+    return np.where(f < m, np.where(r % 32 < 16, f, m + f), -1)
+
+
+def out_chunks(out: int) -> int:
+    """Slabs of the trunk alone's output layer in the forward: 16 columns each."""
+    return -(-out // 16)
+
+
+def gt_blocks(out: int) -> int:
+    """64-column k-blocks of the trunk alone's output cotangent."""
+    return -(-out // 64)
 
 
 # ---- slab schedules ------------------------------------------------------------
 
 
-def fwd_slabs(M: int, H: int, n_hidden: int, heads: bool = True) -> List[Tuple[int, int]]:
-    """(byte offset, bytes) of each forward slab, in consumption order."""
+def fwd_slabs(H: int, n_hidden: int, n_kb: int, heads: bool = True,
+              out: int = 0) -> List[Tuple[int, int]]:
+    """(byte offset, bytes) of each forward slab, in consumption order; the
+    trunk alone's output layer (``out`` > 0) 16 columns a slab."""
     trunk = H * IMG_ROW_BYTES
-    slabs = [(i * trunk, trunk) for i in range(2 * M // 64 + (n_hidden - 1) * H // 64)]
-    if not heads:
-        return slabs
+    slabs = [(i * trunk, trunk) for i in range(n_kb + (n_hidden - 1) * H // 64)]
     off = len(slabs) * trunk
-    hh = head_width(H) * IMG_ROW_BYTES
-    for size in (H // 64 * T_OUT * IMG_ROW_BYTES,  # trunk output: H / 64 [16, 64] images
-                 2 * hh,  # heads, first layer: rgb | sem
-                 2 * hh,  # second layer
-                 RGB_PAD * IMG_ROW_BYTES + IMG_BYTES):  # outputs: rgb [16, 64] | sem [64, 64]
-        slabs.append((off, size))
-        off += size
-    return slabs
-
-
-def bwd_slabs(M: int, H: int, n_hidden: int, heads: bool = True) -> List[Tuple[int, int]]:
-    """(byte offset, bytes) of each backward weight slab, in consumption order."""
-    slabs, off = [], 0
-    hh = head_width(H) * IMG_ROW_BYTES
-    sizes = [2 * hh,  # head outputs back: rgb | sem
-             2 * hh,  # second layer back
-             2 * 32 * IMG_ROW_BYTES] if heads else []  # first layer back: two [32, 64] images
-    sizes.append(H * IMG_ROW_BYTES)  # trunk output back
-    sizes += [H * IMG_ROW_BYTES] * ((n_hidden - 1) * H // 64)  # hidden layers n_hidden - 1 .. 1
-    sizes += [2 * M * IMG_ROW_BYTES] * (H // 64)  # the first layer: [2M, 64] per 64 outputs
+    out_t = H // 64 * T_OUT * IMG_ROW_BYTES  # H / 64 [16, 64] images
+    hh, hi = head_width(H) * IMG_ROW_BYTES, head_imgs(H)
+    sizes = ([out_t, 2 * hh,  # heads, first layer: rgb | sem
+              2 * hi * hh,  # second layer: rgb's k-blocks | sem's
+              hi * (RGB_PAD + C_PAD) * IMG_ROW_BYTES]  # outputs: rgb [16, 64] | sem [64, 64]
+             if heads else [out_t] * out_chunks(out))
     for size in sizes:
         slabs.append((off, size))
         off += size
     return slabs
 
 
-def n_bias(M: int, H: int, n_hidden: int) -> int:
+def bwd_slabs(H: int, n_hidden: int, n_back: int, heads: bool = True,
+              out: int = 0) -> List[Tuple[int, int]]:
+    """(byte offset, bytes) of each backward weight slab, in consumption
+    order; ``n_back`` first-layer blocks (``pair_blocks`` of the encode, or
+    x's k-blocks)."""
+    slabs, off = [], 0
+    hh, hi = head_width(H) * IMG_ROW_BYTES, head_imgs(H)
+    sizes = [2 * hh,  # head outputs back: rgb | sem
+             2 * hi * hh,  # second layer back
+             2 * hi * 32 * IMG_ROW_BYTES] if heads else []  # first layer back: [32, 64] images
+    sizes += [H * IMG_ROW_BYTES] * (1 if heads else gt_blocks(out))  # trunk output back
+    sizes += [H * IMG_ROW_BYTES] * ((n_hidden - 1) * H // 64)  # hidden layers n_hidden - 1 .. 1
+    n_gt = 1 if heads else gt_blocks(out)
+    g = back_group(n_back, n_gt) or 1  # the first layer: [64 g, 64] per product and 64 units
+    sizes += [64 * g * IMG_ROW_BYTES] * (back_blocks(n_back, n_gt) // g * H // 64)
+    for size in sizes:
+        slabs.append((off, size))
+        off += size
+    return slabs
+
+
+def t_pad(heads: bool, out: int) -> int:
+    """Columns of the trunk output's cotangent in a row of tile sums: 16 for
+    the whole field, the trunk alone's output padded to 64."""
+    return T_OUT if heads else 64 * gt_blocks(out)
+
+
+def n_bias(H: int, n_hidden: int, tpad: int, mp: int) -> int:
     """Width of a row of per-tile column sums (``n_bias()`` of
     ``csrc/fused_field_volrend.cu``): the trunk's pre-activations, its
-    output, the four head layers, dphase and the three rows of dW_spec."""
-    return n_hidden * H + T_OUT + 4 * head_width(H) + 4 * M
+    output, the four head layers, dphase and the three rows of dW_spec over
+    ``mp`` (padded) frequencies."""
+    return n_hidden * H + tpad + 4 * head_width(H) + 4 * mp
 
 
 def bias_offsets(H: int, n_hidden: int) -> Dict[str, int]:
-    """Float offsets of each layer's bias in the kernels' bias buffer."""
+    """Float offsets of each layer's bias in the kernels' bias buffer (the
+    trunk alone: the hidden layers', then its output's at ``trunk_out``)."""
     o, hh = n_hidden * H, head_width(H)
     rb0 = o + T_OUT
     return {"trunk_out": o, "rb0": rb0, "sb0": rb0 + hh, "rb1": rb0 + 2 * hh,
@@ -167,20 +287,20 @@ def _mlp_shapes(widths) -> List[Tuple[int, ...]]:
 
 
 @functools.lru_cache(maxsize=None)
-def leaf_layout(M: int, H: int, n_hidden: int, G: int, C: int) -> LeafLayout:
+def leaf_layout(m: int, h: int, n_hidden: int, G: int, C: int) -> LeafLayout:
     """The whole field's leaves: W, phase, the trunk's, the rgb head's and
-    the semantic head's (w, b) pairs."""
-    hh = head_width(H)
-    shapes = [(3, M), (M,)] + _mlp_shapes([2 * M] + [H] * n_hidden + [1 + G])
+    the semantic head's (w, b) pairs; the heads ``h // 4`` wide."""
+    hh = head_width(h)
+    shapes = [(3, m), (m,)] + _mlp_shapes([2 * m] + [h] * n_hidden + [1 + G])
     for a, b in ((SHW + G, hh), (hh, hh), (hh, 3), (G, hh), (hh, hh), (hh, C)):
         shapes += [(a, b), (b,)]
     return _layout(shapes)
 
 
 @functools.lru_cache(maxsize=None)
-def trunk_layout(din: int, H: int, n_hidden: int, out: int) -> LeafLayout:
+def trunk_layout(din: int, h: int, n_hidden: int, out: int) -> LeafLayout:
     """The trunk alone: its (w, b) pairs."""
-    return _layout(_mlp_shapes([din] + [H] * n_hidden + [out]))
+    return _layout(_mlp_shapes([din] + [h] * n_hidden + [out]))
 
 
 def _image_index(rows: int, src_index) -> np.ndarray:
@@ -192,58 +312,67 @@ def _image_index(rows: int, src_index) -> np.ndarray:
     return out
 
 
-def _fwd_image(lay: LeafLayout, leaf: int, rows: int, k0: int = 0, k_shift: int = 0):
-    """B[n][k] = w[k0 + k - k_shift][n] where that element exists, else 0."""
+def _weight(lay: LeafLayout, leaf: int, rows: Optional[np.ndarray] = None):
+    """→ ``at(i, j)``: the flat index of ``w[i, j]``, or of the zero where
+    that element does not exist; ``rows`` maps i (the kernels' order) to the
+    leaf's row first (-1: none)."""
     w_in, w_out = lay.shapes[leaf]
     base = lay.offsets[leaf]
 
-    def src(n, k):
-        kk = k0 + k - k_shift
-        ok = (kk >= 0) & (k >= k_shift) & (kk < w_in) & (n < w_out)
-        return np.where(ok, base + kk * w_out + n, lay.zero)
+    def at(i, j):
+        i, j = np.asarray(i), np.asarray(j)
+        if rows is not None:
+            ok = (i >= 0) & (i < len(rows))
+            i = np.where(ok, rows[np.clip(i, 0, len(rows) - 1)], -1)
+        ok = (i >= 0) & (i < w_in) & (j >= 0) & (j < w_out)
+        return np.where(ok, base + i * w_out + j, lay.zero)
 
-    return _image_index(rows, src)
-
-
-def _bwd_image(lay: LeafLayout, leaf: int, rows: int, k0: int = 0, n_shift: int = 0):
-    """B[n][k] = w[n - n_shift][k0 + k] where that element exists, else 0."""
-    w_in, w_out = lay.shapes[leaf]
-    base = lay.offsets[leaf]
-
-    def src(n, k):
-        nn, kk = n - n_shift, k0 + k
-        ok = (nn >= 0) & (nn < w_in) & (kk < w_out)
-        return np.where(ok, base + nn * w_out + kk, lay.zero)
-
-    return _image_index(rows, src)
+    return at
 
 
-def _trunk_images(lay: LeafLayout, trunk: Sequence[int], M: int, H: int, heads: bool):
+def _fwd_image(at, rows: int, k0: int = 0, n0: int = 0, k_shift: int = 0):
+    """B[n][k] = w[k0 + k - k_shift][n0 + n]."""
+    return _image_index(rows, lambda n, k: np.where(k >= k_shift, at(k0 + k - k_shift, n0 + n),
+                                                    at(-1, 0)))
+
+
+def _bwd_image(at, rows: int, k0: int = 0, n0: int = 0, n_shift: int = 0):
+    """B[n][k] = w[n0 + n - n_shift][k0 + k]."""
+    return _image_index(rows, lambda n, k: at(n0 + n - n_shift, k0 + k))
+
+
+def _trunk_images(lay: LeafLayout, trunk: Sequence[int], rows: np.ndarray,
+                  back_rows: np.ndarray, H: int, heads: bool, out: int = 0):
     """The trunk's forward and backward images, the trunk being the leaf
-    numbers of its weights (biases follow each)."""
+    numbers of its weights (biases follow each), ``rows`` the first layer's
+    input rows in the forward's column order (its k-blocks) and
+    ``back_rows`` in the backward's."""
     n_hidden = len(trunk) - 1
-    fwd = []
-    for l in range(n_hidden):
-        for kb in range((2 * M if l == 0 else H) // 64):
-            fwd.append(_fwd_image(lay, trunk[l], H, k0=64 * kb))
-    if heads:
-        for kb in range(H // 64):
-            fwd.append(_fwd_image(lay, trunk[n_hidden], T_OUT, k0=64 * kb))
-    bwd = [_bwd_image(lay, trunk[n_hidden], H)]
+    n_kb = len(rows) // 64
+    first = _weight(lay, trunk[0], rows)
+    back = _weight(lay, trunk[0], back_rows)
+    ws = [first] + [_weight(lay, t) for t in trunk[1:]]
+    fwd = [_fwd_image(first, H, k0=64 * b) for b in range(n_kb)]
+    for l in range(1, n_hidden):
+        fwd += [_fwd_image(ws[l], H, k0=64 * kb) for kb in range(H // 64)]
+    for ch in range(1 if heads else out_chunks(out)):
+        fwd += [_fwd_image(ws[n_hidden], T_OUT, k0=64 * kb, n0=16 * ch) for kb in range(H // 64)]
+    bwd = [_bwd_image(ws[n_hidden], H, k0=64 * t) for t in range(1 if heads else gt_blocks(out))]
     for l in range(n_hidden - 1, 0, -1):
-        for kb in range(H // 64):
-            bwd.append(_bwd_image(lay, trunk[l], H, k0=64 * kb))
-    for kb in range(H // 64):
-        bwd.append(_bwd_image(lay, trunk[0], 2 * M, k0=64 * kb))
+        bwd += [_bwd_image(ws[l], H, k0=64 * kb) for kb in range(H // 64)]
+    n_back, n_gt = len(back_rows) // 64, 1 if heads else gt_blocks(out)
+    g = back_group(n_back, n_gt) or 1
+    for grp in range(back_blocks(n_back, n_gt) // g):
+        bwd += [_bwd_image(back, 64 * g, k0=64 * kb, n0=64 * g * grp) for kb in range(H // 64)]
     return fwd, bwd
 
 
-def _bias_index(lay: LeafLayout, H: int, trunk: Sequence[int], heads=()):
+def _bias_index(lay: LeafLayout, H: int, trunk: Sequence[int], total: int, heads=()):
     """The bias buffer's index table: each layer's bias at its offset, zero
     elsewhere; ``heads`` holds (name, leaf) of the heads' weights."""
     n_hidden = len(trunk) - 1
     offs = bias_offsets(H, n_hidden)
-    bias = np.full(offs["total"], lay.zero, dtype=np.int64)
+    bias = np.full(total, lay.zero, dtype=np.int64)
 
     def put(at, leaf):
         n = lay.shapes[leaf][0]
@@ -265,40 +394,52 @@ def _leaf_ids(n_hidden: int):
 
 
 @functools.lru_cache(maxsize=None)
-def index_tables(M: int, H: int, n_hidden: int, G: int, C: int):
+def index_tables(m: int, h: int, n_hidden: int, G: int, C: int):
     """→ (forward image index, backward image index, bias index) of the
-    whole field: int64 arrays into the flat f32 concatenation of the
-    leaves followed by one zero. ``flat.to(bf16)[fwd]`` is the forward
-    weight buffer, and so on."""
-    lay = leaf_layout(M, H, n_hidden, G, C)
+    whole field of these widths on its instance ``instance(h)``: int64
+    arrays into the flat f32 concatenation of the leaves followed by one
+    zero. ``flat.to(bf16)[fwd]`` is the forward weight buffer, and so on."""
+    H = instance(h)
+    lay = leaf_layout(m, h, n_hidden, G, C)
     trunk, head, semh = _leaf_ids(n_hidden)
-    hh = head_width(H)
-    fwd, bwd_trunk = _trunk_images(lay, trunk, M, H, heads=True)
-    fwd += [_fwd_image(lay, head[0], hh), _fwd_image(lay, semh[0], hh, k_shift=SHW),
-            _fwd_image(lay, head[1], hh), _fwd_image(lay, semh[1], hh),
-            _fwd_image(lay, head[2], RGB_PAD), _fwd_image(lay, semh[2], 64)]
-    bwd = [_bwd_image(lay, head[2], hh), _bwd_image(lay, semh[2], hh),
-           _bwd_image(lay, head[1], hh), _bwd_image(lay, semh[1], hh),
-           _bwd_image(lay, head[0], 32), _bwd_image(lay, semh[0], 32, n_shift=SHW)] + bwd_trunk
-    bias = _bias_index(lay, H, trunk, (("rb0", head[0]), ("sb0", semh[0]), ("rb1", head[1]),
-                                       ("sb1", semh[1]), ("rb2", head[2]), ("sb2", semh[2])))
+    hh, hi = head_width(H), head_imgs(H)
+    fwd, bwd_trunk = _trunk_images(lay, trunk, enc_rows(m), pair_rows(m), H, heads=True)
+    rgb = [_weight(lay, leaf) for leaf in head]
+    sem = [_weight(lay, leaf) for leaf in semh]
+    fwd += [_fwd_image(rgb[0], hh), _fwd_image(sem[0], hh, k_shift=SHW)]
+    fwd += [_fwd_image(w[1], hh, k0=64 * kb) for w in (rgb, sem) for kb in range(hi)]
+    fwd += [_fwd_image(rgb[2], RGB_PAD, k0=64 * kb) for kb in range(hi)]
+    fwd += [_fwd_image(sem[2], 64, k0=64 * kb) for kb in range(hi)]
+    bwd = [_bwd_image(rgb[2], hh), _bwd_image(sem[2], hh)]
+    bwd += [_bwd_image(w[1], hh, k0=64 * kb) for w in (rgb, sem) for kb in range(hi)]
+    bwd += [_bwd_image(rgb[0], 32, k0=64 * kb) for kb in range(hi)]
+    bwd += [_bwd_image(sem[0], 32, k0=64 * kb, n_shift=SHW) for kb in range(hi)]
+    bwd += bwd_trunk
+    bias = _bias_index(lay, H, trunk, bias_offsets(H, n_hidden)["total"],
+                       (("rb0", head[0]), ("sb0", semh[0]), ("rb1", head[1]), ("sb1", semh[1]),
+                        ("rb2", head[2]), ("sb2", semh[2])))
     fwd, bwd = np.concatenate(fwd), np.concatenate(bwd)
-    assert fwd.size * 2 == sum(b for _, b in fwd_slabs(M, H, n_hidden))
-    assert bwd.size * 2 == sum(b for _, b in bwd_slabs(M, H, n_hidden))
+    assert fwd.size * 2 == sum(b for _, b in fwd_slabs(H, n_hidden, enc_blocks(m)))
+    assert bwd.size * 2 == sum(b for _, b in bwd_slabs(H, n_hidden, pair_blocks(m)))
     return fwd, bwd, bias
 
 
 @functools.lru_cache(maxsize=None)
-def trunk_index_tables(din: int, M: int, H: int, n_hidden: int, out: int):
+def trunk_index_tables(din: int, m: int, h: int, n_hidden: int, out: int):
     """The same three tables for the trunk alone, its leaves ``[w0, b0, ...]``
-    with an input ``din <= 2M`` wide (the encoding, or x zero-padded)."""
-    lay = trunk_layout(din, H, n_hidden, out)
+    on the encode of ``m`` frequencies (``din = 2m``) or, with ``m = 0``, on
+    an input x ``din`` wide."""
+    H = instance(h)
+    lay = trunk_layout(din, h, n_hidden, out)
     trunk = [2 * i for i in range(n_hidden + 1)]
-    fwd, bwd = _trunk_images(lay, trunk, M, H, heads=False)
-    bias = _bias_index(lay, H, trunk)
+    rows = enc_rows(m) if m else np.arange(64 * x_blocks(din))
+    back_rows = pair_rows(m) if m else rows
+    fwd, bwd = _trunk_images(lay, trunk, rows, back_rows, H, heads=False, out=out)
+    bias = _bias_index(lay, H, trunk, n_hidden * H + 16 * out_chunks(out))
     fwd, bwd = np.concatenate(fwd), np.concatenate(bwd)
-    assert fwd.size * 2 == sum(b for _, b in fwd_slabs(M, H, n_hidden, heads=False))
-    assert bwd.size * 2 == sum(b for _, b in bwd_slabs(M, H, n_hidden, heads=False))
+    assert fwd.size * 2 == sum(b for _, b in fwd_slabs(H, n_hidden, len(rows) // 64, False, out))
+    assert bwd.size * 2 == sum(b for _, b in bwd_slabs(H, n_hidden, len(back_rows) // 64, False,
+                                                       out))
     return fwd, bwd, bias
 
 
@@ -306,20 +447,20 @@ def trunk_index_tables(din: int, M: int, H: int, n_hidden: int, out: int):
 
 
 def fwd_smem_bytes(H: int, n_hidden: int) -> int:
-    """``fwd_smem()`` of ``csrc/field_tile.cuh``: the slab ring, one
-    activation buffer per consumer warpgroup, the biases, the barriers."""
+    """``fwd_smem()`` of ``csrc/field_tile.cuh``: the slab ring, the
+    activation buffers, the biases, two tiles of coordinates per tile, the
+    trunk output's staging, the barriers."""
     bias = -(-bias_offsets(H, n_hidden)["total"] * 4 // 128) * 128
-    u_tiles = 2 * 2 * TILE_ROWS * 3 * 4  # per warpgroup: this pass's coordinates and the next's
-    return (ALIGN_SLACK + FWD_STAGES * fwd_slot_bytes(H) + 2 * ACT_BYTES + bias + u_tiles
-            + 16 * FWD_STAGES)
+    return (ALIGN_SLACK + stages(H) * fwd_slot_bytes(H) + BUF_BYTES + bias + 4 * U_TILE_BYTES
+            + 2 * Y_STAGE_BYTES + 16 * stages(H))
 
 
-def bwd_smem_bytes(M: int, H: int) -> int:
-    """``bwd_smem()`` of ``csrc/fused_field_volrend.cu``: the slab ring, one
-    cotangent buffer and one tile of coordinates per consumer warpgroup, the
-    barriers."""
-    return (ALIGN_SLACK + BWD_STAGES * bwd_slot_bytes(M, H) + 2 * ACT_BYTES
-            + 2 * TILE_ROWS * 3 * 4 + 16 * BWD_STAGES)
+def bwd_smem_bytes(H: int) -> int:
+    """``bwd_smem()`` of ``csrc/fused_field_volrend.cu``: the slab ring, the
+    cotangent buffers, a tile of coordinates and a k-block's f32 dproj per
+    tile, the barriers."""
+    return (ALIGN_SLACK + stages(H) * bwd_slot_bytes(H) + BUF_BYTES + 2 * U_TILE_BYTES
+            + 2 * DP_BYTES + 16 * stages(H))
 
 
 def dw_smem_bytes() -> int:
@@ -330,15 +471,16 @@ def dw_smem_bytes() -> int:
 # ---- launch plans ----------------------------------------------------------------
 
 
-def padded_rows(n_rows: int) -> int:
-    """Rows of the scratch buffers: whole passes."""
-    return -(-n_rows // PASS_ROWS) * PASS_ROWS
+def padded_rows(n_rows: int, H: int = 64) -> int:
+    """Rows of the scratch buffers: whole passes of the instance H."""
+    p = pass_rows(H)
+    return -(-n_rows // p) * p
 
 
-def field_grid(n_rows: int, n_sm: int) -> int:
+def field_grid(n_rows: int, n_sm: int, H: int = 64) -> int:
     """Blocks of the persistent field kernels: one per SM, each walking
-    passes ``blockIdx, blockIdx + grid, ...`` of 128 rows."""
-    return max(1, min(n_sm, padded_rows(n_rows) // PASS_ROWS))
+    passes ``blockIdx, blockIdx + grid, ...`` of ``pass_rows(H)`` rows."""
+    return max(1, min(n_sm, padded_rows(n_rows, H) // pass_rows(H)))
 
 
 class DwItem(NamedTuple):
@@ -356,33 +498,57 @@ class DwItem(NamedTuple):
     chunks: int
 
 
-def _matrix_items(x: str, x_imgs: int, y: str, y_imgs: int, n: int) -> list:
-    """A weight's items: one product per X image (its 64 input units), two
-    an item; an odd one out is taken by both warpgroups, and the host reads
-    the first copy."""
-    return [(x, x_imgs, (2 * p, min(2 * p + 1, x_imgs - 1)), y, y_imgs, (0, 0), n)
-            for p in range(-(-x_imgs // 2))]
+def _col_groups(y_imgs: int) -> List[Tuple[int, int]]:
+    """A matrix's dY images in groups a product takes at once → (first
+    image, n), n in 256, 128, 64."""
+    out, y0 = [], 0
+    while y0 < y_imgs:
+        k = 4 if y_imgs - y0 >= 4 else 2 if y_imgs - y0 >= 2 else 1
+        out.append((y0, 64 * k))
+        y0 += k
+    return out
 
 
-def dw_items(M: int, H: int, n_hidden: int, n_tiles: int, n_sm: int,
-             heads: bool = True) -> List[DwItem]:
+def _matrix_items(x: str, x_imgs: int, y: str, y_imgs: int) -> list:
+    """A weight's items: per pair of X images (128 input units: one a
+    warpgroup; an odd one out is taken by both, and the host reads the first
+    copy) one item per group of its dY images."""
+    return [(x, x_imgs, (2 * p, min(2 * p + 1, x_imgs - 1)), y, y_imgs, (y0, y0), n)
+            for p in range(-(-x_imgs // 2)) for y0, n in _col_groups(y_imgs)]
+
+
+def _head_items(H: int) -> list:
+    """The heads' items: first layer (X = the heads' input), second, output;
+    one head a warpgroup, or at H / 4 = 128 one item a head."""
+    k = head_imgs(H)
+    if k == 1:
+        return [("xs", 1, (0, 0), "g1", 2, (0, 1), 64), ("hid1", 2, (0, 1), "g2", 2, (0, 1), 64),
+                ("hid2", 2, (0, 1), "gout", 2, (0, 1), 64)]
+    return [("xs", 1, (0, 0), "g1", 2 * k, (0, k), 64 * k),
+            ("hid1", 2 * k, (0, 1), "g2", 2 * k, (0, 0), 64 * k),
+            ("hid1", 2 * k, (2, 3), "g2", 2 * k, (k, k), 64 * k),
+            ("hid2", 2 * k, (0, 1), "gout", 2, (0, 0), 64),
+            ("hid2", 2 * k, (2, 3), "gout", 2, (1, 1), 64)]
+
+
+def dw_items(H: int, n_hidden: int, n_kb: int, n_tiles: int, n_sm: int, heads: bool = True,
+             out: int = 0) -> List[DwItem]:
     """The weight-gradient kernel's products, in the order of their outputs:
-    per trunk matrix its items (128 input rows each, all H output columns),
-    the trunk output's, then with the heads their three layers (rgb on
-    warpgroup 0, semantics on 1). The pass is bound by device memory, so an
-    item gets row chunks (blocks) in proportion to the images it reads per
-    row tile, ``n_sm`` blocks in all."""
+    per trunk matrix its items, the trunk output's, then with the heads
+    theirs. The pass is bound by device memory, so an item gets row chunks
+    (blocks) in proportion to the images it reads per row tile, ``n_sm``
+    blocks in all."""
+    hi = H // 64
     plan = []
     for l in range(n_hidden):
-        x, x_imgs = ("enc", 2 * M // 64) if l == 0 else (f"h{l - 1}", H // 64)
-        plan += _matrix_items(x, x_imgs, f"gh{l}", H // 64, H)
-    plan += _matrix_items(f"h{n_hidden - 1}", H // 64, "gt", 1, 64)
+        x, x_imgs = ("enc", n_kb) if l == 0 else (f"h{l - 1}", hi)
+        plan += _matrix_items(x, x_imgs, f"gh{l}", hi)
+    plan += _matrix_items(f"h{n_hidden - 1}", hi, "gt", 1 if heads else gt_blocks(out))
     if heads:
-        plan += [("xs", 1, (0, 0), "g1", 2, (0, 1), 64), ("hid1", 2, (0, 1), "g2", 2, (0, 1), 64),
-                 ("hid2", 2, (0, 1), "gout", 2, (0, 1), 64)]
+        plan += _head_items(H)
 
     def images(p):  # read per row tile
-        return len(set(p[2])) + (p[6] // 64 if p[5][0] == p[5][1] else 2)
+        return len(set(p[2])) + p[6] // 64 * len(set(p[5]))
 
     total = sum(images(p) for p in plan)
     return [DwItem(*p, chunks=max(1, min(n_tiles, n_sm * images(p) // total))) for p in plan]
@@ -400,10 +566,10 @@ class DwPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def dw_plan(M: int, H: int, n_hidden: int, n_tiles: int, n_sm: int,
-            heads: bool = True) -> DwPlan:
+def dw_plan(H: int, n_hidden: int, n_kb: int, n_tiles: int, n_sm: int, heads: bool = True,
+            out: int = 0) -> DwPlan:
     rows, block, p_off, out_off = [], 0, 0, 0
-    for it in dw_items(M, H, n_hidden, n_tiles, n_sm, heads):
+    for it in dw_items(H, n_hidden, n_kb, n_tiles, n_sm, heads, out):
         chunk_tiles = -(-n_tiles // it.chunks)
         chunks = -(-n_tiles // chunk_tiles)  # no chunk is empty
         rows.append((it, chunks, chunk_tiles, block, p_off, out_off))
@@ -416,25 +582,43 @@ def dw_plan(M: int, H: int, n_hidden: int, n_tiles: int, n_sm: int,
 
 def matrix_grads(plan: DwPlan, out, shapes: Sequence[Tuple[int, int]]):
     """The trunk's weight gradients from the reduced sums ``out`` (the
-    ``[2, 64, n]`` block of each item, end to end): the items of a matrix
-    are adjacent and stack into its rows → one ``[in, out]`` view per shape,
+    ``[2, 64, n]`` block of each item, end to end): a matrix's items are
+    adjacent, per 128 input rows one per group of output columns → one
+    ``[in, out]`` tensor per shape (a view where the matrix is one group),
     the trunk's matrices in order (the heads' items follow them)."""
+    import torch
+
     grads, i = [], 0
     for rows, cols in shapes:
-        it, *_, off = plan.items[i]
-        k = -(-rows // 128)
-        grads.append(out[off: off + k * 128 * it.n].view(k * 128, it.n)[:rows, :cols])
-        i += k
+        pairs = []
+        for _ in range(-(-rows // 128)):
+            blocks = []
+            while True:
+                it, *_, off = plan.items[i]
+                blocks.append(out[off: off + 128 * it.n].view(128, it.n))
+                i += 1
+                if i == len(plan.items) or plan.items[i][0].x_img != it.x_img or \
+                        plan.items[i][0].x != it.x:
+                    break
+            pairs.append(blocks)
+        if all(len(b) == 1 for b in pairs):
+            first = plan.items[i - len(pairs)]
+            off, n = first[5], first[0].n
+            g = out[off: off + len(pairs) * 128 * n].view(len(pairs) * 128, n)
+        else:
+            g = torch.cat([torch.cat(b, dim=1) for b in pairs], dim=0)
+        grads.append(g[:rows, :cols])
     return grads, i
 
 
-_WIDTHS_TEXT = (f"M in {M_SET}, H in {H_SET}, heads H / 4, 2 or 3 hidden layers, "
-                f"geo 1..{MAX_GEO}, classes 1..{MAX_CLASSES}")
+_WIDTHS_TEXT = (f"instances H in {H_SET}: H 4..512 with heads H // 4, any number of "
+                f"frequencies, 2 or 3 hidden layers, geo 1..{MAX_GEO}, classes 1..{MAX_CLASSES}")
 
 
 def check_widths(who: str, shapes: Sequence[Tuple[int, ...]]):
     """Raise unless the leaves' shapes are a field these kernels take →
-    (M, H, n_hidden, G, C)."""
+    (m, h, n_hidden, G, C): the field's own widths (it runs on the instance
+    ``instance(h)``, zero-padded)."""
     if len(shapes) % 2 or len(shapes) < 2 + 12:
         raise ValueError(f"{who}: W, phase, then (w, b) pairs")
     n_trunk = (len(shapes) - 2 - 12) // 2
@@ -449,7 +633,7 @@ def check_widths(who: str, shapes: Sequence[Tuple[int, ...]]):
     hh = shapes[first][1] if len(shapes[first]) == 2 else -1
     C = shapes[first + 10][1] if len(shapes[first + 10]) == 2 else -1
     G = out_t - 1
-    if (m not in M_SET or h not in H_SET or hh != head_width(h) or not 1 <= G <= MAX_GEO
+    if (m < 1 or not 4 <= h <= max(H_SET) or hh != head_width(h) or not 1 <= G <= MAX_GEO
             or not 1 <= C <= MAX_CLASSES):
         raise ValueError(
             f"{who}: unsupported widths M={m} H={h} head={hh} geo={G} classes={C} (the "
@@ -463,30 +647,24 @@ def check_widths(who: str, shapes: Sequence[Tuple[int, ...]]):
 
 def check_trunk(who: str, shapes: Sequence[Tuple[int, ...]], m: int = 0):
     """Raise unless the (w, b) pairs' shapes are a trunk the tile takes: the
-    encode of ``m`` frequencies (a multiple of 8 up to ``max(M_SET)``, the
-    input 2m wide) or, with ``m = 0``, an input x at most ``MAX_DIN`` wide,
-    a multiple of 16; H a multiple of 16 up to ``max(H_SET)``; 2 or 3 hidden
-    layers; an output of at most 16 → (din, M, H of the instance it runs on,
-    n_hidden, out). The instance is the smallest (M, H) of the tile that
-    covers the input and the width: a trunk between two is zero-padded up
-    to it (``field_train.pad_trunk``)."""
+    encode of ``m`` >= 1 frequencies (the input 2m wide) or, with ``m = 0``,
+    an input x whose width is a multiple of 16; H from 1 to 512; 2 or 3
+    hidden layers; any output width → (din, h, n_hidden, out), the trunk's
+    own widths (it runs on the instance ``instance(h)``, zero-padded)."""
     if len(shapes) % 2 or len(shapes) // 2 not in (3, 4):
         raise ValueError(f"{who}: the trunk needs 2 or 3 hidden layers, as (w, b) pairs")
     n_hidden = len(shapes) // 2 - 1
     din = shapes[0][0] if len(shapes[0]) == 2 else -1
     h = shapes[0][1] if len(shapes[0]) == 2 else -1
     out = shapes[-2][1] if len(shapes[-2]) == 2 else -1
-    ok_in = (din == 2 * m and m % 8 == 0 and 0 < m <= max(M_SET) if m
-             else 0 < din <= MAX_DIN and din % 16 == 0)
-    if not ok_in or not (0 < h <= max(H_SET) and h % 16 == 0) or not 1 <= out <= T_OUT:
+    ok_in = din == 2 * m and m >= 1 if m else din > 0 and din % 16 == 0
+    if not ok_in or not 1 <= h <= max(H_SET) or out < 1:
         raise ValueError(
             f"{who}: unsupported trunk widths in={din} H={h} out={out} (the tile takes the "
-            f"encode of a multiple of 8 up to {max(M_SET)} frequencies or an input that is a "
-            f"multiple of 16 up to {MAX_DIN}, H a multiple of 16 up to {max(H_SET)}, an output "
-            f"of 1..{T_OUT})")
+            f"encode of any number of frequencies or an input that is a multiple of 16 wide, "
+            f"H 1..{max(H_SET)} on the instances H in {H_SET}, any output width)")
     want = trunk_layout(din, h, n_hidden, out).shapes
     for i, (got, exp) in enumerate(zip(shapes, want)):
         if tuple(got) != tuple(exp):
             raise ValueError(f"{who}: leaf {i} has shape {tuple(got)}, expected {tuple(exp)}")
-    M = min(x for x in M_SET if 2 * x >= din)
-    return din, M, min(x for x in H_SET if x >= h), n_hidden, out
+    return din, h, n_hidden, out

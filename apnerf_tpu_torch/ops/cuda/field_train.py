@@ -10,28 +10,34 @@ with their fixed-order reductions. ``FieldTrainCall`` owns the scratch
 buffers and the argument struct of such a call and runs everything but
 the middle kernel.
 
-The trunk kernels' backwards (``fused_mlp.py``: ``fused_spectral_field_bwd``
-and ``fused_mlp_apply_bwd``) are the same launches without the heads and
-without a middle kernel: ``TrunkTrainCall`` runs the forward over the
-encode (or the input x) and the trunk's hidden layers with their
+The trunk kernels (``fused_mlp.py``: ``fused_spectral_field`` and
+``fused_mlp_apply``) run on the same tile without the heads. ``TrunkCall``
+checks a trunk and repacks it, zero-padded to its instance, for both
+directions: ``TrunkForwardCall`` launches the forward without saves, with
+the trunk's output layer; ``TrunkTrainCall`` runs the backwards
+(``fused_spectral_field_bwd``, ``fused_mlp_apply_bwd``): the forward over
+the encode (or the input x) and the trunk's hidden layers with their
 activations saved, the backward from the cotangent of the trunk's output
-down to the encode (or to dx), and the weight gradients of the bare trunk.
+down to the encode (or to dx), and the weight gradients of the bare trunk,
+without a middle kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import build, field_images
-from .fused_field_heads import prepare_field, repack, sm_count
+from .fused_field_heads import _FfhArgs, prepare_field, repack, sm_count
 from .launch import check_tensor, launcher
 
 _p = ctypes.c_void_p
 _i, _ll = ctypes.c_int, ctypes.c_longlong
-_MAX_ITEMS = 16  # the length of DwArgs::items in csrc/fused_field_volrend.cu
+_MAX_ITEMS = 32  # the length of DwArgs::items in csrc/fused_field_volrend.cu
 
 
 class _FvrArgs(ctypes.Structure):
@@ -50,8 +56,9 @@ class _FvrArgs(ctypes.Structure):
         + [("gh", _p * 3)]
         + [(n, _p) for n in ("tile_part", "w", "lossrows", "g_acc", "g_w", "g_packed", "du",
                              "x", "g_trunk", "dx")]
-        + [(n, _i) for n in ("n_rows", "n_rays", "n_samples", "tile_m", "tile_h", "n_hidden", "geo",
-                             "n_classes", "c_pad", "heads", "x_f32", "din", "out")]
+        + [(n, _i) for n in ("n_rows", "n_rays", "n_samples", "tile_h", "n_hidden", "geo",
+                             "n_classes", "c_pad", "heads", "x_f32", "din", "out", "n_freq",
+                             "n_kb")]
         + [(n, ctypes.c_float) for n in ("c_rgb", "c_dep", "c_sem")]
     )
 
@@ -73,31 +80,40 @@ class _DwArgs(ctypes.Structure):
 
 class _TileCall:
     """The scratch buffers, the argument struct ``a`` and the launches that
-    a differentiating call over ``N`` rows of the tile's instance (M, H)
-    shares; the subclasses fill in what their kernels read."""
+    a differentiating call over ``N`` rows of the tile's instance H shares;
+    the subclasses fill in what their kernels read."""
 
-    def _setup(self, who: str, dev, N: int, M: int, H: int, n_hidden: int, heads: bool,
-               weights: Tuple[int, int, int, int, int], sizes: Dict[str, int]):
+    def _setup(self, who: str, dev, N: int, H: int, n_hidden: int, heads: bool, n_kb: int,
+               n_freq: int, out: int, weights: Tuple[int, int, int, int, int],
+               sizes: Dict[str, int]):
         """``weights``: the W, phase, forward-slab, backward-slab and bias
         pointers; ``sizes``: the caller's own scratch buffers (bytes)."""
-        self.dev, self.N, self.M, self.H, self.nh = dev, N, M, H, n_hidden
+        self.dev, self.N, self.H, self.nh, self.n_kb = dev, N, H, n_hidden, n_kb
         self.lib = build.library()
         self.run = launcher(who, dev)
-        self.Np = Np = field_images.padded_rows(N)
+        self.Np = Np = field_images.padded_rows(N, H)
         self.n_tiles = T = Np // field_images.TILE_ROWS
-        self.grid = field_images.field_grid(N, sm_count(dev))
-        self.n_bias = field_images.n_bias(M, H, n_hidden)
+        self.grid = field_images.field_grid(N, sm_count(dev), H)
+        self.tpad = field_images.t_pad(heads, out)
+        n_gt = 1 if heads else field_images.gt_blocks(out)
+        self.mp = (field_images.BLOCK_FREQS
+                   * field_images.back_blocks(field_images.pair_blocks(n_freq), n_gt)
+                   if n_freq else 0)
+        self.n_bias = field_images.n_bias(H, n_hidden, self.tpad, self.mp)
         self.a = a = _FvrArgs()
         a.W, a.phase, a.wfwd, a.wbwd, a.bias = weights
-        a.n_rows, a.tile_m, a.tile_h, a.n_hidden, a.heads = N, M, H, n_hidden, int(heads)
+        a.n_rows, a.tile_h, a.n_hidden, a.heads = N, H, n_hidden, int(heads)
+        a.n_freq, a.n_kb, a.out = n_freq, n_kb, out
         self.ref = ctypes.addressof(a)
         # every scratch buffer of the call is a slice of one allocation (bytes)
         img = field_images.IMG_BYTES
-        sizes = dict(sizes, enc=T * 2 * M // 64 * img, gt=T * img, tile_part=T * self.n_bias * 4)
+        mask = Np * 32 * field_images.split(H)
+        sizes = dict(sizes, enc=T * n_kb * img, gt=T * self.tpad // 64 * img if not heads
+                     else T * img, tile_part=T * self.n_bias * 4)
         for l in range(n_hidden):
             sizes.update({f"h{l}": T * H // 64 * img, f"gh{l}": T * H // 64 * img,
-                          f"mask_t{l}": Np * 32})
-        self._dw = field_images.dw_plan(M, H, n_hidden, T, sm_count(dev), heads)
+                          f"mask_t{l}": mask})
+        self._dw = field_images.dw_plan(H, n_hidden, n_kb, T, sm_count(dev), heads, out)
         sizes["dw_partials"] = self._dw.partial_floats * 4
         self.ptr, total = {}, 0
         for name, size in sizes.items():
@@ -125,21 +141,25 @@ class _TileCall:
         self.run(self.lib.apnerf_fvr_field_fwd, self.ref, self.grid)
 
     def _weight_grads(self, out: torch.Tensor):
-        """dW = Xᵀ·dY of every weight in one launch and its fixed-order
-        reduction into ``out``."""
-        plan = self._dw
-        d = _DwArgs()
-        for e, (it, chunks, chunk_tiles, block, p_off, out_off) in zip(d.items, plan.items):
-            e.x, e.y = self.ptr[it.x], self.ptr[it.y]
-            e.x_imgs, e.y_imgs, e.n = it.x_imgs, it.y_imgs, it.n
-            e.x_img[0], e.x_img[1] = it.x_img
-            e.y_img[0], e.y_img[1] = it.y_img
-            e.chunks, e.chunk_tiles = chunks, chunk_tiles
-            e.first_block, e.p_off, e.out_off = block, p_off, out_off
-        d.n_items, d.n_tiles, d.P, d.out, d.out_total = (
-            len(plan.items), self.n_tiles, self.ptr["dw_partials"], out.data_ptr(),
-            plan.out_floats)
-        self.run(self.lib.apnerf_dw, ctypes.addressof(d), plan.n_blocks)
+        """dW = Xᵀ·dY of every weight and its fixed-order reduction into
+        ``out``: one launch per ``_MAX_ITEMS`` items."""
+        items = self._dw.items
+        for g0 in range(0, len(items), _MAX_ITEMS):
+            group = items[g0: g0 + _MAX_ITEMS]
+            block0, out0 = group[0][3], group[0][5]
+            d = _DwArgs()
+            for e, (it, chunks, chunk_tiles, block, p_off, out_off) in zip(d.items, group):
+                e.x, e.y = self.ptr[it.x], self.ptr[it.y]
+                e.x_imgs, e.y_imgs, e.n = it.x_imgs, it.y_imgs, it.n
+                e.x_img[0], e.x_img[1] = it.x_img
+                e.y_img[0], e.y_img[1] = it.y_img
+                e.chunks, e.chunk_tiles = chunks, chunk_tiles
+                e.first_block, e.p_off, e.out_off = block - block0, p_off, out_off - out0
+            it, chunks, _, block, _, out_off = group[-1]
+            d.n_items, d.n_tiles, d.P = len(group), self.n_tiles, self.ptr["dw_partials"]
+            d.out = out.data_ptr() + 4 * out0
+            d.out_total = out_off + 2 * field_images.TILE_ROWS * it.n - out0
+            self.run(self.lib.apnerf_dw, ctypes.addressof(d), block + chunks - block0)
 
     def _backward(self, extra: int):
         """The field backward, the weight gradients and the tile partials'
@@ -155,23 +175,39 @@ class _TileCall:
                  self.n_bias, gb.data_ptr())
         return out, gb, res[n_dw + self.n_bias:]
 
-    def _trunk_grads(self, out, gb, din: int, out_t: int):
-        """The trunk's [dw0, db0, dw1, ...] from the reduced sums → (that
+    def _trunk_grads(self, out, gb, rows: Optional[torch.Tensor], din: int, h: int,
+                     out_t: int):
+        """The trunk's [dw0, db0, dw1, ...] (its own widths: input din, width
+        h, output out_t) from the reduced sums; ``rows`` picks w0's rows out of
+        the kernels' first-layer order (None: they are in order) → (that
         list, the index of the first item past the trunk's)."""
         H, nh = self.H, self.nh
-        shapes = [(din, H)] + [(H, H)] * (nh - 1) + [(H, out_t)]
+        kin = 64 * self.n_kb
+        shapes = [(kin, h)] + [(h, h)] * (nh - 1) + [(h, out_t)]
         dws, n_items = field_images.matrix_grads(self._dw, out, shapes)
-        dbs = [gb[l * H: (l + 1) * H] for l in range(nh)] + [gb[nh * H: nh * H + out_t]]
+        dws[0] = dws[0][:din] if rows is None else dws[0].index_select(0, rows)
+        dbs = [gb[l * H: l * H + h] for l in range(nh)] + [gb[nh * H: nh * H + out_t]]
         grads = []
         for dw, db in zip(dws, dbs):
             grads += [dw if dw.is_contiguous() else dw.contiguous(), db]
         return grads, n_items
 
-    def _spectrum_grads(self, gb):
-        """(dW_spec [3, M], dphase [M]) from the bias row."""
-        M, H = self.M, self.H
-        off_dph = self.nh * H + field_images.T_OUT + 4 * field_images.head_width(H)
-        return gb[off_dph + M: off_dph + 4 * M].view(3, M), gb[off_dph: off_dph + M]
+    def _spectrum_grads(self, gb, m: int):
+        """(dW_spec [3, m], dphase [m]) from the bias row."""
+        off_dph, mp = self.nh * self.H + self.tpad + self.H, self.mp
+        return gb[off_dph + mp: off_dph + 4 * mp].view(3, mp)[:, :m].contiguous(), \
+            gb[off_dph: off_dph + m]
+
+
+@functools.lru_cache(maxsize=None)
+def _enc_rows(dev: torch.device, m: int) -> torch.Tensor:
+    """For each row of w0 ([cos of m | sin of m]) the kernels' encoding
+    column that multiplies it (``field_images.enc_rows`` inverted)."""
+    cols = field_images.enc_rows(m)
+    inv = np.empty(2 * m, dtype=np.int64)
+    ok = cols >= 0
+    inv[cols[ok]] = np.nonzero(ok)[0]
+    return torch.from_numpy(inv).to(dev)
 
 
 class FieldTrainCall(_TileCall):
@@ -193,18 +229,21 @@ class FieldTrainCall(_TileCall):
         check_tensor(who, sh, "sh", f32, (R, 16), dev)
         self.R = R
         self.fld = fld = prepare_field(who, leaves, dev)
-        C = fld.C
+        C, H = fld.C, fld.H
         self.cpad = cpad = -(-C // 16) * 16
-        Np, T = field_images.padded_rows(N), field_images.padded_rows(N) // field_images.TILE_ROWS
+        Np = field_images.padded_rows(N, H)
+        T = Np // field_images.TILE_ROWS
         img = field_images.IMG_BYTES
+        hi = field_images.head_imgs(H)
         w = fld.weights
-        self._setup(who, dev, N, fld.M, fld.H, fld.n_hidden, True,
+        self._setup(who, dev, N, H, fld.n_hidden, True, fld.n_kb, fld.m, 0,
                     (w.W, w.phase, w.wfwd, w.wbwd, w.bias), {
-                        "xs": T * img, "hid1": T * 2 * img, "hid2": T * 2 * img,
-                        "mask_h": Np * 32, "sigma": N * 4, "dsd": N * 4, "rgb": N * 12,
-                        "sem": N * C * 4, "graw": N * 4, "gout_rgb": Np * 32,
-                        "gout_sem": Np * cpad * 2, "ray_part": R * (16 + cpad) * 4,
-                        "gout": T * 2 * img, "g2": T * 2 * img, "g1": T * 2 * img})
+                        "xs": T * img, "hid1": T * 2 * hi * img, "hid2": T * 2 * hi * img,
+                        "mask_h": Np * 32 * field_images.split(H), "sigma": N * 4,
+                        "dsd": N * 4, "rgb": N * 12, "sem": N * C * 4, "graw": N * 4,
+                        "gout_rgb": Np * 32, "gout_sem": Np * cpad * 2,
+                        "ray_part": R * (16 + cpad) * 4, "gout": T * 2 * img,
+                        "g2": T * 2 * hi * img, "g1": T * 2 * hi * img})
         self.du = torch.empty((N, 3), dtype=f32, device=dev) if need_du else None
         a = self.a
         a.u, a.sh = u.data_ptr(), sh.data_ptr()
@@ -216,125 +255,135 @@ class FieldTrainCall(_TileCall):
         """The field backward from ``graw``, ``gout_rgb``, ``gout_sem`` and
         ``ray_part`` → (one gradient per leaf, in the leaves' order; du
         [N, 3] or None)."""
-        fld, cpad = self.fld, self.cpad
-        G, hh, C = fld.G, fld.hh, fld.C
+        cpad = self.cpad
         out, gb, gr = self._backward(16 + cpad)
         self.run(self.lib.apnerf_col_sums, self.ptr["ray_part"], self.R, 16 + cpad, 16 + cpad,
                  gr.data_ptr())
-        trunk, i = self._trunk_grads(out, gb, 2 * fld.M, fld.out_t)
-        # the heads' items: rgb on warpgroup 0, semantics on 1, [2, 64, 64] each
-        l1, l2, l3 = (out[row[5]: row[5] + 2 * 64 * 64].view(2, 64, 64)
-                      for row in self._dw.items[i:])
-        dws = [l1[0, : 16 + G, :hh], l2[0, :hh, :hh], l3[0, :hh, :3],
-               l1[1, 16: 16 + G, :hh], l2[1, :hh, :hh], l3[1, :hh, :C]]
-        off_r1 = fld.n_hidden * fld.H + 16
-        off_s1 = off_r1 + 2 * hh
-        dbs = [gb[off_r1: off_r1 + hh], gb[off_r1 + hh: off_r1 + 2 * hh], gr[:3],
-               gb[off_s1: off_s1 + hh], gb[off_s1 + hh: off_s1 + 2 * hh], gr[16: 16 + C]]
-        grads = list(self._spectrum_grads(gb)) + trunk
+        return self._field_grads(out, gb, gr), self.du
+
+    def _field_grads(self, out, gb, gr) -> List[torch.Tensor]:
+        """One gradient per leaf from the reduced dW blocks ``out``, the
+        bias row ``gb`` and the per-ray sums ``gr`` of the output layers'
+        cotangents (rgb 16 columns, then the semantics)."""
+        fld = self.fld
+        G, hh, C = fld.G, fld.hh, fld.C
+        trunk, i = self._trunk_grads(out, gb, _enc_rows(self.dev, fld.m), 2 * fld.m, fld.h,
+                                     fld.out_t)
+        # the heads' items: [2, 64, n] blocks; one head a warpgroup, or at
+        # H / 4 = 128 one item a head, its 128 input rows over both warpgroups
+        blocks = [out[row[5]: row[5] + 2 * 64 * row[0].n].view(2, 64, row[0].n)
+                  for row in self._dw.items[i:]]
+        if len(blocks) == 3:
+            l1, l2, l3 = blocks
+            rgb = [l1[0], l2[0], l3[0]]
+            sem = [l1[1], l2[1], l3[1]]
+        else:
+            l1, l2r, l2s, l3r, l3s = blocks
+            rgb = [l1[0], l2r.reshape(128, -1), l3r.reshape(128, -1)]
+            sem = [l1[1], l2s.reshape(128, -1), l3s.reshape(128, -1)]
+        dws = [rgb[0][: 16 + G, :hh], rgb[1][:hh, :hh], rgb[2][:hh, :3],
+               sem[0][16: 16 + G, :hh], sem[1][:hh, :hh], sem[2][:hh, :C]]
+        H, hH = fld.H, field_images.head_width(fld.H)
+        off_r1 = fld.n_hidden * H + 16
+        off_s1 = off_r1 + 2 * hH
+        dbs = [gb[off_r1: off_r1 + hh], gb[off_r1 + hH: off_r1 + hH + hh], gr[:3],
+               gb[off_s1: off_s1 + hh], gb[off_s1 + hH: off_s1 + hH + hh], gr[16: 16 + C]]
+        grads = list(self._spectrum_grads(gb, fld.m)) + trunk
         for dw, db in zip(dws, dbs):
             grads += [dw.contiguous(), db]
-        return grads, self.du
+        return grads
 
 
-def pad_trunk(flat: Sequence[torch.Tensor], W: Optional[torch.Tensor],
-              phase: Optional[torch.Tensor], M: int, H: int):
-    """A trunk (its w0, b0, w1, ... ``flat``, and the encode's ``W``,
-    ``phase``, or None for an input x) zero-padded to the tile's instance
-    (M, H): the encode's frequencies up to M (W and phase zero there, and
-    with them the first layer's rows for their cos and sin), the width up
-    to H (zero weights and biases: those units stay zero through every
-    ReLU). The output and the gradients of the true entries are those of
-    the trunk itself → (flat, W, phase)."""
-    n = len(flat) // 2
+class TrunkCall:
+    """A trunk kernel's checked inputs on the tile: the trunk's (w, b) pairs
+    ``layers`` and either the encode (``W`` [3, m], ``phase``, ``u``) or the
+    input ``x`` [N, din] (bf16 or f32), over N rows, on the instance
+    ``field_images.instance(h)``. Its weights are repacked into tile images
+    zero-padded to that instance (``field_images.trunk_index_tables``), so
+    the forward and the backward take one set of widths
+    (``field_images.check_trunk``)."""
 
-    def grow(t, shape):
-        z = t.new_zeros(shape)
-        z[tuple(slice(0, k) for k in t.shape)] = t
-        return z
-
-    out = []
-    for l in range(n):
-        w, b = flat[2 * l], flat[2 * l + 1]
-        w = grow(w, (w.shape[0] if l == 0 else H, w.shape[1] if l == n - 1 else H))
-        if l == 0 and W is not None:  # rows [cos of m, sin of m] → [cos of M, sin of M]
-            m = W.shape[1]
-            z = w.new_zeros((M - m, H))
-            w = torch.cat([w[:m], z, w[m:], z])
-        out += [w, b if l == n - 1 else grow(b, (H,))]
-    if W is not None:
-        W, phase = grow(W, (3, M)), grow(phase, (M,))
-    return out, W, phase
-
-
-def unpad_trunk_grads(grads: List[torch.Tensor], spectrum, m: int, M: int, h: int):
-    """The gradients of a trunk padded by ``pad_trunk`` (to M frequencies
-    from m, 0 for an input x, and to a width from h) → those of the trunk
-    itself: (grads, (dW_spec, dphase) or None)."""
-    n = len(grads) // 2
-    out = []
-    for l in range(n):
-        dw, db = grads[2 * l], grads[2 * l + 1]
-        if l == 0 and m:
-            dw = torch.cat([dw[:m], dw[M: M + m]])
-        dw = dw[:, :h] if l == 0 else dw[:h] if l == n - 1 else dw[:h, :h]
-        out += [dw.contiguous(), db if l == n - 1 else db[:h]]
-    if spectrum is not None:
-        spectrum = (spectrum[0][:, :m].contiguous(), spectrum[1][:m])
-    return out, spectrum
+    def _check(self, who: str, layers, W, phase, u, x):
+        dev = (u if x is None else x).device
+        self.encode = encode = x is None
+        flat = [t for pair in layers for t in pair]
+        self.m = m = W.shape[1] if encode else 0
+        din, h, nh, out = field_images.check_trunk(who, [tuple(t.shape) for t in flat], m)
+        for i, (t, shape) in enumerate(zip(flat, field_images.trunk_layout(din, h, nh,
+                                                                           out).shapes)):
+            check_tensor(who, t, f"leaf {i}", torch.float32, shape, dev)
+        N = (u if encode else x).shape[0]
+        if encode:
+            check_tensor(who, u, "u", torch.float32, (N, 3), dev)
+            check_tensor(who, W, "W", torch.float32, (3, m), dev)
+            check_tensor(who, phase, "phase", torch.float32, (m,), dev)
+        else:
+            if x.dtype not in (torch.bfloat16, torch.float32):
+                raise ValueError(f"{who}: x must be bf16 or f32, got {x.dtype}")
+            check_tensor(who, x, "x", x.dtype, (N, din), dev)
+            if x.data_ptr() % 16:
+                raise ValueError(f"{who}: x must be 16-byte aligned")
+        self.dev, self.N, self.din, self.h, self.nh, self.out_t = dev, N, din, h, nh, out
+        self.H = field_images.instance(h)
+        self.n_kb = field_images.enc_blocks(m) if encode else field_images.x_blocks(din)
+        self.images = repack(flat, dev, ("trunk", din, m, h, nh, out))
+        self.W, self.phase = W, phase
 
 
-class TrunkTrainCall(_TileCall):
+class TrunkForwardCall(TrunkCall):
+    """The forward of a trunk kernel (``fused_spectral_field``,
+    ``fused_mlp_apply``) over N rows on the tile: ``run()`` → y [N, out] f32."""
+
+    def __init__(self, who: str, layers, W=None, phase=None, u=None, x=None):
+        self._check(who, layers, W, phase, u, x)
+        self.who, self.u, self.x = who, u, x
+
+    def run(self) -> torch.Tensor:
+        y = torch.empty((self.N, self.out_t), dtype=torch.float32, device=self.dev)
+        if self.N == 0:
+            return y
+        lib = build.library()
+        a = _FfhArgs()
+        p = a.p
+        if self.encode:
+            a.u, p.W, p.phase = self.u.data_ptr(), self.W.data_ptr(), self.phase.data_ptr()
+        else:
+            a.x, a.x_f32 = self.x.data_ptr(), int(self.x.dtype == torch.float32)
+        p.wfwd, p.wbwd, p.bias = (t.data_ptr() for t in self.images)
+        p.tile_h, p.n_hidden, p.n_freq, p.n_kb, p.out = self.H, self.nh, self.m, self.n_kb, \
+            self.out_t
+        a.y, a.n_rows, a.n_samples, a.din = y.data_ptr(), self.N, 1, self.din
+        grid = field_images.field_grid(self.N, sm_count(self.dev), self.H)
+        launcher(self.who, self.dev)(lib.apnerf_trunk_fwd, ctypes.addressof(a), grid)
+        return y
+
+
+class TrunkTrainCall(TrunkCall, _TileCall):
     """The backward of a trunk kernel over ``N`` rows on the tile: the
-    trunk's (w, b) pairs ``layers`` and the cotangent ``g`` [N, out] of its
-    output, and either the encode (``W`` [3, m], ``phase``, ``u``) or the
-    input ``x`` [N, din] (bf16 or f32), on the tile's instance that
-    ``field_images.check_trunk`` names, zero-padded up to it where the
-    trunk lies between two (``pad_trunk``). ``run_all()`` → ([dw0, db0, ...] f32,
-    (dW_spec, dphase) or None, du or None, dx in x's dtype or None)."""
+    trunk's (w, b) pairs ``layers``, the cotangent ``g`` [N, out] of its
+    output, and the encode or the input x as ``TrunkCall`` takes them.
+    ``run_all()`` → ([dw0, db0, ...] f32, (dW_spec, dphase) or None, du or
+    None, dx in x's dtype or None)."""
 
     def __init__(self, who: str, layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                  g: torch.Tensor, W: Optional[torch.Tensor] = None,
                  phase: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None,
                  x: Optional[torch.Tensor] = None, need_du: bool = False,
                  need_dx: bool = False):
-        dev = g.device
-        encode = x is None
-        flat = [t for pair in layers for t in pair]
-        m = W.shape[1] if encode else 0
-        din, M, H, nh, out_t = field_images.check_trunk(who, [tuple(t.shape) for t in flat], m)
-        h = flat[0].shape[1]
-        for i, (t, shape) in enumerate(zip(flat, field_images.trunk_layout(din, h, nh,
-                                                                           out_t).shapes)):
-            check_tensor(who, t, f"leaf {i}", torch.float32, shape, dev)
-        N = (u if encode else x).shape[0]
+        self._check(who, layers, W, phase, u, x)
+        dev, N = self.dev, self.N
         if N == 0:
             raise ValueError(f"{who}: no rows")
-        check_tensor(who, g, "g", torch.float32, (N, out_t), dev)
-        if encode:
-            check_tensor(who, u, "u", torch.float32, (N, 3), dev)
-            check_tensor(who, W, "W", torch.float32, (3, m), dev)
-            check_tensor(who, phase, "phase", torch.float32, (m,), dev)
-        else:
-            check_tensor(who, x, "x", x.dtype, (N, din), dev)
-            if x.dtype not in (torch.bfloat16, torch.float32) or x.data_ptr() % 16:
-                raise ValueError(f"{who}: x must be bf16 or f32 and 16-byte aligned")
-        # a trunk between two instances runs zero-padded to the next one
-        self.padded = (m, M, h) if (H, M) != (h, m or M) else None
-        if self.padded:
-            flat, W, phase = pad_trunk(flat, W, phase, M, H)
-            self.kept = (W, phase)  # the kernels read these copies
-        tile_din = 2 * M if encode else din
-        self.images = repack(flat, dev, ("trunk", tile_din, M, H, nh, out_t))
-        self.din, self.out_t, self.encode = tile_din, out_t, encode
-        self._setup(who, dev, N, M, H, nh, False,
-                    (W.data_ptr() if encode else None, phase.data_ptr() if encode else None,
+        check_tensor(who, g, "g", torch.float32, (N, self.out_t), dev)
+        self._setup(who, dev, N, self.H, self.nh, False, self.n_kb, self.m, self.out_t,
+                    (W.data_ptr() if self.encode else None,
+                     phase.data_ptr() if self.encode else None,
                      *(t.data_ptr() for t in self.images)), {})
         self.du = torch.empty((N, 3), dtype=torch.float32, device=dev) if need_du else None
-        self.dx = torch.empty_like(x) if need_dx and not encode else None
+        self.dx = torch.empty_like(x) if need_dx and not self.encode else None
         a = self.a
-        a.g_trunk, a.out, a.din = g.data_ptr(), out_t, tile_din
-        if encode:
+        a.g_trunk, a.din = g.data_ptr(), self.din
+        if self.encode:
             a.u = u.data_ptr()
             a.du = self.du.data_ptr() if need_du else None
         else:
@@ -344,9 +393,7 @@ class TrunkTrainCall(_TileCall):
     def run_all(self):
         self.field_forward()
         out, gb, _ = self._backward(0)
-        grads, _ = self._trunk_grads(out, gb, self.din, self.out_t)
-        spectrum = self._spectrum_grads(gb) if self.encode else None
-        if self.padded:
-            grads, spectrum = unpad_trunk_grads(grads, spectrum, *self.padded)
+        rows = _enc_rows(self.dev, self.m) if self.encode else None
+        grads, _ = self._trunk_grads(out, gb, rows, self.din, self.h, self.out_t)
+        spectrum = self._spectrum_grads(gb, self.m) if self.encode else None
         return grads, spectrum, self.du, self.dx
-

@@ -76,14 +76,16 @@ class FieldWeightsStruct(ctypes.Structure):
     """Mirrors ``FieldWeights`` in ``csrc/field_tile.cuh`` field by field."""
 
     _fields_ = [("W", _p), ("phase", _p), ("wfwd", _p), ("wbwd", _p), ("bias", _p)] + [
-        (n, ctypes.c_int) for n in ("tile_m", "tile_h", "n_hidden", "geo", "n_classes")]
+        (n, ctypes.c_int) for n in ("tile_h", "n_hidden", "geo", "n_classes", "n_freq", "n_kb",
+                                    "out")]
 
 
 class _FfhArgs(ctypes.Structure):
     """Mirrors ``FfhArgs`` in ``csrc/fused_field_heads.cu`` field by field."""
 
     _fields_ = [("u", _p), ("sh", _p), ("y", _p), ("p", FieldWeightsStruct),
-                ("n_rows", ctypes.c_int), ("n_samples", ctypes.c_int)]
+                ("n_rows", ctypes.c_int), ("n_samples", ctypes.c_int), ("x", _p),
+                ("x_f32", ctypes.c_int), ("din", ctypes.c_int)]
 
 
 class PreparedField(NamedTuple):
@@ -92,26 +94,28 @@ class PreparedField(NamedTuple):
 
     weights: FieldWeightsStruct
     images: Tuple[torch.Tensor, ...]  # forward slabs, backward slabs, biases
-    M: int
-    H: int
+    m: int  # frequencies
+    H: int  # the instance's trunk width
+    h: int  # the field's own trunk width (zero-padded up to H)
     out_t: int  # trunk output width, 1 + G
     G: int
-    hh: int  # head width
+    hh: int  # the field's own head width, h // 4
     C: int
     n_hidden: int  # trunk hidden layers, 2 or 3
+    n_kb: int  # the encoding's k-blocks
 
 
 def prepare_field(who: str, leaves: Sequence[torch.Tensor], dev) -> PreparedField:
     """Check the field's leaves (f32, contiguous, on ``dev``, the widths the
     kernels take: ``field_images.check_widths``) and repack them for the
-    kernels (``field_weights``)."""
-    M, H, n_hidden, G, C = field_images.check_widths(who, [tuple(t.shape) for t in leaves])
-    lay = field_images.leaf_layout(M, H, n_hidden, G, C)
+    kernels, zero-padded to the instance (``field_weights``)."""
+    m, h, n_hidden, G, C = field_images.check_widths(who, [tuple(t.shape) for t in leaves])
+    lay = field_images.leaf_layout(m, h, n_hidden, G, C)
     for i, (t, shape) in enumerate(zip(leaves, lay.shapes)):
         check_tensor(who, t, f"leaf {i}", torch.float32, shape, dev)
-    weights, images = field_weights(leaves, dev, M, H, n_hidden, G, C)
-    return PreparedField(weights, images, M, H, 1 + G, G, field_images.head_width(H), C,
-                         n_hidden)
+    weights, images = field_weights(leaves, dev, m, h, n_hidden, G, C)
+    return PreparedField(weights, images, m, weights.tile_h, h, 1 + G, G,
+                         field_images.head_width(h), C, n_hidden, weights.n_kb)
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,14 +141,16 @@ def repack(leaves, dev, key: tuple):
     return flat16[fwd], flat16[bwd], flat[bias]
 
 
-def field_weights(leaves, dev, M: int, H: int, n_hidden: int, G: int, C: int):
-    """The whole field's leaves repacked (``repack``) → (the kernels'
-    struct, the tensors it points at)."""
-    images = repack(leaves, dev, (M, H, n_hidden, G, C))
+def field_weights(leaves, dev, m: int, h: int, n_hidden: int, G: int, C: int):
+    """The whole field's leaves repacked (``repack``) on the instance
+    ``field_images.instance(h)`` → (the kernels' struct, the tensors it
+    points at)."""
+    images = repack(leaves, dev, (m, h, n_hidden, G, C))
     w = FieldWeightsStruct()
     w.W, w.phase = leaves[0].data_ptr(), leaves[1].data_ptr()
     w.wfwd, w.wbwd, w.bias = (t.data_ptr() for t in images)
-    w.tile_m, w.tile_h, w.n_hidden, w.geo, w.n_classes = M, H, n_hidden, G, C
+    w.tile_h, w.n_hidden, w.geo, w.n_classes = field_images.instance(h), n_hidden, G, C
+    w.n_freq, w.n_kb = m, field_images.enc_blocks(m)
     return w, images
 
 
@@ -160,7 +166,7 @@ def launch_field_rows(lib, fld: PreparedField, u_ptr: int, sh_ptr: int, y_ptr: i
     a = _FfhArgs()
     a.u, a.sh, a.y, a.p = u_ptr, sh_ptr, y_ptr, fld.weights
     a.n_rows, a.n_samples = n_rows, S
-    grid = field_images.field_grid(n_rows, sm_count(fld.images[0].device))
+    grid = field_images.field_grid(n_rows, sm_count(fld.images[0].device), fld.H)
     return lib.apnerf_ffh_fwd(ctypes.addressof(a), grid, stream)
 
 

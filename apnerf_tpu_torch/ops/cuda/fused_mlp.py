@@ -1,5 +1,8 @@
 """Spectral encode + trunk in one CUDA kernel, and the ReLU MLP alone in
-one CUDA kernel (``csrc/fused_mlp.cu``), each with its backward.
+one CUDA kernel, each with its backward: the field's wgmma tile with the
+heads left out (``csrc/field_tile.cuh``; the launches are
+``trunk_fwd_kernel`` of ``csrc/fused_field_heads.cu`` and the field
+forward, backward and weight gradients of ``csrc/fused_field_volrend.cu``).
 
 Port of ``apnerf_tpu/ops/pallas/fused_mlp.py::fused_spectral_field`` and
 ``::fused_mlp_apply``. ``fused_spectral_field`` and ``fused_mlp_apply``
@@ -10,35 +13,33 @@ TPU (``spectral._encode_math``, then ``apply_mlp`` in bf16), which add
 each hidden bias in bf16 after rounding; the kernels, like the Pallas
 kernels, add it in f32 before rounding. The two agree to bf16 precision.
 
-The forwards take any width that is a multiple of 16 (``csrc/fused_mlp.cu``,
-a wmma tile). A call that asks for gradients goes through a
-``torch.autograd.Function`` that keeps its inputs only. The backwards
-(``fused_spectral_field_bwd``, ``fused_mlp_apply_bwd``) run on the field's
-wgmma tile with the heads left out (``field_train.TrunkTrainCall``):
-they recompute the encode (or read x) and the hidden layers with the bf16
-activations saved, go back from the output's cotangent, rounded to bf16,
-through the trunk, and reduce the weight gradients in a fixed order: every
-layer's dW and db, then dW_spec, dphase and du, or dx in x's dtype. They
-take the tile's widths (``field_images.check_trunk``): H a multiple of 16
-up to 256, 2 or 3 hidden layers, an output of at most 16, and the encode
-of a multiple of 8 up to 128 frequencies or an input x a multiple of 16
-up to 256 wide, zero-padded up to the next of the tile's instances (H in
-64, 128, 256; M in 32, 64, 128). A wider trunk, which the forwards take,
-raises on the card. The plain backwards are autograd through the plain
-forwards.
+The forwards (``field_train.TrunkForwardCall``) form the encode (or read
+x, rounding an f32 x to bf16) and the trunk one layer after the other on
+the tile, y = the f32 output layer, 16 of its columns at a time. A call
+that asks for gradients goes through a ``torch.autograd.Function`` that
+keeps its inputs only. The backwards (``fused_spectral_field_bwd``,
+``fused_mlp_apply_bwd``; ``field_train.TrunkTrainCall``) recompute the
+encode (or read x) and the hidden layers with the bf16 activations saved,
+go back from the output's cotangent, rounded to bf16, through the trunk,
+and reduce the weight gradients in a fixed order: every layer's dW and
+db, then dW_spec, dphase and du, or dx in x's dtype. Both directions take
+one set of widths (``field_images.check_trunk``): H from 1 to 512 on the
+instances H in 64, 128, 256, 512 (a trunk between two zero-padded up to
+the next), 2 or 3 hidden layers, any output width, and the encode of any
+number of frequencies or an input x of any width that is a multiple of
+16. A deeper trunk, or one wider than 512, raises on the card before any
+launch. The plain backwards are autograd through the plain forwards.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ...models.nn import MLP, apply_layers, apply_mlp
-from . import build
-from .launch import MAX_SMEM, check_tensor, launcher, needs_grad
+from .launch import check_tensor, needs_grad
 
 
 def encode_plain(W, phase, u, dtype):
@@ -60,77 +61,12 @@ def fused_mlp_apply_plain(params: MLP, x):
     return apply_mlp(params, x, compute_dtype=torch.bfloat16)
 
 
-_p = ctypes.c_void_p
-
-
-class _MlpArgs(ctypes.Structure):
-    """Mirrors ``MlpArgs`` in ``csrc/fused_mlp.cu`` field by field."""
-
-    _fields_ = (
-        [(n, _p) for n in ("u", "W", "phase", "x")]
-        + [("w", _p * 4), ("b", _p * 4), ("y", _p)]
-        + [(n, ctypes.c_int) for n in (
-            "n_rows", "n_rows_pad", "m", "din", "hidden", "n_layers", "out_pad", "out",
-            "x_f32")]
-    )
-
-
-class _Call:
-    """One forward launch over ``N`` rows of an MLP [din, H, ..., H, out]:
-    the checked layers as the kernel reads them (bf16 weights, the last
-    zero-padded to 16 columns, f32 biases) and the argument struct."""
-
-    def __init__(self, who: str, layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                 N: int, din: int, dev, m: int = 0):
-        if len(layers) not in (3, 4):
-            raise ValueError(f"{who}: the MLP needs 2 or 3 hidden layers")
-        H, out = layers[0][0].shape[1], layers[-1][0].shape[1]
-        if H % 16 or din % 16:
-            raise ValueError(f"{who}: widths must be multiples of 16, got {din} and {H}")
-        shapes = [(din, H)] + [(H, H)] * (len(layers) - 2) + [(H, out)]
-        for i, ((w, b), s) in enumerate(zip(layers, shapes)):
-            check_tensor(who, w, f"w{i}", torch.float32, s, dev)
-            check_tensor(who, b, f"b{i}", torch.float32, (s[1],), dev)
-        self.dev, self.N, self.out = dev, N, out
-        out_pad = -(-out // 16) * 16
-        bf16 = torch.bfloat16
-        self.ws = [w.to(bf16).contiguous() for w, _ in layers[:-1]]
-        w_last = torch.zeros((H, out_pad), dtype=bf16, device=dev)
-        w_last[:, :out] = layers[-1][0]
-        b_last = torch.zeros(out_pad, dtype=torch.float32, device=dev)
-        b_last[:out] = layers[-1][1]
-        self.ws.append(w_last)
-        self.bs = [b for _, b in layers[:-1]] + [b_last]
-        self.a = a = _MlpArgs()
-        for i, (w, b) in enumerate(zip(self.ws, self.bs)):
-            a.w[i], a.b[i] = w.data_ptr(), b.data_ptr()
-        a.n_rows, a.n_rows_pad, a.m, a.din, a.hidden = N, -(-N // 64) * 64, m, din, H
-        a.n_layers, a.out_pad, a.out = len(layers), out_pad, out
-        self.ref = ctypes.addressof(a)
-        self.lib = build.library()
-        if self.lib.apnerf_mlp_smem(self.ref) > MAX_SMEM:
-            raise ValueError(f"{who}: the MLP is too wide for shared memory")
-        self.run = launcher(who, dev)
-
-
-def _spectral_call(who, W, phase, layers, u) -> _Call:
-    dev, N, M = u.device, u.shape[0], W.shape[1]
-    check_tensor(who, u, "u", torch.float32, (N, 3), dev)
-    check_tensor(who, W, "W", torch.float32, (3, M), dev)
-    check_tensor(who, phase, "phase", torch.float32, (M,), dev)
-    call = _Call(who, layers, N, 2 * M, dev, m=M)
-    call.a.u, call.a.W, call.a.phase = u.data_ptr(), W.data_ptr(), phase.data_ptr()
-    return call
-
-
 def _launch_spectral_forward(W, phase, layers, u):
-    call = _spectral_call("fused_spectral_field", W, phase, layers, u)
-    y = torch.empty((call.N, call.out), dtype=torch.float32, device=call.dev)
-    if call.N == 0:
-        return y
-    call.a.y = y.data_ptr()
-    call.run(call.lib.apnerf_mlp_fwd, call.ref, 1)
-    fused_spectral_field.launches += 1
+    from .field_train import TrunkForwardCall  # field_train imports this module
+
+    y = TrunkForwardCall("fused_spectral_field", layers, W=W, phase=phase, u=u).run()
+    if u.shape[0]:
+        fused_spectral_field.launches += 1
     return y
 
 
@@ -162,8 +98,8 @@ def fused_spectral_field_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], Optional[torch.Tensor]]:
     """The backward of ``fused_spectral_field`` → (dW_spec [3, M], dphase
     [M], [dw0, db0, dw1, ...] of the trunk, du [N, 3] or None). A CUDA
-    tensor launches the kernels or raises: the tile takes M up to 128 and
-    the trunks of ``field_images.check_trunk``."""
+    tensor launches the kernels or raises: the tile takes the trunks of
+    ``field_images.check_trunk``."""
     who = "fused_spectral_field_bwd"
     if u.device.type == "cpu":
         return fused_spectral_field_bwd_plain(W, phase, layers, u, g, need_du)
@@ -199,8 +135,9 @@ def fused_spectral_field(
     params: MLP,  # w0 [2M, H], hidden [H, H], last [H, Dout]
     u: torch.Tensor,  # [N, 3] f32 unit-cube coords
 ) -> torch.Tensor:
-    """→ [N, Dout] f32. A CUDA tensor launches the kernel or raises.
-    Differentiable in W, phase, the trunk's parameters and u."""
+    """→ [N, Dout] f32. A CUDA tensor launches the kernel or raises (the
+    widths of ``field_images.check_trunk``). Differentiable in W, phase,
+    the trunk's parameters and u."""
     if u.device.type == "cpu":
         return fused_spectral_field_plain(W, phase, params, u)
     if u.device.type != "cuda":
@@ -219,21 +156,14 @@ def _check_x(who, x):
     check_tensor(who, x, "x", x.dtype, x.shape, x.device)
 
 
-def _mlp_call(who, layers, x) -> _Call:
-    _check_x(who, x)
-    call = _Call(who, layers, x.shape[0], x.shape[1], x.device)
-    call.a.x, call.a.x_f32 = x.data_ptr(), int(x.dtype == torch.float32)
-    return call
-
-
 def _launch_mlp_forward(layers, x):
-    call = _mlp_call("fused_mlp_apply", layers, x)
-    y = torch.empty((call.N, call.out), dtype=torch.float32, device=call.dev)
-    if call.N == 0:
-        return y
-    call.a.y = y.data_ptr()
-    call.run(call.lib.apnerf_mlp_fwd, call.ref, 0)
-    fused_mlp_apply.launches += 1
+    from .field_train import TrunkForwardCall  # field_train imports this module
+
+    who = "fused_mlp_apply"
+    _check_x(who, x)
+    y = TrunkForwardCall(who, layers, x=x).run()
+    if x.shape[0]:
+        fused_mlp_apply.launches += 1
     return y
 
 
@@ -257,8 +187,7 @@ def fused_mlp_apply_bwd(
 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
     """The backward of ``fused_mlp_apply`` → ([dw0, db0, dw1, ...] in f32, dx
     [N, Din] in x's dtype or None). A CUDA tensor launches the kernels or
-    raises: the tile takes Din up to 256 and the trunks of
-    ``field_images.check_trunk``."""
+    raises: the tile takes the trunks of ``field_images.check_trunk``."""
     who = "fused_mlp_apply_bwd"
     if x.device.type == "cpu":
         return fused_mlp_apply_bwd_plain(layers, x, g, need_dx)
@@ -291,9 +220,10 @@ class _MlpApply(torch.autograd.Function):
 
 def fused_mlp_apply(params: MLP, x: torch.Tensor) -> torch.Tensor:
     """y = MLP(x) for a ReLU MLP [Din, H, ..., H, Dout] with 2 or 3 hidden
-    layers, Din and H multiples of 16; x [N, Din] in bf16 or f32 (a bf16 x
-    is read as it is), y [N, Dout] f32. A CUDA tensor launches the kernel
-    or raises. Differentiable in the parameters and x (dx in x's dtype)."""
+    layers, Din a multiple of 16, H up to 512; x [N, Din] in bf16 or f32 (a
+    bf16 x is read as it is), y [N, Dout] f32. A CUDA tensor launches the
+    kernel or raises. Differentiable in the parameters and x (dx in x's
+    dtype)."""
     if x.device.type == "cpu":
         return fused_mlp_apply_plain(params, x)
     if x.device.type != "cuda":

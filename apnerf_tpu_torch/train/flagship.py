@@ -163,8 +163,10 @@ def default_route(s_cfg: spectral.SpectralConfig) -> str:
     a field without classes or without viewdirs; ``plain`` for f32 compute
     or another depth, where the JAX package runs its XLA chain. The
     renderers of the mapper take the packed kernels exactly where this is
-    ``lossgrad``. A field at widths the kernels refuse raises from their
-    wrappers: its route is not changed for it."""
+    ``lossgrad``. The kernels take every width up to a 512-wide trunk with
+    heads H // 4, at most 15 geometry features and 64 classes
+    (``ops/cuda/field_images.check_widths``); a field past those raises
+    from their wrappers: its route is not changed for it."""
     if s_cfg.compute_dtype != "bfloat16" or s_cfg.layers not in (2, 3):
         return "plain"
     if s_cfg.use_viewdirs and s_cfg.num_semantic_classes > 0:

@@ -327,7 +327,7 @@ def test_backward_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="must be contiguous"):
         t_ffh.check_tensor("fused_field_heads_bwd", x.T, "g", torch.float32, (16, N), x.device)
     with pytest.raises(ValueError, match="bf16 or f32"):
-        t_fm._mlp_call("fused_mlp_apply", mlp.layers(), x.double())
+        t_fm._launch_mlp_forward(mlp.layers(), x.double())
     with pytest.raises(ValueError, match="unknown trunk route"):
         t_sp.query_density(field, cfg_t, T(pos), trunk="fastest")
     assert no_launches()

@@ -1,11 +1,11 @@
 """Host side of the field's Hopper tile (``apnerf_tpu_torch/ops/cuda/
 field_images.py`` and what ``prepare_field`` builds from it), at each of
-the tile's nine (M, H) instances: the weight repacking into tile images
-against a numpy reference and back, for the whole field and for the trunk
-alone (the trunk kernels' backwards), the shared-memory budgets against
-the ``.cuh`` layouts, the wrappers' refusals, and the launch plans. CPU
-only; the kernels themselves are held against their plain versions on the
-card by ``chip_smoke.py``."""
+the tile's four instances H and at widths between them: the weight
+repacking into tile images against a numpy reference and back, for the
+whole field and for the trunk alone (the trunk kernels, forward and
+backward), the shared-memory budgets against the ``.cuh`` layouts, the
+wrappers' refusals, and the launch plans. CPU only; the kernels themselves
+are held against their plain versions on the card by ``chip_smoke.py``."""
 
 import re
 from pathlib import Path
@@ -21,11 +21,12 @@ from apnerf_tpu_torch.ops.cuda import fused_mlp as t_fm
 
 CSRC = Path(fi.__file__).resolve().parents[2] / "csrc"
 # (M, H, hidden layers, geo, classes): the shipping field at its depths and
-# narrow heads' widths, then every other instance once
+# narrow heads' widths, then every instance and widths between them
 FIELDS = [(128, 256, 3, 15, 29), (128, 256, 2, 15, 29), (128, 256, 3, 7, 5),
           (128, 256, 2, 3, 1)] + [
     (m, h, 2 + (i % 2), (7, 15, 1)[i % 3], (29, 5, 64)[i % 3])
-    for i, (m, h) in enumerate(w for w in fi.WIDTHS if w != (128, 256))]
+    for i, (m, h) in enumerate(((32, 64), (64, 128), (32, 256), (256, 512), (48, 96),
+                                (16, 100), (128, 512), (40, 64)))]
 
 
 def _leaves(shapes, seed=0):
@@ -67,43 +68,68 @@ def _at(w, i, j):
     return w[i, j] if 0 <= i < w.shape[0] and 0 <= j < w.shape[1] else 0.0
 
 
-def _ref_trunk(trunk, M, H, heads):
-    """The trunk's forward and backward images, element by element."""
+def _enc_row(m, r):
+    """The row of w0 that the forward encoding's column r multiplies, or -1:
+    [cos of m | sin of m], zero-padded to whole 64-column blocks."""
+    return r if r < 2 * m else -1
+
+
+def _pair_row(m, r):
+    """The row of w0 of the backward's first-layer column r, or -1: blocks
+    of 32 frequencies, [cos 16 | sin 16] twice."""
+    f = 16 * (r // 32) + r % 16
+    return -1 if f >= m else f if r % 32 < 16 else m + f
+
+
+def _ref_trunk(trunk, m, n_kb, H, heads, out=16):
+    """The trunk's forward and backward images, element by element; m
+    frequencies of the encode, or 0 for an input x."""
     nh = len(trunk) - 1
-    fwd, bwd = [], [_ref_image(H, lambda n, k: _at(trunk[nh], n, k))]
-    for l in range(nh):
-        for kb in range((2 * M if l == 0 else H) // 64):
-            fwd.append(_ref_image(H, lambda n, k: _at(trunk[l], 64 * kb + k, n)))
-    if heads:
+    row = (lambda r: _enc_row(m, r)) if m else (lambda r: r)
+    brow = (lambda r: _pair_row(m, r)) if m else (lambda r: r)
+    w0 = lambda r, n: _at(trunk[0], row(r), n) if row(r) >= 0 else 0.0
+    b0 = lambda r, n: _at(trunk[0], brow(r), n) if brow(r) >= 0 else 0.0
+    fwd = [_ref_image(H, lambda n, k: w0(64 * b + k, n)) for b in range(n_kb)]
+    for l in range(1, nh):
         for kb in range(H // 64):
-            fwd.append(_ref_image(16, lambda n, k: _at(trunk[nh], 64 * kb + k, n)))
+            fwd.append(_ref_image(H, lambda n, k: _at(trunk[l], 64 * kb + k, n)))
+    for ch in range(1 if heads else -(-out // 16)):
+        for kb in range(H // 64):
+            fwd.append(_ref_image(16, lambda n, k: _at(trunk[nh], 64 * kb + k, 16 * ch + n)))
+    bwd = [_ref_image(H, lambda n, k: _at(trunk[nh], n, 64 * t + k))
+           for t in range(1 if heads else -(-out // 64))]
     for l in range(nh - 1, 0, -1):
         for kb in range(H // 64):
             bwd.append(_ref_image(H, lambda n, k: _at(trunk[l], n, 64 * kb + k)))
-    for kb in range(H // 64):
-        bwd.append(_ref_image(2 * M, lambda n, k: _at(trunk[0], n, 64 * kb + k)))
+    n_back = -(-m // 32) if m else n_kb
+    g = 1 if n_back == 1 else 2 if n_back == 2 else 4 if n_back <= 4 else 1
+    if not heads and out > 64:  # a wider trunk output takes the one-block-a-product instance
+        g = 1
+    for grp in range(-(-n_back // g)):
+        for kb in range(H // 64):
+            bwd.append(_ref_image(64 * g, lambda n, k: b0(64 * g * grp + n, 64 * kb + k)))
     return fwd, bwd
 
 
-def _ref_field(leaves, M, H, n_hidden):
+def _ref_field(leaves, m, H, n_hidden):
     trunk = leaves[2: 2 + 2 * (n_hidden + 1): 2]
     head = leaves[2 + 2 * (n_hidden + 1):][0:6:2]
     semh = leaves[2 + 2 * (n_hidden + 1):][6:12:2]
-    hh = H // 4
-    fwd, bwd_trunk = _ref_trunk(trunk, M, H, heads=True)
+    hh, hi = H // 4, fi.head_imgs(H)
+    fwd, bwd_trunk = _ref_trunk(trunk, m, fi.enc_blocks(m), H, heads=True)
     fwd += [_ref_image(hh, lambda n, k: _at(head[0], k, n)),
-            _ref_image(hh, lambda n, k: _at(semh[0], k - 16, n)),
-            _ref_image(hh, lambda n, k: _at(head[1], k, n)),
-            _ref_image(hh, lambda n, k: _at(semh[1], k, n)),
-            _ref_image(16, lambda n, k: _at(head[2], k, n)),
-            _ref_image(64, lambda n, k: _at(semh[2], k, n))]
+            _ref_image(hh, lambda n, k: _at(semh[0], k - 16, n))]
+    fwd += [_ref_image(hh, lambda n, k: _at(w[1], 64 * kb + k, n))
+            for w in (head, semh) for kb in range(hi)]
+    fwd += [_ref_image(16, lambda n, k: _at(head[2], 64 * kb + k, n)) for kb in range(hi)]
+    fwd += [_ref_image(64, lambda n, k: _at(semh[2], 64 * kb + k, n)) for kb in range(hi)]
     bwd = [_ref_image(hh, lambda n, k: _at(head[2], n, k)),
-           _ref_image(hh, lambda n, k: _at(semh[2], n, k)),
-           _ref_image(hh, lambda n, k: _at(head[1], n, k)),
-           _ref_image(hh, lambda n, k: _at(semh[1], n, k)),
-           _ref_image(32, lambda n, k: _at(head[0], n, k)),
-           _ref_image(32, lambda n, k: _at(semh[0], n - 16, k))] + bwd_trunk
-    return np.concatenate(fwd), np.concatenate(bwd)
+           _ref_image(hh, lambda n, k: _at(semh[2], n, k))]
+    bwd += [_ref_image(hh, lambda n, k: _at(w[1], n, 64 * kb + k))
+            for w in (head, semh) for kb in range(hi)]
+    bwd += [_ref_image(32, lambda n, k: _at(head[0], n, 64 * kb + k)) for kb in range(hi)]
+    bwd += [_ref_image(32, lambda n, k: _at(semh[0], n - 16, 64 * kb + k)) for kb in range(hi)]
+    return np.concatenate(fwd), np.concatenate(bwd + bwd_trunk)
 
 
 def _check_slabs(slabs, buf):
@@ -135,28 +161,32 @@ def test_image_round_trip_and_offsets(rows):
 def test_weight_images_match_the_reference(M, H, n_hidden, G, C):
     """``field_weights`` (what ``prepare_field`` hands the kernels): the
     forward and backward slabs equal images built element by element from
-    the bf16 weights, the bias buffer holds every bias at its offset with
-    zero padding, and the slab schedules cover the buffers exactly, every
-    slab in one ring slot."""
+    the bf16 weights, zero past the field's own widths up to its instance
+    (the encoding's padded frequencies, the trunk's and the heads' units),
+    the bias buffer holds every bias at its offset with zero padding, and
+    the slab schedules cover the buffers exactly, every slab in one ring
+    slot."""
     leaves = _leaves(fi.leaf_layout(M, H, n_hidden, G, C).shapes)
     tensors = [torch.from_numpy(x) for x in leaves]
     w, (fwd, bwd, bias) = t_ffh.field_weights(tensors, torch.device("cpu"), M, H, n_hidden, G, C)
+    Hi, n_kb = fi.instance(H), fi.enc_blocks(M)
     assert fwd.dtype == torch.bfloat16 and bwd.dtype == torch.bfloat16
-    assert (w.tile_m, w.tile_h, w.n_hidden, w.geo, w.n_classes) == (M, H, n_hidden, G, C)
+    assert (w.tile_h, w.n_hidden, w.geo, w.n_classes, w.n_freq, w.n_kb) == (
+        Hi, n_hidden, G, C, M, n_kb)
     assert w.wfwd == fwd.data_ptr() and w.wbwd == bwd.data_ptr() and w.bias == bias.data_ptr()
-    ref_f, ref_b = _ref_field([_bf16(x) for x in leaves], M, H, n_hidden)
+    ref_f, ref_b = _ref_field([_bf16(x) for x in leaves], M, Hi, n_hidden)
     assert np.array_equal(fwd.float().numpy(), ref_f)
     assert np.array_equal(bwd.float().numpy(), ref_b)
-    fs, bs = fi.fwd_slabs(M, H, n_hidden), fi.bwd_slabs(M, H, n_hidden)
+    fs, bs = fi.fwd_slabs(Hi, n_hidden, n_kb), fi.bwd_slabs(Hi, n_hidden, fi.pair_blocks(M))
     _check_slabs(fs, fwd)
     _check_slabs(bs, bwd)
-    assert max(size for _, size in fs) <= fi.fwd_slot_bytes(H)
-    assert max(size for _, size in bs) <= fi.bwd_slot_bytes(M, H)
-    offs = fi.bias_offsets(H, n_hidden)
+    assert max(size for _, size in fs) <= fi.fwd_slot_bytes(Hi)
+    assert max(size for _, size in bs) <= fi.bwd_slot_bytes(Hi)
+    offs = fi.bias_offsets(Hi, n_hidden)
     got = bias.numpy()
     assert got.shape == (offs["total"],)
     biases = leaves[3::2]
-    at = [l * H for l in range(n_hidden)] + [offs[k] for k in (
+    at = [l * Hi for l in range(n_hidden)] + [offs[k] for k in (
         "trunk_out", "rb0", "rb1", "rb2", "sb0", "sb1", "sb2")]
     used = np.zeros(offs["total"], dtype=bool)
     for o, b in zip(at, biases):
@@ -166,39 +196,45 @@ def test_weight_images_match_the_reference(M, H, n_hidden, G, C):
 
 
 # (input width, the encode's frequencies or 0 for an input x, H, hidden
-# layers, output): the trunk kernels' backwards on the tile
+# layers, output): the trunk kernels on the tile
 TRUNKS = [(256, 128, 256, 3, 16), (64, 32, 64, 2, 1), (128, 64, 128, 3, 8), (256, 0, 256, 3, 16),
-          (48, 0, 64, 2, 1), (160, 0, 128, 2, 16), (64, 0, 256, 3, 7)]
+          (48, 0, 64, 2, 1), (160, 0, 128, 2, 16), (64, 0, 256, 3, 7), (512, 256, 512, 3, 32),
+          (512, 0, 512, 3, 17), (96, 48, 100, 2, 64), (1472, 0, 256, 3, 130)]
 
 
 @pytest.mark.parametrize("din,m,H,n_hidden,out", TRUNKS)
 def test_trunk_images_match_the_reference(din, m, H, n_hidden, out):
-    """The trunk alone, as the trunk kernels' backwards repack it: its
-    slabs equal the reference images (the first layer's zero past the
-    input's width, up to the instance's 2M), its biases sit where the whole
-    field's do, and its schedules have no head slab."""
+    """The trunk alone, as the trunk kernels repack it: its slabs equal the
+    reference images (the first layer's k-blocks zero past the input's
+    width or at padded frequencies; the output layer 16 columns a forward
+    slab and 64 a backward one), its biases sit where the whole field's do,
+    and its schedules have no head slab."""
     shapes = fi.trunk_layout(din, H, n_hidden, out).shapes
-    assert fi.check_trunk("t", shapes, m) == (din, m or min(x for x in fi.M_SET if 2 * x >= din),
-                                              H, n_hidden, out)
-    M = fi.check_trunk("t", shapes, m)[1]
+    assert fi.check_trunk("t", shapes, m) == (din, H, n_hidden, out)
+    Hi = fi.instance(H)
+    n_kb = fi.enc_blocks(m) if m else fi.x_blocks(din)
     leaves = _leaves(shapes, seed=3)
     fwd, bwd, bias = t_ffh.repack([torch.from_numpy(x) for x in leaves], torch.device("cpu"),
-                                  ("trunk", din, M, H, n_hidden, out))
-    ref_f, ref_b = _ref_trunk([_bf16(x) for x in leaves[0::2]], M, H, heads=False)
+                                  ("trunk", din, m, H, n_hidden, out))
+    ref_f, ref_b = _ref_trunk([_bf16(x) for x in leaves[0::2]], m, n_kb, Hi, heads=False,
+                              out=out)
     assert np.array_equal(fwd.float().numpy(), np.concatenate(ref_f))
     assert np.array_equal(bwd.float().numpy(), np.concatenate(ref_b))
-    fs, bs = fi.fwd_slabs(M, H, n_hidden, heads=False), fi.bwd_slabs(M, H, n_hidden, heads=False)
+    fs = fi.fwd_slabs(Hi, n_hidden, n_kb, heads=False, out=out)
+    bs = fi.bwd_slabs(Hi, n_hidden, fi.pair_blocks(m) if m else n_kb, heads=False, out=out)
     _check_slabs(fs, fwd)
     _check_slabs(bs, bwd)
-    # the trunk's schedules are the whole field's less the heads' slabs
-    full_b = fi.bwd_slabs(M, H, n_hidden)
-    skip = full_b[3][0]
-    assert [(o + skip, b) for o, b in bs] == full_b[3:]
-    assert fs == fi.fwd_slabs(M, H, n_hidden)[: len(fs)]
+    assert max(size for _, size in fs) <= fi.fwd_slot_bytes(Hi)
+    assert max(size for _, size in bs) <= fi.bwd_slot_bytes(Hi)
+    # the trunk's forward schedule is the whole field's up to the trunk output
+    n_trunk = n_kb + (n_hidden - 1) * Hi // 64
+    assert fs[: n_trunk + 1] == fi.fwd_slabs(Hi, n_hidden, n_kb)[: n_trunk + 1]
     got = bias.numpy()
-    offs = fi.bias_offsets(H, n_hidden)
+    offs = fi.bias_offsets(Hi, n_hidden)
+    assert got.shape == (n_hidden * Hi + 16 * -(-out // 16),)
     for l in range(n_hidden):
-        assert np.array_equal(got[l * H: (l + 1) * H], leaves[2 * l + 1])
+        assert np.array_equal(got[l * Hi: l * Hi + H], leaves[2 * l + 1])
+        assert not got[l * Hi + H: (l + 1) * Hi].any()
     assert np.array_equal(got[offs["trunk_out"]: offs["trunk_out"] + out], leaves[-1])
     assert not got[offs["trunk_out"] + out:].any()
 
@@ -206,32 +242,53 @@ def test_trunk_images_match_the_reference(din, m, H, n_hidden, out):
 @pytest.mark.parametrize("M,H,n_hidden,G,C", FIELDS[:2] + FIELDS[4::3])
 def test_weight_images_invert(M, H, n_hidden, G, C):
     """Every weight comes back from the slabs: the forward image of a trunk
-    layer is its transpose by 64-column blocks, the backward image the
-    weight itself, and the semantic head's first layer sits at rows 16..."""
+    layer is its transpose by 64-column blocks (the first layer's rows in
+    the encoding's column order), the backward image the weight itself, and
+    the semantic head's first layer sits at rows 16.."""
     leaves = _leaves(fi.leaf_layout(M, H, n_hidden, G, C).shapes, seed=1)
     tensors = [torch.from_numpy(x) for x in leaves]
     _, (fwd, bwd, _) = t_ffh.field_weights(tensors, torch.device("cpu"), M, H, n_hidden, G, C)
     fwd, bwd = fwd.float().numpy(), bwd.float().numpy()
-    fs, bs = fi.fwd_slabs(M, H, n_hidden), fi.bwd_slabs(M, H, n_hidden)
-    hh = H // 4
+    Hi, n_kb = fi.instance(H), fi.enc_blocks(M)
+    fs, bs = fi.fwd_slabs(Hi, n_hidden, n_kb), fi.bwd_slabs(Hi, n_hidden, fi.pair_blocks(M))
+    hh, hi = Hi // 4, fi.head_imgs(Hi)
+    # the kernels' column of each row of w0, forward and backward
+    order = np.argsort(np.where(fi.enc_rows(M) >= 0, fi.enc_rows(M), 1 << 30))[: 2 * M]
+    b_order = np.argsort(np.where(fi.pair_rows(M) >= 0, fi.pair_rows(M), 1 << 30))[: 2 * M]
     first_fwd = 0
     for l in range(n_hidden):
         w = _bf16(leaves[2 + 2 * l])
-        n_kb = (2 * M if l == 0 else H) // 64
-        cols = [_from_image(fwd[fs[first_fwd + kb][0] // 2:][: H * 64], H).T for kb in range(n_kb)]
-        assert np.array_equal(np.concatenate(cols, axis=0), w)
-        first_fwd += n_kb
-        # the backward walks the hidden layers downwards, the first layer last
-        first = 4 + (n_hidden - 1 - l) * H // 64
-        rows = w.shape[0]
-        back = [_from_image(bwd[bs[first + kb][0] // 2:][: rows * 64], rows) for kb in range(H // 64)]
-        assert np.array_equal(np.concatenate(back, axis=1), w)
-    sem0 = _bf16(leaves[2 + 2 * (n_hidden + 1) + 6])  # [G, hh]
-    img = _from_image(fwd[fs[first_fwd + 1][0] // 2 + hh * 64:][: hh * 64], hh)  # [n, k]
-    assert np.array_equal(img[:, 16: 16 + G], sem0.T) and not img[:, :16].any()
-    assert not img[:, 16 + G:].any()
-    back = _from_image(bwd[bs[2][0] // 2 + 32 * 64:][: 32 * 64], 32)  # [n - 16, k]
-    assert np.array_equal(back[16: 16 + G, :hh], sem0) and not back[:16].any()
+        n_kb_l = n_kb if l == 0 else Hi // 64
+        blocks = [_from_image(fwd[fs[first_fwd + kb][0] // 2:][: Hi * 64], Hi).T
+                  for kb in range(n_kb_l)]
+        full = np.concatenate(blocks, axis=0)  # [k, n]
+        assert np.array_equal(full[order] if l == 0 else full[:H], w[:, :H])
+        assert not full[:, H:].any()
+        first_fwd += n_kb_l
+        if l == 0:
+            first = 4 + (n_hidden - 1) * Hi // 64
+            g = fi.back_group(fi.pair_blocks(M)) or 1
+            rows = 64 * g
+            back = np.concatenate(
+                [np.concatenate([_from_image(bwd[bs[first + grp * Hi // 64 + kb][0] // 2:]
+                                             [: rows * 64], rows) for kb in range(Hi // 64)],
+                                axis=1)
+                 for grp in range(fi.back_blocks(fi.pair_blocks(M)) // g)], axis=0)
+            assert np.array_equal(back[b_order][:, :H], w)  # [kernel column, unit]
+        else:
+            first = 4 + (n_hidden - 1 - l) * Hi // 64
+            back = [_from_image(bwd[bs[first + kb][0] // 2:][: Hi * 64], Hi)
+                    for kb in range(Hi // 64)]
+            assert np.array_equal(np.concatenate(back, axis=1)[:H, :H], w)
+    first_fwd += 1  # the trunk output's slab
+    sem0 = _bf16(leaves[2 + 2 * (n_hidden + 1) + 6])  # [G, hh']
+    hh_own = H // 4
+    img = _from_image(fwd[fs[first_fwd][0] // 2 + hh * 64:][: hh * 64], hh)  # [n, k]
+    assert np.array_equal(img[:hh_own, 16: 16 + G], sem0.T) and not img[:, :16].any()
+    assert not img[:, 16 + G:].any() and not img[hh_own:].any()
+    back = np.concatenate([_from_image(bwd[bs[2][0] // 2 + (hi + kb) * 32 * 64:][: 32 * 64], 32)
+                           for kb in range(hi)], axis=1)  # [n - 16, k]
+    assert np.array_equal(back[16: 16 + G, :hh_own], sem0) and not back[:16].any()
 
 
 def _constants(name):
@@ -240,41 +297,58 @@ def _constants(name):
             for m in re.finditer(r"constexpr int (k\w+) = (\d+);", text)}
 
 
-@pytest.mark.parametrize("M,H", fi.WIDTHS)
-def test_shared_memory_budgets_mirror_the_kernels(M, H):
+@pytest.mark.parametrize("H,n_kb", [(h, k) for h in fi.WIDTHS for k in (1, 8)])
+def test_shared_memory_budgets_mirror_the_kernels(H, n_kb):
     """The Python mirrors of ``fwd_smem``, ``bwd_smem`` and ``dw_smem`` use
     the kernels' own constants, the instances are the kernels' own list, and
     every kernel of the tile fits one block's 232,448 bytes at each trunk
-    depth the wrappers accept."""
+    depth the wrappers accept, whatever the first layer's width (it streams
+    one k-block at a time: the budgets do not depend on it)."""
     tile, vol = _constants("field_tile.cuh"), _constants("fused_field_volrend.cu")
     assert (tile["kShw"], tile["kTOut"], tile["kRgbPad"], tile["kCPad"]) == (
         fi.SHW, fi.T_OUT, fi.RGB_PAD, fi.C_PAD)
-    assert (tile["kFwdStages"], vol["kBwdStages"], vol["kDwStages"]) == (
-        fi.FWD_STAGES, fi.BWD_STAGES, fi.DW_STAGES)
-    assert (tile["kTileRows"], tile["kPassRows"], tile["kAlignSlack"]) == (
-        fi.TILE_ROWS, fi.PASS_ROWS, fi.ALIGN_SLACK)
+    assert vol["kDwStages"] == fi.DW_STAGES and tile["kBlockFreqs"] == fi.BLOCK_FREQS
+    assert (tile["kTileRows"], tile["kAlignSlack"]) == (fi.TILE_ROWS, fi.ALIGN_SLACK)
     text = (CSRC / "field_tile.cuh").read_text()
-    listed = text[text.index("#define APNERF_TILE_WIDTHS"):].split("\n\n")[0]
-    assert tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", listed)) == fi.WIDTHS
-    assert fi.ACT_BYTES == 4 * fi.IMG_BYTES and fi.DW_STAGE_BYTES == 6 * fi.IMG_BYTES
+    listed = text[text.index("#define APNERF_TILE_WIDTHS"):].split("\n")[0]
+    assert tuple(int(a) for a in re.findall(r"X\((\d+)\)", listed)) == fi.WIDTHS
+    assert fi.BUF_BYTES == 8 * fi.IMG_BYTES and fi.DW_STAGE_BYTES == 6 * fi.IMG_BYTES
     assert fi.MAX_SMEM == 232448
+    assert (fi.split(H), fi.pass_rows(H), fi.stages(H)) == ((2, 64, 2) if H == 512 else (1, 128, 4))
     hh = H // 4
     for n_hidden in (2, 3):
         assert fi.bias_offsets(H, n_hidden)["total"] == n_hidden * H + 16 + 4 * hh + 16 + 64
-        assert fi.n_bias(M, H, n_hidden) == n_hidden * H + 16 + 4 * hh + 4 * M
+        for t_pad, mp in ((16, 32 * n_kb), (64 * n_kb, 0)):
+            assert fi.n_bias(H, n_hidden, t_pad, mp) == n_hidden * H + t_pad + 4 * hh + 4 * mp
         fwd = fi.fwd_smem_bytes(H, n_hidden)
-        # ring, two activation buffers, the biases rounded up to 128 bytes, two tiles of
-        # coordinates per warpgroup, barriers, slack
-        assert fwd == (4 * max(H * 128, 80 * 128) + 2 * 32768
-                       + -(-(n_hidden * H + H + 96) * 4 // 128) * 128 + 4 * 768 + 64 + 1024)
+        # ring, the activation buffers, the biases rounded up to 128 bytes, two
+        # tiles of coordinates per tile, the trunk output's staging, barriers, slack
+        assert fwd == (fi.stages(H) * fi.fwd_slot_bytes(H) + 8 * 8192
+                       + -(-(n_hidden * H + H + 96) * 4 // 128) * 128 + 4 * 768 + 2 * 4096
+                       + 16 * fi.stages(H) + 1024)
         assert fwd <= fi.MAX_SMEM
-    # the largest staging area (64 rows of 4 + 64 classes, f32) and the
-    # backward's f32 phase cotangent [64, M] fit the buffer they reuse
-    assert 64 * (5 + fi.MAX_CLASSES) * 4 <= fi.ACT_BYTES and 64 * M * 4 <= fi.ACT_BYTES
-    # a buffer holds the encoding, a hidden activation, and the heads' images 0..3
-    assert 2 * M // 64 <= 4 and H // 64 <= 4
-    bwd = fi.bwd_smem_bytes(M, H)
-    assert bwd == 4 * max(H, 2 * M) * 128 + 2 * 32768 + 2 * 768 + 64 + 1024 <= fi.MAX_SMEM
+    # every slab of any schedule fits its slot, at both depths
+    for n_hidden in (2, 3):
+        assert max(b for _, b in fi.fwd_slabs(H, n_hidden, n_kb)) <= fi.fwd_slot_bytes(H)
+        assert max(b for _, b in fi.bwd_slabs(H, n_hidden, n_kb)) <= fi.bwd_slot_bytes(H)
+        for out in (1, 17, 64, 300):
+            assert max(b for _, b in fi.fwd_slabs(H, n_hidden, n_kb, False, out)) <= \
+                fi.fwd_slot_bytes(H)
+            assert max(b for _, b in fi.bwd_slabs(H, n_hidden, n_kb, False, out)) <= \
+                fi.bwd_slot_bytes(H)
+    # the largest staging area (64 rows of 4 + 64 classes, f32) fits a
+    # tile's buffer; a tile's buffer holds a hidden activation and the
+    # heads' images (2 kHI activations twice, the input and gt's f32 copy)
+    tile_bytes = fi.BUF_BYTES // (2 // fi.split(H))
+    assert 64 * (5 + fi.MAX_CLASSES) * 4 <= tile_bytes
+    assert H // 64 * fi.IMG_BYTES <= tile_bytes
+    assert (4 * fi.head_imgs(H)) * fi.IMG_BYTES <= tile_bytes
+    assert (2 * fi.head_imgs(H) + 2) * fi.IMG_BYTES <= tile_bytes
+    bwd = fi.bwd_smem_bytes(H)
+    assert bwd == (fi.stages(H) * max(H * 128, 32768) + 8 * 8192 + 2 * 768 + 2 * 8192
+                   + 16 * fi.stages(H) + 1024) <= fi.MAX_SMEM
+    # a tile's saved encoding of up to four k-blocks (the one-group backward) fits a slot
+    assert 4 * fi.IMG_BYTES <= fi.bwd_slot_bytes(H)
     assert fi.dw_smem_bytes() == 3 * 6 * 8192 + 48 + 1024 <= fi.MAX_SMEM
 
 
@@ -290,21 +364,26 @@ def _field(M=128, H=256, hh=None, G=15, C=29, n_hidden=3):
 
 
 def test_wrappers_refuse_what_the_tile_does_not_take():
-    """The nine (M, H) pairs with heads H / 4 go; widths past the set's
-    edges (M = 256, H = 512, heads other than H / 4, geo 16, classes 65)
-    and between its members (M = 96, H = 96) raise before any launch, on
-    shapes alone, with a message that names the set; a tensor that is
+    """Every field from H = 4 to 512 with heads H // 4 goes, on any number
+    of frequencies (H = 96, H = 512 and M = 256 among them); widths past the
+    set's edges (H = 1024, heads other than H // 4, geo 16, classes 65) and
+    another depth raise before any launch, on shapes alone, with a message
+    that names the set; the trunk alone takes any H up to 512, any output
+    and the encode or an input a multiple of 16 wide; a tensor that is
     neither on the CPU nor on a card raises on every entry."""
     good = fi.leaf_layout(128, 256, 3, 15, 29).shapes
     assert fi.check_widths("t", good) == (128, 256, 3, 15, 29)
     assert fi.check_widths("t", fi.leaf_layout(128, 256, 2, 4, 64).shapes) == (128, 256, 2, 4, 64)
-    for m, h in fi.WIDTHS:
+    for m, h in ((32, 64), (64, 128), (128, 256), (256, 512), (48, 96), (16, 100), (1, 4),
+                 (300, 512)):
         assert fi.check_widths("t", _field(M=m, H=h, G=1, C=1)) == (m, h, 3, 1, 1)
+    assert fi.check_widths("t", _field(H=96)) == (128, 96, 3, 15, 29)
+    assert fi.check_widths("t", _field(M=256, H=512)) == (256, 512, 3, 15, 29)
 
-    for bad in (dict(M=256), dict(H=512), dict(hh=32), dict(H=128, hh=64), dict(G=16),
-                dict(C=65), dict(M=96), dict(H=96)):
-        with pytest.raises(ValueError, match=r"unsupported widths.*M in \(32, 64, 128\), H in "
-                                             r"\(64, 128, 256\), heads H / 4"):
+    for bad in (dict(H=1024), dict(hh=32), dict(H=128, hh=64), dict(H=512, hh=64), dict(G=16),
+                dict(C=65), dict(H=3, hh=0)):
+        with pytest.raises(ValueError, match=r"unsupported widths.*instances H in \(64, 128, "
+                                             r"256, 512\): H 4\.\.512 with heads H // 4"):
             fi.check_widths("t", _field(**bad))
     for n_hidden in (1, 4):
         with pytest.raises(ValueError, match="2 or 3 hidden layers"):
@@ -317,8 +396,12 @@ def test_wrappers_refuse_what_the_tile_does_not_take():
         fi.check_widths("t", wrong)
     # the trunk alone: the encode's M, an input x, H, the output's width
     trunk = lambda din, H=256, out=16, nh=3: list(fi.trunk_layout(din, H, nh, out).shapes)
-    for shapes, m in ((trunk(512), 256), (trunk(24), 12), (trunk(272), 0), (trunk(40), 0),
-                      (trunk(256, H=100), 128), (trunk(256, out=17), 128), (trunk(256, H=512), 0)):
+    for shapes, m in ((trunk(512), 256), (trunk(24), 12), (trunk(272), 0), (trunk(1472), 0),
+                      (trunk(256, H=100), 128), (trunk(256, out=17), 128),
+                      (trunk(256, H=512), 0), (trunk(512, H=512, out=64), 0)):
+        assert fi.check_trunk("t", shapes, m) == (shapes[0][0], shapes[0][1], 3, shapes[-2][1])
+    for shapes, m in ((trunk(512, H=1024), 256), (trunk(40), 0), (trunk(24), 0),
+                      (trunk(256), 64)):
         with pytest.raises(ValueError, match="unsupported trunk widths"):
             fi.check_trunk("t", shapes, m)
     with pytest.raises(ValueError, match="2 or 3 hidden layers"):
@@ -326,7 +409,7 @@ def test_wrappers_refuse_what_the_tile_does_not_take():
 
     leaves = [torch.empty(s, device="meta") for s in good]
     with pytest.raises(ValueError, match="unsupported widths"):
-        t_ffh.prepare_field("t", [torch.empty(s, device="meta") for s in _field(H=512)], "meta")
+        t_ffh.prepare_field("t", [torch.empty(s, device="meta") for s in _field(H=1024)], "meta")
     with pytest.raises(ValueError, match="must be torch.float32"):
         t_ffh.prepare_field("t", [t.double() for t in leaves], torch.device("meta"))
     meta = lambda *shape: torch.empty(shape, device="meta")
@@ -352,45 +435,63 @@ def test_wrappers_refuse_what_the_tile_does_not_take():
 
 @pytest.mark.parametrize("n_sm", [132, 114, 8])
 def test_field_launch_plan(n_sm):
-    """Persistent blocks: one per SM, never more than there are 128-row
-    passes; scratch rows are whole passes; together the blocks' strides
-    visit every pass once."""
+    """Persistent blocks: one per SM, never more than there are passes (128
+    rows, 64 at H = 512); scratch rows are whole passes; together the
+    blocks' strides visit every pass once."""
     assert fi.padded_rows(1) == 128 and fi.padded_rows(128) == 128 and fi.padded_rows(129) == 256
-    for n_rows in (1, 127, 128, 129, 128 * n_sm - 1, 128 * n_sm, 128 * n_sm + 1, 1 << 20):
-        grid = fi.field_grid(n_rows, n_sm)
-        n_pass = fi.padded_rows(n_rows) // 128
-        assert 1 <= grid <= min(n_sm, n_pass)
-        assert grid == n_sm or grid == n_pass
-        seen = sorted(p for b in range(grid) for p in range(b, n_pass, grid))
-        assert seen == list(range(n_pass))
+    assert fi.padded_rows(1, 512) == 64 and fi.padded_rows(129, 512) == 192
+    for H in fi.WIDTHS:
+        p = fi.pass_rows(H)
+        for n_rows in (1, 127, 128, 129, p * n_sm - 1, p * n_sm, p * n_sm + 1, 24000, 163268,
+                       1 << 20):
+            grid = fi.field_grid(n_rows, n_sm, H)
+            n_pass = fi.padded_rows(n_rows, H) // p
+            assert n_pass * p >= n_rows > (n_pass - 1) * p
+            assert 1 <= grid <= min(n_sm, n_pass)
+            assert grid == n_sm or grid == n_pass
+            seen = sorted(q for b in range(grid) for q in range(b, n_pass, grid))
+            assert seen == list(range(n_pass))
 
 
-@pytest.mark.parametrize("M,H,n_hidden,n_tiles,n_sm,heads", [
-    (128, 256, 3, 4096, 132, True), (128, 256, 2, 4096, 132, True), (128, 256, 3, 2, 132, True),
-    (128, 256, 3, 4096, 16, True), (128, 256, 2, 37, 114, True), (32, 64, 3, 4096, 132, True),
-    (64, 128, 2, 4096, 132, True), (32, 256, 3, 1024, 132, True), (128, 64, 3, 4096, 132, True),
-    (128, 256, 3, 4096, 132, False), (32, 64, 2, 2048, 132, False), (64, 128, 3, 512, 132, False),
-    (128, 64, 2, 4096, 132, False)])
-def test_weight_gradient_launch_plan(M, H, n_hidden, n_tiles, n_sm, heads):
+@pytest.mark.parametrize("H,n_hidden,n_kb,n_tiles,n_sm,heads,out", [
+    (256, 3, 4, 4096, 132, True, 0), (256, 2, 4, 4096, 132, True, 0), (256, 3, 4, 2, 132, True, 0),
+    (256, 3, 4, 4096, 16, True, 0), (256, 2, 4, 37, 114, True, 0), (64, 3, 1, 4096, 132, True, 0),
+    (128, 2, 2, 4096, 132, True, 0), (256, 3, 1, 1024, 132, True, 0),
+    (64, 3, 4, 4096, 132, True, 0), (512, 3, 8, 2048, 132, True, 0),
+    (256, 3, 4, 4096, 132, False, 16), (64, 2, 1, 2048, 132, False, 1),
+    (128, 3, 2, 512, 132, False, 64), (64, 2, 4, 4096, 132, False, 17),
+    (512, 3, 8, 1024, 132, False, 32), (256, 3, 23, 4096, 132, False, 300)])
+def test_weight_gradient_launch_plan(H, n_hidden, n_kb, n_tiles, n_sm, heads, out):
     """Every weight has its items, in the leaves' order (a trunk matrix one
-    per 128 input rows, the trunk alone without the heads' three); an item's
+    per 128 input rows and group of up to 256 output columns, the trunk
+    alone without the heads' items); an item's images fit a stage and its
     chunks partition the row tiles with none empty; blocks, partials and
     sums are laid end to end; at the train shape the launch is one wave."""
-    plan = fi.dw_plan(M, H, n_hidden, n_tiles, n_sm, heads)
+    plan = fi.dw_plan(H, n_hidden, n_kb, n_tiles, n_sm, heads, out)
     items = [row[0] for row in plan.items]
-    per = [-(-2 * M // 128)] + [-(-H // 128)] * n_hidden  # items of w0 .. w_last
-    assert len(items) == sum(per) + (3 if heads else 0) <= 16
+    groups = lambda y_imgs: -(-y_imgs // 4) if y_imgs % 4 in (0, 1, 2) else y_imgs // 4 + 1
+    n_gt = 1 if heads else -(-out // 64)
+    per = ([-(-n_kb // 2) * -(-H // 256)] + [-(-H // 128) * -(-H // 256)] * (n_hidden - 1)
+           + [-(-H // 128) * len(fi._col_groups(n_gt))])
+    n_heads = (3 if H < 512 else 5) if heads else 0
+    assert len(items) == sum(per) + n_heads
     k = 0
     for l, count in enumerate(per):
         x = "enc" if l == 0 else f"h{l - 1}"
         y = f"gh{l}" if l < n_hidden else "gt"
-        for p in range(count):
-            it = items[k + p]
-            x_imgs = 2 * M // 64 if l == 0 else H // 64
-            assert (it.x, it.y, it.x_imgs, it.n) == (x, y, x_imgs, H if l < n_hidden else 64)
-            assert it.x_img == (2 * p, min(2 * p + 1, x_imgs - 1)) and it.y_img == (0, 0)
+        x_imgs = n_kb if l == 0 else H // 64
+        y_imgs = H // 64 if l < n_hidden else n_gt
+        cols = 0
+        for it in items[k: k + count]:
+            assert (it.x, it.y, it.x_imgs, it.y_imgs) == (x, y, x_imgs, y_imgs)
+            assert it.x_img[1] == min(it.x_img[0] + 1, x_imgs - 1) and it.y_img[0] == it.y_img[1]
+            cols += it.n if it.x_img == items[k].x_img else 0
+        assert cols == 64 * y_imgs
         k += count
     assert [(i.x, i.y) for i in items[k:]] == ([("xs", "g1"), ("hid1", "g2"), ("hid2", "gout")]
+                                               if heads and H < 512 else
+                                               [("xs", "g1"), ("hid1", "g2"), ("hid1", "g2"),
+                                                ("hid2", "gout"), ("hid2", "gout")]
                                                if heads else [])
     block = p_off = out_off = 0
     for it, chunks, chunk_tiles, first_block, p, o in plan.items:
@@ -398,8 +499,9 @@ def test_weight_gradient_launch_plan(M, H, n_hidden, n_tiles, n_sm, heads):
         assert chunks >= 1 and (chunks - 1) * chunk_tiles < n_tiles <= chunks * chunk_tiles
         assert it.n in (64, 128, 256) and max(it.x_img) < it.x_imgs
         shared = it.y_img[0] == it.y_img[1]
-        assert max(it.y_img) + (it.n // 64 if shared else 1) <= it.y_imgs
-        assert shared or it.n == 64  # above 64 columns the dY images are shared
+        assert max(it.y_img) + it.n // 64 <= it.y_imgs
+        # the stage holds two X images and up to four dY images
+        assert (it.n // 64 if shared else 2 * it.n // 64) <= 4
         block += chunks
         p_off += chunks * 2 * 64 * it.n
         out_off += 2 * 64 * it.n
@@ -413,48 +515,97 @@ def test_weight_gradient_launch_plan(M, H, n_hidden, n_tiles, n_sm, heads):
 def test_trunk_weight_gradients_assemble(din, m, H, n_hidden, out):
     """The trunk alone's dW plan (the backwards of the trunk kernels): each
     matrix's gradient is read from its items' reduced blocks, row r of dW
-    from item r // 128, warpgroup r % 128 // 64, row r % 64 of that block;
-    a lone last X image's second copy is never read."""
-    M = fi.check_trunk("t", fi.trunk_layout(din, H, n_hidden, out).shapes, m)[1]
-    plan = fi.dw_plan(M, H, n_hidden, 64, 132, heads=False)
+    from the item of input rows r // 128 and of its column, warpgroup r %
+    128 // 64, row r % 64 of that block; a lone last X image's second copy
+    is never read."""
+    Hi = fi.instance(H)
+    n_kb = fi.enc_blocks(m) if m else fi.x_blocks(din)
+    plan = fi.dw_plan(Hi, n_hidden, n_kb, 64, 132, heads=False, out=out)
     out_buf = torch.arange(plan.out_floats, dtype=torch.float64)
-    shapes = [(din, H)] + [(H, H)] * (n_hidden - 1) + [(H, out)]
+    shapes = [(64 * n_kb, H)] + [(H, H)] * (n_hidden - 1) + [(H, out)]
     grads, n_items = fi.matrix_grads(plan, out_buf, shapes)
     assert n_items == len(plan.items)
     i = 0
     for (rows, cols), g in zip(shapes, grads):
         assert g.shape == (rows, cols)
-        r, c = np.arange(rows)[:, None], np.arange(cols)[None, :]
-        it, *_, off = plan.items[i + 0]
-        n = it.n
-        item_off = np.array([plan.items[i + k][5] for k in range(-(-rows // 128))])
-        want = item_off[r // 128] + ((r % 128) // 64 * 64 + r % 64) * n + c
-        assert np.array_equal(g.numpy(), want.astype(np.float64))
-        i += -(-rows // 128)
+        its = []
+        while i < len(plan.items) and (not its or plan.items[i][0].x == its[0][0].x):
+            its.append(plan.items[i])
+            i += 1
+        want = np.zeros((rows, cols))
+        for it, *_, off in its:
+            r0, c0 = 64 * it.x_img[0], 64 * it.y_img[0]
+            for w in range(2):
+                r = np.arange(64)[:, None]
+                c = np.arange(it.n)[None, :]
+                vals = off + (w * 64 + r) * it.n + c
+                rr, cc = r0 + 64 * w + r, c0 + c
+                if w == 1 and it.x_img[1] == it.x_img[0]:
+                    continue  # the lone image's second copy
+                ok = (rr < rows) & (cc < cols)
+                rr_, cc_ = np.broadcast_to(rr, ok.shape), np.broadcast_to(cc, ok.shape)
+                want[rr_[ok], cc_[ok]] = vals[ok]
+        assert np.array_equal(g.numpy(), want)
 
 
 # (input width, the encode's frequencies or 0 for an input x, H, hidden
 # layers, output): trunks between two of the tile's instances
-PADDED_TRUNKS = [(96, 48, 96, 3, 16), (16, 8, 16, 2, 3), (80, 0, 112, 2, 1), (256, 0, 240, 3, 7)]
+PADDED_TRUNKS = [(96, 48, 96, 3, 16), (16, 8, 16, 2, 3), (80, 0, 112, 2, 1), (256, 0, 240, 3, 7),
+                 (512, 256, 300, 3, 17), (48, 24, 100, 2, 64)]
+
+
+def _pad_trunk(flat, W, phase, M, H):
+    """A trunk (its w0, b0, w1, ...) zero-padded to M frequencies and a
+    width H: W and phase zero at the new frequencies, and with them the
+    first layer's rows for their cos and sin; zero units past the width."""
+    n = len(flat) // 2
+
+    def grow(t, shape):
+        z = t.new_zeros(shape)
+        z[tuple(slice(0, k) for k in t.shape)] = t
+        return z
+
+    out = []
+    for l in range(n):
+        w, b = flat[2 * l], flat[2 * l + 1]
+        w = grow(w, (w.shape[0] if l == 0 else H, w.shape[1] if l == n - 1 else H))
+        if l == 0 and W is not None:  # rows [cos of m, sin of m] → [cos of M, sin of M]
+            m = W.shape[1]
+            z = w.new_zeros((M - m, H))
+            w = torch.cat([w[:m], z, w[m:], z])
+        out += [w, b if l == n - 1 else grow(b, (H,))]
+    if W is not None:
+        W, phase = grow(W, (3, M)), grow(phase, (M,))
+    return out, W, phase
 
 
 @pytest.mark.parametrize("din,m,h,n_hidden,out", PADDED_TRUNKS)
 def test_padded_trunk_is_the_trunk(din, m, h, n_hidden, out):
-    """A trunk between two instances runs on the next one zero-padded
-    (``field_train.pad_trunk``): in float64, the padded trunk's output and,
-    once ``unpad_trunk_grads`` cuts them back, its gradients (every layer,
-    dW_spec and dphase) equal the trunk's own."""
-    from apnerf_tpu_torch.ops.cuda import field_train as t_ft
-
+    """A trunk between two instances runs on the next one zero-padded, the
+    padding in the index tables (``field_images.trunk_index_tables``): its
+    images equal those of the trunk zero-padded by hand to the instance's
+    width, and in float64 that padded trunk's output and, cut back, its
+    gradients (every layer, dW_spec and dphase) equal the trunk's own
+    (``tests/test_torch_widths2.py`` runs the images themselves). The
+    encode's frequencies and x's columns are not padded: the first layer's
+    k-blocks are zero past them."""
     shapes = fi.trunk_layout(din, h, n_hidden, out).shapes
-    _, M, H, _, _ = fi.check_trunk("t", shapes, m)
-    assert (M, H) == (min(x for x in fi.M_SET if 2 * x >= din),
-                      min(x for x in fi.H_SET if x >= h)) != ((m or M), h)
+    assert fi.check_trunk("t", shapes, m) == (din, h, n_hidden, out)
+    H = fi.instance(h)
+    M = m
+    assert H != h
     gen = torch.Generator().manual_seed(5)
     f64 = torch.float64
     flat = [torch.randn(s, generator=gen, dtype=f64) for s in shapes]
     W = torch.randn((3, m), generator=gen, dtype=f64) if m else None
     phase = torch.rand((m,), generator=gen, dtype=f64) if m else None
+    padded, W_p, phase_p = _pad_trunk(flat, W, phase, M, H)
+    cpu = torch.device("cpu")
+    own = t_ffh.repack([t.float() for t in flat], cpu, ("trunk", din, m, h, n_hidden, out))
+    by_hand = t_ffh.repack([t.float() for t in padded], cpu, ("trunk", din, M, H, n_hidden, out))
+    for a, b in zip(own, by_hand):
+        assert torch.equal(a, b)
+
     u = torch.rand((40, 3), generator=gen, dtype=f64)
     x = torch.randn((40, din), generator=gen, dtype=f64)
     cot = torch.randn((40, out), generator=gen, dtype=f64)
@@ -469,10 +620,17 @@ def test_padded_trunk_is_the_trunk(din, m, h, n_hidden, out):
         return h_, torch.autograd.grad(h_, spec + flat, cot)
 
     y, g = forward_and_grads(flat, W, phase)
-    y_p, g_p = forward_and_grads(*t_ft.pad_trunk(flat, W, phase, M, H))
-    grads, spectrum = t_ft.unpad_trunk_grads(list(g_p[2:] if m else g_p),
-                                             tuple(g_p[:2]) if m else None, m, M, h)
+    y_p, g_p = forward_and_grads(padded, W_p, phase_p)
     torch.testing.assert_close(y_p, y, rtol=0, atol=1e-9)
-    for a, b in zip(list(spectrum or ()) + grads, g):
-        assert a.shape == b.shape
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-9)
+    k = 2 if m else 0
+    if m:
+        torch.testing.assert_close(g_p[0][:, :m], g[0], rtol=0, atol=1e-9)
+        torch.testing.assert_close(g_p[1][:m], g[1], rtol=0, atol=1e-9)
+    for l in range(n_hidden + 1):
+        dw, db = g_p[k + 2 * l], g_p[k + 2 * l + 1]
+        if l == 0 and m:
+            dw = torch.cat([dw[:m], dw[M: M + m]])
+        dw = dw[:, :h] if l == 0 else dw[:h] if l == n_hidden else dw[:h, :h]
+        torch.testing.assert_close(dw, g[k + 2 * l], rtol=0, atol=1e-9)
+        torch.testing.assert_close(db if l == n_hidden else db[:h], g[k + 2 * l + 1], rtol=0,
+                                   atol=1e-9)

@@ -1,13 +1,16 @@
 """ActiveNeRFMapper, the active-perception loop.
 
-Port of ``apnerf_tpu/active/mapper.py``, flagship path (spectral field +
-proposal sampling) only:
+Port of ``apnerf_tpu/active/mapper.py`` on both of its paths: the
+flagship (spectral field + proposal sampling) and the (ngp, occ) oracle
+(hash-grid field + occupancy-grid march), picked by ``cfg.field_type`` and
+``cfg.sampler_type``:
 
   * ``initialization``: the 39-pose 360° scan with ±0.2 m jitter, per-view
     cost-map fusion, the train and the test datasets;
-  * ``nerf_training``: the ensemble train loop in chunks of 100 steps,
-    each followed by the occupancy update; evaluation at the end of a
-    call; the final refit's divergence guard;
+  * ``nerf_training``: the ensemble train loop in chunks of 100 steps; on
+    the flagship path each chunk is followed by the occupancy update, on
+    the ngp path every member step updates its grid on its cadence;
+    evaluation at the end of a call; the final refit's divergence guard;
   * ``planning``: candidate trajectories → predictive information → fly
     the best → observe → cost map and dataset update → retrain, with the
     stop criterion; overlapped (default) or strictly alternating;
@@ -23,7 +26,11 @@ goes through the packed field kernel, the evaluation and visualisation
 renders (no variance) through the fused field-and-render kernel
 (``models/spectral.py::forward_packed``, ``forward_packed_volrend``),
 whatever the field's configuration: a field those kernels do not take
-raises there. On the CPU the plain ``spectral.forward`` renders.
+raises there. On the CPU the plain ``spectral.forward`` renders. On the
+ngp path every member renders every view with its own occupancy grid
+(``render/renderer.py``), in chunks of rays where a view's samples would
+pass ``RENDER_ROWS``; its weights go through the weights kernel on the
+card.
 
 Two things differ from the JAX mapper because parameters here update in
 place. The divergence guard's snapshot is a deep copy of the members (the
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import copy
 import datetime
+import functools
 import json
 import os
 import time
@@ -56,11 +64,13 @@ from ..config import PipelineConfig
 from ..data.dataset import RayDataset
 from ..interop import load_member_npz, load_member_opt, save_member_npz
 from ..models import spectral
-from ..ops.occupancy import OccGridState
+from ..models import ngp
+from ..ops.occupancy import OccGridState, mark_invisible_cells
 from ..ops.rays import Rays, make_intrinsics, pose_matrix_from_quat, rays_from_pixels
 from ..planning.cost_map import depth_scan_angles, update_cost_map
 from ..planning.traj import sample_traj
 from ..render.prop_renderer import render_rays_prop
+from ..render.renderer import render_test
 from ..train.flagship import (
     default_route,
     default_spectral_schedule,
@@ -70,9 +80,16 @@ from ..train.flagship import (
     make_prop_config,
     make_spectral_config,
 )
-from ..train.phase import pools_from_dataset
+from ..train.phase import make_ngp_train_phase, pools_from_dataset
 from ..train.schedule import multistep_lr
-from ..train.step import EnsembleState, reset_opt_state
+from ..train.step import (
+    EnsembleState,
+    default_ngp_schedule,
+    init_ensemble,
+    make_lattice,
+    make_ngp_config,
+    reset_opt_state,
+)
 from ..utils.metrics import depth_mse, lpips_vgg, miou, psnr, semantic_ce
 from .uncertainty import PredictiveInformation, predictive_information
 
@@ -86,6 +103,11 @@ def _euler_yzx_yaw(R_m: np.ndarray) -> float:
 def _yaw_quat_deg(angle_deg: float) -> np.ndarray:
     a = np.deg2rad(angle_deg) / 2
     return np.array([0.0, np.sin(a), 0.0, np.cos(a)])
+
+
+# samples of one ngp render call: a view with more rays × samples renders
+# in chunks of rays (the hash encode holds ~2.2 KB of intermediates a sample)
+RENDER_ROWS = 1 << 20
 
 
 def _unc_view_index(n: int) -> np.ndarray:
@@ -123,20 +145,10 @@ class ActiveNeRFMapper:
         """``save_viz``: write the per-planning-step visualisation PNGs and
         the test-view prediction PNGs (the JAX mapper always does); it
         needs ``imageio`` and raises here without it."""
-        if (cfg.field_type, cfg.sampler_type) == ("ngp", "occ"):
+        if (cfg.field_type, cfg.sampler_type) not in (("spectral", "prop"), ("ngp", "occ")):
             raise ValueError(
-                "the (ngp, occ) oracle path is not ported yet: it is queued "
-                "after the kernels' redesign (ROADMAP.md)"
-            )
-        if (cfg.field_type, cfg.sampler_type) != ("spectral", "prop"):
-            raise ValueError(
-                "supported (field_type, sampler_type): (spectral, prop); "
+                "supported (field_type, sampler_type): (spectral, prop) or (ngp, occ); "
                 f"got ({cfg.field_type}, {cfg.sampler_type})"
-            )
-        if cfg.mark_invisible:
-            raise NotImplementedError(
-                "mark_invisible needs ops/occupancy.py::mark_invisible_cells, which is "
-                "not ported yet (ROADMAP.md)"
             )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -161,17 +173,30 @@ class ActiveNeRFMapper:
         self.max_samples_unc = max_samples_unc
         self.checkpoint_every = checkpoint_every
 
-        self.spectral_cfg = make_spectral_config(cfg)
-        self.prop_cfg = make_prop_config(cfg)
-        self.state: EnsembleState = init_flagship_ensemble(cfg, self.generator, self.device)
-        self._make_phase = make_flagship_train_phase
-        # the occupancy EMA runs once per chunk, outside the chunk's steps
-        self._occ_update_fn = make_flagship_occ_update(cfg)
-        # the active LR schedule, swapped by nerf_training(final_train=True)
-        self._schedule = default_spectral_schedule(cfg)
+        self.use_prop = cfg.sampler_type == "prop"
+        if self.use_prop:
+            self.spectral_cfg = make_spectral_config(cfg)
+            self.prop_cfg = make_prop_config(cfg)
+            self.state: EnsembleState = init_flagship_ensemble(cfg, self.generator, self.device)
+            self._make_phase = make_flagship_train_phase
+            # the occupancy EMA runs once per chunk, outside the chunk's steps
+            self._occ_update_fn = make_flagship_occ_update(cfg)
+            # the active LR schedule, swapped by nerf_training(final_train=True)
+            self._schedule = default_spectral_schedule(cfg)
+            self._lr = cfg.spectral_lr  # the final refit's base LR
+        else:
+            self.ngp_cfg = make_ngp_config(cfg)
+            self.state = init_ensemble(cfg, self.generator, self.device)
+            # the march's lattice, shared by the member core and the renders
+            self.lattice = make_lattice(cfg, self.device)
+            self._make_phase = functools.partial(make_ngp_train_phase, lattice=self.lattice)
+            self._occ_update_fn = None  # each member step updates its own grid
+            self._schedule = default_ngp_schedule(cfg)
+            self._lr = cfg.lr
         self.train_phase_fn = self._make_phase(cfg)
         # steps per chunk: the occupancy update, the LR bookkeeping and the
-        # checkpoint cadence move with it (``mapper.py:196-206``)
+        # checkpoint cadence move with it (``mapper.py:196-206``; the JAX
+        # occ path's cap of 5 steps worked around a TPU fault)
         self.steps_per_call = min(100, max(cfg.training_steps, 1))
 
         res = cfg.main_grid_resolution
@@ -238,9 +263,10 @@ class ActiveNeRFMapper:
 
     def _build_ensemble_renderer(self, max_samples: int, with_variance: bool) -> Callable:
         """→ ``render(members, occ, origins [V,P,3], viewdirs, bkgd)`` →
-        dict of [E, V, P, ...] tensors (``n_samples`` [E, V]). The
-        occupancy grids are accepted for signature parity: the flagship
-        sampler does not read them. The device and the field's
+        dict of [E, V, P, ...] tensors (``n_samples`` [E, V]). On the ngp
+        path see ``_build_ngp_renderer``. The occupancy grids are accepted
+        for signature parity: the flagship sampler does not read them. The
+        device and the field's
         configuration pick the route: on the card a field whose member
         core takes the combined kernel (``default_route`` is ``lossgrad``)
         renders through the packed kernels, with variance the packed field,
@@ -249,6 +275,8 @@ class ActiveNeRFMapper:
         (encode + trunk in the field kernel for a bf16 field with 2 or 3
         hidden layers, the plain chain for the rest). On the CPU the plain
         ``spectral.forward`` renders."""
+        if not self.use_prop:
+            return self._build_ngp_renderer(max_samples, with_variance)
         cfg = self.cfg
         s_cfg, p_cfg = self.spectral_cfg, self.prop_cfg
         aabb = torch.as_tensor(cfg.aabb, dtype=torch.float32, device=self.device)
@@ -282,6 +310,42 @@ class ActiveNeRFMapper:
                         field_packed_vr_fn=packed_vr_fn if packed and not with_variance else None,
                     )
                     views.append(outs)
+                per_member.append({k: torch.stack([o[k] for o in views]) for k in views[0]})
+            return {k: torch.stack([pm[k] for pm in per_member]) for k in per_member[0]}
+
+        return render
+
+    def _build_ngp_renderer(self, max_samples: int, with_variance: bool) -> Callable:
+        """The ngp branch (``mapper.py:340-436``): each member renders each
+        view through the occupancy march of its own grid, ``alpha_thre``
+        clamped by that grid's mean occupancy; a view whose rays ×
+        ``max_samples`` pass ``RENDER_ROWS`` renders in chunks of rays
+        (``n_samples`` sums over them). The march is deterministic, so the
+        render draws nothing."""
+        cfg, ngp_cfg, lattice = self.cfg, self.ngp_cfg, self.lattice
+        chunk = max(RENDER_ROWS // max_samples, 1)
+
+        @torch.inference_mode()
+        def render(members, occ, origins, viewdirs, bkgd) -> Dict[str, torch.Tensor]:
+            per_member = []
+            for m, grid in zip(members, occ):
+                def field_fn(pos, dirs, m=m):
+                    return ngp.forward(m, ngp_cfg, pos, dirs)
+
+                views = []
+                for v in range(origins.shape[0]):
+                    parts = [
+                        render_test(
+                            field_fn, origins[v, i:i + chunk], viewdirs[v, i:i + chunk], grid,
+                            lattice, max_samples, bkgd, cfg.alpha_thre, with_variance,
+                        )
+                        for i in range(0, origins.shape[1], chunk)
+                    ]
+                    views.append({
+                        k: sum(p[k] for p in parts) if k == "n_samples"
+                        else torch.cat([p[k] for p in parts])
+                        for k in parts[0]
+                    })
                 per_member.append({k: torch.stack([o[k] for o in views]) for k in views[0]})
             return {k: torch.stack([pm[k] for pm in per_member]) for k in per_member[0]}
 
@@ -367,6 +431,15 @@ class ActiveNeRFMapper:
         )
         self.train_dataset.update_data(images[..., :3], depths, sems, np.array(poses_mat))
 
+        if cfg.mark_invisible:
+            # cells outside every initial-scan frustum stay unoccupied; every
+            # member gets member 0's marking, as the JAX mapper broadcasts it
+            marked = mark_invisible_cells(
+                self.state.occ[0], self.K, torch.as_tensor(np.array(poses_mat)),
+                cfg.img_w, cfg.img_h, cfg.near_plane,
+            )
+            self.occ = [o._replace(occs=marked.occs.clone()) for o in self.state.occ]
+
         test_poses = [
             np.array(list(loc) + list(quat)) for loc in cfg.test_loc for quat in cfg.test_quat
         ]
@@ -417,7 +490,7 @@ class ActiveNeRFMapper:
         call reads a value back from the device."""
         cfg = self.cfg
         if final_train:
-            self._refit_schedule(cfg.spectral_lr, steps)
+            self._refit_schedule(self._lr, steps)
 
         occ_thre = cfg.occ_thre_for_phase(planning_step)
         ds = self.train_dataset
@@ -440,6 +513,9 @@ class ActiveNeRFMapper:
             self.state, chunk_losses = self.train_phase_fn(
                 self.state, ds.images, ds.depths, ds.semantics, ds.camtoworlds, ds.K,
                 pools, counts, ds.size, chunk, recent_bias, self.generator,
+                # the ngp core updates its grids inside the steps; the
+                # flagship's grids are updated after the chunk, below
+                **({} if self.use_prop else {"occ_thre": occ_thre}),
             )
             if guard_on:
                 m = float(chunk_losses.mean())
@@ -460,7 +536,7 @@ class ActiveNeRFMapper:
                         break
                     guard_cuts += 1
                     self.refit_rollbacks += 1
-                    base_lr = cfg.spectral_lr * 0.25**guard_cuts
+                    base_lr = self._lr * 0.25**guard_cuts
                     print(
                         f"[divergence-guard] final refit loss exploded "
                         f"({m:.3g} vs best {guard_best:.3g}) at step "
@@ -478,10 +554,11 @@ class ActiveNeRFMapper:
                     guard_state = _snapshot(self.state)
             losses.append(chunk_losses.mean(dim=-1))  # [chunk]
             done += chunk
-            self.state = self.state._replace(occ=self._occ_update_fn(
-                self.state.members, self.state.occ, self.state.step, occ_thre,
-                generator=self.generator,
-            ))
+            if self._occ_update_fn is not None:
+                self.state = self.state._replace(occ=self._occ_update_fn(
+                    self.state.members, self.state.occ, self.state.step, occ_thre,
+                    generator=self.generator,
+                ))
             # lr curve bookkeeping
             self.learning_rate_lst.append(float(self._schedule(step0 + done)))
             if not deferred and done % self.checkpoint_every < chunk:

@@ -90,7 +90,7 @@ class PipelineConfig:
     # flagship path: spectral (Fourier-feature) field + proposal-net
     # sampling, all matrix products, no per-sample random memory access
     # (models/spectral.py, render/prop_renderer.py). "ngp"/"occ" are the
-    # exact-parity alternatives (not ported).
+    # exact-parity alternatives (models/ngp.py, render/renderer.py).
     field_type: str = "spectral"  # "spectral" | "ngp"
     sampler_type: str = "prop"  # "prop" | "occ"
     num_prop_samples: int = 64

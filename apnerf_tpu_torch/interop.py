@@ -2,10 +2,14 @@
 with numpy only.
 
 Parameters keep the JAX layout, so the map is an identity on arrays:
-``W`` [3, M], ``phase`` [M] and MLP leaves ``w{i}`` [in, out] / ``b{i}``
-[out]. A ``model_{i}.npz`` has the JAX mapper's keys
+``W`` [3, M], ``phase`` [M], the hash ``table`` [L, T, F] and MLP leaves
+``w{i}`` [in, out] / ``b{i}`` [out]. Both fields carry across: a
+flagship member (``{"main": ..., "prop": ...}``) and an NGP member (the
+``init_ngp`` tree: ``table``, ``mlp_base``, ``mlp_head``, ``mlp_sem``),
+told apart by the tree's keys. A ``model_{i}.npz`` has the JAX mapper's keys
 (``apnerf_tpu/active/mapper.py:1219-1317``): ``occ_grid``, ``occs``,
-``step``, the parameters flattened as ``main/mlp_base/w0``…, and the
+``step``, the parameters flattened as ``main/mlp_base/w0`` or ``table``,
+``mlp_base/w0``…, and the
 optimizer state as ``__opt__{j}``, the leaves of optax's Adam state in
 its own order: the update count, every first moment, every second
 moment (each set in the sorted-key order of the parameter tree), and the
@@ -16,13 +20,25 @@ moments and count included.
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .models.ngp import NGPField
 from .train.flagship import FlagshipMember
 from .train.step import AdamState
+
+Member = Union[FlagshipMember, NGPField]
+_NOT_PARAMS = ("occ_grid", "occs", "step")
+
+
+def member_from_tree(tree: dict, device=None) -> Member:
+    """One member's JAX params tree → an NGP field (a tree with a hash
+    ``table``) or a flagship member."""
+    if "table" in tree:
+        return NGPField.from_tree(tree, device)
+    return FlagshipMember.from_tree(tree, device)
 
 
 def _member_tree(tree: dict, i: int) -> dict:
@@ -32,12 +48,12 @@ def _member_tree(tree: dict, i: int) -> dict:
     }
 
 
-def params_from_jax(tree: dict, device=None) -> List[FlagshipMember]:
-    """JAX ensemble params ``{"main": {...}, "prop": {...}}`` as nested
-    dicts of numpy arrays with a leading E axis → E port members, with
-    trainable parameters."""
-    E = np.asarray(tree["main"]["W"]).shape[0]
-    return [FlagshipMember.from_tree(_member_tree(tree, i), device) for i in range(E)]
+def params_from_jax(tree: dict, device=None) -> List[Member]:
+    """JAX ensemble params (``{"main": {...}, "prop": {...}}`` or the ngp
+    tree) as nested dicts of numpy arrays with a leading E axis → E port
+    members, with trainable parameters."""
+    E = np.asarray(tree["table"] if "table" in tree else tree["main"]["W"]).shape[0]
+    return [member_from_tree(_member_tree(tree, i), device) for i in range(E)]
 
 
 def _unflatten(flat: dict) -> dict:
@@ -51,26 +67,28 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
-def load_member_npz(path, device=None) -> Tuple[FlagshipMember, torch.Tensor, torch.Tensor]:
+def load_member_npz(path, device=None) -> Tuple[Member, torch.Tensor, torch.Tensor]:
     """One ``model_{i}.npz`` written by ``ActiveNeRFMapper.save_checkpoints``
-    (keys ``main/W``, ``main/mlp_base/w0``, …, ``occ_grid``, ``occs``) →
-    (member, occs [n] f32, binaries [Gx, Gy, Gz] bool); ``load_member_opt``
-    reads the optimizer leaves and the step."""
+    of either package (keys ``main/W``, ``main/mlp_base/w0``, … or
+    ``table``, ``mlp_base/w0``, …, and ``occ_grid``, ``occs``) → (member,
+    occs [n] f32, binaries [Gx, Gy, Gz] bool); ``load_member_opt`` reads
+    the optimizer leaves and the step."""
     with np.load(os.fspath(path)) as data:
-        flat = {k: data[k] for k in data.files if k.startswith(("main/", "prop/"))}
+        flat = {k: data[k] for k in data.files
+                if k not in _NOT_PARAMS and not k.startswith("__opt__")}
         occs = torch.as_tensor(data["occs"].astype(np.float32), device=device)
         binaries = torch.as_tensor(data["occ_grid"].astype(bool), device=device)
-    return FlagshipMember.from_tree(_unflatten(flat), device), occs, binaries
+    return member_from_tree(_unflatten(flat), device), occs, binaries
 
 
-def _optax_order(member: FlagshipMember) -> List[int]:
+def _optax_order(member: Member) -> List[int]:
     """Positions in ``member.parameters()`` of the leaves in optax's
     order: a JAX dict flattens by sorted keys at every level."""
     names = [name.split(".") for name, _ in member.named_parameters()]
     return sorted(range(len(names)), key=lambda i: names[i])
 
 
-def opt_leaves(member: FlagshipMember, opt: AdamState) -> List[np.ndarray]:
+def opt_leaves(member: Member, opt: AdamState) -> List[np.ndarray]:
     """A member's Adam state → the leaves of ``optax.adam``'s state for
     that member, in ``jax.tree_util.tree_leaves`` order."""
     sizes = [p.numel() for p in member.parameters()]
@@ -84,7 +102,7 @@ def opt_leaves(member: FlagshipMember, opt: AdamState) -> List[np.ndarray]:
     return out + [count.copy()]
 
 
-def adam_from_opt_leaves(member: FlagshipMember, leaves, device=None) -> AdamState:
+def adam_from_opt_leaves(member: Member, leaves, device=None) -> AdamState:
     """The inverse of ``opt_leaves``: optax's leaves for one member → the
     port's flat Adam state on ``device``."""
     order = _optax_order(member)
@@ -104,7 +122,7 @@ def adam_from_opt_leaves(member: FlagshipMember, leaves, device=None) -> AdamSta
     return AdamState(flats[0], flats[1], count)
 
 
-def save_member_npz(path, member: FlagshipMember, occs, binaries, opt: AdamState,
+def save_member_npz(path, member: Member, occs, binaries, opt: AdamState,
                     step: int) -> None:
     """Write one ``model_{i}.npz`` with the JAX mapper's keys."""
     flat = {
@@ -119,7 +137,7 @@ def save_member_npz(path, member: FlagshipMember, occs, binaries, opt: AdamState
     )
 
 
-def load_member_opt(path, member: FlagshipMember, device=None) -> Tuple[Optional[AdamState], int]:
+def load_member_opt(path, member: Member, device=None) -> Tuple[Optional[AdamState], int]:
     """The optimizer state and the step of one ``model_{i}.npz`` →
     (Adam state, or None when the file holds none; step)."""
     with np.load(os.fspath(path)) as data:

@@ -108,6 +108,8 @@ def library() -> ctypes.CDLL:
     lib.apnerf_fused_render_weights_fwd.restype = i
     lib.apnerf_fused_render_weights_bwd.argtypes = [p, p, p, p, i, i, p, p, p, p]
     lib.apnerf_fused_render_weights_bwd.restype = i
+    lib.apnerf_empty_launch.argtypes = [i, p]
+    lib.apnerf_empty_launch.restype = i
     lib.apnerf_field_layout.argtypes = [i, i, i, i, i]
     lib.apnerf_field_layout.restype = i
     for name in ("apnerf_fvr_field_fwd", "apnerf_fvr_field_bwd", "apnerf_dw", "apnerf_ffh_fwd",

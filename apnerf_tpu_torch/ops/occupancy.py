@@ -1,9 +1,10 @@
 """Binary occupancy grid: EMA occupancy plus its binarization.
 
-Port of ``apnerf_tpu/ops/occupancy.py:35-133``. The JAX package threads
-an immutable state through jitted updates; here ``update_occ_grid``
-returns a new :class:`OccGridState` as well, so callers keep the old one
-until they choose to drop it.
+Port of ``apnerf_tpu/ops/occupancy.py``: the state, ``update_occ_grid``,
+its cadence ``maybe_update_occ_grid`` and ``mark_invisible_cells``. The
+JAX package threads an immutable state through jitted updates; here
+``update_occ_grid`` returns a new :class:`OccGridState` as well, so
+callers keep the old one until they choose to drop it.
 
 The draws (the in-cell jitter, and after warm-up the uniform and the
 occupied cell indices) come from a ``torch.Generator``, or are passed in
@@ -119,3 +120,59 @@ def update_occ_grid(
     thre = torch.clamp(mean, max=occ_thre)
     binaries = (occs > thre).reshape(state.resolution)
     return OccGridState(occs=occs, binaries=binaries, aabb=state.aabb)
+
+
+def maybe_update_occ_grid(
+    state: OccGridState,
+    occ_eval_fn: Callable[[torch.Tensor], torch.Tensor],
+    step: int,
+    occ_thre: float,
+    every_n: int = 16,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[Dict[str, torch.Tensor]] = None,
+    **kw,
+) -> OccGridState:
+    """``update_occ_grid`` on steps that are multiples of ``every_n``, the
+    state itself on the others (``occupancy.py:136-152``); a step that
+    does not update draws nothing. ``kw``: ``ema_decay``,
+    ``warmup_steps``."""
+    if step % every_n != 0:
+        return state
+    return update_occ_grid(state, occ_eval_fn, step, occ_thre, generator=generator,
+                           draws=draws, **kw)
+
+
+def mark_invisible_cells(
+    state: OccGridState,
+    K: torch.Tensor,  # [3, 3]
+    c2w: torch.Tensor,  # [N, 4, 4] or [N, 3, 4]
+    width: int,
+    height: int,
+    near_plane: float = 0.0,
+) -> OccGridState:
+    """occ = -1 for the cells no camera covers and for those some camera
+    sees nearer than ``near_plane``, 0 for the rest (``occupancy.py:155-190``):
+    each cell's centre is projected into every camera (OpenGL, looking
+    down -z) at once."""
+    n_cells = state.occs.shape[0]
+    dev = state.occs.device
+    idx = torch.arange(n_cells, device=dev)
+    centers = cell_centers_world(state, idx, torch.full((n_cells, 3), 0.5, device=dev))
+    c2w = c2w.to(dev, torch.float32)
+    K = K.to(dev, torch.float32)
+    R_w2c = c2w[:, :3, :3].transpose(1, 2)  # [N, 3, 3]
+    t_w2c = -torch.einsum("nij,nj->ni", R_w2c, c2w[:, :3, 3])
+    xyz_c = torch.einsum("nij,cj->nci", R_w2c, centers) + t_w2c[:, None, :]
+    uvd = torch.einsum("ij,ncj->nci", K, xyz_c)
+    d = -xyz_c[..., 2]
+    z = uvd[..., 2:]
+    uv = uvd[..., :2] / torch.where(z.abs() > 1e-9, z, torch.full_like(z, 1e-9))
+    in_image = (
+        (d >= 0) & (uv[..., 0] >= 0) & (uv[..., 0] < width)
+        & (uv[..., 1] >= 0) & (uv[..., 1] < height)
+    )
+    covered = (d >= near_plane) & in_image  # [N, C]
+    too_near = (d < near_plane) & in_image
+    valid = covered.any(dim=0) & ~too_near.any(dim=0)
+    occs = torch.where(valid, torch.zeros_like(state.occs), torch.full_like(state.occs, -1.0))
+    return state._replace(occs=occs)

@@ -1,8 +1,11 @@
 """Dense volume rendering on ``[n_rays, n_samples]`` buffers.
 
-Port of ``apnerf_tpu/ops/volrend.py`` (the functions the candidate render
-uses). ``render_weight_from_density`` goes through the CUDA weights
-kernel (``ops/cuda/volrend_cuda.py``) for CUDA tensors.
+Port of ``apnerf_tpu/ops/volrend.py`` (the functions the renderers use).
+``render_weight_from_density`` goes through the CUDA weights kernel
+(``ops/cuda/volrend_cuda.py``) for CUDA tensors; the kernel takes
+contiguous float32 [R, S] inputs, which its callers hand it as they are.
+``render_visibility_from_density`` is plain PyTorch on densities that
+carry no gradient, as JAX computes it without a kernel.
 """
 
 from __future__ import annotations
@@ -36,6 +39,25 @@ def render_weight_from_density(
         t_starts.float().contiguous(), t_ends.float().contiguous(),
         sigmas.float().contiguous(),
     )
+
+
+def render_visibility_from_density(
+    t_starts: torch.Tensor,
+    t_ends: torch.Tensor,
+    sigmas: torch.Tensor,
+    early_stop_eps: float = 1e-4,
+    alpha_thre=0.0,  # float or 0-dim tensor
+) -> torch.Tensor:
+    """Boolean visibility [R, S] (``volrend.py:120-151``): a sample is kept
+    iff its alpha clears ``alpha_thre`` and the transmittance over the
+    earlier kept samples stays above ``early_stop_eps`` (samples that fail
+    the alpha test do not attenuate)."""
+    sigmas_dt = sigmas * (t_ends - t_starts)
+    alphas = 1.0 - torch.exp(-sigmas_dt)
+    vis_alpha = alphas >= alpha_thre
+    kept = torch.where(vis_alpha, sigmas_dt, torch.zeros_like(sigmas_dt))
+    trans = torch.exp(-exclusive_sum(kept, dim=-1))
+    return vis_alpha & (trans > early_stop_eps)
 
 
 def accumulate_along_rays(

@@ -39,7 +39,7 @@ The ensemble is a Python list of E member modules, not a vmapped axis.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,7 +54,7 @@ from ..ops.occupancy import OccGridState, init_occ_grid, update_occ_grid
 from ..render.prop_renderer import prop_sample_intervals, render_rays_prop
 from .phase import make_train_phase
 from .schedule import cyclic_lr
-from .step import AdamState, EnsembleState, make_optimizer
+from .step import CoreOutput, EnsembleState, make_optimizer
 
 
 class FlagshipMember(nn.Module):
@@ -72,16 +72,6 @@ class FlagshipMember(nn.Module):
             spectral.SpectralField.from_tree(tree["main"], device),
             spectral.SpectralDensityField.from_tree(tree["prop"], device),
         )
-
-
-class CoreOutput(NamedTuple):
-    opt: AdamState
-    loss: torch.Tensor  # [] f32
-    loss_rgb: torch.Tensor
-    loss_dep: torch.Tensor
-    loss_sem: torch.Tensor
-    n_samples: torch.Tensor  # [] int
-    skipped: torch.Tensor  # [] bool: a NaN or infinite gradient, no update
 
 
 def default_spectral_schedule(cfg: PipelineConfig):

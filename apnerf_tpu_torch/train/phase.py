@@ -8,7 +8,11 @@ and ``vmap`` a loop over the E members. Each step draws on the device:
     its padded bootstrap pool (inverse CDF over the valid prefix);
   * with ``recent_bias``, a coin per member picks the recent images
     half of the time;
-then fetches each member's rays and runs the member core. Nothing inside
+then fetches each member's rays and runs the member core: the flagship
+core (``train/flagship.py``), or the (ngp, occ) core
+(``train/step.py::make_member_core``, ``make_ngp_train_phase``), which
+updates its member's occupancy grid inside the step with draws of its
+own (JAX splits one ``k_occ`` per member, ``phase.py:104-126``). Nothing inside
 a chunk reads a value back to the host, so the loop only queues work;
 capturing a chunk in a CUDA graph is later work (ROADMAP.md).
 """
@@ -22,7 +26,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..data.dataset import RayDataset, fetch_rays
-from .step import EnsembleState
+from .step import EnsembleState, make_member_core
 
 
 def pools_from_dataset(ds: RayDataset) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,16 +69,22 @@ def _sample_pool_index(
 
 def make_train_phase(cfg: PipelineConfig, member_core: Callable):
     """→ ``phase_fn(state, images, depths, semantics, camtoworlds, K, pools,
-    counts, size, n_steps, recent_bias, generator=None, draws=None) ->
-    (state, losses [n_steps, E])``.
+    counts, size, n_steps, recent_bias, generator=None, draws=None,
+    occ_thre=1e-2) -> (state, losses [n_steps, E])``.
 
-    ``member_core`` is the flagship core (``train/flagship.py``); the
-    (ngp, occ) core is not ported. Parameters and optimizer state update
-    in place and the returned state carries ``step + n_steps``.
-    ``draws``, when given, holds one dict per step with the draws that
-    ``generator`` would make: ``coin`` and ``pick`` [E], ``x`` and ``y``
-    [E, R] pixels, ``bkgd`` [E, 3] and the stratified ``noise``
-    [E, R, S+1] of proposal sampling."""
+    ``member_core`` is the flagship core (``train/flagship.py``) or the
+    (ngp, occ) core (``step.make_member_core``). Parameters and optimizer
+    state update in place, and the returned state carries ``step +
+    n_steps``. A core with ``updates_occ`` gets its member's grid and
+    ``occ_thre``, the occupancy threshold of the phase
+    (``cfg.occ_thre_for_phase``), and the grid it returns replaces the
+    member's entry of ``state.occ``. ``draws``, when
+    given, holds one dict per step with the draws that ``generator`` would
+    make: ``coin`` and ``pick`` [E], ``x`` and ``y`` [E, R] pixels,
+    ``bkgd`` [E, 3], the stratified ``noise`` [E, R, S+1] of proposal
+    sampling and ``occ``, per member the occupancy update's draws or None
+    (see ``ops/occupancy.update_occ_grid``)."""
+    updates_occ = getattr(member_core, "updates_occ", False)
 
     def phase_fn(
         state: EnsembleState,
@@ -86,10 +96,11 @@ def make_train_phase(cfg: PipelineConfig, member_core: Callable):
         recent_bias: bool = False,
         generator: Optional[torch.Generator] = None,
         draws: Optional[Sequence[dict]] = None,
+        occ_thre: float = 1e-2,
     ):
         E = len(state.members)
         dev = images.device
-        opt = list(state.opt)
+        opt, occ = list(state.opt), list(state.occ)
         losses = []
         for i in range(n_steps):
             d = draws[i] if draws is not None else None
@@ -108,14 +119,25 @@ def make_train_phase(cfg: PipelineConfig, member_core: Callable):
                     images, depths, semantics, camtoworlds, K, image_idx[m],
                     cfg.num_rays, training=True, generator=generator, draws=fetch_draws,
                 )
-                out = member_core(
-                    state.members[m], opt[m], batch, state.step + i, generator=generator,
-                    noise=None if d is None else d["noise"][m],
-                )
+                if updates_occ:
+                    extra = dict(occ=occ[m], occ_thre=occ_thre,
+                                 occ_draws=None if d is None else d["occ"][m])
+                else:
+                    extra = dict(noise=None if d is None else d["noise"][m])
+                out = member_core(state.members[m], opt[m], batch, state.step + i,
+                                  generator=generator, **extra)
                 opt[m] = out.opt
+                if updates_occ:
+                    occ[m] = out.occ
                 step_loss.append(out.loss)
             losses.append(torch.stack(step_loss))
-        state = state._replace(opt=opt, step=state.step + n_steps)
+        state = state._replace(opt=opt, occ=occ, step=state.step + n_steps)
         return state, torch.stack(losses) if losses else torch.zeros((0, E), device=dev)
 
     return phase_fn
+
+
+def make_ngp_train_phase(cfg: PipelineConfig, lattice: torch.Tensor, schedule=None):
+    """The chunk of steps over the (ngp, occ) member core on ``lattice``
+    (``step.make_lattice``) under ``schedule``."""
+    return make_train_phase(cfg, make_member_core(cfg, lattice, schedule))

@@ -1,11 +1,12 @@
-"""Ensemble train state and the optimizer.
+"""Ensemble train state, the optimizer and the ngp+occ member step.
 
 Port of ``apnerf_tpu/train/step.py``: ``EnsembleState``,
 ``make_optimizer`` (``:72-104``: ``optax.adam``, ``optax.adamw`` with
 ``cfg.weight_decay`` and the chain that decays the main field's spectrum
-only, ``cfg.spectral_spectrum_wd``) and ``reset_opt_state``. The
-optimizer is written as plain tensor ops, not ``torch.optim.Adam``, for
-two reasons:
+only, ``cfg.spectral_spectrum_wd``), ``reset_opt_state``, and the
+(ngp, occ) oracle path's ``make_ngp_config``, ``init_ensemble`` and
+``make_member_core``. The optimizer is written as plain tensor ops, not
+``torch.optim.Adam``, for two reasons:
   * optax evaluates the schedule at its OWN update count, which starts at
     0 and is not the train step (the bench starts training at step 1000);
   * a step with a non-finite gradient must leave the parameters, both
@@ -20,8 +21,13 @@ from __future__ import annotations
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import PipelineConfig
+from ..models import ngp
+from ..ops.grid_march import candidate_lattice
+from ..ops.occupancy import OccGridState, init_occ_grid, maybe_update_occ_grid
+from ..render.renderer import render_train
 from .schedule import cyclic_lr
 
 
@@ -38,6 +44,21 @@ class EnsembleState(NamedTuple):
     opt: List[AdamState]
     occ: list  # ops.occupancy.OccGridState
     step: int  # train steps taken, shared by the members
+
+
+class CoreOutput(NamedTuple):
+    """One member step's result. ``occ`` is the member's occupancy grid
+    after the step on the path that updates it inside the step (ngp+occ),
+    None on the flagship path."""
+
+    opt: AdamState
+    loss: torch.Tensor  # [] f32
+    loss_rgb: torch.Tensor
+    loss_dep: torch.Tensor
+    loss_sem: torch.Tensor
+    n_samples: torch.Tensor  # [] int
+    skipped: torch.Tensor  # [] bool: a NaN or infinite gradient, no update
+    occ: Optional[OccGridState] = None
 
 
 class Adam:
@@ -127,3 +148,116 @@ def reset_opt_state(state: EnsembleState, cfg: PipelineConfig, schedule) -> Ense
     return state._replace(
         opt=[opt.init(list(m.parameters())) for m in state.members], step=0
     )
+
+
+# -- the (ngp, occ) oracle path -------------------------------------------------------------
+
+
+def make_ngp_config(cfg: PipelineConfig) -> ngp.NGPConfig:
+    """The NGP field's configuration from the pipeline's (``step.py:55-69``)."""
+    return ngp.NGPConfig(
+        aabb=tuple(float(v) for v in cfg.aabb),
+        neurons=cfg.main_neurons,
+        layers=cfg.main_layer,
+        geo_feat_dim=cfg.geo_feat_dim,
+        n_levels=cfg.n_levels,
+        n_features=cfg.n_features,
+        log2_hashmap_size=cfg.log2_hashmap_size,
+        base_resolution=cfg.base_resolution,
+        max_resolution=cfg.max_resolution,
+        num_semantic_classes=cfg.num_semantic_classes,
+    )
+
+
+def default_ngp_schedule(cfg: PipelineConfig):
+    """The ngp path's cyclic LR, ``lr_base`` → ``lr`` over a quarter of the
+    train budget up and down."""
+    return cyclic_lr(cfg.lr_base, cfg.lr, max(cfg.training_steps // 4, 1))
+
+
+def _ngp_optimizer(cfg: PipelineConfig, schedule: Optional[Callable]) -> Adam:
+    if cfg.spectral_spectrum_wd > 0:
+        raise ValueError(
+            "spectral_spectrum_wd decays the spectral field's spectrum; the ngp field has "
+            "none (use weight_decay)"
+        )
+    return make_optimizer(cfg, schedule or default_ngp_schedule(cfg))
+
+
+def init_ensemble(cfg: PipelineConfig, generator: torch.Generator, device=None) -> EnsembleState:
+    """E NGP members from ``generator``, fresh Adam states and empty grids,
+    at step 0 (``step.py:107-123``)."""
+    ngp_cfg = make_ngp_config(cfg)
+    opt = _ngp_optimizer(cfg, None)
+    members = [ngp.init_ngp(ngp_cfg, generator, device) for _ in range(cfg.n_ensembles)]
+    return EnsembleState(
+        members=members, opt=[opt.init(list(m.parameters())) for m in members],
+        occ=[init_occ_grid(cfg.aabb, cfg.main_grid_resolution, device) for _ in members],
+        step=0,
+    )
+
+
+def make_lattice(cfg: PipelineConfig, device=None) -> torch.Tensor:
+    """The march's candidate lattice [n_candidates + 1] on ``device``."""
+    return torch.as_tensor(
+        candidate_lattice(cfg.n_candidates, cfg.near_plane, cfg.render_step_size,
+                          cfg.cone_angle),
+        device=device,
+    )
+
+
+def make_member_core(cfg: PipelineConfig, lattice: torch.Tensor,
+                     schedule: Optional[Callable] = None):
+    """One NGP member's train step (``step.py:134-209``) →
+    ``member_core(member, opt_state, batch, step, occ, occ_thre,
+    generator=None, occ_draws=None) -> CoreOutput``:
+      1. the occupancy update on its cadence (every ``occ_every_n`` steps;
+         all cells during warm-up), from the member's density times
+         ``render_step_size`` before this step's update; its draws come
+         from ``generator`` or ``occ_draws``;
+      2. the occupancy-march render of the batch over ``lattice``
+         (``make_lattice``, on the batch's device) with ``alpha_thre``
+         clamped by the updated grid's mean;
+      3. the loss 10·huber(rgb) + huber(depth) / 5 + CE(sem) / 2 and its
+         gradients by autograd (the weights kernel's backward on the card);
+      4. Adam with the reduction-only NaN guard: a non-finite gradient
+         leaves the parameters, both moments and the count as they were.
+    The member's parameters update in place; the new grid is returned in
+    ``CoreOutput.occ``. The core's ``updates_occ`` attribute tells the
+    train phase to hand it the grid and the phase's threshold."""
+    ngp_cfg = make_ngp_config(cfg)
+    opt = _ngp_optimizer(cfg, schedule)
+
+    def member_core(member, opt_state, batch, step, occ, occ_thre, generator=None,
+                    occ_draws=None) -> CoreOutput:
+        @torch.no_grad()
+        def occ_eval_fn(x):
+            return ngp.query_density(member, ngp_cfg, x) * cfg.render_step_size
+
+        occ = maybe_update_occ_grid(
+            occ, occ_eval_fn, step, occ_thre, every_n=cfg.occ_every_n,
+            generator=generator, draws=occ_draws,
+            ema_decay=cfg.occ_ema_decay, warmup_steps=cfg.occ_warmup_steps,
+        )
+
+        def field_fn(pos, dirs):
+            return ngp.forward(member, ngp_cfg, pos, dirs)
+
+        names, params = zip(*member.named_parameters())
+        with torch.enable_grad():
+            out = render_train(
+                field_fn, batch.origins, batch.viewdirs, occ, lattice,
+                cfg.max_samples_train, batch.color_bkgd, alpha_thre=cfg.alpha_thre,
+                occ_mean=occ.occs.mean(),
+            )
+            l_rgb = F.huber_loss(out["rgb"], batch.pixels, delta=1.0)
+            l_dep = F.huber_loss(out["depth"][:, 0], batch.depth, delta=1.0)
+            l_sem = F.cross_entropy(out["sem"], batch.sem.long())
+            loss = l_rgb * 10.0 + l_dep / 5.0 + l_sem / 2.0
+            grads = torch.autograd.grad(loss, list(params))
+        new_state, bad = opt.step(list(params), grads, opt_state, names=names)
+        return CoreOutput(new_state, loss.detach(), l_rgb.detach(), l_dep.detach(),
+                          l_sem.detach(), out["n_samples"], bad, occ)
+
+    member_core.updates_occ = True
+    return member_core

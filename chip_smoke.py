@@ -1,5 +1,5 @@
 """Drive the PyTorch port's planning step, train step and whole active
-mapping loop on one NVIDIA GPU.
+mapping loop, on both of its paths, on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase below but 12
     python3 chip_smoke.py --modes    # and phase 12
@@ -17,7 +17,9 @@ Phases, each of which must pass:
      trunk, each limit shown to catch a zeroed and a negated output;
   3. the weights kernel against its plain version at the main field's and
      the proposal field's [rays, samples], with its own device time from
-     ``torch.profiler`` beside the CUDA-event window;
+     ``torch.profiler`` beside the CUDA-event window, its device time with
+     its inputs out of L2 (64 MB written between launches), and the device
+     time of an empty kernel launched the same way (the launch floor);
   4. the planning step at the shipping ``PipelineConfig()`` with 4
      candidates (the loop of phase 10 runs the full 20, twice) and seeded
      random weights: the warm-up occupancy update over every cell, the
@@ -30,7 +32,8 @@ Phases, each of which must pass:
      share;
   5. the weights kernel's backward against autograd through its plain
      version at [2048, 64] (the proposal level of a train step) and
-     [4096, 256], its device time from the profiler beside the window;
+     [4096, 256], its device time from the profiler beside the window, L2
+     cold and beside the launch floor, as in phase 3;
   6. the train-step kernel against its plain version at the train shape
      (2048 rays x 128 samples, the shipping main field, 29 classes) with
      seeded random weights, zero-initialised and random biases: loss
@@ -108,7 +111,22 @@ Phases, each of which must pass:
  18. the whole loop through the CLI at ``configs/config_faketiny.yaml``
      (M = 32, the tile's (32, 256) instance) on the card: finite falling
      losses, finite evaluation rows, exact launch counts.
-Phases 13 to 17 run after phase 9, phase 18 after phase 11. Phase 1 also
+ 19. the ngp+occ path (``PipelineConfig()``'s hash grid, 2 x 128 base MLP,
+     29 classes, 2 members x 2048 x 128) on the train path's scan: the
+     weights kernel forward at [2048, 128], [4096, 256] and [2048, 512] and
+     backward at [2048, 128] on intervals of a real occupancy march, sigma 0
+     on padded samples, against its plain version, L2 cold and beside the
+     launch floor; two chunks of 100 member steps, the second timed with
+     exact launch counts; one member step on the kernels against the same
+     step with the weights kernel's plain version (loss, every tensor's
+     update and gradient, the occupancy grid exactly) and its launches, 1
+     forward + 1 backward; one member step traced;
+ 20. the ngp+occ loop through the CLI: ``config_fakeprod.yaml``'s values
+     with ``field_type: ngp`` and ``sampler_type: occ``, its depth cut to 1
+     planning step of 100 train steps (100 + 100 + 500 train steps, 3
+     evaluations): finite falling losses, finite evaluation rows, exact
+     launch counts of the weights kernel.
+Phases 13 to 17 and 19 run after phase 9, phase 18 and 20 after phase 11. Phase 1 also
 holds the host's mirrors of the tile's shared-memory layouts to the
 kernels' own at every instance. ``--field-kernels`` runs phase 1 and the
 kernel comparisons of phases 6, 8, 9 and 13 (the two render backwards and
@@ -120,8 +138,10 @@ kernels) of the checkout in DIR, whose layout mirrors it does not check:
 the same script times an older tree and this one.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-``nvidia-smi``'s name and power limit, and before that one JSON object
-with each kernel's launches, error and times. Any failure exits non-zero
+``nvidia-smi``'s name and power limit, before that one JSON object with
+each kernel's launches, error and times (the weights kernel's rows also
+its launches over the ngp+occ loop), and before that the smoke's total
+wall time. Any failure exits non-zero
 before those lines.
 """
 
@@ -257,6 +277,7 @@ def main(argv=None) -> int:
         sys.path.insert(0, os.path.abspath(tree))
 
     # ---- 1. device and build -------------------------------------------------
+    t_smoke = time.perf_counter()
     from apnerf_tpu_torch.ops.cuda import build
 
     smi = nvidia_smi()
@@ -383,17 +404,17 @@ def main(argv=None) -> int:
             ms = cuda_ms(lambda: fused_render_weights(t0_, t1_, sig))
             pms = cuda_ms(lambda: fused_render_weights_plain(t0_, t1_, sig))
             dms, by = device_ms(lambda: fused_render_weights(t0_, t1_, sig))
+            bnd = k2_fwd_bound(R, n_s)
             print(f"weights kernel [{R}, {n_s}]: max_abs {abs_err:.3e} (tol {K2_TOL}) | "
                   f"kernel {ms:.4f} ms (event window), {dms:.4f} ms device time ("
                   + ", ".join(f"{k} {v:.4f}" for k, v in by.items())
-                  + f") | plain {pms:.4f} ms", flush=True)
+                  + f") | plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+            k2_floor_and_cold(dev, R, lambda: fused_render_weights(t0_, t1_, sig),
+                              "render_weights_fwd_kernel", f"weights kernel [{R}, {n_s}]")
             if not abs_err <= K2_TOL:
                 fail(f"weights kernel disagrees with its plain version: {abs_err}")
             if n_s == S:
-                # 3 f32 inputs and 3 f32 outputs per sample; ~12 f32 operations
-                # (two exp, the scan) per sample
-                records["fused_render_weights"] = (
-                    abs_err, ms, pms, bound(12 * R * n_s, 24 * R * n_s, PEAK_F32_FLOPS))
+                records["fused_render_weights"] = (abs_err, ms, pms, bnd)
     torch.cuda.synchronize()
 
     # ---- 4. the planning step ------------------------------------------------------
@@ -493,6 +514,8 @@ def main(argv=None) -> int:
     # ---- 16-17. the tile's other widths ---------------------------------------------
     phase_widths(dev)
     phase_member_widths(dev, bench_run)
+    # ---- 19. the ngp+occ path's weights-kernel shapes and member step ---------------
+    phase_ngp_step(dev, bench_run)
     del bench_run
 
     # ---- 10-11. the loop through the CLI, and its renders on both routes ----------
@@ -503,6 +526,8 @@ def main(argv=None) -> int:
     del loop_mapper
     # ---- 18. the loop at config_faketiny.yaml's widths ------------------------------
     phase_faketiny(dev)
+    # ---- 20. the ngp+occ loop through the CLI ------------------------------------------
+    ngp_launches = phase_ngp_loop(dev)
 
     kernels = [
         {"name": "fused_spectral_field", "route": "cuda",
@@ -556,6 +581,9 @@ def main(argv=None) -> int:
             # max-abs error is that of the largest leaf: the worst error over
             # its own leaf's max-abs says how far the kernel is off
             k["max_err_over_leaf_scale"] = rel[0]
+        if ngp_launches[k["name"]]:
+            k["ngp_loop_launches"] = ngp_launches[k["name"]]
+    print(f"smoke total: {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
@@ -812,19 +840,72 @@ def phase_k2_bwd(dev):
         ms = cuda_ms(lambda: fused_render_weights_bwd(t0_, t1_, sig, g))
         pms = cuda_ms(lambda: torch.autograd.grad(w, leaves, g, retain_graph=True))
         dms, by = device_ms(lambda: fused_render_weights_bwd(t0_, t1_, sig, g))
+        bnd = k2_bwd_bound(R, n_s)
         print(f"weights backward [{R}, {n_s}]: max_abs dsigma {errs[0][0]:.3e} dt0 "
               f"{errs[1][0]:.3e} dt1 {errs[2][0]:.3e} | err/scale {errs[0][1]:.3e} "
               f"{errs[1][1]:.3e} {errs[2][1]:.3e} (tol {K2_BWD_TOL}) | kernel {ms:.4f} ms "
               f"(event window), {dms:.4f} ms device time ("
               + ", ".join(f"{k} {v:.4f}" for k, v in by.items())
-              + f") | plain (autograd backward) {pms:.4f} ms", flush=True)
+              + f") | plain (autograd backward) {pms:.4f} ms | bound {bnd[0]:.4f} ms "
+              f"({bnd[1]})", flush=True)
+        k2_floor_and_cold(dev, R, lambda: fused_render_weights_bwd(t0_, t1_, sig, g),
+                          "render_weights_bwd_kernel", f"weights backward [{R}, {n_s}]")
         if not max(e[1] for e in errs) <= K2_BWD_TOL:
             fail(f"weights backward [{R}, {n_s}] disagrees with autograd")
         if n_s == 64:
-            # 4 f32 inputs and 3 f32 outputs per sample; ~30 f32 operations
-            record = (max(e[0] for e in errs), ms, pms,
-                      bound(30 * R * n_s, 28 * R * n_s, PEAK_F32_FLOPS))
+            record = (max(e[0] for e in errs), ms, pms, bnd)
     return record
+
+
+def k2_fwd_bound(R, S):
+    """The weights kernel's bound at [R, S]: 3 f32 inputs and 3 f32 outputs
+    per sample; ~12 f32 operations (two exp, the scan) per sample."""
+    return bound(12 * R * S, 24 * R * S, PEAK_F32_FLOPS)
+
+
+def k2_bwd_bound(R, S):
+    """The weights backward's bound at [R, S]: 4 f32 inputs and 3 f32
+    outputs per sample; ~30 f32 operations per sample."""
+    return bound(30 * R * S, 28 * R * S, PEAK_F32_FLOPS)
+
+
+L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB of L2
+
+
+def k2_floor_and_cold(dev, R, fn, kernel, label, calls=20):
+    """Prints the device time of ``fn``'s kernel (named ``kernel``) with
+    its inputs out of L2 (64 MB written between launches), and the device
+    time and event window of an empty kernel launched as the weights
+    kernel is (its grid for R rays, 256 threads): the launch floor →
+    (cold ms, floor ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from apnerf_tpu_torch.ops.cuda import build
+
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def empty():
+        if lib.apnerf_empty_launch(R, stream) != 0:
+            fail("the empty kernel did not launch")
+
+    floor, _ = device_ms(empty, calls)
+    floor_window = cuda_ms(empty)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.fill_(1.0)
+            fn()
+        torch.cuda.synchronize()
+    cold = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and kernel in e.name) / calls / 1e3
+    print(f"  {label}: device time with its inputs out of L2 (64 MB written between launches) "
+          f"{cold:.4f} ms | an empty kernel launched the same way: {floor:.4f} ms device time, "
+          f"{floor_window:.4f} ms event window", flush=True)
+    return cold, floor
 
 
 def _k6_inputs(gen, dev, R, S, n_classes, aabb):
@@ -2569,6 +2650,297 @@ def phase_faketiny(dev):
         fail(f"faketiny loop launch counts {counts}, expected {expected} ({scored} candidates "
              f"scored)")
     return mapper
+
+
+# The ngp+occ member step on the card against the same step with the weights
+# kernel's plain version in place (forward and backward): the loss (relative),
+# each tensor's update and gradient (err / max-abs; the gradient recovered
+# from Adam's first moment), and the occupancy grid, whose update comes
+# before the render and runs no kernel, exactly. The hash table's gradient
+# is an index_add_ with float atomics, so two runs of the same step differ
+# already, and the state the step starts from was trained through the same
+# atomics. Four readings on an H100 (PERF.md): loss 8.9e-8, 0, 8.9e-8, 0
+# (one f32 ulp near 1.3 is 9e-8 relative), update 1.4e-5-4.1e-5 (the
+# largest in mlp_sem.w0, where an element with a small second moment
+# magnifies a small change of its gradient), gradient 4.6e-6-1.3e-5 (the
+# table's); the limits are 5.6x the largest loss reading (room for a few
+# ulp), 3.7x the largest update's and 3.8x the largest gradient's. Zeroed
+# or negated weights move all three by orders of magnitude more.
+NGP_STEP_TOL = (5e-7, 1.5e-4, 5e-5)
+NGP_SHAPES = ((2048, 128, True), (4096, 256, False), (2048, 512, False))
+
+
+def _ngp_config():
+    """``PipelineConfig()``'s ngp+occ field at the bench's scene and batch:
+    a 16-level hash grid of 2^19 x 4 features, a 2 x 128 base MLP, 29
+    classes, 2 members x 2048 rays x 128 samples, 2048 candidates."""
+    from apnerf_tpu_torch import bench
+
+    return dataclasses.replace(bench.bench_config(), field_type="ngp", sampler_type="occ")
+
+
+def _march_inputs(dev, gen, R, S, cfg, batch):
+    """Intervals of a real occupancy march at [R, S] (rays of a train
+    batch, a grid 40 % occupied) and σ uniform in [0, 2) on valid samples,
+    0 on padded ones."""
+    from apnerf_tpu_torch.ops.grid_march import march_rays
+    from apnerf_tpu_torch.train.step import make_lattice
+
+    lattice = make_lattice(cfg, dev)
+    binaries = torch.rand(cfg.main_grid_resolution, generator=gen, device=dev) < 0.4
+    aabb = torch.as_tensor(cfg.aabb, dtype=torch.float32, device=dev)
+    reps = -(-R // batch.origins.shape[0])
+    o = batch.origins.repeat(reps, 1)[:R]
+    d = batch.viewdirs.repeat(reps, 1)[:R]
+    segs = march_rays(o, d, binaries, aabb, lattice, S)
+    sig = torch.rand((R, S), generator=gen, device=dev) * 2.0 * segs.valid
+    return segs.t_starts, segs.t_ends, sig, segs.valid
+
+
+def phase_ngp_step(dev, bench_run):
+    """Phase 19: the weights kernel at the ngp+occ path's shapes, then the
+    ngp+occ member step at full width on the bench's scan: two chunks of
+    100 steps (the second timed, its launches exact), one member step on
+    the kernels against one on the plain versions, one traced."""
+    import copy
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
+        fused_render_weights,
+        fused_render_weights_bwd,
+        fused_render_weights_plain,
+    )
+    from apnerf_tpu_torch.ops.occupancy import _draw
+    from apnerf_tpu_torch.train.phase import make_ngp_train_phase, pools_from_dataset
+    from apnerf_tpu_torch.train.step import (
+        AdamState,
+        init_ensemble,
+        make_lattice,
+        make_member_core,
+    )
+
+    cfg = _ngp_config()
+    ds = bench_run[1].dataset
+    gen = _generator(dev, 19)
+    batch, _ = _step_inputs(dev, ds, 119)
+    for R, S, with_bwd in NGP_SHAPES:
+        t0_, t1_, sig, valid = _march_inputs(dev, gen, R, S, cfg, batch)
+        got = fused_render_weights(t0_, t1_, sig)
+        torch.cuda.synchronize()
+        ref = fused_render_weights_plain(t0_, t1_, sig)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        ms = cuda_ms(lambda: fused_render_weights(t0_, t1_, sig))
+        pms = cuda_ms(lambda: fused_render_weights_plain(t0_, t1_, sig))
+        dms, _ = device_ms(lambda: fused_render_weights(t0_, t1_, sig))
+        bnd = k2_fwd_bound(R, S)
+        print(f"ngp path: weights kernel [{R}, {S}] ({float(valid.float().mean()):.3f} of samples "
+              f"valid, sigma 0 on the rest): max_abs {err:.3e} (tol {K2_TOL}) | kernel {ms:.4f} ms "
+              f"(event window), {dms:.4f} ms device time | plain {pms:.4f} ms | bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+        k2_floor_and_cold(dev, R, lambda: fused_render_weights(t0_, t1_, sig),
+                          "render_weights_fwd_kernel", f"ngp path: weights kernel [{R}, {S}]")
+        if not err <= K2_TOL:
+            fail(f"weights kernel at the ngp shape [{R}, {S}] disagrees with its plain version")
+        if not with_bwd:
+            continue
+        g = torch.randn((R, S), generator=gen, device=dev) * valid
+        got = fused_render_weights_bwd(t0_, t1_, sig, g)
+        torch.cuda.synchronize()
+        leaves = [x.clone().requires_grad_(True) for x in (sig, t0_, t1_)]
+        w, _, _ = fused_render_weights_plain(leaves[1], leaves[2], leaves[0])
+        ref = torch.autograd.grad(w, leaves, g, retain_graph=True)
+        errs = [_errs(a, b) for a, b in zip(got, ref)]
+        ms = cuda_ms(lambda: fused_render_weights_bwd(t0_, t1_, sig, g))
+        pms = cuda_ms(lambda: torch.autograd.grad(w, leaves, g, retain_graph=True))
+        dms, _ = device_ms(lambda: fused_render_weights_bwd(t0_, t1_, sig, g))
+        bnd = k2_bwd_bound(R, S)
+        print(f"ngp path: weights backward [{R}, {S}]: err/scale dsigma {errs[0][1]:.3e} dt0 "
+              f"{errs[1][1]:.3e} dt1 {errs[2][1]:.3e} (tol {K2_BWD_TOL}) | kernel {ms:.4f} ms "
+              f"(event window), {dms:.4f} ms device time | plain (autograd backward) "
+              f"{pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+        k2_floor_and_cold(dev, R, lambda: fused_render_weights_bwd(t0_, t1_, sig, g),
+                          "render_weights_bwd_kernel", f"ngp path: weights backward [{R}, {S}]")
+        if not (all(np.isfinite(e[0]) for e in errs) and max(e[1] for e in errs) <= K2_BWD_TOL):
+            fail(f"weights backward at the ngp shape [{R}, {S}] disagrees with autograd")
+
+    # two chunks of 100 steps of the ensemble on the bench's scan
+    state = init_ensemble(cfg, _generator(dev, 20), dev)
+    lattice = make_lattice(cfg, dev)
+    phase_fn = make_ngp_train_phase(cfg, lattice)
+    pools, counts = pools_from_dataset(ds)
+    counters = all_counters()
+    losses = []
+    for timed in (False, True):
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        state, chunk = phase_fn(state, ds.images, ds.depths, ds.semantics, ds.camtoworlds, ds.K,
+                                pools, counts, ds.size, 100, False, gen,
+                                occ_thre=cfg.occ_thre_for_phase(-1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_c
+        losses.append(chunk)
+    launches = read_counts(counters)
+    E = cfg.n_ensembles
+    loss = torch.cat(losses).mean(dim=1).cpu().numpy()
+    print(f"ngp path: member steps on the bench's scan: {wall / 100 * 1e3:.3f} ms per ensemble "
+          f"step ({wall / 100 / E * 1e3:.3f} ms per member step) over the timed chunk of 100; "
+          f"chunk-mean losses {loss[:100].mean():.4f}, {loss[100:].mean():.4f}; occupancy "
+          f"{[round(float(o.binaries.float().mean()), 4) for o in state.occ]}; launches "
+          f"{launches}", flush=True)
+    if not np.isfinite(loss).all():
+        fail("the ngp+occ member steps gave a non-finite loss")
+    expected = dict.fromkeys(launches, 0)
+    expected.update(fused_render_weights=E * 100, fused_render_weights_bwd=E * 100)
+    if launches != expected:
+        fail(f"ngp+occ train launch counts {launches}, expected {expected}")
+
+    # one member step on the kernels against the same step on the plain versions
+    step = -(-state.step // cfg.occ_every_n) * cfg.occ_every_n  # a step that updates the grid
+    core = make_member_core(cfg, lattice)
+    old, opt0, occ0 = state.members[0], state.opt[0], state.occ[0]
+    n_cells = occ0.occs.numel()
+    draws = _draw(n_cells, n_cells if step < cfg.occ_warmup_steps else 2 * (n_cells // 4),
+                  _generator(dev, 21), dev)
+    b1 = 0.9
+    sizes = [p.numel() for p in old.parameters()]
+
+    def one_step():
+        member = copy.deepcopy(old)
+        out = core(member, AdamState(*(t.clone() for t in opt0)), batch, step, occ=occ0,
+                   occ_thre=cfg.occ_thre_for_phase(-1), occ_draws=draws)
+        if bool(out.skipped):
+            fail("the ngp+occ member step met a non-finite gradient")
+        return member, out
+
+    reset_counts(counters)
+    kern = one_step()
+    torch.cuda.synchronize()
+    step_launches = read_counts(counters)
+    with plain_routes():
+        plain = one_step()
+    loss_rel = abs(float(kern[1].loss) - float(plain[1].loss)) / abs(float(plain[1].loss))
+    gk = torch.split((kern[1].opt.mu - b1 * opt0.mu) / (1 - b1), sizes)
+    gp = torch.split((plain[1].opt.mu - b1 * opt0.mu) / (1 - b1), sizes)
+    rows = []
+    for i, ((name, p0), a, b) in enumerate(zip(old.named_parameters(), kern[0].parameters(),
+                                               plain[0].parameters())):
+        rows.append((name, _errs(a.detach() - p0.detach(), b.detach() - p0.detach())[1],
+                     _errs(gk[i], gp[i])[1]))
+    occ_err = float((kern[1].occ.occs - plain[1].occ.occs).abs().max())
+    occ_same = torch.equal(kern[1].occ.binaries, plain[1].occ.binaries)
+    worst_u, worst_g = max(r[1] for r in rows), max(r[2] for r in rows)
+    print(f"ngp path: member step at step {step} (the grid updated), kernels vs plain versions: "
+          f"loss {float(kern[1].loss):.6f} vs {float(plain[1].loss):.6f} (rel {loss_rel:.3e}, tol "
+          f"{NGP_STEP_TOL[0]}); update worst err/scale {worst_u:.3e} (tol {NGP_STEP_TOL[1]}), "
+          f"gradient {worst_g:.3e} (tol {NGP_STEP_TOL[2]}); occupancy EMA max-abs {occ_err:.3e}, "
+          f"binaries equal {occ_same}; samples {int(kern[1].n_samples)}; launches {step_launches}",
+          flush=True)
+    for name, ru, rg in rows:
+        print(f"    {name:16s} update {ru:.3e} gradient {rg:.3e}")
+    expected = dict.fromkeys(step_launches, 0)
+    expected.update(fused_render_weights=1, fused_render_weights_bwd=1)
+    if step_launches != expected:
+        fail(f"an ngp+occ member step launched {step_launches}, expected {expected}")
+    if not (loss_rel <= NGP_STEP_TOL[0] and worst_u <= NGP_STEP_TOL[1]
+            and worst_g <= NGP_STEP_TOL[2] and occ_err == 0.0 and occ_same):
+        fail("the ngp+occ member step with the kernels disagrees with the plain versions")
+
+    # one member step traced
+    member = copy.deepcopy(old)
+    opt = AdamState(*(t.clone() for t in opt0))
+    core(member, opt, batch, state.step, occ=occ0, occ_thre=1e-3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_p = time.perf_counter()
+        float(core(member, opt, batch, state.step, occ=occ0, occ_thre=1e-3).loss)
+        t_p = time.perf_counter() - t_p
+    busy = sum(
+        e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA
+    ) / 1e6
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
+    print(f"profiled ngp+occ member step (no grid update): wall {t_p * 1e3:.3f} ms, device busy "
+          f"{busy * 1e3:.3f} ms, idle share {1 - busy / t_p:.1%}", flush=True)
+
+
+def _render_calls(rays: int, samples: int) -> int:
+    """Render calls (and weights-kernel launches) of one ngp view render."""
+    from apnerf_tpu_torch.active.mapper import RENDER_ROWS
+
+    return -(-rays // max(RENDER_ROWS // samples, 1))
+
+
+def phase_ngp_loop(dev):
+    """Phase 20: the ngp+occ loop through its CLI at
+    ``config_fakeprod.yaml``'s width with the pair set, one planning step
+    → the launches of the weights kernel over it."""
+    import yaml
+
+    from apnerf_tpu_torch.active import pipeline
+    from apnerf_tpu_torch.active.mapper import ActiveNeRFMapper
+    from apnerf_tpu_torch.ops.cuda import build
+
+    with open(build.REPO_ROOT / "configs" / "config_fakeprod.yaml") as f:
+        raw = yaml.safe_load(f)
+    # one planning step, where phase 10 runs two: the whole smoke stays inside
+    # half its time limit (PERF.md)
+    raw.update(field_type="ngp", sampler_type="occ", planning_step=1, training_steps=100,
+               test_loc=LOOP_TEST_LOC, save_path=str(build.BUILD_DIR / "chip_smoke_ngp_loop"))
+    cfg_path = build.BUILD_DIR / "chip_smoke_ngp_loop.yaml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    counters = all_counters()
+    walls = {}
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _timed_methods(ActiveNeRFMapper, LOOP_TIMED, walls):
+        mapper = pipeline.main(["--sim", "fake", "--sem-num", "29", "--device", str(dev),
+                                "--config", str(cfg_path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(counters)
+    cfg = mapper.cfg
+    print(f"ngp loop: {cfg_path.name} = config_fakeprod.yaml with field_type ngp, sampler_type "
+          f"occ, planning_step 1, training_steps 100 and 2 test locations; {wall:.1f} s of wall; "
+          f"host wall by method (calls, seconds): "
+          + ", ".join(f"{k} ({c}, {s:.2f})" for k, (c, s) in walls.items()), flush=True)
+    print(f"  throughput log: {json.dumps(mapper.throughput_log)}")
+    print(f"  launches: {counts}")
+    for row, ext in zip(mapper.errors_hist, mapper.metrics_ext_hist):
+        print(f"  evaluation at planning step {row[0]:.0f}: PSNR {row[1]:.4f} dB, depth MSE "
+              f"{row[2]:.6f}, semantic CE {row[3]:.6f}, mIoU {ext[2]:.6f}")
+    chunk_means = [float(np.mean(phase[i:i + 100])) for phase in mapper.loss_hist
+                   for i in range(0, len(phase), 100)]
+    print(f"  chunk-mean losses: {' '.join(f'{m:.4f}' for m in chunk_means)}; refit "
+          f"rollbacks {mapper.refit_rollbacks}; occupancy "
+          f"{[round(float(o.binaries.float().mean()), 4) for o in mapper.occ]}", flush=True)
+    n = mapper.ngp_cfg
+    if (cfg.num_semantic_classes, cfg.num_traj, cfg.img_w, cfg.num_rays, n.neurons,
+            n.log2_hashmap_size, n.n_levels) != (29, 20, 640, 2048, 128, 19, 16):
+        fail("the ngp loop did not run at the full width")
+    if not np.isfinite(chunk_means).all() or not chunk_means[-1] < chunk_means[0]:
+        fail(f"the ngp loop's losses are not finite or did not fall: {chunk_means}")
+    rows = np.asarray(mapper.errors_hist)
+    if rows.shape != (3, 4) or not np.isfinite(rows).all():
+        fail(f"expected 3 finite evaluation rows from the ngp loop, got {rows}")
+    E = cfg.n_ensembles
+    steps = sum(len(phase) for phase in mapper.loss_hist)
+    ran = steps + mapper.refit_discarded_steps
+    scored = sum(len(c) for c in mapper.trajector_uncertainty_list)
+    unc_rays = int(cfg.img_h * mapper.unc_scale) * int(cfg.img_w * mapper.unc_scale)
+    oh, ow = mapper._eval_size(mapper.eval_scale)
+    renders = scored * N_VIEWS * E * _render_calls(unc_rays, mapper.max_samples_unc)
+    eval_renders = (len(mapper.errors_hist) * len(mapper._test_poses) * E
+                    * _render_calls(oh * ow, cfg.max_samples_test))
+    expected = dict.fromkeys(counts, 0)
+    expected.update(fused_render_weights=E * ran + renders + eval_renders,
+                    fused_render_weights_bwd=E * ran)
+    if scored == 0 or counts != expected:
+        fail(f"ngp loop launch counts {counts}, expected {expected} ({scored} candidates scored)")
+    return counts
 
 
 def phase_loop_routes(mapper):

@@ -367,8 +367,10 @@ def test_final_refit_guard_stops_after_repeat_divergence(mapper):
 def test_mapper_options_that_are_not_ported(tmp):
     from apnerf_tpu_torch.active.mapper import ActiveNeRFMapper
 
-    cfg = dataclasses.replace(tiny_cfg(PipelineConfig, tmp), mark_invisible=True)
-    with pytest.raises(NotImplementedError, match="mark_invisible_cells"):
+    # mark_invisible is ported (tests/test_torch_ngp.py); a pair of field and
+    # sampler that neither package wires still raises
+    cfg = dataclasses.replace(tiny_cfg(PipelineConfig, tmp), sampler_type="occ")
+    with pytest.raises(ValueError, match="supported"):
         ActiveNeRFMapper(cfg, None, save_path=str(tmp / "x"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

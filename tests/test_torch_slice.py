@@ -31,6 +31,7 @@ SLICE_MODULES = [
     "apnerf_tpu_torch.ops.rays",
     "apnerf_tpu_torch.ops.sh",
     "apnerf_tpu_torch.ops.grid_march",
+    "apnerf_tpu_torch.ops.hashgrid",
     "apnerf_tpu_torch.ops.volrend",
     "apnerf_tpu_torch.ops.pdf",
     "apnerf_tpu_torch.ops.occupancy",
@@ -46,6 +47,8 @@ SLICE_MODULES = [
     "apnerf_tpu_torch.models.spectral",
     "apnerf_tpu_torch.models.propnet",
     "apnerf_tpu_torch.render.prop_renderer",
+    "apnerf_tpu_torch.render.renderer",
+    "apnerf_tpu_torch.quality",
     "apnerf_tpu_torch.train.schedule",
     "apnerf_tpu_torch.train.step",
     "apnerf_tpu_torch.train.phase",
@@ -207,11 +210,18 @@ def test_load_member_npz_roundtrip(mappers):
 
 
 def test_ngp_occ_path_not_ported(tmp_path):
+    """The (ngp, occ) oracle path is ported: the mapper builds it; every
+    pair but it and (spectral, prop) still raises."""
     from apnerf_tpu_torch.active.mapper import ActiveNeRFMapper
+    from apnerf_tpu_torch.models.ngp import NGPField
 
     cfg = dataclasses.replace(tiny_cfg(tmp_path), field_type="ngp", sampler_type="occ")
-    with pytest.raises(ValueError, match="not ported"):
-        ActiveNeRFMapper(cfg, None, save_path=str(tmp_path / "o"), device="cpu")
+    m = ActiveNeRFMapper(cfg, None, save_path=str(tmp_path / "o"), device="cpu")
+    assert all(isinstance(f, NGPField) for f in m.members)
+    for pair in (("ngp", "prop"), ("spectral", "occ")):
+        cfg = dataclasses.replace(tiny_cfg(tmp_path), field_type=pair[0], sampler_type=pair[1])
+        with pytest.raises(ValueError, match="supported"):
+            ActiveNeRFMapper(cfg, None, save_path=str(tmp_path / "o"), device="cpu")
 
 
 def test_port_config_is_the_pipeline_config():

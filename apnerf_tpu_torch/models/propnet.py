@@ -4,8 +4,8 @@ Port of ``apnerf_tpu/models/propnet.py``: ``transform_stot``,
 ``propnet_sampling``, ``_outer`` and ``prop_loss``, on the searchsorted
 inverse CDF (``ops/pdf.py``) and with the 'uniform' warp only: the
 'lindisp' warp waits for a caller that samples with it. The proposal
-weights go through ``render_weight_from_density``, the CUDA weights
-kernel on the card.
+weights go through ``fused_render_weights``, the CUDA weights kernel
+on the card.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops.pdf import importance_sampling, searchsorted
-from ..ops.volrend import render_weight_from_density
+from ..ops.cuda.volrend_cuda import fused_render_weights
 
 
 def transform_stot(s_vals: torch.Tensor, t_min, t_max) -> torch.Tensor:
@@ -52,7 +52,8 @@ def propnet_sampling(
     for i, (fn, n_next) in enumerate(zip(prop_sigma_fns, list(prop_samples[1:]) + [num_samples])):
         t_edges = transform_stot(s_edges, t_min, t_max)
         t0, t1 = t_edges[..., :-1], t_edges[..., 1:]
-        weights, _, _ = render_weight_from_density(t0, t1, fn(t0, t1))
+        weights = fused_render_weights(t0.contiguous(), t1.contiguous(),
+                                       fn(t0, t1).float().contiguous())
         level_outputs.append((t_edges, weights))
         s_edges, _ = importance_sampling(
             s_edges, weights, n_next, stratified=stratified, generator=generator,

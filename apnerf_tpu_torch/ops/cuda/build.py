@@ -104,9 +104,9 @@ def library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.apnerf_fused_render_weights_fwd.argtypes = [p, p, p, i, i, p, p, p, p]
+    lib.apnerf_fused_render_weights_fwd.argtypes = [p, p, p, i, i, i, i, p, p]
     lib.apnerf_fused_render_weights_fwd.restype = i
-    lib.apnerf_fused_render_weights_bwd.argtypes = [p, p, p, p, i, i, p, p, p, p]
+    lib.apnerf_fused_render_weights_bwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p]
     lib.apnerf_fused_render_weights_bwd.restype = i
     lib.apnerf_empty_launch.argtypes = [i, p]
     lib.apnerf_empty_launch.restype = i

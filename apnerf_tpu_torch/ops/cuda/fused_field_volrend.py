@@ -90,7 +90,7 @@ def fused_field_volrend_lossgrad_plain(
     with torch.enable_grad():
         rgb, sigma, sem = field_plain(leaves, u, sh, S, compute_dtype)
         # render_weight_from_density with the miss mask folded into dt
-        w, _, _ = fused_render_weights_plain(
+        w = fused_render_weights_plain(
             torch.zeros_like(dt).reshape(R, S), dt.reshape(R, S), sigma.reshape(R, S)
         )
         # render_outputs, with t_mid given
@@ -173,7 +173,7 @@ def fused_field_volrend_plain(leaves, u, sh, dt, tm, S: int, compute_dtype=torch
     N = u.shape[0]
     R = N // S
     rgb, sigma, sem = field_plain(leaves, u, sh, S, compute_dtype)
-    w, _, _ = fused_render_weights_plain(
+    w = fused_render_weights_plain(
         torch.zeros_like(dt).reshape(R, S), dt.reshape(R, S), sigma.reshape(R, S)
     )
     w = w.reshape(N)

@@ -1,11 +1,10 @@
 """Dense volume rendering on ``[n_rays, n_samples]`` buffers.
 
-Port of ``apnerf_tpu/ops/volrend.py`` (the functions the renderers use).
-``render_weight_from_density`` goes through the CUDA weights kernel
-(``ops/cuda/volrend_cuda.py``) for CUDA tensors; the kernel takes
-contiguous float32 [R, S] inputs, which its callers hand it as they are.
-``render_visibility_from_density`` is plain PyTorch on densities that
-carry no gradient, as JAX computes it without a kernel.
+Port of ``apnerf_tpu/ops/volrend.py`` (the functions the renderers use),
+in plain PyTorch as JAX computes them without a kernel. The renderers
+take their weights from the weights kernel instead,
+``ops/cuda/volrend_cuda.py::fused_render_weights``, which returns the
+weights alone; ``render_weight_from_density`` is the plain triple.
 """
 
 from __future__ import annotations
@@ -13,8 +12,6 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-
-from .cuda.volrend_cuda import fused_render_weights
 
 
 def exclusive_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -35,10 +32,8 @@ def render_weight_from_density(
     t_starts: torch.Tensor, t_ends: torch.Tensor, sigmas: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """→ (weights, trans, alphas), each [R, S]."""
-    return fused_render_weights(
-        t_starts.float().contiguous(), t_ends.float().contiguous(),
-        sigmas.float().contiguous(),
-    )
+    trans, alphas = render_transmittance_from_density(t_starts, t_ends, sigmas)
+    return trans * alphas, trans, alphas
 
 
 def render_visibility_from_density(

@@ -5,8 +5,8 @@ and ``render_rays_prop`` with its three branches (``:146-232``): the
 fused field-and-render branch (``field_packed_vr_fn``, no variance), the
 packed-field branch (``field_packed_fn``, with and without variance) and
 the plain ``field_fn`` branch. Every weights computation outside the
-fused branch goes through ``render_weight_from_density``, the CUDA
-weights kernel on the card (the JAX package keeps its kernel opt-in,
+fused branch goes through ``fused_render_weights``, the CUDA weights
+kernel on the card (the JAX package keeps its kernel opt-in,
 ``prop_renderer.py:41``).
 """
 
@@ -18,6 +18,7 @@ import torch
 
 from ..models.propnet import propnet_sampling
 from ..ops import volrend
+from ..ops.cuda.volrend_cuda import fused_render_weights
 from ..ops.grid_march import ray_aabb_intersect
 
 
@@ -124,7 +125,7 @@ def render_rays_prop(
         else:
             (rgbs, sigmas), sems = out, None
     sigmas = sigmas[..., 0] * (~miss[:, None])
-    weights, _, _ = volrend.render_weight_from_density(t0, t1, sigmas)
+    weights = fused_render_weights(t0.contiguous(), t1.contiguous(), sigmas.float().contiguous())
     outs = volrend.render_outputs(weights, t0, t1, rgbs, sems=sems, render_bkgd=render_bkgd)
     outs["n_samples"] = n_samples
     if with_variance:

@@ -6,7 +6,7 @@ march the occupancy grid → one field evaluation at the samples'
 midpoints → σ masked by validity → the visibility mask from densities
 without gradient (``alpha_thre`` clamped by the grid's mean occupancy)
 → weights → accumulation. The weights go through
-``volrend.render_weight_from_density``, the weights kernel (K2) forward
+``fused_render_weights``, the weights kernel (K2) forward
 and, under autograd, its backward on the card; the march hands it
 contiguous float32 [R, S] buffers with σ = 0 on padded samples.
 """
@@ -18,6 +18,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..ops import volrend
+from ..ops.cuda.volrend_cuda import fused_render_weights
 from ..ops.grid_march import RaySegments, march_rays
 from ..ops.occupancy import OccGridState
 
@@ -59,7 +60,7 @@ def render_rays(
     sigmas = sigmas * vis
     n_samples = (vis & segs.valid).sum()
 
-    weights, _, _ = volrend.render_weight_from_density(segs.t_starts, segs.t_ends, sigmas)
+    weights = fused_render_weights(segs.t_starts, segs.t_ends, sigmas)
     outs = volrend.render_outputs(
         weights, segs.t_starts, segs.t_ends, rgbs, sems=sems, render_bkgd=render_bkgd
     )

@@ -48,8 +48,8 @@ from torch import nn
 from ..config import PipelineConfig
 from ..models import spectral
 from ..models.propnet import prop_loss
-from ..ops import volrend
 from ..ops.cuda.fused_field_volrend import LOSS_WEIGHTS, loss_terms
+from ..ops.cuda.volrend_cuda import fused_render_weights
 from ..ops.occupancy import OccGridState, init_occ_grid, update_occ_grid
 from ..render.prop_renderer import prop_sample_intervals, render_rays_prop
 from .phase import make_train_phase
@@ -218,7 +218,7 @@ def make_flagship_member_core(cfg: PipelineConfig, route: Optional[str] = None, 
         pos0 = batch.origins[:, None, :] + tm0[..., None] * batch.viewdirs[:, None, :]
         with torch.enable_grad():
             sig = prop_density(member, pos0)[..., 0]
-            wp, _, _ = volrend.render_weight_from_density(te0, te1, sig)
+            wp = fused_render_weights(te0.contiguous(), te1.contiguous(), sig.float().contiguous())
             p_loss = prop_loss([(t_edges0, wp)], t0, t1, weights)
             prop_grads = torch.autograd.grad(p_loss, list(member.prop.parameters()))
         loss = _main_loss(terms) + cfg.prop_loss_weight * p_loss.detach()

@@ -18,8 +18,12 @@ Phases, each of which must pass:
   3. the weights kernel against its plain version at the main field's and
      the proposal field's [rays, samples], with its own device time from
      ``torch.profiler`` beside the CUDA-event window, its device time with
-     its inputs out of L2 (64 MB written between launches), and the device
-     time of an empty kernel launched the same way (the launch floor);
+     its inputs out of L2 (64 MB written between launches), the device
+     time of an empty kernel launched the same way (the launch floor) and
+     its bound at 16 B a sample (what it moves) beside 24 B (when it also
+     wrote T and alpha); then at S = 1, 33, 130 and 1024 (every lane-span
+     instance's edge, the scalar accesses) and on rows off the 16-byte
+     boundary; each limit shown to catch a zeroed and a negated output;
   4. the planning step at the shipping ``PipelineConfig()`` with 4
      candidates (the loop of phase 10 runs the full 20, twice) and seeded
      random weights: the warm-up occupancy update over every cell, the
@@ -31,9 +35,11 @@ Phases, each of which must pass:
      ``torch.profiler`` for device time by kernel and the device's idle
      share;
   5. the weights kernel's backward against autograd through its plain
-     version at [2048, 64] (the proposal level of a train step) and
-     [4096, 256], its device time from the profiler beside the window, L2
-     cold and beside the launch floor, as in phase 3;
+     version, dsigma alone at [2048, 64] (the proposal loss of a train
+     step) and with and without dt0, dt1 at [4096, 256], its device time
+     from the profiler beside the window, L2 cold and beside the launch
+     floor, bounds at 20 B a sample (28 B with dt), as in phase 3; then
+     both ways at the widths and on the misaligned rows of phase 3;
   6. the train-step kernel against its plain version at the train shape
      (2048 rays x 128 samples, the shipping main field, 29 classes) with
      seeded random weights, zero-initialised and random biases: loss
@@ -114,9 +120,9 @@ Phases, each of which must pass:
  19. the ngp+occ path (``PipelineConfig()``'s hash grid, 2 x 128 base MLP,
      29 classes, 2 members x 2048 x 128) on the train path's scan: the
      weights kernel forward at [2048, 128], [4096, 256] and [2048, 512] and
-     backward at [2048, 128] on intervals of a real occupancy march, sigma 0
-     on padded samples, against its plain version, L2 cold and beside the
-     launch floor; two chunks of 100 member steps, the second timed with
+     backward (dsigma alone, as the path asks) at [2048, 128] on intervals
+     of a real occupancy march, sigma 0 on padded samples, against its
+     plain version, L2 cold and beside the launch floor; two chunks of 100 member steps, the second timed with
      exact launch counts; one member step on the kernels against the same
      step with the weights kernel's plain version (loss, every tensor's
      update and gradient, the occupancy grid exactly) and its launches, 1
@@ -306,16 +312,11 @@ def main(argv=None) -> int:
     from apnerf_tpu_torch.config import PipelineConfig
     from apnerf_tpu_torch.models import spectral
     from apnerf_tpu_torch.models.nn import init_mlp
-    from apnerf_tpu_torch.ops import volrend
     from apnerf_tpu_torch.ops.cuda.fused_field_heads import (
         fused_field_heads,
         fused_field_heads_plain,
     )
     from apnerf_tpu_torch.ops.cuda.fused_mlp import fused_spectral_field, fused_spectral_field_plain
-    from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
-        fused_render_weights,
-        fused_render_weights_plain,
-    )
 
     # the planner's native library builds into build/ at first use; its
     # pure-Python path is the planner's own fallback, but this host has a
@@ -390,32 +391,8 @@ def main(argv=None) -> int:
                 # grid, once per member per chunk
                 records["fused_spectral_field"] = (abs_err, ms, pms, bnd)
 
-        # ---- 3. weights kernel against its plain version ------------------------
-        for n_s in (S, Sp):
-            edges = torch.sort(
-                torch.rand((R, n_s + 1), generator=gen, device=dev) * 20.0 + 0.1, dim=-1
-            ).values
-            t0_, t1_ = edges[:, :-1].contiguous(), edges[:, 1:].contiguous()
-            sig = torch.rand((R, n_s), generator=gen, device=dev) * 2.0
-            got = fused_render_weights(t0_, t1_, sig)
-            torch.cuda.synchronize()
-            ref = fused_render_weights_plain(t0_, t1_, sig)
-            abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-            ms = cuda_ms(lambda: fused_render_weights(t0_, t1_, sig))
-            pms = cuda_ms(lambda: fused_render_weights_plain(t0_, t1_, sig))
-            dms, by = device_ms(lambda: fused_render_weights(t0_, t1_, sig))
-            bnd = k2_fwd_bound(R, n_s)
-            print(f"weights kernel [{R}, {n_s}]: max_abs {abs_err:.3e} (tol {K2_TOL}) | "
-                  f"kernel {ms:.4f} ms (event window), {dms:.4f} ms device time ("
-                  + ", ".join(f"{k} {v:.4f}" for k, v in by.items())
-                  + f") | plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
-            k2_floor_and_cold(dev, R, lambda: fused_render_weights(t0_, t1_, sig),
-                              "render_weights_fwd_kernel", f"weights kernel [{R}, {n_s}]")
-            if not abs_err <= K2_TOL:
-                fail(f"weights kernel disagrees with its plain version: {abs_err}")
-            if n_s == S:
-                records["fused_render_weights"] = (abs_err, ms, pms, bnd)
-    torch.cuda.synchronize()
+    # ---- 3. weights kernel against its plain version ------------------------------
+    records["fused_render_weights"] = phase_k2_fwd(dev, R, S, Sp)
 
     # ---- 4. the planning step ------------------------------------------------------
     counters = all_counters()
@@ -566,6 +543,9 @@ def main(argv=None) -> int:
     ]
     for k in kernels:
         err, ms, pms, (bound_ms, bound_by), *rel = records[k["name"]]
+        if rel and isinstance(rel[-1], dict):
+            # the weights kernels' device times: warm, L2-cold, and the launch floor
+            k.update(rel.pop())
         # launches: over the main path that runs the kernel: the loop of phase
         # 10, or for the kernels of the train routes the timed chunk of its
         # route in phase 14. No single PyTorch call computes any of these
@@ -675,28 +655,6 @@ def field_kernels_alone(dev) -> int:
     return 0
 
 
-def device_ms(fn, calls=20):
-    """The device time (ms) of one call of ``fn``: every device kernel and
-    copy ``torch.profiler`` records over ``calls`` calls, by name, summed
-    and divided by the calls; beside the CUDA-event window of ``cuda_ms``,
-    which also holds the host's launch and the wrapper's own work."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.split("(")[0][:48]
-            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / calls / 1e3
-    return sum(by.values()), by
-
-
 def k6_device_time(dev, calls=5):
     """The device time of K6's own kernels in one call of the train-step
     wrapper at the bench shape (``torch.profiler`` over ``calls`` calls),
@@ -774,8 +732,7 @@ def plain_routes():
     """Every kernel of the render and train paths replaced by its plain
     version where the port's modules look it up (autograd then goes through
     the plain versions, so no backward kernel runs either)."""
-    from apnerf_tpu_torch.models import spectral
-    from apnerf_tpu_torch.ops import volrend
+    from apnerf_tpu_torch.models import propnet, spectral
     from apnerf_tpu_torch.ops.cuda.fused_field_heads import fused_field_heads_plain
     from apnerf_tpu_torch.ops.cuda.fused_field_volrend import fused_field_volrend_plain
     from apnerf_tpu_torch.ops.cuda.fused_mlp import (
@@ -783,19 +740,23 @@ def plain_routes():
         fused_spectral_field_plain,
     )
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import fused_render_weights_plain
+    from apnerf_tpu_torch.render import prop_renderer, renderer
+    from apnerf_tpu_torch.train import flagship
 
-    saved = (spectral.fused_spectral_field, spectral.fused_mlp_apply, spectral.fused_field_heads,
-             spectral.fused_field_volrend, volrend.fused_render_weights)
-    spectral.fused_spectral_field = fused_spectral_field_plain
-    spectral.fused_mlp_apply = fused_mlp_apply_plain
-    spectral.fused_field_heads = fused_field_heads_plain
-    spectral.fused_field_volrend = fused_field_volrend_plain
-    volrend.fused_render_weights = fused_render_weights_plain
+    swaps = [(spectral, "fused_spectral_field", fused_spectral_field_plain),
+             (spectral, "fused_mlp_apply", fused_mlp_apply_plain),
+             (spectral, "fused_field_heads", fused_field_heads_plain),
+             (spectral, "fused_field_volrend", fused_field_volrend_plain)]
+    swaps += [(m, "fused_render_weights", fused_render_weights_plain)
+              for m in (propnet, prop_renderer, renderer, flagship)]
+    saved = [getattr(m, name) for m, name, _ in swaps]
+    for m, name, plain in swaps:
+        setattr(m, name, plain)
     try:
         yield
     finally:
-        (spectral.fused_spectral_field, spectral.fused_mlp_apply, spectral.fused_field_heads,
-         spectral.fused_field_volrend, volrend.fused_render_weights) = saved
+        for (m, name, _), fn in zip(swaps, saved):
+            setattr(m, name, fn)
 
 
 def _errs(got, ref):
@@ -812,75 +773,208 @@ def _generator(dev, seed):
     return gen
 
 
-def phase_k2_bwd(dev):
+def _k2_intervals(gen, dev, R, S):
+    """Sorted interval edges over [0.1, 20.1] and sigma uniform in [0, 2)."""
+    edges = torch.sort(torch.rand((R, S + 1), generator=gen, device=dev) * 20.0 + 0.1,
+                       dim=-1).values
+    sig = torch.rand((R, S), generator=gen, device=dev) * 2.0
+    return edges[:, :-1].contiguous(), edges[:, 1:].contiguous(), sig
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` that starts one float past a 16-byte
+    boundary, so the kernels must take their scalar accesses."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def k2_fwd_case(dev, label, t0_, t1_, sig, timed=True):
+    """The weights kernel against its plain version on these inputs; the
+    limit shown to catch a zeroed and a negated output; with ``timed``
+    its event window, device time, L2-cold device time, launch floor and
+    both bounds → (max-abs error, ms, plain ms, bound, {device ms, cold
+    device ms, floor device ms})."""
+    from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
+        fused_render_weights,
+        fused_render_weights_plain,
+        lane_span,
+    )
+
+    R, S = sig.shape
+    got = fused_render_weights(t0_, t1_, sig)
+    torch.cuda.synchronize()
+    ref = fused_render_weights_plain(t0_, t1_, sig)
+    if not (got.shape == ref.shape and torch.isfinite(got).all()):
+        fail(f"weights kernel {label}: non-finite or misshapen output")
+    err = float((got - ref).abs().max())
+    zeroed, negated = float(ref.abs().max()), float((got + ref).abs().max())
+    line = (f"weights kernel {label} [{R}, {S}] (lane span {lane_span(S)}): max_abs {err:.3e} "
+            f"(tol {K2_TOL}; zeroed reads {zeroed:.3e}, negated {negated:.3e})")
+    if not (zeroed > K2_TOL and negated > K2_TOL):
+        fail(f"the limit on the weights kernel {label} would pass a zeroed or negated output")
+    if not err <= K2_TOL:
+        fail(f"weights kernel {label} [{R}, {S}] disagrees with its plain version: {err}")
+    if not timed:
+        print(line, flush=True)
+        return None
+    ms = cuda_ms(lambda: fused_render_weights(t0_, t1_, sig))
+    pms = cuda_ms(lambda: fused_render_weights_plain(t0_, t1_, sig))
+    bnd, old = k2_fwd_bound(R, S), k2_fwd_bound(R, S, outputs=3)
+    print(f"{line} | kernel {ms:.4f} ms (event window) | plain {pms:.4f} ms | bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}, 16 B a sample; 24 B: {old[0]:.4f})", flush=True)
+    dms, cold, floor = k2_times(dev, R, lambda: fused_render_weights(t0_, t1_, sig),
+                                "render_weights_fwd_kernel", f"weights kernel [{R}, {S}]")
+    return err, ms, pms, bnd, dict(device_ms=dms, cold_device_ms=cold, floor_device_ms=floor)
+
+
+def k2_bwd_case(dev, label, t0_, t1_, sig, g, with_dt, timed=True):
     """The weights kernel's backward against autograd through its plain
-    version → (max-abs error at the proposal shape, kernel ms, plain ms,
-    bound)."""
+    version, dsigma alone or with dt0 and dt1; the limit shown to catch a
+    zeroed and a negated dsigma; with ``timed`` the times and bounds as in
+    ``k2_fwd_case`` → the same record."""
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
         fused_render_weights_bwd,
         fused_render_weights_plain,
     )
 
-    gen = _generator(dev, 5)
-    record = None
-    for R, n_s in ((2048, 64), (4096, 256)):
-        edges = torch.sort(torch.rand((R, n_s + 1), generator=gen, device=dev) * 20.0 + 0.1,
-                           dim=-1).values
-        t0_, t1_ = edges[:, :-1].contiguous(), edges[:, 1:].contiguous()
-        sig = torch.rand((R, n_s), generator=gen, device=dev) * 2.0
-        g = torch.randn((R, n_s), generator=gen, device=dev)
-        got = fused_render_weights_bwd(t0_, t1_, sig, g)
-        torch.cuda.synchronize()
-        leaves = [x.clone().requires_grad_(True) for x in (sig, t0_, t1_)]
-        w, _, _ = fused_render_weights_plain(leaves[1], leaves[2], leaves[0])
-        ref = torch.autograd.grad(w, leaves, g, retain_graph=True)
-        errs = [_errs(a, b) for a, b in zip(got, ref)]
-        if not all(np.isfinite(e[0]) for e in errs):
-            fail(f"weights backward [{R}, {n_s}]: non-finite output")
-        ms = cuda_ms(lambda: fused_render_weights_bwd(t0_, t1_, sig, g))
-        pms = cuda_ms(lambda: torch.autograd.grad(w, leaves, g, retain_graph=True))
-        dms, by = device_ms(lambda: fused_render_weights_bwd(t0_, t1_, sig, g))
-        bnd = k2_bwd_bound(R, n_s)
-        print(f"weights backward [{R}, {n_s}]: max_abs dsigma {errs[0][0]:.3e} dt0 "
-              f"{errs[1][0]:.3e} dt1 {errs[2][0]:.3e} | err/scale {errs[0][1]:.3e} "
-              f"{errs[1][1]:.3e} {errs[2][1]:.3e} (tol {K2_BWD_TOL}) | kernel {ms:.4f} ms "
-              f"(event window), {dms:.4f} ms device time ("
-              + ", ".join(f"{k} {v:.4f}" for k, v in by.items())
-              + f") | plain (autograd backward) {pms:.4f} ms | bound {bnd[0]:.4f} ms "
-              f"({bnd[1]})", flush=True)
-        k2_floor_and_cold(dev, R, lambda: fused_render_weights_bwd(t0_, t1_, sig, g),
-                          "render_weights_bwd_kernel", f"weights backward [{R}, {n_s}]")
-        if not max(e[1] for e in errs) <= K2_BWD_TOL:
-            fail(f"weights backward [{R}, {n_s}] disagrees with autograd")
-        if n_s == 64:
-            record = (max(e[0] for e in errs), ms, pms, bnd)
+    R, S = sig.shape
+    run = lambda: fused_render_weights_bwd(t0_, t1_, sig, g, with_dt=with_dt)  # noqa: E731
+    got = run()
+    torch.cuda.synchronize()
+    if (got[1] is None) == with_dt or (got[2] is None) == with_dt:
+        fail(f"weights backward {label}: dt0/dt1 returned {'without' if with_dt else 'with'} "
+             "being asked for")
+    leaves = [x.clone().requires_grad_(True) for x in (sig, t0_, t1_)][:3 if with_dt else 1]
+    w = fused_render_weights_plain(*(leaves[1:] if with_dt else (t0_, t1_)), leaves[0])
+    ref = torch.autograd.grad(w, leaves, g, retain_graph=True)
+    errs = [_errs(a, b) for a, b in zip(got, ref)]
+    zeroed, negated = _errs(torch.zeros_like(ref[0]), ref[0])[1], _errs(-got[0], ref[0])[1]
+    names = ("dsigma", "dt0", "dt1")[:len(errs)]
+    line = (f"weights backward {label} [{R}, {S}] {'with' if with_dt else 'without'} dt: "
+            f"max_abs " + " ".join(f"{n} {e[0]:.3e}" for n, e in zip(names, errs))
+            + " | err/scale " + " ".join(f"{e[1]:.3e}" for e in errs)
+            + f" (tol {K2_BWD_TOL}; zeroed dsigma reads {zeroed:.3e}, negated {negated:.3e})")
+    if not all(np.isfinite(e[0]) for e in errs):
+        fail(f"weights backward {label} [{R}, {S}]: non-finite output")
+    if not (zeroed > K2_BWD_TOL and negated > K2_BWD_TOL):
+        fail(f"the limit on the weights backward {label} would pass a zeroed or negated output")
+    if not max(e[1] for e in errs) <= K2_BWD_TOL:
+        fail(f"weights backward {label} [{R}, {S}] disagrees with autograd")
+    if not timed:
+        print(line, flush=True)
+        return None
+    ms = cuda_ms(run)
+    pms = cuda_ms(lambda: torch.autograd.grad(w, leaves, g, retain_graph=True))
+    bnd, old = k2_bwd_bound(R, S, with_dt), k2_bwd_bound(R, S, True)
+    print(f"{line} | kernel {ms:.4f} ms (event window) | plain (autograd backward) {pms:.4f} "
+          f"ms | bound {bnd[0]:.4f} ms ({bnd[1]}, {20 + 8 * with_dt} B a sample; 28 B: "
+          f"{old[0]:.4f})", flush=True)
+    dms, cold, floor = k2_times(dev, R, run, "render_weights_bwd_kernel",
+                                f"weights backward [{R}, {S}]")
+    return (max(e[0] for e in errs), ms, pms, bnd,
+            dict(device_ms=dms, cold_device_ms=cold, floor_device_ms=floor))
+
+
+# widths off the paths' shapes: S = 1, the scalar accesses (S not a
+# multiple of 4) and the widest lane-span instance
+K2_EXTRA_SAMPLES = (1, 33, 130, 1024)
+
+
+def phase_k2_fwd(dev, R, S, Sp):
+    """Phase 3: the weights kernel at the candidate render's two shapes
+    ([R, S] main, [R, Sp] proposal), timed, then at every S of
+    ``K2_EXTRA_SAMPLES`` and from storage off the 16-byte boundary →
+    the record at [R, S]."""
+    gen = _generator(dev, 3)
+    record = k2_fwd_case(dev, "candidate render, main", *_k2_intervals(gen, dev, R, S))
+    k2_fwd_case(dev, "candidate render, proposal", *_k2_intervals(gen, dev, R, Sp))
+    for n_s in K2_EXTRA_SAMPLES:
+        k2_fwd_case(dev, "other width", *_k2_intervals(gen, dev, 2048, n_s), timed=False)
+    k2_fwd_case(dev, "misaligned rows", *map(_misaligned, _k2_intervals(gen, dev, 2048, 128)),
+                timed=False)
     return record
 
 
-def k2_fwd_bound(R, S):
-    """The weights kernel's bound at [R, S]: 3 f32 inputs and 3 f32 outputs
-    per sample; ~12 f32 operations (two exp, the scan) per sample."""
-    return bound(12 * R * S, 24 * R * S, PEAK_F32_FLOPS)
+def phase_k2_bwd(dev):
+    """Phase 5: the weights kernel's backward against autograd through its
+    plain version: at the flagship's proposal loss ([2048, 64], no dt, the
+    record) and at [4096, 256] with and without dt, timed, then at every S
+    of ``K2_EXTRA_SAMPLES`` and from misaligned storage, with and without
+    dt → the record."""
+    gen = _generator(dev, 5)
+
+    def inputs(R, n_s):
+        t0_, t1_, sig = _k2_intervals(gen, dev, R, n_s)
+        return t0_, t1_, sig, torch.randn((R, n_s), generator=gen, device=dev)
+
+    record = k2_bwd_case(dev, "proposal loss", *inputs(2048, 64), with_dt=False)
+    args = inputs(4096, 256)
+    for with_dt in (False, True):
+        k2_bwd_case(dev, "candidate shape", *args, with_dt=with_dt)
+    for n_s in K2_EXTRA_SAMPLES:
+        args = inputs(2048, n_s)
+        for with_dt in (False, True):
+            k2_bwd_case(dev, "other width", *args, with_dt=with_dt, timed=False)
+    args = tuple(map(_misaligned, inputs(2048, 128)))
+    for with_dt in (False, True):
+        k2_bwd_case(dev, "misaligned rows", *args, with_dt=with_dt, timed=False)
+    return record
 
 
-def k2_bwd_bound(R, S):
-    """The weights backward's bound at [R, S]: 4 f32 inputs and 3 f32
-    outputs per sample; ~30 f32 operations per sample."""
-    return bound(30 * R * S, 28 * R * S, PEAK_F32_FLOPS)
+def k2_fwd_bound(R, S, outputs=1):
+    """The weights kernel's bound at [R, S]: 3 f32 inputs read and
+    ``outputs`` f32 outputs written a sample: 1, the weights (16 B: what
+    the function returns and the kernel writes), or 3 (24 B: the count of
+    the kernel before this design, which also wrote T and alpha); ~12 f32
+    operations a sample (two exp, the scan)."""
+    return bound(12 * R * S, (12 + 4 * outputs) * R * S, PEAK_F32_FLOPS)
+
+
+def k2_bwd_bound(R, S, with_dt):
+    """The weights backward's bound at [R, S]: 4 f32 inputs read and
+    dsigma written (20 B a sample), and dt0, dt1 ``with_dt`` (28 B); ~30
+    f32 operations a sample."""
+    return bound(30 * R * S, (20 + 8 * with_dt) * R * S, PEAK_F32_FLOPS)
 
 
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB of L2
 
 
-def k2_floor_and_cold(dev, R, fn, kernel, label, calls=20):
-    """Prints the device time of ``fn``'s kernel (named ``kernel``) with
-    its inputs out of L2 (64 MB written between launches), and the device
-    time and event window of an empty kernel launched as the weights
-    kernel is (its grid for R rays, 256 threads): the launch floor →
-    (cold ms, floor ms)."""
+def kernel_device_ms(fn, kernel, calls=20, before=None, tries=3):
+    """The device time (ms) of one launch of the kernel named ``kernel``
+    in ``fn``: the mean over the launches ``torch.profiler`` records in a
+    window of ``calls`` calls (``before()`` ahead of each, untimed). The
+    profiler drops some launches from a window (one of 20 in most, all of
+    them in a few, on an H100 with torch 2.11), so the mean is taken over
+    those it recorded; a window that holds fewer than half is measured
+    again, up to ``tries`` times, and then fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        got = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if 2 * len(got) >= calls:
+            return sum(got) / len(got) / 1e3
+    fail(f"the profiler recorded {len(got)} of {calls} launches of {kernel} in {tries} windows")
+
+
+def k2_times(dev, R, fn, kernel, label, calls=20):
+    """Prints and returns the device time of ``fn``'s kernel (named
+    ``kernel``) warm and with its inputs out of L2 (64 MB written between
+    launches), and the device time and event window of an empty kernel
+    launched as the weights kernels are (its grid for R rays): the launch
+    floor → (warm ms, cold ms, floor ms)."""
     from apnerf_tpu_torch.ops.cuda import build
 
     lib = build.library()
@@ -890,22 +984,15 @@ def k2_floor_and_cold(dev, R, fn, kernel, label, calls=20):
         if lib.apnerf_empty_launch(R, stream) != 0:
             fail("the empty kernel did not launch")
 
-    floor, _ = device_ms(empty, calls)
+    floor = kernel_device_ms(empty, "empty_kernel", calls)
     floor_window = cuda_ms(empty)
+    warm = kernel_device_ms(fn, kernel, calls)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            flush.fill_(1.0)
-            fn()
-        torch.cuda.synchronize()
-    cold = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA and kernel in e.name) / calls / 1e3
-    print(f"  {label}: device time with its inputs out of L2 (64 MB written between launches) "
-          f"{cold:.4f} ms | an empty kernel launched the same way: {floor:.4f} ms device time, "
-          f"{floor_window:.4f} ms event window", flush=True)
-    return cold, floor
+    cold = kernel_device_ms(fn, kernel, calls, before=lambda: flush.fill_(1.0))
+    print(f"  {label}: device time {warm:.4f} ms, with its inputs out of L2 (64 MB written "
+          f"between launches) {cold:.4f} ms | an empty kernel launched the same way: "
+          f"{floor:.4f} ms device time, {floor_window:.4f} ms event window", flush=True)
+    return warm, cold, floor
 
 
 def _k6_inputs(gen, dev, R, S, n_classes, aabb):
@@ -1756,7 +1843,7 @@ def _loss_cotangents(leaves, u, sh, dt, tm, S, n_classes, seed):
         y_in = y.detach().requires_grad_(True)
         w = fused_render_weights_plain(
             torch.zeros((R, S), device=dev), dt.reshape(R, S), y_in[:, 3].reshape(R, S)
-        )[0].reshape(N)
+        ).reshape(N)
         per_sample = torch.cat([y_in[:, :3] * w[:, None], w[:, None], (w * tm)[:, None],
                                 y_in[:, 4:] * w[:, None]], dim=-1)
         acc = per_sample.reshape(R, S, -1).sum(dim=1)
@@ -1852,7 +1939,7 @@ def _proposal_cotangent(prop, u, R, Sp, seed):
     with torch.enable_grad():
         h = fused_spectral_field_plain(prop.W, prop.phase, prop.mlp_base, u).detach()
         h.requires_grad_(True)
-        w, _, _ = fused_render_weights_plain(
+        w = fused_render_weights_plain(
             edges[:, :-1], edges[:, 1:], trunc_exp(h[:, 0] - 1.0).reshape(R, Sp))
         (g,) = torch.autograd.grad(((w - target) ** 2).sum() / R, h)
     return g.contiguous()
@@ -2707,11 +2794,6 @@ def phase_ngp_step(dev, bench_run):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
-        fused_render_weights,
-        fused_render_weights_bwd,
-        fused_render_weights_plain,
-    )
     from apnerf_tpu_torch.ops.occupancy import _draw
     from apnerf_tpu_torch.train.phase import make_ngp_train_phase, pools_from_dataset
     from apnerf_tpu_torch.train.step import (
@@ -2727,43 +2809,12 @@ def phase_ngp_step(dev, bench_run):
     batch, _ = _step_inputs(dev, ds, 119)
     for R, S, with_bwd in NGP_SHAPES:
         t0_, t1_, sig, valid = _march_inputs(dev, gen, R, S, cfg, batch)
-        got = fused_render_weights(t0_, t1_, sig)
-        torch.cuda.synchronize()
-        ref = fused_render_weights_plain(t0_, t1_, sig)
-        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        ms = cuda_ms(lambda: fused_render_weights(t0_, t1_, sig))
-        pms = cuda_ms(lambda: fused_render_weights_plain(t0_, t1_, sig))
-        dms, _ = device_ms(lambda: fused_render_weights(t0_, t1_, sig))
-        bnd = k2_fwd_bound(R, S)
-        print(f"ngp path: weights kernel [{R}, {S}] ({float(valid.float().mean()):.3f} of samples "
-              f"valid, sigma 0 on the rest): max_abs {err:.3e} (tol {K2_TOL}) | kernel {ms:.4f} ms "
-              f"(event window), {dms:.4f} ms device time | plain {pms:.4f} ms | bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
-        k2_floor_and_cold(dev, R, lambda: fused_render_weights(t0_, t1_, sig),
-                          "render_weights_fwd_kernel", f"ngp path: weights kernel [{R}, {S}]")
-        if not err <= K2_TOL:
-            fail(f"weights kernel at the ngp shape [{R}, {S}] disagrees with its plain version")
-        if not with_bwd:
-            continue
-        g = torch.randn((R, S), generator=gen, device=dev) * valid
-        got = fused_render_weights_bwd(t0_, t1_, sig, g)
-        torch.cuda.synchronize()
-        leaves = [x.clone().requires_grad_(True) for x in (sig, t0_, t1_)]
-        w, _, _ = fused_render_weights_plain(leaves[1], leaves[2], leaves[0])
-        ref = torch.autograd.grad(w, leaves, g, retain_graph=True)
-        errs = [_errs(a, b) for a, b in zip(got, ref)]
-        ms = cuda_ms(lambda: fused_render_weights_bwd(t0_, t1_, sig, g))
-        pms = cuda_ms(lambda: torch.autograd.grad(w, leaves, g, retain_graph=True))
-        dms, _ = device_ms(lambda: fused_render_weights_bwd(t0_, t1_, sig, g))
-        bnd = k2_bwd_bound(R, S)
-        print(f"ngp path: weights backward [{R}, {S}]: err/scale dsigma {errs[0][1]:.3e} dt0 "
-              f"{errs[1][1]:.3e} dt1 {errs[2][1]:.3e} (tol {K2_BWD_TOL}) | kernel {ms:.4f} ms "
-              f"(event window), {dms:.4f} ms device time | plain (autograd backward) "
-              f"{pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
-        k2_floor_and_cold(dev, R, lambda: fused_render_weights_bwd(t0_, t1_, sig, g),
-                          "render_weights_bwd_kernel", f"ngp path: weights backward [{R}, {S}]")
-        if not (all(np.isfinite(e[0]) for e in errs) and max(e[1] for e in errs) <= K2_BWD_TOL):
-            fail(f"weights backward at the ngp shape [{R}, {S}] disagrees with autograd")
+        label = f"ngp path ({float(valid.float().mean()):.3f} of samples valid, sigma 0 on the rest)"
+        k2_fwd_case(dev, label, t0_, t1_, sig)
+        if with_bwd:
+            # the march's intervals carry no gradient: dsigma alone
+            g = torch.randn((R, S), generator=gen, device=dev) * valid
+            k2_bwd_case(dev, label, t0_, t1_, sig, g, with_dt=False)
 
     # two chunks of 100 steps of the ensemble on the bench's scan
     state = init_ensemble(cfg, _generator(dev, 20), dev)

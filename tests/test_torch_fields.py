@@ -203,7 +203,12 @@ def test_field_wrapper_rejects_unsupported_device():
 @pytest.mark.parametrize(
     "dtype,stratified", [("float32", False), ("float32", True), ("bfloat16", False)]
 )
-def test_render_rays_prop_with_variance(dtype, stratified):
+def test_render_rays_prop_with_variance(dtype, stratified, monkeypatch):
+    # the call site hands the weights kernel what its wrapper takes on the
+    # card: three contiguous float32 [R, S] tensors
+    seen = []
+    real = t_pr.fused_render_weights
+    monkeypatch.setattr(t_pr, "fused_render_weights", lambda *a: seen.append(a) or real(*a))
     cfg = small_cfg()
     tree = jax_ensemble(cfg)
     js, jp, ts, tp = configs(cfg, dtype)
@@ -233,6 +238,8 @@ def test_render_rays_prop_with_variance(dtype, stratified):
     )
     assert set(ot) == set(oj)
     assert int(ot["n_samples"]) == int(oj["n_samples"]) == (R - 1) * S
+    assert seen and all(x.dtype == torch.float32 and x.is_contiguous() and x.shape == a[2].shape
+                        and x.dim() == 2 for a in seen for x in a)
     rel = 1e-4 if dtype == "float32" else 3e-2
     for k in ("rgb", "opacity", "depth", "sem", "rgb_var", "depth_var"):
         on_scale(ot[k], oj[k], rel)

@@ -259,7 +259,12 @@ def _occ_states(rng, res=(16, 16, 16), p=0.4):
 
 
 @pytest.mark.parametrize("with_variance", [False, True])
-def test_render_rays_matches_jax(with_variance):
+def test_render_rays_matches_jax(with_variance, monkeypatch):
+    # the call site hands the weights kernel what its wrapper takes on the
+    # card: three contiguous float32 [R, S] tensors
+    seen = []
+    real = t_rr.fused_render_weights
+    monkeypatch.setattr(t_rr, "fused_render_weights", lambda *a: seen.append(a) or real(*a))
     jcfg, params, tcfg, field = _field(2)
     rng = np.random.default_rng(7)
     params["table"] = jnp.asarray(rng.normal(size=params["table"].shape).astype(np.float32))
@@ -276,6 +281,8 @@ def test_render_rays_matches_jax(with_variance):
         lambda p, v: t_ngp.forward(field, tcfg, p, v), T(o), T(d), st, T(lat), 32,
         occ_mean=st.occs.mean(), **{**kw, "render_bkgd": T(bkgd)})
     assert set(out_t) == set(out_j)
+    assert seen and all(x.dtype == torch.float32 and x.is_contiguous() and x.shape == a[2].shape
+                        and x.dim() == 2 for a in seen for x in a)
     for k in out_j:
         close(out_t[k], out_j[k], **FIELD_TOL, err_msg=k)
     # the visibility test removed samples the march kept

@@ -180,13 +180,13 @@ def test_weights_kernel_plain_matches_pallas_interpret():
     t0, t1, sig = _intervals(np.random.default_rng(9), R=24, S=64, zero_tail=7)
     ref = j_fused_render_weights(t0, t1, sig)
     fused_render_weights.launches = 0
-    w, trans, alpha = fused_render_weights(T(t0), T(t1), T(sig))
+    w = fused_render_weights(T(t0), T(t1), T(sig))
+    # the weights alone, as the JAX function returns them
+    assert isinstance(w, torch.Tensor) and w.shape == sig.shape
     close(w, ref)
     # a CPU tensor takes the plain version and launches nothing
     assert fused_render_weights.launches == 0
-    rj = j_vr.render_weight_from_density(t0, t1, sig)
-    close(trans, rj[1], **SCAN)
-    close(alpha, rj[2], **SCAN)
+    close(w, j_vr.render_weight_from_density(t0, t1, sig)[0], **SCAN)
 
 
 def test_weights_wrapper_rejects_unsupported_device():
@@ -364,7 +364,12 @@ def test_transform_stot(per_ray):
 
 
 @pytest.mark.parametrize("stratified", [False, True])
-def test_propnet_sampling_and_prop_loss(stratified):
+def test_propnet_sampling_and_prop_loss(stratified, monkeypatch):
+    # the call site hands the weights kernel what its wrapper takes on the
+    # card: three contiguous float32 [R, S] tensors
+    seen = []
+    real = t_prop.fused_render_weights
+    monkeypatch.setattr(t_prop, "fused_render_weights", lambda *a: seen.append(a) or real(*a))
     rng = np.random.default_rng(18)
     R = 12
     o = rng.uniform(-0.5, 0.5, (R, 3)).astype(np.float32)
@@ -389,6 +394,8 @@ def test_propnet_sampling_and_prop_loss(stratified):
     )
     close(t0t, t0j, **SCAN)
     close(t1t, t1j, **SCAN)
+    assert seen and all(x.dtype == torch.float32 and x.is_contiguous() and x.shape == a[2].shape
+                        and x.dim() == 2 for a in seen for x in a)
     for (ej, wj), (et, wt) in zip(lvj, lvt):
         close(et, ej, **SCAN)
         close(wt, wj, **SCAN)

@@ -124,7 +124,7 @@ def test_weights_backward_plain_matches_jax():
     g = rng.normal(size=sig.shape).astype(np.float32)
     leaves = [T(a).requires_grad_(True) for a in (t0, t1, sig)]
     fused_render_weights.launches = 0
-    w, _, _ = fused_render_weights(*leaves)
+    w = fused_render_weights(*leaves)
     got = torch.autograd.grad(w, leaves, T(g))
     assert fused_render_weights.launches == 0  # CPU: the plain version
     for fn in (
@@ -481,7 +481,12 @@ def _jax_state(cfg, members):
 
 
 @pytest.mark.parametrize("field_dtype", ["float32", "bfloat16"], indirect=True)
-def test_member_step_matches_jax(field_dtype):
+def test_member_step_matches_jax(field_dtype, monkeypatch):
+    # the call site hands the weights kernel what its wrapper takes on the
+    # card: three contiguous float32 [R, S] tensors
+    seen = []
+    real = t_fl.fused_render_weights
+    monkeypatch.setattr(t_fl, "fused_render_weights", lambda *a: seen.append(a) or real(*a))
     cfg = _train_cfg(1)
     state_t = t_fl.init_flagship_ensemble(cfg, torch.Generator().manual_seed(0))
     state = _jax_state(cfg, state_t.members)
@@ -513,6 +518,9 @@ def test_member_step_matches_jax(field_dtype):
         assert int(out_t.opt.count) == 1
         _compare_params([member], jax.tree.map(lambda a: a[None], out_j[0]), field_dtype,
                         cfg, 1)
+    # the proposal loss's weights (the combined-kernel route's own call site)
+    assert seen and all(x.dtype == torch.float32 and x.is_contiguous() and x.shape == a[2].shape
+                        and x.dim() == 2 for a in seen for x in a)
 
 
 @pytest.mark.parametrize("field_dtype", ["float32", "bfloat16"], indirect=True)

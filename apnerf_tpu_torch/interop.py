@@ -6,7 +6,11 @@ Parameters keep the JAX layout, so the map is an identity on arrays:
 ``w{i}`` [in, out] / ``b{i}`` [out]. Both fields carry across: a
 flagship member (``{"main": ..., "prop": ...}``) and an NGP member (the
 ``init_ngp`` tree: ``table``, ``mlp_base``, ``mlp_head``, ``mlp_sem``),
-told apart by the tree's keys. A ``model_{i}.npz`` has the JAX mapper's keys
+told apart by the tree's keys. So do the example trainers' fields
+(``vanilla_nerf_from_tree``, ``tnerf_from_tree``, ``ndr_tnerf_from_tree``,
+``ngp_density_from_tree``, from the trees of ``init_vanilla_nerf``,
+``init_tnerf``, ``init_ndr_tnerf`` and ``init_ngp_density``). A
+``model_{i}.npz`` has the JAX mapper's keys
 (``apnerf_tpu/active/mapper.py:1219-1317``): ``occ_grid``, ``occs``,
 ``step``, the parameters flattened as ``main/mlp_base/w0`` or ``table``,
 ``mlp_base/w0``…, and the
@@ -25,7 +29,8 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .models.ngp import NGPField
+from .models.mlp import NDRTNeRF, TNeRF, VanillaNeRF
+from .models.ngp import NGPDensityField, NGPField
 from .train.flagship import FlagshipMember
 from .train.step import AdamState
 
@@ -39,6 +44,28 @@ def member_from_tree(tree: dict, device=None) -> Member:
     if "table" in tree:
         return NGPField.from_tree(tree, device)
     return FlagshipMember.from_tree(tree, device)
+
+
+def vanilla_nerf_from_tree(tree: dict, device=None) -> VanillaNeRF:
+    """A JAX ``init_vanilla_nerf`` tree → the port's vanilla NeRF."""
+    return VanillaNeRF.from_tree(tree, device)
+
+
+def tnerf_from_tree(tree: dict, device=None) -> TNeRF:
+    """A JAX ``init_tnerf`` tree (``warp``, ``base``) → the port's T-NeRF."""
+    return TNeRF.from_tree(tree, device)
+
+
+def ndr_tnerf_from_tree(tree: dict, device=None) -> NDRTNeRF:
+    """A JAX ``init_ndr_tnerf`` tree (``blocks``, ``base``) → the port's
+    NDR-TNeRF."""
+    return NDRTNeRF.from_tree(tree, device)
+
+
+def ngp_density_from_tree(tree: dict, device=None) -> NGPDensityField:
+    """A JAX ``init_ngp_density`` tree (``table``, ``mlp_base``) → the
+    port's proposal field."""
+    return NGPDensityField.from_tree(tree, device)
 
 
 def _member_tree(tree: dict, i: int) -> dict:

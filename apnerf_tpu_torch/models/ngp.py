@@ -1,9 +1,11 @@
 """Instant-NGP semantic radiance field, and the density activation the
 fields share.
 
-Port of ``apnerf_tpu/models/ngp.py:38-171``: ``trunc_exp``, ``NGPConfig``,
+Port of ``apnerf_tpu/models/ngp.py``: ``trunc_exp``, ``NGPConfig``,
 ``init_ngp``, ``_normalize_positions``, ``query_density``, ``query_rgb``,
-``query_semantic`` and ``forward``. The field is an ``nn.Module`` whose
+``query_semantic`` and ``forward``, and the proposal (density-only)
+field of the NGP + proposal trainer: ``NGPDensityConfig``,
+``init_ngp_density`` and ``query_density_field``. The field is an ``nn.Module`` whose
 parameters carry the JAX tree's names: ``table`` [L, T, F] (the hash
 grid), ``mlp_base`` (hash features → 1 + geo features), ``mlp_head`` (SH
 degree 4 of the view direction ++ geo features → rgb) and ``mlp_sem``
@@ -13,7 +15,8 @@ float32 operands because ``torch.backends.cuda.matmul.allow_tf32`` stays
 at its default, False (nothing in the port sets it). No kernel of the
 port takes this field: the hash gather, its ``index_add_`` backward and
 the MLPs are PyTorch ops, as the JAX package leaves them to XLA.
-``unbounded`` (the scene contraction) is not ported and raises.
+With ``unbounded`` a field reads positions through the scene contraction
+(``ops/contraction.py``) and has no in-aabb selector.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from torch import nn
 
 from ..ops import hashgrid
+from ..ops.contraction import contract_to_unisphere
 from ..ops.sh import sh_encode_deg4
 from .nn import MLP, apply_mlp, init_mlp
 
@@ -94,17 +98,9 @@ class NGPField(nn.Module):
         )
 
 
-def _check(cfg: NGPConfig):
-    if cfg.unbounded:
-        raise NotImplementedError(
-            "NGPConfig.unbounded (the scene contraction) is not ported (ROADMAP.md Queue 1 H)"
-        )
-
-
 def init_ngp(cfg: NGPConfig, generator: torch.Generator, device=None) -> NGPField:
     """Table U(-1e-4, 1e-4), He-uniform MLP weights and zero biases, drawn
     from ``generator`` in the order table, base, head, semantics."""
-    _check(cfg)
     grid = cfg.grid
     table = hashgrid.init_hash_table(grid, generator, device)
     base = init_mlp(
@@ -123,10 +119,13 @@ def init_ngp(cfg: NGPConfig, generator: torch.Generator, device=None) -> NGPFiel
     return NGPField(table, base, head, sem)
 
 
-def _normalize_positions(cfg: NGPConfig, x: torch.Tensor):
-    """World positions → (unit-cube coordinates, in-aabb selector)."""
-    _check(cfg)
+def _normalize_positions(cfg, x: torch.Tensor):
+    """World positions → (unit-cube coordinates, in-aabb selector); an
+    unbounded field contracts the scene and selects everything."""
     aabb = torch.as_tensor(cfg.aabb, dtype=torch.float32, device=x.device)
+    if cfg.unbounded:
+        return contract_to_unisphere(x, aabb), torch.ones(x.shape[:-1], dtype=torch.bool,
+                                                         device=x.device)
     u = (x - aabb[:3]) / (aabb[3:] - aabb[:3])
     selector = ((u > 0.0) & (u < 1.0)).all(dim=-1)
     return u, selector
@@ -168,3 +167,58 @@ def forward(field: NGPField, cfg: NGPConfig, positions: torch.Tensor,
     if cfg.num_semantic_classes > 0:
         return rgb, density, query_semantic(field, cfg, geo_feat)
     return rgb, density
+
+
+# -- the proposal (density-only) field -----------------------------------------------------
+
+
+class NGPDensityConfig(NamedTuple):
+    aabb: Tuple[float, ...]
+    base_resolution: int = 16
+    max_resolution: int = 128
+    n_levels: int = 5
+    log2_hashmap_size: int = 17
+    unbounded: bool = False
+
+    @property
+    def grid(self) -> hashgrid.HashGridConfig:
+        return hashgrid.HashGridConfig(
+            n_levels=self.n_levels,
+            n_features=2,
+            log2_table_size=self.log2_hashmap_size,
+            base_resolution=self.base_resolution,
+            max_resolution=self.max_resolution,
+        )
+
+
+class NGPDensityField(nn.Module):
+    """The proposal field's parameters (the JAX ``init_ngp_density`` tree):
+    ``table`` [L, T, 2] and ``mlp_base`` (hash features → 64 → 1)."""
+
+    def __init__(self, table: torch.Tensor, mlp_base: MLP):
+        super().__init__()
+        self.table = nn.Parameter(table)
+        self.mlp_base = mlp_base
+
+    @classmethod
+    def from_tree(cls, tree: dict, device=None) -> "NGPDensityField":
+        table = torch.as_tensor(np.array(tree["table"], np.float32), device=device)
+        return cls(table, MLP.from_tree(tree["mlp_base"], device))
+
+
+def init_ngp_density(cfg: NGPDensityConfig, generator: torch.Generator,
+                     device=None) -> NGPDensityField:
+    """Table U(-1e-4, 1e-4), a He-uniform 64-wide MLP with zero biases."""
+    grid = cfg.grid
+    table = hashgrid.init_hash_table(grid, generator, device)
+    return NGPDensityField(table, init_mlp([grid.out_dim, 64, 1], generator, device))
+
+
+def query_density_field(field: NGPDensityField, cfg: NGPDensityConfig,
+                        x: torch.Tensor) -> torch.Tensor:
+    """Proposal density [..., 1] at world positions x [..., 3]."""
+    batch_shape = x.shape[:-1]
+    u, selector = _normalize_positions(cfg, x)
+    enc = hashgrid.hash_encode(field.table, u.reshape(-1, 3), cfg.grid)
+    h = apply_mlp(field.mlp_base, enc).reshape(batch_shape + (1,))
+    return trunc_exp(h - 1.0) * selector[..., None]

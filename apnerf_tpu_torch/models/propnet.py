@@ -1,11 +1,14 @@
 """Proposal-network sampling and the PDF-matching loss.
 
-Port of ``apnerf_tpu/models/propnet.py``: ``transform_stot``,
-``propnet_sampling``, ``_outer`` and ``prop_loss``, on the searchsorted
-inverse CDF (``ops/pdf.py``) and with the 'uniform' warp only: the
-'lindisp' warp waits for a caller that samples with it. The proposal
-weights go through ``fused_render_weights``, the CUDA weights kernel
-on the card.
+Port of ``apnerf_tpu/models/propnet.py``: ``transform_stot`` (the
+'uniform' and 'lindisp' warps), ``propnet_sampling``, ``_outer`` and
+``prop_loss``, on the searchsorted inverse CDF (``ops/pdf.py``). The
+flagship's proposal renderer samples 'uniform'; the NGP + proposal
+example trainer samples 'lindisp'. The proposal weights go through
+``fused_render_weights``, the CUDA weights kernel on the card. Nothing
+here detaches: as in JAX, the resampled edges carry the gradient of the
+proposal weights they were drawn from (``prop_loss`` alone stops it on
+the final weights and edges).
 """
 
 from __future__ import annotations
@@ -18,12 +21,18 @@ from ..ops.pdf import importance_sampling, searchsorted
 from ..ops.cuda.volrend_cuda import fused_render_weights
 
 
-def transform_stot(s_vals: torch.Tensor, t_min, t_max) -> torch.Tensor:
-    """s in [0,1] → t, the 'uniform' warp: the one the proposal renderer
-    samples with."""
+def transform_stot(s_vals: torch.Tensor, t_min, t_max,
+                   transform_type: str = "uniform") -> torch.Tensor:
+    """s in [0,1] → t: 'uniform' is linear in t, 'lindisp' linear in 1/t
+    (``propnet.py:36-49``)."""
     t_min = torch.as_tensor(t_min, device=s_vals.device)[..., None]
     t_max = torch.as_tensor(t_max, device=s_vals.device)[..., None]
-    return s_vals * (t_max - t_min) + t_min
+    if transform_type == "uniform":
+        return s_vals * (t_max - t_min) + t_min
+    if transform_type == "lindisp":
+        inv = s_vals / t_max.clamp(min=1e-10) + (1 - s_vals) / t_min.clamp(min=1e-10)
+        return 1.0 / inv.clamp(min=1e-10)
+    raise ValueError(f"transform_stot: unknown warp {transform_type!r}")
 
 
 def propnet_sampling(
@@ -37,11 +46,13 @@ def propnet_sampling(
     stratified: bool = False,
     generator: Optional[torch.Generator] = None,
     noises: Optional[Sequence[torch.Tensor]] = None,
+    sampling_type: str = "uniform",
 ):
     """Hierarchical proposal sampling → (t_starts, t_ends [R, num_samples],
     per-level (edges, weights) for the loss). ``near_plane``/``far_plane``
     are scalars or per-ray [R] tensors. ``noises``: one stratified jitter
-    tensor per level, in place of drawing from ``generator``."""
+    tensor per level, in place of drawing from ``generator``.
+    ``sampling_type``: the s → t warp of ``transform_stot``."""
     R = rays_o.shape[0]
     dev = rays_o.device
     t_min = torch.broadcast_to(torch.as_tensor(near_plane, dtype=torch.float32, device=dev), (R,))
@@ -50,7 +61,7 @@ def propnet_sampling(
     s_edges = torch.linspace(0.0, 1.0, n0 + 1, device=dev).expand(R, n0 + 1)
     level_outputs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for i, (fn, n_next) in enumerate(zip(prop_sigma_fns, list(prop_samples[1:]) + [num_samples])):
-        t_edges = transform_stot(s_edges, t_min, t_max)
+        t_edges = transform_stot(s_edges, t_min, t_max, sampling_type)
         t0, t1 = t_edges[..., :-1], t_edges[..., 1:]
         weights = fused_render_weights(t0.contiguous(), t1.contiguous(),
                                        fn(t0, t1).float().contiguous())
@@ -59,7 +70,7 @@ def propnet_sampling(
             s_edges, weights, n_next, stratified=stratified, generator=generator,
             noise=noises[i] if noises is not None else None,
         )
-    t_edges = transform_stot(s_edges, t_min, t_max)
+    t_edges = transform_stot(s_edges, t_min, t_max, sampling_type)
     return t_edges[..., :-1], t_edges[..., 1:], level_outputs
 
 

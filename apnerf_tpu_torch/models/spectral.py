@@ -51,7 +51,7 @@ from ..ops.cuda.fused_field_heads import fused_field_heads
 from ..ops.cuda.fused_field_volrend import fused_field_volrend, fused_field_volrend_lossgrad
 from ..ops.cuda.fused_mlp import encode_plain, fused_mlp_apply, fused_spectral_field
 from ..ops.sh import sh_encode_deg4
-from .ngp import trunc_exp
+from .ngp import _normalize_positions, trunc_exp
 from .nn import MLP, apply_mlp, init_mlp
 
 
@@ -70,6 +70,7 @@ class SpectralConfig(NamedTuple):
     max_freq: float = 4096.0
     num_semantic_classes: int = 0
     use_viewdirs: bool = True
+    unbounded: bool = False  # read positions through the scene contraction
     compute_dtype: str = "bfloat16"  # matmul dtype; f32 accumulation
 
     @property
@@ -93,6 +94,7 @@ class SpectralDensityConfig(NamedTuple):
     freqs_per_level: int = 4
     base_freq: float = 4.0
     max_freq: float = 256.0
+    unbounded: bool = False
     compute_dtype: str = "bfloat16"
 
     @property
@@ -196,14 +198,6 @@ def init_spectral_density(
     return SpectralDensityField(W, phase, base)
 
 
-def _normalize(cfg, x: torch.Tensor):
-    """Unit-cube coordinates and the in-aabb selector."""
-    aabb = torch.as_tensor(cfg.aabb, dtype=torch.float32, device=x.device)
-    u = (x - aabb[:3]) / (aabb[3:] - aabb[:3])
-    selector = ((u > 0.0) & (u < 1.0)).all(dim=-1)
-    return u, selector
-
-
 def spectral_encode(params, cfg, u: torch.Tensor) -> torch.Tensor:
     """[..., 3] unit-cube coords → [..., 2M] spectral features."""
     return encode_plain(params.W, params.phase, u, cfg.dtype)
@@ -217,7 +211,11 @@ def _use_fused_field(cfg, params_mlp: MLP) -> bool:
 def _kernel_route(who: str, cfg, params_mlp: MLP, x: torch.Tensor, named: bool) -> bool:
     """Whether encode + trunk go to a trunk kernel's wrapper, decided from
     the configuration as the JAX package's ``_use_fused_field`` decides it
-    on its chip: a bf16 field with 2 or 3 hidden layers does. Another field
+    on its chip: a bf16 field with 2 or 3 hidden layers does, bounded or
+    unbounded (the trunk kernels read unit-cube coordinates, contracted or
+    not, and apply no selector: ``_use_fused_field`` has no condition on
+    ``unbounded``; only the packed kernels, whose selector is the unit
+    cube's, decline an unbounded field, ``_check_packed``). Another field
     (f32 compute, another depth) runs the plain chain in its own dtype,
     where the JAX package runs its XLA chain, unless the caller ``named``
     the kernel route: then it runs the plain chain for CPU tensors only and
@@ -257,7 +255,7 @@ def query_density(params: SpectralField, cfg: SpectralConfig, x: torch.Tensor,
     if trunk not in TRUNK_ROUTES:
         raise ValueError(f"query_density: unknown trunk route {trunk!r}")
     batch_shape = x.shape[:-1]
-    u, selector = _normalize(cfg, x)
+    u, selector = _normalize_positions(cfg, x)
     u = u.reshape(-1, 3)
     kernel = _kernel_route(
         f"query_density(trunk={trunk!r})", cfg, params.mlp_base, u, named=trunk is not None)
@@ -302,10 +300,20 @@ def forward(params: SpectralField, cfg: SpectralConfig, positions, directions=No
     return rgb, density
 
 
+def _check_packed(who: str, cfg: SpectralConfig):
+    """The packed kernels hard-code the unit cube's selector, so they take
+    no unbounded field: the JAX gate ``use_packed_field`` declines it
+    (``spectral.py:341``), and so does ``train/flagship.py::default_route``."""
+    if cfg.unbounded:
+        raise ValueError(f"{who}: the packed kernels take no unbounded field (their selector "
+                         "is the unit cube's)")
+
+
 def _packed_inputs(cfg: SpectralConfig, positions, rays_d):
     """Flat unit-cube coordinates [N, 3] and per-ray SH features [R, 16], as
     the packed kernels read them."""
-    u, _ = _normalize(cfg, positions)
+    _check_packed("the packed forwards", cfg)
+    u, _ = _normalize_positions(cfg, positions)
     sh = sh_encode_deg4(rays_d).detach()
     return u.reshape(-1, 3).float().contiguous(), sh.float().contiguous()
 
@@ -377,7 +385,8 @@ def forward_packed_lossgrad(
     gradients are returned. Ray misses fold into dt, as the unfused
     ``sigmas * ~miss`` does."""
     R, S = positions.shape[0], positions.shape[1]
-    u, _ = _normalize(cfg, positions)
+    _check_packed("forward_packed_lossgrad", cfg)
+    u, _ = _normalize_positions(cfg, positions)
     sh = sh_encode_deg4(rays_d)
     dt = (t1 - t0) * (~miss)[:, None]
     tm = 0.5 * (t0 + t1)
@@ -420,7 +429,7 @@ def query_density_field(params: SpectralDensityField, cfg: SpectralDensityConfig
     take (f32, another depth) runs the plain chain for CPU tensors and
     raises on the card."""
     batch_shape = x.shape[:-1]
-    u, selector = _normalize(cfg, x)
+    u, selector = _normalize_positions(cfg, x)
     dt = cfg.dtype
     u = u.reshape(-1, 3)
     if fused and _kernel_route("query_density_field(fused=True)", cfg, params.mlp_base, u,

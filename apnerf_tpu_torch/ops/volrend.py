@@ -1,8 +1,11 @@
 """Dense volume rendering on ``[n_rays, n_samples]`` buffers.
 
-Port of ``apnerf_tpu/ops/volrend.py`` (the functions the renderers use),
-in plain PyTorch as JAX computes them without a kernel. The renderers
-take their weights from the weights kernel instead,
+Port of ``apnerf_tpu/ops/volrend.py``, in plain PyTorch as JAX computes
+it without a kernel: the density side (transmittance, weights with an
+optional ``prefix_trans`` for chunked marching, visibility), the alpha
+side (``exclusive_prod`` and the transmittance, weights and visibility
+from alphas), accumulation and the composited outputs. The renderers and
+trainers take their weights from the weights kernel instead,
 ``ops/cuda/volrend_cuda.py::fused_render_weights``, which returns the
 weights alone; ``render_weight_from_density`` is the plain triple.
 """
@@ -18,6 +21,15 @@ def exclusive_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.cumsum(x, dim=dim) - x
 
 
+def exclusive_prod(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Exclusive cumulative product along ``dim``: the running product
+    shifted right by one behind a 1, so a zero in x divides nothing."""
+    cprod = torch.cumprod(x, dim=dim)
+    n = x.shape[dim]
+    return torch.cat([torch.ones_like(cprod.narrow(dim, 0, 1)), cprod.narrow(dim, 0, n - 1)],
+                     dim=dim)
+
+
 def render_transmittance_from_density(
     t_starts: torch.Tensor, t_ends: torch.Tensor, sigmas: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -29,11 +41,48 @@ def render_transmittance_from_density(
 
 
 def render_weight_from_density(
-    t_starts: torch.Tensor, t_ends: torch.Tensor, sigmas: torch.Tensor
+    t_starts: torch.Tensor,
+    t_ends: torch.Tensor,
+    sigmas: torch.Tensor,
+    prefix_trans: Optional[torch.Tensor] = None,  # [R] or [R, 1]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """→ (weights, trans, alphas), each [R, S]."""
+    """→ (weights, trans, alphas), each [R, S]. ``prefix_trans`` scales
+    each ray's transmittance by what an earlier chunk of its samples left
+    (1 - the opacity so far)."""
     trans, alphas = render_transmittance_from_density(t_starts, t_ends, sigmas)
+    if prefix_trans is not None:
+        trans = trans * prefix_trans.reshape(-1, 1)
     return trans * alphas, trans, alphas
+
+
+def render_transmittance_from_alpha(
+    alphas: torch.Tensor, prefix_trans: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """T_i = Π_{j<i} (1 - α_j), times ``prefix_trans`` per ray."""
+    trans = exclusive_prod(1.0 - alphas, dim=-1)
+    if prefix_trans is not None:
+        trans = trans * prefix_trans.reshape(-1, 1)
+    return trans
+
+
+def render_weight_from_alpha(
+    alphas: torch.Tensor, prefix_trans: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (weights, trans) from alphas."""
+    trans = render_transmittance_from_alpha(alphas, prefix_trans)
+    return trans * alphas, trans
+
+
+def render_visibility_from_alpha(
+    alphas: torch.Tensor, early_stop_eps: float = 1e-4, alpha_thre: float = 0.0
+) -> torch.Tensor:
+    """Boolean visibility [R, S] from alphas: a sample is kept iff its
+    alpha clears ``alpha_thre`` and the transmittance over the earlier
+    kept samples stays above ``early_stop_eps``."""
+    vis_alpha = alphas >= alpha_thre
+    kept = torch.where(vis_alpha, alphas, torch.zeros_like(alphas))
+    trans = exclusive_prod(1.0 - kept, dim=-1)
+    return vis_alpha & (trans > early_stop_eps)
 
 
 def render_visibility_from_density(

@@ -156,10 +156,12 @@ def default_route(s_cfg: spectral.SpectralConfig) -> str:
     ``lossgrad``. The kernels take every width up to a 512-wide trunk with
     heads H // 4, at most 15 geometry features and 64 classes
     (``ops/cuda/field_images.check_widths``); a field past those raises
-    from their wrappers: its route is not changed for it."""
+    from their wrappers: its route is not changed for it. An unbounded
+    field takes ``field``: the packed kernels decline it
+    (``use_packed_field``, ``spectral.py:341``), the field kernel takes it."""
     if s_cfg.compute_dtype != "bfloat16" or s_cfg.layers not in (2, 3):
         return "plain"
-    if s_cfg.use_viewdirs and s_cfg.num_semantic_classes > 0:
+    if s_cfg.use_viewdirs and s_cfg.num_semantic_classes > 0 and not s_cfg.unbounded:
         return "lossgrad"
     return "field"
 

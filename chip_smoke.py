@@ -132,7 +132,27 @@ Phases, each of which must pass:
      planning step of 100 train steps (100 + 100 + 500 train steps, 3
      evaluations): finite falling losses, finite evaluation rows, exact
      launch counts of the weights kernel.
-Phases 13 to 17 and 19 run after phase 9, phase 18 and 20 after phase 11. Phase 1 also
+ 21. the four example trainers (``train/examples.py``) on an analytic scene
+     built here in numpy (three spheres and two boxes inside the aabb ±1.5,
+     RGBA with a transparent background, 100 train and 8 test views of
+     400^2 on a sphere of radius 4 at NeRF-Synthetic's camera_angle_x):
+     NGP + occupancy at the sizes of ``scripts/train_ngp_occ.py`` through
+     ``apnerf_tpu_torch.train_ngp_occ.train`` (1100 steps of 4096 rays; ms
+     per step over the last chunk of 100, ray-samples and visible samples
+     per second and the visible rate over the TITAN RTX yardstick's
+     1.95e7, the held-out PSNR over the background alone by
+     ``TRAINER_PSNR_MARGIN``); NGP + proposal (unbounded, 'lindisp', near
+     0.2, far 1e3), the MLP NeRF and T-NeRF for 100 steps each (a warm-up
+     and a timed chunk of 50); for each, exact launches of the weights
+     kernel over the timed chunk, one step on the kernels against the same
+     step with its plain version (loss, every update and gradient, the
+     occupancy grid exactly; each limit failed by a zeroed and a negated
+     K2) and K2 forward and backward on the intervals the trainer gave it
+     (with dt0, dt1 where they carry the proposal field's gradient); the
+     count of T-NeRF runs whose density died, over 16 seeds of 48 steps;
+     then one forward and backward of NDR-TNeRF at ``NDRTNeRFConfig()`` on 2^17
+     points.
+Phases 13 to 17 and 19 run after phase 9, phases 18, 20 and 21 after phase 11. Phase 1 also
 holds the host's mirrors of the tile's shared-memory layouts to the
 kernels' own at every instance. ``--field-kernels`` runs phase 1 and the
 kernel comparisons of phases 6, 8, 9 and 13 (the two render backwards and
@@ -146,7 +166,8 @@ the same script times an older tree and this one.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, before that one JSON object with
 each kernel's launches, error and times (the weights kernel's rows also
-its launches over the ngp+occ loop), and before that the smoke's total
+its launches over the ngp+occ loop and over phase 21's timed chunks, and
+its times at each trainer's shape), and before that the smoke's total
 wall time. Any failure exits non-zero
 before those lines.
 """
@@ -170,14 +191,14 @@ import torch
 # version adds the bias in bf16 after rounding, the kernel in f32 before).
 K1_TOL_ZERO_BIAS = 1e-5
 K1_TOL_RANDOM_BIAS = 1e-2
-K2_TOL = 1e-5  # max-abs error; float32 weights in [0, 1]
+K2_TOL = 1e-5  # max-abs error against the plain version in float64; weights in [0, 1]
 PI_RTOL = 2e-2  # PI terms, kernels against plain versions; bf16 rounding flips
 N_VIEWS = 40
 # cells of the occupancy grid of phase 10's scene: (8, 3, 8) m at 0.2 m
 LOOP_GRID_CELLS = 40 * 15 * 40
-# weights-kernel backward: max-abs error / max-abs of the plain output, per
-# gradient (f32; the two sum the suffix in different orders). About 2x the
-# readings on an H100 (PERF.md).
+# weights-kernel backward: max-abs error / max-abs of the plain output in
+# float64, per gradient. 1.6x the largest reading on an H100 (2.5e-7,
+# PERF.md).
 K2_BWD_TOL = 4e-7
 # train-step kernel against its plain version, per bias case: (weights
 # max-abs, loss terms relative, gradient leaves err / leaf max-abs, leaves
@@ -505,6 +526,8 @@ def main(argv=None) -> int:
     phase_faketiny(dev)
     # ---- 20. the ngp+occ loop through the CLI ------------------------------------------
     ngp_launches = phase_ngp_loop(dev)
+    # ---- 21. the example trainers ----------------------------------------------------------
+    trainer_launches, trainer_k2 = phase_trainers(dev)
 
     kernels = [
         {"name": "fused_spectral_field", "route": "cuda",
@@ -563,6 +586,13 @@ def main(argv=None) -> int:
             k["max_err_over_leaf_scale"] = rel[0]
         if ngp_launches[k["name"]]:
             k["ngp_loop_launches"] = ngp_launches[k["name"]]
+        if k["name"] in trainer_launches:
+            # launches over the timed chunks of phase 21's four trainers, and the
+            # kernel at each trainer's shape (times as in the row, bound from these inputs)
+            k["trainer_launches"] = trainer_launches[k["name"]]
+            k["trainer_shapes"] = {
+                label: recs[k["name"] == "fused_render_weights_bwd"]
+                for label, recs in trainer_k2.items()}
     print(f"smoke total: {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
@@ -741,14 +771,14 @@ def plain_routes():
     )
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import fused_render_weights_plain
     from apnerf_tpu_torch.render import prop_renderer, renderer
-    from apnerf_tpu_torch.train import flagship
+    from apnerf_tpu_torch.train import examples, flagship
 
     swaps = [(spectral, "fused_spectral_field", fused_spectral_field_plain),
              (spectral, "fused_mlp_apply", fused_mlp_apply_plain),
              (spectral, "fused_field_heads", fused_field_heads_plain),
              (spectral, "fused_field_volrend", fused_field_volrend_plain)]
     swaps += [(m, "fused_render_weights", fused_render_weights_plain)
-              for m in (propnet, prop_renderer, renderer, flagship)]
+              for m in (propnet, prop_renderer, renderer, flagship, examples)]
     saved = [getattr(m, name) for m, name, _ in swaps]
     for m, name, plain in swaps:
         setattr(m, name, plain)
@@ -790,12 +820,18 @@ def _misaligned(x):
     return y
 
 
-def k2_fwd_case(dev, label, t0_, t1_, sig, timed=True):
-    """The weights kernel against its plain version on these inputs; the
-    limit shown to catch a zeroed and a negated output; with ``timed``
-    its event window, device time, L2-cold device time, launch floor and
-    both bounds → (max-abs error, ms, plain ms, bound, {device ms, cold
-    device ms, floor device ms})."""
+def _f64(*xs):
+    return [x.double() for x in xs]
+
+
+def k2_fwd_case(dev, label, t0_, t1_, sig, timed=True, required=True):
+    """The weights kernel against its plain version on these inputs,
+    computed in float64 (the witness: both f32 sides round a ray's prefix
+    sum, the plain one as cumsum - x); the limit shown to catch a zeroed
+    and a negated output; with ``timed`` its event window, device time,
+    L2-cold device time, launch floor and both bounds (``required`` as in
+    ``kernel_device_ms``) → (max-abs error, ms, plain ms, bound, {device
+    ms, cold device ms, floor device ms})."""
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
         fused_render_weights,
         fused_render_weights_plain,
@@ -803,18 +839,19 @@ def k2_fwd_case(dev, label, t0_, t1_, sig, timed=True):
     )
 
     R, S = sig.shape
+    tol = K2_TOL
     got = fused_render_weights(t0_, t1_, sig)
     torch.cuda.synchronize()
-    ref = fused_render_weights_plain(t0_, t1_, sig)
+    ref = fused_render_weights_plain(*_f64(t0_, t1_, sig)).float()
     if not (got.shape == ref.shape and torch.isfinite(got).all()):
         fail(f"weights kernel {label}: non-finite or misshapen output")
     err = float((got - ref).abs().max())
     zeroed, negated = float(ref.abs().max()), float((got + ref).abs().max())
     line = (f"weights kernel {label} [{R}, {S}] (lane span {lane_span(S)}): max_abs {err:.3e} "
-            f"(tol {K2_TOL}; zeroed reads {zeroed:.3e}, negated {negated:.3e})")
-    if not (zeroed > K2_TOL and negated > K2_TOL):
+            f"(tol {tol}; zeroed reads {zeroed:.3e}, negated {negated:.3e})")
+    if not (zeroed > tol and negated > tol):
         fail(f"the limit on the weights kernel {label} would pass a zeroed or negated output")
-    if not err <= K2_TOL:
+    if not err <= tol:
         fail(f"weights kernel {label} [{R}, {S}] disagrees with its plain version: {err}")
     if not timed:
         print(line, flush=True)
@@ -825,54 +862,58 @@ def k2_fwd_case(dev, label, t0_, t1_, sig, timed=True):
     print(f"{line} | kernel {ms:.4f} ms (event window) | plain {pms:.4f} ms | bound "
           f"{bnd[0]:.4f} ms ({bnd[1]}, 16 B a sample; 24 B: {old[0]:.4f})", flush=True)
     dms, cold, floor = k2_times(dev, R, lambda: fused_render_weights(t0_, t1_, sig),
-                                "render_weights_fwd_kernel", f"weights kernel [{R}, {S}]")
+                                "render_weights_fwd_kernel", f"weights kernel [{R}, {S}]",
+                                required=required)
     return err, ms, pms, bnd, dict(device_ms=dms, cold_device_ms=cold, floor_device_ms=floor)
 
 
-def k2_bwd_case(dev, label, t0_, t1_, sig, g, with_dt, timed=True):
+def k2_bwd_case(dev, label, t0_, t1_, sig, g, with_dt, timed=True, required=True):
     """The weights kernel's backward against autograd through its plain
-    version, dsigma alone or with dt0 and dt1; the limit shown to catch a
-    zeroed and a negated dsigma; with ``timed`` the times and bounds as in
-    ``k2_fwd_case`` → the same record."""
+    version in float64, dsigma alone or with dt0 and dt1; the limit shown
+    to catch a zeroed and a negated dsigma; with ``timed`` the times and
+    bounds as in ``k2_fwd_case`` → the same record."""
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
         fused_render_weights_bwd,
         fused_render_weights_plain,
     )
 
     R, S = sig.shape
+    tol = K2_BWD_TOL
     run = lambda: fused_render_weights_bwd(t0_, t1_, sig, g, with_dt=with_dt)  # noqa: E731
     got = run()
     torch.cuda.synchronize()
     if (got[1] is None) == with_dt or (got[2] is None) == with_dt:
         fail(f"weights backward {label}: dt0/dt1 returned {'without' if with_dt else 'with'} "
              "being asked for")
-    leaves = [x.clone().requires_grad_(True) for x in (sig, t0_, t1_)][:3 if with_dt else 1]
-    w = fused_render_weights_plain(*(leaves[1:] if with_dt else (t0_, t1_)), leaves[0])
-    ref = torch.autograd.grad(w, leaves, g, retain_graph=True)
+    leaves = [x.double().requires_grad_(True) for x in (sig, t0_, t1_)][:3 if with_dt else 1]
+    w = fused_render_weights_plain(*(leaves[1:] if with_dt else _f64(t0_, t1_)), leaves[0])
+    ref = [r.float() for r in torch.autograd.grad(w, leaves, g.double())]
     errs = [_errs(a, b) for a, b in zip(got, ref)]
     zeroed, negated = _errs(torch.zeros_like(ref[0]), ref[0])[1], _errs(-got[0], ref[0])[1]
     names = ("dsigma", "dt0", "dt1")[:len(errs)]
     line = (f"weights backward {label} [{R}, {S}] {'with' if with_dt else 'without'} dt: "
             f"max_abs " + " ".join(f"{n} {e[0]:.3e}" for n, e in zip(names, errs))
             + " | err/scale " + " ".join(f"{e[1]:.3e}" for e in errs)
-            + f" (tol {K2_BWD_TOL}; zeroed dsigma reads {zeroed:.3e}, negated {negated:.3e})")
+            + f" (tol {tol}; zeroed dsigma reads {zeroed:.3e}, negated {negated:.3e})")
     if not all(np.isfinite(e[0]) for e in errs):
         fail(f"weights backward {label} [{R}, {S}]: non-finite output")
-    if not (zeroed > K2_BWD_TOL and negated > K2_BWD_TOL):
+    if not (zeroed > tol and negated > tol):
         fail(f"the limit on the weights backward {label} would pass a zeroed or negated output")
-    if not max(e[1] for e in errs) <= K2_BWD_TOL:
+    if not max(e[1] for e in errs) <= tol:
         fail(f"weights backward {label} [{R}, {S}] disagrees with autograd")
     if not timed:
         print(line, flush=True)
         return None
     ms = cuda_ms(run)
+    leaves = [x.clone().requires_grad_(True) for x in (sig, t0_, t1_)][:3 if with_dt else 1]
+    w = fused_render_weights_plain(*(leaves[1:] if with_dt else (t0_, t1_)), leaves[0])
     pms = cuda_ms(lambda: torch.autograd.grad(w, leaves, g, retain_graph=True))
     bnd, old = k2_bwd_bound(R, S, with_dt), k2_bwd_bound(R, S, True)
     print(f"{line} | kernel {ms:.4f} ms (event window) | plain (autograd backward) {pms:.4f} "
           f"ms | bound {bnd[0]:.4f} ms ({bnd[1]}, {20 + 8 * with_dt} B a sample; 28 B: "
           f"{old[0]:.4f})", flush=True)
     dms, cold, floor = k2_times(dev, R, run, "render_weights_bwd_kernel",
-                                f"weights backward [{R}, {S}]")
+                                f"weights backward [{R}, {S}]", required=required)
     return (max(e[0] for e in errs), ms, pms, bnd,
             dict(device_ms=dms, cold_device_ms=cold, floor_device_ms=floor))
 
@@ -942,14 +983,15 @@ def k2_bwd_bound(R, S, with_dt):
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB of L2
 
 
-def kernel_device_ms(fn, kernel, calls=20, before=None, tries=3):
+def kernel_device_ms(fn, kernel, calls=20, before=None, tries=3, required=True):
     """The device time (ms) of one launch of the kernel named ``kernel``
     in ``fn``: the mean over the launches ``torch.profiler`` records in a
     window of ``calls`` calls (``before()`` ahead of each, untimed). The
     profiler drops some launches from a window (one of 20 in most, all of
     them in a few, on an H100 with torch 2.11), so the mean is taken over
     those it recorded; a window that holds fewer than half is measured
-    again, up to ``tries`` times, and then fails."""
+    again, up to ``tries`` times, and then fails, or with ``required``
+    false returns None (the reading is then "not measured")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -966,15 +1008,20 @@ def kernel_device_ms(fn, kernel, calls=20, before=None, tries=3):
                if e.device_type == DeviceType.CUDA and kernel in e.name]
         if 2 * len(got) >= calls:
             return sum(got) / len(got) / 1e3
-    fail(f"the profiler recorded {len(got)} of {calls} launches of {kernel} in {tries} windows")
+    msg = f"the profiler recorded {len(got)} of {calls} launches of {kernel} in {tries} windows"
+    if required:
+        fail(msg)
+    print(f"  {msg}: its device time is not measured", flush=True)
+    return None
 
 
-def k2_times(dev, R, fn, kernel, label, calls=20):
+def k2_times(dev, R, fn, kernel, label, calls=20, required=True):
     """Prints and returns the device time of ``fn``'s kernel (named
     ``kernel``) warm and with its inputs out of L2 (64 MB written between
     launches), and the device time and event window of an empty kernel
     launched as the weights kernels are (its grid for R rays): the launch
-    floor → (warm ms, cold ms, floor ms)."""
+    floor → (warm ms, cold ms, floor ms); ``required`` as in
+    ``kernel_device_ms``."""
     from apnerf_tpu_torch.ops.cuda import build
 
     lib = build.library()
@@ -984,14 +1031,15 @@ def k2_times(dev, R, fn, kernel, label, calls=20):
         if lib.apnerf_empty_launch(R, stream) != 0:
             fail("the empty kernel did not launch")
 
-    floor = kernel_device_ms(empty, "empty_kernel", calls)
+    floor = kernel_device_ms(empty, "empty_kernel", calls, required=required)
     floor_window = cuda_ms(empty)
-    warm = kernel_device_ms(fn, kernel, calls)
+    warm = kernel_device_ms(fn, kernel, calls, required=required)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    cold = kernel_device_ms(fn, kernel, calls, before=lambda: flush.fill_(1.0))
-    print(f"  {label}: device time {warm:.4f} ms, with its inputs out of L2 (64 MB written "
-          f"between launches) {cold:.4f} ms | an empty kernel launched the same way: "
-          f"{floor:.4f} ms device time, {floor_window:.4f} ms event window", flush=True)
+    cold = kernel_device_ms(fn, kernel, calls, before=lambda: flush.fill_(1.0), required=required)
+    ms = lambda t: "not measured" if t is None else f"{t:.4f} ms"  # noqa: E731
+    print(f"  {label}: device time {ms(warm)}, with its inputs out of L2 (64 MB written "
+          f"between launches) {ms(cold)} | an empty kernel launched the same way: "
+          f"{ms(floor)} device time, {floor_window:.4f} ms event window", flush=True)
     return warm, cold, floor
 
 
@@ -3049,6 +3097,557 @@ def phase_modes(mapper):
         torch.cuda.synchronize()
         print(f"planning modes: overlap_planning={overlap}: {time.perf_counter() - t0:.2f} s "
               f"for 2 steps of 4 candidates and 100 train steps", flush=True)
+
+
+# ---- 21. the example trainers ------------------------------------------------------------
+
+# held-out PSNR of the NGP + occupancy trainer over the background alone, at least (dB;
+# written into PERF.md before the first reading and not tuned after it)
+TRAINER_PSNR_MARGIN = 5.0
+# a trainer step on the kernels against the same step with K2's plain version, per trainer:
+# (loss relative, worst update err / scale, worst gradient err / scale, the gradient read from
+# Adam's first moment); the occupancy grid must match exactly. Each limit is shown to be passed
+# by neither a zeroed nor a negated K2 (they read 0.39-656 on the loss, 0.80-340 on the update,
+# 1-400 on the gradient on an H100, PERF.md). The NGP fields' tables take their gradient by float
+# atomics, so two steps differ by their order as well as by K2's rounding: ngp+occ keeps phase
+# 19's limits (`NGP_STEP_TOL`; read 0-1.8e-7 / 9.5e-6-5.0e-5 / 5.9e-7-8.2e-7 over four calls).
+# The proposal trainer is compared at its final samples only (its level keeps the kernel on both
+# sides: a last-digit difference in the level's weights moves a sample across an inverse-CDF bin
+# edge, which read up to 1.6e-2 on a table's gradient); there it read 0-2.0e-7 / 3.3e-5-2.4e-4 /
+# 1.5e-6-8.5e-6 over ten steps of two calls, limits 3x. The MLP fields take no atomics: about
+# 2-3x their readings (MLP 0 / 3.2e-5-4.4e-5 / 3.2e-7-1.3e-6, T-NeRF 0 / 4.0e-5 / 1.2e-6).
+TRAINER_STEP_TOL = {
+    "ngp+occ": NGP_STEP_TOL,
+    "ngp+prop": (6e-7, 7.5e-4, 2.5e-5),
+    "mlp": (1e-6, 1.5e-4, 5e-6),
+    "tnerf": (1e-6, 1.5e-4, 5e-6),
+}
+NGP_OCC_STEPS = 1100  # a warm-up chunk and 1000 steps, the last 100 timed
+TRAINER_CHUNKS = (50, 50)  # the other three trainers: a warm-up and a timed chunk
+# T-NeRF's relu density dies in some runs (JAX's trainer the same on the same weights and draws,
+# tests/test_torch_examples.py): counted over these init / draw seeds, each this many steps
+TNERF_DEATH_SEEDS, TNERF_DEATH_STEPS = range(16), 48
+YARDSTICK_SAMPLES_PER_S = 1.95e7  # nerfacc's Instant-NGP example on a TITAN RTX (BASELINE.md)
+SYNTH_SIZE, SYNTH_ANGLE_X, SYNTH_RADIUS = 400, 0.6911, 4.0
+SYNTH_AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+# the analytic scene: (centre, radius, rgb) spheres and (low corner, high corner, rgb) boxes
+SYNTH_SPHERES = (((0.5, 0.3, 0.0), 0.5, (0.9, 0.2, 0.15)),
+                 ((-0.6, -0.2, 0.4), 0.45, (0.2, 0.8, 0.25)),
+                 ((-0.2, 0.8, -0.6), 0.3, (0.85, 0.3, 0.85)))
+SYNTH_BOXES = (((-0.4, -1.0, -0.9), (0.4, -0.3, -0.1), (0.2, 0.35, 0.9)),
+               ((0.3, -1.0, 0.4), (1.0, -0.5, 1.1), (0.95, 0.85, 0.2)))
+
+
+def _look_at(pos):
+    """OpenGL camera-to-world [4, 4] at ``pos`` looking at the origin."""
+    fwd = -pos / np.linalg.norm(pos)
+    up = np.array([0.0, 1.0, 0.0]) if abs(fwd[1]) < 0.99 else np.array([0.0, 0.0, 1.0])
+    right = np.cross(fwd, up)
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.stack([right, np.cross(right, fwd), -fwd], axis=1)
+    c2w[:3, 3] = pos
+    return c2w
+
+
+def _sphere_cameras(n, offset):
+    """n camera-to-world poses on the sphere of radius ``SYNTH_RADIUS``
+    (a Fibonacci lattice turned by ``offset``) looking at the origin."""
+    i = np.arange(n) + 0.5
+    y = 1.0 - 2.0 * i / n
+    r = np.sqrt(1.0 - y * y)
+    phi = np.pi * (3.0 - np.sqrt(5.0)) * i + offset
+    pos = SYNTH_RADIUS * np.stack([r * np.cos(phi), y, r * np.sin(phi)], axis=1)
+    return np.stack([_look_at(p) for p in pos]).astype(np.float32)
+
+
+def _render_analytic(c2w, focal, size):
+    """One RGBA view [size, size, 4] uint8 of the analytic scene: the
+    nearest hit of the spheres and boxes, Lambert-shaded, alpha 0 where the
+    ray hits nothing (NeRF-Synthetic's transparent background)."""
+    y, x = np.meshgrid(np.arange(size, dtype=np.float64), np.arange(size, dtype=np.float64),
+                       indexing="ij")
+    d_cam = np.stack([(x - size / 2 + 0.5) / focal, -(y - size / 2 + 0.5) / focal,
+                      -np.ones_like(x)], axis=-1).reshape(-1, 3)
+    d = d_cam @ c2w[:3, :3].T
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(c2w[:3, 3], d.shape)
+    best = np.full(d.shape[0], np.inf)
+    normal, color = np.zeros_like(d), np.zeros_like(d)
+    for c, rad, rgb in SYNTH_SPHERES:
+        oc = o - np.asarray(c)
+        b = np.sum(d * oc, axis=-1)
+        disc = b * b - (np.sum(oc * oc, axis=-1) - rad * rad)
+        t = -b - np.sqrt(np.maximum(disc, 0.0))
+        hit = (disc > 0) & (t > 0) & (t < best)
+        best = np.where(hit, t, best)
+        p = o + t[:, None] * d
+        normal[hit] = (p[hit] - np.asarray(c)) / rad
+        color[hit] = rgb
+    for lo, hi, rgb in SYNTH_BOXES:
+        lo, hi = np.asarray(lo), np.asarray(hi)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t0, t1 = (lo - o) / d, (hi - o) / d
+        t_near = np.minimum(t0, t1).max(axis=-1)
+        t_far = np.maximum(t0, t1).min(axis=-1)
+        hit = (t_far > np.maximum(t_near, 0.0)) & (t_near > 0) & (t_near < best)
+        best = np.where(hit, t_near, best)
+        p = o + t_near[:, None] * d
+        q = (p - (lo + hi) / 2) / ((hi - lo) / 2)
+        axis = np.abs(q).argmax(axis=-1)
+        n = np.zeros_like(q)
+        n[np.arange(len(q)), axis] = np.sign(q[np.arange(len(q)), axis])
+        normal[hit] = n[hit]
+        color[hit] = rgb
+    light = np.array([0.4, 0.8, 0.45]) / np.linalg.norm([0.4, 0.8, 0.45])
+    shade = 0.35 + 0.65 * np.clip(normal @ light, 0.0, 1.0)
+    hit = np.isfinite(best)
+    rgba = np.zeros((d.shape[0], 4))
+    rgba[hit, :3] = color[hit] * shade[hit, None]
+    rgba[hit, 3] = 1.0
+    return (rgba.reshape(size, size, 4) * 255 + 0.5).astype(np.uint8)
+
+
+def synthetic_subject(n_views, offset):
+    """``SubjectData`` of the analytic scene at NeRF-Synthetic's field of view."""
+    from apnerf_tpu_torch.data.nerf_synthetic import SubjectData
+
+    focal = 0.5 * SYNTH_SIZE / np.tan(0.5 * SYNTH_ANGLE_X)
+    c2ws = _sphere_cameras(n_views, offset)
+    images = np.stack([_render_analytic(c, focal, SYNTH_SIZE) for c in c2ws])
+    return SubjectData(images=images, camtoworlds=c2ws, focal=focal, width=SYNTH_SIZE,
+                       height=SYNTH_SIZE)
+
+
+K2_SITES = ("train.examples", "render.renderer", "models.propnet")
+
+
+@contextlib.contextmanager
+def k2_sites_replaced(fn, sites=K2_SITES):
+    """K2's wrapper replaced by ``fn`` where the trainers look it up (the
+    modules ``sites``)."""
+    import importlib
+
+    mods = [importlib.import_module(f"apnerf_tpu_torch.{m}") for m in sites]
+    saved = [m.fused_render_weights for m in mods]
+    for m in mods:
+        m.fused_render_weights = fn
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.fused_render_weights = f
+
+
+def _trainer_batch(gen, views, R):
+    """(origins, viewdirs, pixels, bkgd, view indices) from ``views``
+    (images, c2ws, K on the device)."""
+    from apnerf_tpu_torch.train_ngp_occ import sample_batch
+
+    return sample_batch(gen, *views, R)
+
+
+def _views(data, dev):
+    from apnerf_tpu_torch.data.nerf_synthetic import intrinsics
+
+    return (torch.as_tensor(data.images, device=dev),
+            torch.as_tensor(data.camtoworlds, dtype=torch.float32, device=dev),
+            torch.as_tensor(intrinsics(data), device=dev))
+
+
+def _run_chunks(name, step, state, chunks, counters, probe):
+    """``chunks`` chunks of steps (``step(state, i) -> (state, loss,
+    n_samples)``); the launches are read over the last. The loss must be
+    finite and ``probe(state)``, the loss of one fixed batch, lower after
+    the steps than before them (a training batch's loss swings with its
+    random background) → (state, losses [steps], samples [steps], seconds
+    of the last chunk, its launches, the probe before and after)."""
+    losses, samples = [], []
+    before = probe(state)
+    i = 0
+    for n in chunks:
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, loss, ns = step(state, i)
+            losses.append(loss)
+            samples.append(ns)
+            i += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    losses = torch.stack(losses).cpu().numpy()
+    samples = torch.stack(samples).cpu().numpy()
+    after = probe(state)
+    if not np.isfinite(losses).all():
+        fail(f"the {name} trainer's loss is not finite")
+    if not after < before:
+        fail(f"the {name} trainer's loss on a fixed batch did not fall: {before} -> {after}")
+    return state, losses, samples, wall, launches, (before, after)
+
+
+def _fixed_probe(dev, step_fn, args):
+    """The loss of ``step_fn`` on the fixed batch ``args`` at a state's
+    parameters (one step on a copy, with draws of its own)."""
+    def probe(state):
+        return float(step_fn(_copy_state(state), *args, generator=_generator(dev, 2199))[1])
+    return probe
+
+
+def _occ_step_draws(state, gen, dev):
+    """The occupancy update's draws at ``state.step``: every cell in the
+    warm-up (256 steps), half of them after."""
+    from apnerf_tpu_torch.ops.occupancy import _draw
+
+    n = state.occ.occs.numel()
+    return _draw(n, n if state.step < 256 else 2 * (n // 4), gen, dev)
+
+
+def _copy_state(state):
+    import copy
+
+    from apnerf_tpu_torch.train.step import AdamState
+
+    return state._replace(params=copy.deepcopy(state.params),
+                          opt=AdamState(*(t.clone() for t in state.opt)))
+
+
+def _compare_trainer_step(name, step_fn, state, args, kwargs, counters, fwd, bwd,
+                          sites=K2_SITES):
+    """One step from ``state`` on the kernels against the same step with
+    K2's plain version at the call sites ``sites``, and with K2 zeroed and
+    negated there (each must fail the limits) → the inputs K2 was given in
+    the kernel step."""
+    from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
+        fused_render_weights,
+        fused_render_weights_plain,
+    )
+
+    b1 = 0.9
+    sizes = [p.numel() for p in state.params.parameters()]
+    seen = []
+
+    def recording(t0, t1, sig):
+        seen.append((t0.detach().clone(), t1.detach().clone(), sig.detach().clone(),
+                     t0.requires_grad))
+        return fused_render_weights(t0, t1, sig)
+
+    def one(fn, at=sites):
+        with k2_sites_replaced(fn, at):
+            return step_fn(_copy_state(state), *args, **kwargs)[:2]
+
+    reset_counts(counters)
+    kern = one(recording, K2_SITES)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    plain = one(fused_render_weights_plain)
+    tol = TRAINER_STEP_TOL[name]
+
+    def readings(other):
+        (sa, la), (sb, lb) = other, plain
+        loss_rel = abs(float(la) - float(lb)) / abs(float(lb))
+        ga = torch.split((sa.opt.mu - b1 * state.opt.mu) / (1 - b1), sizes)
+        gb = torch.split((sb.opt.mu - b1 * state.opt.mu) / (1 - b1), sizes)
+        upd, grd = [], []
+        for i, ((pname, p0), pa, pb) in enumerate(zip(
+                state.params.named_parameters(), sa.params.parameters(),
+                sb.params.parameters())):
+            upd.append((_errs(pa.detach() - p0.detach(), pb.detach() - p0.detach())[1], pname))
+            grd.append((_errs(ga[i], gb[i])[1], pname))
+        occ_same = sa.occ is None or (torch.equal(sa.occ.occs, sb.occ.occs)
+                                      and torch.equal(sa.occ.binaries, sb.occ.binaries))
+        return loss_rel, max(upd)[0], max(grd)[0], occ_same, max(upd)[1], max(grd)[1]
+
+    r = readings(kern)
+    zeroed = readings(one(lambda a, b, s: fused_render_weights_plain(a, b, s) * 0.0))
+    negated = readings(one(lambda a, b, s: -fused_render_weights(a, b, s)))
+
+    def passes(x):
+        return x[0] <= tol[0] and x[1] <= tol[1] and x[2] <= tol[2] and x[3]
+
+    print(f"  {name}: one step at step {state.step}, kernels vs K2's plain version: loss rel "
+          f"{r[0]:.3e} (tol {tol[0]}), update worst err/scale {r[1]:.3e} ({r[4]}; tol "
+          f"{tol[1]}), gradient {r[2]:.3e} ({r[5]}; tol {tol[2]}), occupancy grid equal "
+          f"{r[3]}; K2 zeroed reads "
+          f"{zeroed[0]:.3e} / {zeroed[1]:.3e} / {zeroed[2]:.3e}, negated {negated[0]:.3e} / "
+          f"{negated[1]:.3e} / {negated[2]:.3e}; launches {launches}", flush=True)
+    expected = dict.fromkeys(launches, 0)
+    expected.update(fused_render_weights=fwd, fused_render_weights_bwd=bwd)
+    if launches != expected:
+        fail(f"a {name} trainer step launched {launches}, expected {expected}")
+    if passes(zeroed) or passes(negated):
+        fail(f"the {name} step limits would pass a zeroed or negated K2")
+    if not passes(r):
+        fail(f"the {name} trainer step with the kernels disagrees with K2's plain version")
+    return seen
+
+
+def _check_k2_at(dev, label, inputs, gen, timed):
+    """K2 forward and backward on inputs a trainer gave it, against the
+    float64 witness at ``K2_TOL`` and ``K2_BWD_TOL`` → the timed records
+    (forward, backward) or None. The largest optical depth tau = sum(sigma
+    dt) of a ray is printed: the proposal trainer's final samples
+    (unbounded, 'lindisp' from 0.2 to 1e3) reach tau ~370-680, the march
+    34-60. Device times are "not measured" where the profiler drops most
+    launches of a window, as it did late in a whole smoke on an H100 (4 of
+    20 in three windows, PERF.md); the event windows, plain times and
+    bounds do not depend on it."""
+    t0, t1, sig, with_dt = inputs
+    depth = float((sig * (t1 - t0)).sum(dim=1).max())
+    print(f"  K2 inputs of the {label}: {tuple(sig.shape)}, intervals [{float(t0.min()):.3g}, "
+          f"{float(t1.max()):.3g}], largest optical depth {depth:.4g}", flush=True)
+    fwd = k2_fwd_case(dev, label, t0, t1, sig, timed=timed, required=False)
+    g = torch.randn(sig.shape, generator=gen, device=dev) * (sig > 0)
+    bwd = k2_bwd_case(dev, label, t0, t1, sig, g, with_dt=with_dt, timed=timed, required=False)
+    return fwd, bwd
+
+
+def _tnerf_dead(params, res, dev):
+    """Whether a T-NeRF's density is 0 at every centre of a ``res``^3 grid
+    over the aabb at t = 0, 0.5 and 1: its relu density then takes no
+    gradient from any sample again."""
+    from apnerf_tpu_torch.models import mlp as mlpmod
+
+    lo, hi = SYNTH_AABB[0], SYNTH_AABB[3]
+    g = (torch.arange(res, device=dev) + 0.5) * ((hi - lo) / res) + lo
+    cells = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    with torch.no_grad():
+        return all(not bool((mlpmod.tnerf_query_density(
+            params, cells, torch.full((len(cells), 1), t, device=dev)) > 0).any())
+            for t in (0.0, 0.5, 1.0))
+
+
+def _count_tnerf_deaths(dev, views, times, R=1024):
+    """T-NeRF trained ``TNERF_DEATH_STEPS`` steps at each seed of
+    ``TNERF_DEATH_SEEDS`` (the field's init and the draws' generator):
+    prints how many died (a measurement, not a check)."""
+    from apnerf_tpu_torch.train import examples
+
+    t0 = time.perf_counter()
+    dead = []
+    for seed in TNERF_DEATH_SEEDS:
+        state, step_fn = examples.make_tnerf_occ_trainer(SYNTH_AABB, seed=seed, device=dev)
+        gen = _generator(dev, 3000 + seed)
+        for _ in range(TNERF_DEATH_STEPS):
+            o, d, px, bk, ids = _trainer_batch(gen, views, R)
+            state = step_fn(state, o, d, px, times[ids], bk, generator=gen)[0]
+        if _tnerf_dead(state.params, state.occ.binaries.shape[0], dev):
+            dead.append(seed)
+    print(f"  T-NeRF deaths: {len(dead)} of {len(TNERF_DEATH_SEEDS)} init / draw seeds died within "
+          f"{TNERF_DEATH_STEPS} steps (density 0 at every grid centre at t = 0, 0.5, 1): seeds "
+          f"{dead}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _shape_record(rec, R, S, with_dt=None):
+    err, ms, pms, (bnd, by), times = rec
+    out = dict(shape=[R, S], max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by,
+               **times)
+    if with_dt is not None:
+        out["with_dt"] = with_dt
+    return out
+
+
+def phase_trainers(dev):
+    """Phase 21: the four example trainers on the analytic scene → (K2
+    launches over their timed chunks, K2's records at their shapes)."""
+    from apnerf_tpu_torch import train_ngp_occ
+    from apnerf_tpu_torch.models import mlp as mlpmod
+    from apnerf_tpu_torch.train import examples
+    from apnerf_tpu_torch.utils.metrics import psnr
+
+    t_phase = time.perf_counter()
+    counters = all_counters()
+    train_data = synthetic_subject(100, 0.0)
+    test_data = synthetic_subject(8, 1.234)
+    bg_psnr = float(np.mean([psnr(np.ones((SYNTH_SIZE, SYNTH_SIZE, 3), np.float32),
+                                  train_ngp_occ.composite(im, (1.0, 1.0, 1.0)))
+                             for im in test_data.images]))
+    cover = float((train_data.images[..., 3] > 0).mean())
+    print(f"trainers: analytic scene, {len(train_data.images)} train / {len(test_data.images)} "
+          f"test views of {SYNTH_SIZE}^2 at camera_angle_x {SYNTH_ANGLE_X}, {cover:.3f} of "
+          f"pixels covered; built in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    launches_total = {"fused_render_weights": 0, "fused_render_weights_bwd": 0}
+    records = {}
+    gen_k2 = _generator(dev, 2121)
+
+    # -- NGP + occupancy at the yardstick's sizes, through train_ngp_occ.train ----------------
+    steps, R, S = NGP_OCC_STEPS, 4096, train_ngp_occ.TRAINER_KWARGS["max_samples"]
+    chunk = train_ngp_occ.CHUNK
+    timed = {}
+
+    def on_chunk(done, seconds):
+        if done == steps - chunk:
+            reset_counts(counters)
+        if done == steps:
+            timed.update(read_counts(counters), seconds=seconds)
+
+    out = train_ngp_occ.train(train_data, test_data, steps=steps, num_rays=R, aabb=SYNTH_AABB,
+                              eval_every=steps, device=dev, on_chunk=on_chunk)
+    losses = out["losses"].cpu().numpy()
+    visible = out["n_samples"][-chunk:].sum().item()
+    sec = timed.pop("seconds")
+    ms = sec / chunk * 1e3
+    vis_rate = visible / sec
+    held = out["evals"][-1][1]
+    print(f"  ngp+occ (16 x 2^19 x 4 table, 2 x 128 MLP, 128^3 grid, {R} rays x {S} samples): "
+          f"{ms:.3f} ms per step over the timed chunk of {chunk} (the last); chunks (ms per "
+          f"step) {' '.join(f'{c / chunk * 1e3:.2f}' for c in out['chunk_seconds'])}; "
+          f"{R * chunk / sec:.4e} rays/s, {R * S * chunk / sec:.4e} ray-samples/s, "
+          f"{vis_rate:.4e} visible samples/s ({visible / chunk / R:.2f} a ray) = "
+          f"{vis_rate / YARDSTICK_SAMPLES_PER_S:.4f} x the TITAN RTX yardstick's 1.95e7 (a "
+          f"synthetic scene, not NeRF-Synthetic); loss {losses[:chunk].mean():.5f} -> "
+          f"{losses[-chunk:].mean():.5f}; held-out PSNR {held:.3f} dB "
+          f"(views {' '.join(f'{p:.2f}' for p in out['evals'][-1][2])}) against "
+          f"{bg_psnr:.3f} dB for the background alone (margin {TRAINER_PSNR_MARGIN} dB); "
+          f"occupancy {float(out['state'].occ.binaries.float().mean()):.4f}; launches over the "
+          f"timed chunk {timed}", flush=True)
+    if not np.isfinite(losses).all() or not losses[-chunk:].mean() < losses[:chunk].mean():
+        fail("the ngp+occ trainer's loss is not finite or did not fall")
+    if not held > bg_psnr + TRAINER_PSNR_MARGIN:
+        fail(f"the ngp+occ trainer's held-out PSNR {held} is not {TRAINER_PSNR_MARGIN} dB over "
+             f"the background's {bg_psnr}")
+    expected = dict.fromkeys(timed, 0)
+    expected.update(fused_render_weights=chunk, fused_render_weights_bwd=chunk)
+    if timed != expected:
+        fail(f"ngp+occ trainer launch counts {timed}, expected {expected}")
+    for k in launches_total:
+        launches_total[k] += timed[k]
+
+    views = _views(train_data, dev)
+    gen = _generator(dev, 2100)
+    state, step_fn = out["state"], out["step_fn"]
+    o, d, px, bk, _ = _trainer_batch(gen, views, R)
+    state = state._replace(step=-(-state.step // 16) * 16)  # a step that updates the grid
+    draws = _occ_step_draws(state, gen, dev)
+    seen = _compare_trainer_step("ngp+occ", step_fn, state, (o, d, px, bk),
+                                 dict(occ_draws=draws), counters, 1, 1)
+    f, b = _check_k2_at(dev, "ngp+occ trainer", seen[0], gen_k2, True)
+    records["ngp+occ"] = (_shape_record(f, R, S), _shape_record(b, R, S, False))
+    del out, state
+
+    # -- NGP + proposal net, unbounded, 'lindisp' ----------------------------------------------
+    R = 4096
+    gen = _generator(dev, 2101)  # each trainer its own draws
+    state, step_fn = examples.make_ngp_prop_trainer(SYNTH_AABB, ngp_kwargs=dict(unbounded=True),
+                                                    device=dev)
+
+    def prop_step(s, i):
+        o, d, px, bk, _ = _trainer_batch(gen, views, R)
+        return step_fn(s, o, d, px, bk, generator=gen)
+
+    probe = _fixed_probe(dev, step_fn, _trainer_batch(_generator(dev, 2198), views, R)[:4])
+    state, losses, _, sec, timed, probed = _run_chunks("ngp+prop", prop_step, state,
+                                                       TRAINER_CHUNKS, counters, probe)
+    print(f"  ngp+prop (unbounded 16 x 2^19 x 4 field, 5-level 2^17 proposal field, {R} rays, "
+          f"64 proposal + 48 samples, near 0.2, far 1e3, lindisp): "
+          f"{sec / TRAINER_CHUNKS[-1] * 1e3:.3f} ms per step over the timed chunk of "
+          f"{TRAINER_CHUNKS[-1]}; loss (first / last fifth) {losses[:20].mean():.5f} -> "
+          f"{losses[-20:].mean():.5f}, on a fixed batch {probed[0]:.5f} -> {probed[1]:.5f}; "
+          f"launches {timed}", flush=True)
+    expected = dict.fromkeys(timed, 0)
+    expected.update(fused_render_weights=2 * TRAINER_CHUNKS[-1],
+                    fused_render_weights_bwd=2 * TRAINER_CHUNKS[-1])
+    if timed != expected:
+        fail(f"ngp+prop trainer launch counts {timed}, expected {expected}")
+    for k in launches_total:
+        launches_total[k] += timed[k]
+    o, d, px, bk, _ = _trainer_batch(gen, views, R)
+    noise = torch.rand((R, 49), generator=gen, device=dev)
+    # the proposal level's weights feed the inverse CDF's bin search, so a last-digit
+    # difference there moves a final sample across a bin edge at random: the level
+    # keeps K2 on both sides (it is held alone below) and the final samples' K2 is compared
+    seen = _compare_trainer_step("ngp+prop", step_fn, state, (o, d, px, bk),
+                                 dict(noises=[noise]), counters, 2, 2, ("train.examples",))
+    level, final = seen
+    if level[3] or not final[3]:
+        fail("the proposal level's intervals carry a gradient or the final ones do not")
+    f, b = _check_k2_at(dev, "ngp+prop trainer, proposal level", level, gen_k2, True)
+    records["ngp+prop level"] = (_shape_record(f, R, 64), _shape_record(b, R, 64, False))
+    f, b = _check_k2_at(dev, "ngp+prop trainer, final samples (lindisp)", final, gen_k2, True)
+    records["ngp+prop final"] = (_shape_record(f, R, 48), _shape_record(b, R, 48, True))
+    del state
+
+    # -- MLP NeRF and T-NeRF ---------------------------------------------------------------------
+    R, S = 1024, 128
+    times = torch.as_tensor(np.linspace(0, 1, len(train_data.images), dtype=np.float32),
+                            device=dev)
+    for i_trainer, name in enumerate(("mlp", "tnerf")):
+        # T-NeRF's draws are ones under which its density lives: it dies under some draws, as
+        # JAX's trainer does on the same weights and draws; ``_count_tnerf_deaths`` counts how often
+        gen = _generator(dev, 2102 + i_trainer)
+        if name == "mlp":
+            state, step_fn = examples.make_mlp_occ_trainer(SYNTH_AABB, device=dev)
+
+            def step(s, i, fn=step_fn):
+                o, d, px, bk, _ = _trainer_batch(gen, views, R)
+                return fn(s, o, d, px, bk, generator=gen)
+        else:
+            state, step_fn = examples.make_tnerf_occ_trainer(SYNTH_AABB, device=dev)
+
+            def step(s, i, fn=step_fn):
+                o, d, px, bk, ids = _trainer_batch(gen, views, R)
+                return fn(s, o, d, px, times[ids], bk, generator=gen)
+
+        o, d, px, bk, ids = _trainer_batch(_generator(dev, 2198), views, R)
+        probe = _fixed_probe(dev, step_fn, (o, d, px, bk) if name == "mlp"
+                             else (o, d, px, times[ids], bk))
+        state, losses, samples, sec, timed, probed = _run_chunks(name, step, state,
+                                                                 TRAINER_CHUNKS, counters, probe)
+        print(f"  {name} ({'8 x 256, skip 4' if name == 'mlp' else 'T-NeRF, 4 x 64 warp'}, 64^3 "
+              f"grid, {R} rays x {S} samples): {sec / TRAINER_CHUNKS[-1] * 1e3:.3f} ms per step "
+              f"over the timed chunk of {TRAINER_CHUNKS[-1]}; "
+              f"{samples[-TRAINER_CHUNKS[-1]:].mean():.0f} visible samples a step; loss "
+              f"(first / last fifth) {losses[:20].mean():.5f} -> {losses[-20:].mean():.5f}, on a "
+              f"fixed batch {probed[0]:.5f} -> {probed[1]:.5f}; launches {timed}",
+              flush=True)
+        expected = dict.fromkeys(timed, 0)
+        expected.update(fused_render_weights=TRAINER_CHUNKS[-1],
+                        fused_render_weights_bwd=TRAINER_CHUNKS[-1])
+        if timed != expected:
+            fail(f"{name} trainer launch counts {timed}, expected {expected}")
+        for k in launches_total:
+            launches_total[k] += timed[k]
+        o, d, px, bk, ids = _trainer_batch(gen, views, R)
+        state = state._replace(step=-(-state.step // 16) * 16)
+        draws = _occ_step_draws(state, gen, dev)
+        args = (o, d, px, bk) if name == "mlp" else (o, d, px, times[ids], bk)
+        kw = dict(occ_draws=draws)
+        if name == "tnerf":
+            kw["occ_times"] = torch.rand((draws["jitter"].shape[0], 1), generator=gen,
+                                         device=dev)
+        seen = _compare_trainer_step(name, step_fn, state, args, kw, counters, 1, 1)
+        f, b = _check_k2_at(dev, f"{name} trainer", seen[0], gen_k2, name == "mlp")
+        if name == "mlp":
+            records["mlp"] = (_shape_record(f, R, S), _shape_record(b, R, S, False))
+        del state
+
+    _count_tnerf_deaths(dev, views, times)
+
+    # -- NDR-TNeRF forward and backward ----------------------------------------------------------
+    cfg = mlpmod.NDRTNeRFConfig()
+    field = mlpmod.init_ndr_tnerf(cfg, _generator(dev, 2122), dev)
+    N = 1 << 17
+    x = (torch.rand((N, 3), generator=gen, device=dev) * 3.0 - 1.5).requires_grad_(True)
+    t = torch.rand((N, 1), generator=gen, device=dev)
+    dirs = torch.nn.functional.normalize(torch.randn((N, 3), generator=gen, device=dev), dim=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb, sigma = mlpmod.ndr_tnerf_forward(field, x, t, dirs, cfg)
+    loss = rgb.sum() + sigma.sum()
+    grads = torch.autograd.grad(loss, list(field.parameters()) + [x])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    print(f"  NDR-TNeRF at NDRTNeRFConfig() on {N} points: rgb {tuple(rgb.shape)}, sigma "
+          f"{tuple(sigma.shape)}, forward + backward {wall * 1e3:.1f} ms (first call), "
+          f"{len(grads) - 1} parameter gradients and the positions' finite: {finite}", flush=True)
+    if (tuple(rgb.shape), tuple(sigma.shape)) != ((N, 3), (N, 1)) or not finite or not (
+            torch.isfinite(rgb).all() and torch.isfinite(sigma).all()):
+        fail("NDR-TNeRF's forward or backward is misshapen or not finite")
+    print(f"trainers: phase 21 took {time.perf_counter() - t_phase:.1f} s; K2 launches over the "
+          f"timed chunks {launches_total}", flush=True)
+    return launches_total, records
 
 
 if __name__ == "__main__":

@@ -228,8 +228,9 @@ def test_config_and_init_match_jax():
     flat = {".".join(k.key for k in path): v.shape
             for path, v in jax.tree_util.tree_flatten_with_path(params)[0]}
     assert {k: tuple(v) for k, v in tree.items()} == {k: tuple(v) for k, v in flat.items()}
-    with pytest.raises(NotImplementedError, match="unbounded"):
-        t_ngp.init_ngp(tcfg._replace(unbounded=True), torch.Generator())
+    # the contracted field has the same parameters (test_torch_examples.py holds its outputs)
+    unbounded = t_ngp.init_ngp(tcfg._replace(unbounded=True), torch.Generator().manual_seed(0))
+    assert {n: tuple(p.shape) for n, p in unbounded.named_parameters()} == tree
 
 
 def test_forward_matches_jax():

@@ -46,6 +46,15 @@ SLICE_MODULES = [
     "apnerf_tpu_torch.models.ngp",
     "apnerf_tpu_torch.models.spectral",
     "apnerf_tpu_torch.models.propnet",
+    "apnerf_tpu_torch.models.mlp",
+    "apnerf_tpu_torch.ops.contraction",
+    "apnerf_tpu_torch.ops.cameras",
+    "apnerf_tpu_torch.data.nerf_synthetic",
+    "apnerf_tpu_torch.data.dnerf_synthetic",
+    "apnerf_tpu_torch.data.colmap",
+    "apnerf_tpu_torch.data.nerf_360",
+    "apnerf_tpu_torch.train.examples",
+    "apnerf_tpu_torch.train_ngp_occ",
     "apnerf_tpu_torch.render.prop_renderer",
     "apnerf_tpu_torch.render.renderer",
     "apnerf_tpu_torch.quality",

@@ -2,21 +2,26 @@
 
 Port of ``apnerf_tpu/active/pipeline.py``: ``--sem-num``,
 ``--habitat-scene``, ``--habitat-config-file``, ``--sim {habitat,fake}``,
-``--config`` and ``--seed`` as there. ``--device`` (default ``cuda``)
-takes the place of ``--platform``; ``--viz`` turns on the PNG dumps that
-the JAX mapper always writes (they need ``imageio``). ``--profile`` and
-``--mesh`` are not ported. The run is on the card unless ``--device cpu``
-is given: without a CUDA device the default fails.
+``--config``, ``--seed`` and ``--profile`` as there. ``--device``
+(default ``cuda``) takes the place of ``--platform``; ``--viz`` turns on
+the PNG dumps that the JAX mapper always writes (they need ``imageio``).
+``--sim habitat`` builds ``sim/habitat.py``'s facade, which needs
+``habitat_sim`` and says so without it. ``--profile DIR`` runs the loop
+under ``torch.profiler`` (CPU activity, and CUDA on the card) and writes
+a Chrome trace into DIR. ``--mesh`` is not ported. The run is on the card
+unless ``--device cpu`` is given: without a CUDA device the default fails.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import pathlib
 import random
 
 import numpy as np
+import torch
 
 
 def parse_args(argv=None):
@@ -38,6 +43,11 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=9)
     p.add_argument("--viz", action="store_true",
                    help="write the visualisation and prediction PNGs (needs imageio)")
+    p.add_argument(
+        "--profile", type=str, default=None, metavar="DIR",
+        help="write a torch.profiler Chrome trace of the run to DIR "
+        "(view with chrome://tracing or Perfetto)",
+    )
     return p.parse_args(argv)
 
 
@@ -51,17 +61,33 @@ def build_mapper(args):
     else:
         cfg = PipelineConfig(num_semantic_classes=args.sem_num)
 
-    if args.sim != "fake":
-        raise NotImplementedError(
-            "--sim habitat: sim/habitat.py (the Habitat-Sim backend) is still to port "
-            "(ROADMAP.md); run with --sim fake"
-        )
-    from ..sim.fake import FakeSim
+    if args.sim == "fake":
+        from ..sim.fake import FakeSim
 
-    sim = FakeSim(aabb=tuple(cfg.aabb), img_w=cfg.img_w, img_h=cfg.img_h, hfov=cfg.hfov)
-    if args.sem_num == 0:
-        cfg = dataclasses.replace(cfg, num_semantic_classes=sim.num_semantic_classes)
+        sim = FakeSim(aabb=tuple(cfg.aabb), img_w=cfg.img_w, img_h=cfg.img_h, hfov=cfg.hfov)
+        if args.sem_num == 0:
+            cfg = dataclasses.replace(cfg, num_semantic_classes=sim.num_semantic_classes)
+    else:
+        from ..sim.habitat import HabitatSim
+
+        sim = HabitatSim(args.habitat_scene, args.habitat_config_file, cfg.img_w, cfg.img_h)
     return ActiveNeRFMapper(cfg, sim, seed=args.seed, device=args.device, save_viz=args.viz)
+
+
+def profile_run(fn, out_dir: str, device) -> str:
+    """Run ``fn()`` under ``torch.profiler`` (CUDA activity too on the
+    card) → the path of the Chrome trace written into ``out_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        fn()
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def main(argv=None):
@@ -69,7 +95,10 @@ def main(argv=None):
     random.seed(args.seed)
     np.random.seed(args.seed)
     mapper = build_mapper(args)
-    mapper.pipeline()
+    if args.profile:
+        profile_run(mapper.pipeline, args.profile, mapper.device)
+    else:
+        mapper.pipeline()
     if mapper.throughput_log:
         last = mapper.throughput_log[-1]
         print(

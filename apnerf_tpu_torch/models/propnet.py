@@ -46,7 +46,7 @@ def propnet_sampling(
     stratified: bool = False,
     generator: Optional[torch.Generator] = None,
     noises: Optional[Sequence[torch.Tensor]] = None,
-    sampling_type: str = "uniform",
+    sampling_type: str = "lindisp",
 ):
     """Hierarchical proposal sampling → (t_starts, t_ends [R, num_samples],
     per-level (edges, weights) for the loss). ``near_plane``/``far_plane``

@@ -3,8 +3,8 @@
 Port of ``apnerf_tpu/ops/rays.py``: pixel centers offset by +0.5, y
 flipped, the camera looks down -z, directions rotated by the c2w rotation
 and normalized, origins broadcast from the c2w translation. The host-side
-numpy helpers (``make_intrinsics``, ``pose_matrix_from_quat``) are the
-same functions.
+numpy helpers (``make_intrinsics``, ``pose_matrix_from_quat``,
+``quat_xyzw_from_matrix``) are the same functions.
 """
 
 from __future__ import annotations
@@ -91,3 +91,39 @@ def pose_matrix_from_quat(pos: np.ndarray, quat_xyzw: np.ndarray) -> np.ndarray:
     T[:3, :3] = R
     T[:3, 3] = np.asarray(pos, dtype=np.float64)
     return T
+
+
+def quat_xyzw_from_matrix(R: np.ndarray) -> np.ndarray:
+    """xyzw quaternion from a 3x3 rotation (inverse of
+    ``pose_matrix_from_quat``; Shepperd's method, numerically stable for
+    every sign pattern of the diagonal). Host-side numpy helper used by
+    the replay simulator to express recorded c2w matrices in the facade's
+    pose7 convention (``simulator/sim.py:145-151`` carries xyzw quats)."""
+    R = np.asarray(R, dtype=np.float64)[:3, :3]
+    t = np.trace(R)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        w = 0.25 * s
+        x = (R[2, 1] - R[1, 2]) / s
+        y = (R[0, 2] - R[2, 0]) / s
+        z = (R[1, 0] - R[0, 1]) / s
+    elif R[0, 0] >= R[1, 1] and R[0, 0] >= R[2, 2]:
+        s = np.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2]) * 2
+        w = (R[2, 1] - R[1, 2]) / s
+        x = 0.25 * s
+        y = (R[0, 1] + R[1, 0]) / s
+        z = (R[0, 2] + R[2, 0]) / s
+    elif R[1, 1] >= R[2, 2]:
+        s = np.sqrt(1.0 + R[1, 1] - R[0, 0] - R[2, 2]) * 2
+        w = (R[0, 2] - R[2, 0]) / s
+        x = (R[0, 1] + R[1, 0]) / s
+        y = 0.25 * s
+        z = (R[1, 2] + R[2, 1]) / s
+    else:
+        s = np.sqrt(1.0 + R[2, 2] - R[0, 0] - R[1, 1]) * 2
+        w = (R[1, 0] - R[0, 1]) / s
+        x = (R[0, 2] + R[2, 0]) / s
+        y = (R[1, 2] + R[2, 1]) / s
+        z = 0.25 * s
+    q = np.array([x, y, z, w], dtype=np.float64)
+    return q / np.linalg.norm(q)

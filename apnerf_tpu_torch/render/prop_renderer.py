@@ -52,7 +52,7 @@ def prop_sample_intervals(
     t0, t1, levels = propnet_sampling(
         [prop_sigma_fn], [num_prop_samples], num_samples, rays_o, rays_d,
         near_plane=t_lo, far_plane=t_hi, stratified=stratified, generator=generator,
-        noises=noises,
+        noises=noises, sampling_type="uniform",
     )
     t0, t1 = t0.detach(), t1.detach()
     t_mid = 0.5 * (t0 + t1)

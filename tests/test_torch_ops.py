@@ -390,7 +390,7 @@ def test_propnet_sampling_and_prop_loss(stratified, monkeypatch):
     noise = np.asarray(jax.random.uniform(jax.random.split(key)[1], (R, 25)))
     t0t, t1t, lvt = t_prop.propnet_sampling(
         [lambda a, b: sig(a, b, torch)], [16], 24, T(o), T(d), T(near), T(far),
-        stratified=stratified, noises=[T(noise)],
+        stratified=stratified, noises=[T(noise)], sampling_type="uniform",
     )
     close(t0t, t0j, **SCAN)
     close(t1t, t1j, **SCAN)

@@ -333,12 +333,13 @@ def test_cli_parse_args_defaults():
     a_t, a_j = vars(t_cli.parse_args([])), vars(j_cli.parse_args([]))
     for k in ("sem_num", "habitat_scene", "habitat_config_file", "sim", "config", "seed"):
         assert a_t[k] == a_j[k], k
-    assert a_t["device"] == "cuda" and a_t["viz"] is False
+    assert a_t["device"] == "cuda" and a_t["viz"] is False and a_t["profile"] is None
     assert set(a_t) - set(a_j) == {"device", "viz"}
-    assert set(a_j) - set(a_t) == {"platform", "profile", "mesh"}
+    assert set(a_j) - set(a_t) == {"platform", "mesh"}
     got = t_cli.parse_args(["--sim", "fake", "--sem-num", "29", "--device", "cpu", "--seed", "3"])
     assert (got.sim, got.sem_num, got.device, got.seed) == ("fake", 29, "cpu", 3)
-    with pytest.raises(NotImplementedError, match="sim/habitat.py"):
+    # --sim habitat builds sim/habitat.py's facade, which needs habitat_sim
+    with pytest.raises(ImportError, match="habitat_sim is not installed"):
         t_cli.build_mapper(t_cli.parse_args(["--sim", "habitat", "--device", "cpu"]))
 
 
@@ -347,7 +348,14 @@ def test_cli_builds_the_mapper_as_the_jax_cli_does(tmp_path):
     kept; the default device is CUDA and fails without one."""
     from apnerf_tpu_torch.active import pipeline as t_cli
 
-    cfg_path = os.path.join(REPO, "configs", "config_faketiny.yaml")
+    import yaml
+
+    with open(os.path.join(REPO, "configs", "config_faketiny.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw.update(save_path=str(tmp_path / "runs"))  # the file's own is outside the checkout
+    cfg_path = str(tmp_path / "faketiny.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
     m = t_cli.build_mapper(t_cli.parse_args(["--sim", "fake", "--config", cfg_path,
                                              "--device", "cpu"]))
     assert m.cfg.num_semantic_classes == m.sim.num_semantic_classes

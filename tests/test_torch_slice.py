@@ -78,6 +78,17 @@ SLICE_MODULES = [
     "apnerf_tpu_torch.utils.metrics",
     "apnerf_tpu_torch.sim.base",
     "apnerf_tpu_torch.viz.render_views",
+    "apnerf_tpu_torch.viz.make_video",
+    "apnerf_tpu_torch.viz.interactive",
+    "apnerf_tpu_torch.sim.replay",
+    "apnerf_tpu_torch.sim.habitat",
+    "apnerf_tpu_torch.replay_eval",
+    "apnerf_tpu_torch.eval",
+    "apnerf_tpu_torch.eval.voxel_grid",
+    "apnerf_tpu_torch.eval.point_cloud",
+    "apnerf_tpu_torch.eval.frontier",
+    "apnerf_tpu_torch.eval.offline_eval",
+    "apnerf_tpu_torch.planning.multirotor",
     "chip_smoke",
 ]
 

@@ -45,6 +45,15 @@ with the ``step0`` of the call's start after a rollback as well.
 
 The device is explicit (default ``"cuda"``): a mapper never moves itself
 to the CPU. PNG dumps (``save_viz=True``) need ``imageio``.
+
+Mesh mode (``mesh=``, ``mapper.py:83-93,130-175``): one mapper a rank of
+an (ens, data) mesh (``parallel/``). The train phase is the sharded one,
+the renders are sharded and gathered (``ensemble_renderer`` and
+``ngp_renderer`` are the unsharded renders, module functions so that
+``parallel/sharding.py`` builds on them), the occupancy grids are
+gathered for the planner, and every host decision reads values that are
+the same on every rank: a (2, 1) mesh flies the unsharded mapper's
+trajectory and repeats its rows bit for bit.
 """
 
 from __future__ import annotations
@@ -128,6 +137,102 @@ def _snapshot(state: EnsembleState) -> EnsembleState:
     )
 
 
+def ensemble_renderer(cfg: PipelineConfig, max_samples: int, with_variance: bool, device,
+                      lattice: Optional[torch.Tensor] = None,
+                      field_cfgs: Optional[tuple] = None) -> Callable:
+    """→ ``render(members, occ, origins [V,P,3], viewdirs, bkgd)`` → dict of
+    [E, V, P, ...] tensors of the members given (``n_samples`` [E, V]); on
+    the ngp path (``lattice`` given) see ``ngp_renderer``. The occupancy
+    grids are accepted for signature parity: the flagship sampler does not
+    read them. The device and the field's configuration pick the route: on
+    the card a field whose member core takes the combined kernel
+    (``default_route`` is ``lossgrad``) renders through the packed
+    kernels, with variance the packed field, without it the fused field and
+    render; any other field renders through ``spectral.forward``, as the
+    JAX mapper renders every field (encode + trunk in the field kernel for
+    a bf16 field with 2 or 3 hidden layers, the plain chain for the rest).
+    On the CPU the plain ``spectral.forward`` renders. ``field_cfgs``: the
+    (spectral, proposal) fields' configurations, when they are not the ones
+    ``cfg`` gives."""
+    if cfg.sampler_type != "prop":
+        return ngp_renderer(cfg, lattice, max_samples, with_variance)
+    s_cfg, p_cfg = field_cfgs or (make_spectral_config(cfg), make_prop_config(cfg))
+    device = torch.device(device)
+    aabb = torch.as_tensor(cfg.aabb, dtype=torch.float32, device=device)
+    packed = device.type != "cpu" and default_route(s_cfg) == "lossgrad"
+
+    @torch.inference_mode()
+    def render(members, occ, origins, viewdirs, bkgd) -> Dict[str, torch.Tensor]:
+        del occ
+        per_member = []
+        for m in members:
+            def field_fn(pos, dirs, main=m.main):
+                return spectral.forward(main, s_cfg, pos, dirs)
+
+            def prop_fn(pos, prop=m.prop):
+                return spectral.query_density_field(prop, p_cfg, pos)
+
+            def packed_fn(pos, rays_d, main=m.main):
+                return spectral.forward_packed(main, s_cfg, pos, rays_d)
+
+            def packed_vr_fn(pos, rays_d, t0, t1, miss, main=m.main):
+                return spectral.forward_packed_volrend(main, s_cfg, pos, rays_d, t0, t1, miss)
+
+            views = []
+            for v in range(origins.shape[0]):
+                outs = render_rays_prop(
+                    field_fn, prop_fn, origins[v], viewdirs[v], aabb,
+                    num_samples=max_samples, num_prop_samples=cfg.num_prop_samples,
+                    near_plane=cfg.near_plane, render_bkgd=bkgd,
+                    stratified=False, with_variance=with_variance,
+                    field_packed_fn=packed_fn if packed and with_variance else None,
+                    field_packed_vr_fn=packed_vr_fn if packed and not with_variance else None,
+                )
+                views.append(outs)
+            per_member.append({k: torch.stack([o[k] for o in views]) for k in views[0]})
+        return {k: torch.stack([pm[k] for pm in per_member]) for k in per_member[0]}
+
+    return render
+
+
+def ngp_renderer(cfg: PipelineConfig, lattice: torch.Tensor, max_samples: int,
+                 with_variance: bool) -> Callable:
+    """The ngp branch (``mapper.py:340-436``): each member renders each
+    view through the occupancy march of its own grid, ``alpha_thre``
+    clamped by that grid's mean occupancy; a view whose rays ×
+    ``max_samples`` pass ``RENDER_ROWS`` renders in chunks of rays
+    (``n_samples`` sums over them). The march is deterministic, so the
+    render draws nothing."""
+    ngp_cfg = make_ngp_config(cfg)
+    chunk = max(RENDER_ROWS // max_samples, 1)
+
+    @torch.inference_mode()
+    def render(members, occ, origins, viewdirs, bkgd) -> Dict[str, torch.Tensor]:
+        per_member = []
+        for m, grid in zip(members, occ):
+            def field_fn(pos, dirs, m=m):
+                return ngp.forward(m, ngp_cfg, pos, dirs)
+
+            views = []
+            for v in range(origins.shape[0]):
+                parts = [
+                    render_test(
+                        field_fn, origins[v, i:i + chunk], viewdirs[v, i:i + chunk], grid,
+                        lattice, max_samples, bkgd, cfg.alpha_thre, with_variance,
+                    )
+                    for i in range(0, origins.shape[1], chunk)
+                ]
+                views.append({
+                    k: sum(p[k] for p in parts) if k == "n_samples"
+                    else torch.cat([p[k] for p in parts])
+                    for k in parts[0]
+                })
+            per_member.append({k: torch.stack([o[k] for o in views]) for k in views[0]})
+        return {k: torch.stack([pm[k] for pm in per_member]) for k in per_member[0]}
+
+    return render
+
+
 class ActiveNeRFMapper:
     def __init__(
         self,
@@ -141,16 +246,29 @@ class ActiveNeRFMapper:
         checkpoint_every: int = 1000,
         device="cuda",
         save_viz: bool = False,
+        mesh=None,
     ):
         """``save_viz``: write the per-planning-step visualisation PNGs and
         the test-view prediction PNGs (the JAX mapper always does); it
-        needs ``imageio`` and raises here without it."""
+        needs ``imageio`` and raises here without it.
+
+        ``mesh``: this rank's ``parallel/mesh.Mesh`` (``make_mesh``), whose
+        device the mapper takes. Every rank builds all E members from the
+        seeded generator, as the unsharded mapper does, and keeps its own;
+        the train phase and the renders run sharded (members over ``ens``,
+        rays over ``data``), the occupancy update on the rank's members
+        with every member's draws made in order, and every host decision is
+        taken from values that are the same on every rank. Rank 0 alone
+        writes files; its checkpoints are the unsharded ``model_{i}.npz``
+        of every member."""
         if (cfg.field_type, cfg.sampler_type) not in (("spectral", "prop"), ("ngp", "occ")):
             raise ValueError(
                 "supported (field_type, sampler_type): (spectral, prop) or (ngp, occ); "
                 f"got ({cfg.field_type}, {cfg.sampler_type})"
             )
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.is_root = mesh is None or mesh.rank == 0
+        self.device = torch.device(device if mesh is None else mesh.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "the mapper was asked for a CUDA device and none is available; pass "
@@ -161,9 +279,9 @@ class ActiveNeRFMapper:
             import imageio.v2  # noqa: F401  (fail here, not at the first dump)
         self.cfg = cfg
         self.sim = sim
-        self.save_path = save_path or os.path.join(
+        self.save_path = self._agree(save_path or os.path.join(
             cfg.save_path, datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
-        )
+        ))
         os.makedirs(self.save_path, exist_ok=True)
         self.rng = np.random.RandomState(seed)
         self.generator = torch.Generator(device=self.device)
@@ -193,6 +311,19 @@ class ActiveNeRFMapper:
             self._occ_update_fn = None  # each member step updates its own grid
             self._schedule = default_ngp_schedule(cfg)
             self._lr = cfg.lr
+        # the rank's members among the E (None: all of them)
+        self._local = None
+        if mesh is not None:
+            from ..parallel.mesh import shard_ensemble_state
+            from ..parallel.sharding import make_sharded_flagship_phase, make_sharded_occ_phase
+
+            self._local = mesh.members(cfg.n_ensembles)
+            mesh.rays(cfg.num_rays)
+            self.state = shard_ensemble_state(self.state, mesh)
+            self._make_phase = (
+                functools.partial(make_sharded_flagship_phase, mesh=mesh) if self.use_prop
+                else functools.partial(make_sharded_occ_phase, mesh=mesh, lattice=self.lattice)
+            )
         self.train_phase_fn = self._make_phase(cfg)
         # steps per chunk: the occupancy update, the LR bookkeeping and the
         # checkpoint cadence move with it (``mapper.py:196-206``; the JAX
@@ -263,93 +394,19 @@ class ActiveNeRFMapper:
 
     def _build_ensemble_renderer(self, max_samples: int, with_variance: bool) -> Callable:
         """→ ``render(members, occ, origins [V,P,3], viewdirs, bkgd)`` →
-        dict of [E, V, P, ...] tensors (``n_samples`` [E, V]). On the ngp
-        path see ``_build_ngp_renderer``. The occupancy grids are accepted
-        for signature parity: the flagship sampler does not read them. The
-        device and the field's
-        configuration pick the route: on the card a field whose member
-        core takes the combined kernel (``default_route`` is ``lossgrad``)
-        renders through the packed kernels, with variance the packed field,
-        without it the fused field and render; any other field renders
-        through ``spectral.forward``, as the JAX mapper renders every field
-        (encode + trunk in the field kernel for a bf16 field with 2 or 3
-        hidden layers, the plain chain for the rest). On the CPU the plain
-        ``spectral.forward`` renders."""
-        if not self.use_prop:
-            return self._build_ngp_renderer(max_samples, with_variance)
-        cfg = self.cfg
-        s_cfg, p_cfg = self.spectral_cfg, self.prop_cfg
-        aabb = torch.as_tensor(cfg.aabb, dtype=torch.float32, device=self.device)
-        packed = self.device.type != "cpu" and default_route(s_cfg) == "lossgrad"
+        dict of [E, V, P, ...] tensors (``ensemble_renderer``); in mesh
+        mode sharded (``parallel/sharding.shard_renderer``): every rank
+        gets every member's render."""
+        if self.use_prop:
+            render = ensemble_renderer(self.cfg, max_samples, with_variance, self.device,
+                                       field_cfgs=(self.spectral_cfg, self.prop_cfg))
+        else:
+            render = ngp_renderer(self.cfg, self.lattice, max_samples, with_variance)
+        if self.mesh is None:
+            return render
+        from ..parallel.sharding import shard_renderer
 
-        @torch.inference_mode()
-        def render(members, occ, origins, viewdirs, bkgd) -> Dict[str, torch.Tensor]:
-            del occ
-            per_member = []
-            for m in members:
-                def field_fn(pos, dirs, main=m.main):
-                    return spectral.forward(main, s_cfg, pos, dirs)
-
-                def prop_fn(pos, prop=m.prop):
-                    return spectral.query_density_field(prop, p_cfg, pos)
-
-                def packed_fn(pos, rays_d, main=m.main):
-                    return spectral.forward_packed(main, s_cfg, pos, rays_d)
-
-                def packed_vr_fn(pos, rays_d, t0, t1, miss, main=m.main):
-                    return spectral.forward_packed_volrend(main, s_cfg, pos, rays_d, t0, t1, miss)
-
-                views = []
-                for v in range(origins.shape[0]):
-                    outs = render_rays_prop(
-                        field_fn, prop_fn, origins[v], viewdirs[v], aabb,
-                        num_samples=max_samples, num_prop_samples=cfg.num_prop_samples,
-                        near_plane=cfg.near_plane, render_bkgd=bkgd,
-                        stratified=False, with_variance=with_variance,
-                        field_packed_fn=packed_fn if packed and with_variance else None,
-                        field_packed_vr_fn=packed_vr_fn if packed and not with_variance else None,
-                    )
-                    views.append(outs)
-                per_member.append({k: torch.stack([o[k] for o in views]) for k in views[0]})
-            return {k: torch.stack([pm[k] for pm in per_member]) for k in per_member[0]}
-
-        return render
-
-    def _build_ngp_renderer(self, max_samples: int, with_variance: bool) -> Callable:
-        """The ngp branch (``mapper.py:340-436``): each member renders each
-        view through the occupancy march of its own grid, ``alpha_thre``
-        clamped by that grid's mean occupancy; a view whose rays ×
-        ``max_samples`` pass ``RENDER_ROWS`` renders in chunks of rays
-        (``n_samples`` sums over them). The march is deterministic, so the
-        render draws nothing."""
-        cfg, ngp_cfg, lattice = self.cfg, self.ngp_cfg, self.lattice
-        chunk = max(RENDER_ROWS // max_samples, 1)
-
-        @torch.inference_mode()
-        def render(members, occ, origins, viewdirs, bkgd) -> Dict[str, torch.Tensor]:
-            per_member = []
-            for m, grid in zip(members, occ):
-                def field_fn(pos, dirs, m=m):
-                    return ngp.forward(m, ngp_cfg, pos, dirs)
-
-                views = []
-                for v in range(origins.shape[0]):
-                    parts = [
-                        render_test(
-                            field_fn, origins[v, i:i + chunk], viewdirs[v, i:i + chunk], grid,
-                            lattice, max_samples, bkgd, cfg.alpha_thre, with_variance,
-                        )
-                        for i in range(0, origins.shape[1], chunk)
-                    ]
-                    views.append({
-                        k: sum(p[k] for p in parts) if k == "n_samples"
-                        else torch.cat([p[k] for p in parts])
-                        for k in parts[0]
-                    })
-                per_member.append({k: torch.stack([o[k] for o in views]) for k in views[0]})
-            return {k: torch.stack([pm[k] for pm in per_member]) for k in per_member[0]}
-
-        return render
+        return shard_renderer(render, self.mesh)
 
     def _poses_c2w(self, poses: np.ndarray) -> torch.Tensor:
         mats = [pose_matrix_from_quat(p[:3], p[3:]) for p in np.asarray(poses)]
@@ -423,7 +480,7 @@ class ActiveNeRFMapper:
 
         self.train_dataset = RayDataset(
             training=True,
-            save_fp=os.path.join(self.save_path, "train"),
+            save_fp=os.path.join(self.save_path, "train") if self.is_root else None,
             num_rays=cfg.init_batch_size,
             num_models=cfg.n_ensembles,
             width=cfg.img_w, height=cfg.img_h, hfov=cfg.hfov,
@@ -449,7 +506,7 @@ class ActiveNeRFMapper:
             t_mats = [pose_matrix_from_quat(p[:3], p[3:]) for p in test_poses]
             self.test_dataset = RayDataset(
                 training=False,
-                save_fp=os.path.join(self.save_path, "test"),
+                save_fp=os.path.join(self.save_path, "test") if self.is_root else None,
                 num_models=cfg.n_ensembles,
                 width=cfg.img_w, height=cfg.img_h, hfov=cfg.hfov,
                 max_images=max(len(test_poses), 1), device=self.device,
@@ -518,7 +575,7 @@ class ActiveNeRFMapper:
                 **({} if self.use_prop else {"occ_thre": occ_thre}),
             )
             if guard_on:
-                m = float(chunk_losses.mean())
+                m = self._agree(float(chunk_losses.mean()))
                 exploded = (not np.isfinite(m)) or (
                     guard_best is not None and m > 5.0 * guard_best + 1e-3
                 )
@@ -557,7 +614,7 @@ class ActiveNeRFMapper:
             if self._occ_update_fn is not None:
                 self.state = self.state._replace(occ=self._occ_update_fn(
                     self.state.members, self.state.occ, self.state.step, occ_thre,
-                    generator=self.generator,
+                    generator=self.generator, local=self._local,
                 ))
             # lr curve bookkeeping
             self.learning_rate_lst.append(float(self._schedule(step0 + done)))
@@ -666,7 +723,7 @@ class ActiveNeRFMapper:
         lp = float(np.mean([lpips_vgg(pd_rgb[i], gt_rgb[i]) for i in range(n_img)]))
         mi = miou(np.argmax(pd_sem_logits, axis=-1), gt_sem, cfg.num_semantic_classes)
         self.metrics_ext_hist.append([float(planning_step), lp, float(mi)])
-        if self.save_viz:
+        if self.save_viz and self.is_root:
             self._write_predictions(planning_step, pd_rgb, pd_dep, pd_sem_logits)
         return row
 
@@ -758,7 +815,7 @@ class ActiveNeRFMapper:
             ),
             "pd_occ": out["opacity"][0].float().cpu().numpy().reshape(n, oh, ow),
         }
-        if self.save_viz:
+        if self.save_viz and self.is_root:
             self._write_viz(traj, panels, oh, ow)
         return panels
 
@@ -830,16 +887,25 @@ class ActiveNeRFMapper:
         """Queue every candidate's render and score, read them back once,
         and return (the best trajectory, its 40 scored poses)."""
         pis = [self.dispatch_uncertainty(c) for c in candidates]
-        comps = torch.stack([torch.stack(list(p)) for p in pis]).double().cpu().numpy()
+        comps = self._agree(
+            torch.stack([torch.stack(list(p)) for p in pis]).double().cpu().numpy())
         self.trajector_uncertainty_list[step - 1].extend(comps.tolist())
         best = int(np.argmax(comps.sum(axis=1)))
         chosen = candidates[best]
         return chosen, chosen[_unc_view_index(len(chosen))]
 
     def binaries_host(self, state: Optional[EnsembleState] = None) -> np.ndarray:
-        """The members' binary occupancy grids [E, X, Y, Z] on the host."""
+        """The members' binary occupancy grids [E, X, Y, Z] on the host
+        (in mesh mode every member's, gathered)."""
         state = state if state is not None else self.state
-        return torch.stack([o.binaries for o in state.occ]).cpu().numpy()
+        grids = torch.stack([o.binaries for o in state.occ])
+        if self.mesh is not None:
+            grids = self.mesh.gather_ens(grids)
+        return grids.cpu().numpy()
+
+    def _agree(self, value):
+        """Rank 0's ``value`` on every rank in mesh mode (a host decision)."""
+        return value if self.mesh is None else self.mesh.agree(value)
 
     def _observe_and_update(self, fly_poses):
         """Fly the chosen trajectory: render observations in the simulator,
@@ -969,8 +1035,15 @@ class ActiveNeRFMapper:
     def save_checkpoints(self, state: Optional[EnsembleState] = None):
         """Per-member ``checkpoints/model_{i}.npz`` with the JAX mapper's
         contract: occupancy grid, parameters, optimizer state and step
-        (``interop.save_member_npz``)."""
+        (``interop.save_member_npz``). In mesh mode every rank takes part
+        in gathering the members and rank 0 writes them all."""
         state = state if state is not None else self.state
+        if self.mesh is not None:
+            from ..parallel.mesh import gather_ensemble_state
+
+            state = gather_ensemble_state(state, self.mesh)
+            if not self.is_root:
+                return
         ckpt_dir = os.path.join(self.save_path, "checkpoints")
         os.makedirs(ckpt_dir, exist_ok=True)
         for i, (member, occ, opt) in enumerate(zip(state.members, state.occ, state.opt)):
@@ -992,10 +1065,22 @@ class ActiveNeRFMapper:
             opt, step = load_member_opt(path, member, self.device)
             members.append(member)
             occ.append(OccGridState(occs=occs, binaries=binaries, aabb=aabb))
-            opts.append(opt if opt is not None else self.state.opt[i])
+            if opt is None:  # this rank's own state of its members
+                local = self._local or range(self.cfg.n_ensembles)
+                opt = self.state.opt[i - local.start] if i in local else None
+            opts.append(opt)
         self.state = EnsembleState(members=members, opt=opts, occ=occ, step=step)
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_ensemble_state
+
+            self.state = shard_ensemble_state(self.state, self.mesh)
 
     def save_artifacts(self):
+        """The datasets, histories and checkpoints (rank 0's files in mesh
+        mode; every rank takes part in the checkpoints' gather)."""
+        if not self.is_root:
+            self.save_checkpoints()
+            return
         self.train_dataset.save()
         if self.test_dataset is not None:
             self.test_dataset.save()

@@ -8,8 +8,12 @@ the PNG dumps that the JAX mapper always writes (they need ``imageio``).
 ``--sim habitat`` builds ``sim/habitat.py``'s facade, which needs
 ``habitat_sim`` and says so without it. ``--profile DIR`` runs the loop
 under ``torch.profiler`` (CPU activity, and CUDA on the card) and writes
-a Chrome trace into DIR. ``--mesh`` is not ported. The run is on the card
-unless ``--device cpu`` is given: without a CUDA device the default fails.
+a Chrome trace into DIR. ``--mesh ENS,DATA`` runs the loop on an (ens,
+data) mesh of ``ENS × DATA`` ranks (``parallel/``): the parent builds the
+kernels, launches the ranks (``parallel/launch.py``), and each rank builds
+its mapper on the mesh and runs ``pipeline()``; rank 0 writes the
+artifacts. The run is on the card unless ``--device cpu`` is given:
+without a CUDA device the default fails.
 """
 
 from __future__ import annotations
@@ -48,10 +52,16 @@ def parse_args(argv=None):
         help="write a torch.profiler Chrome trace of the run to DIR "
         "(view with chrome://tracing or Perfetto)",
     )
+    p.add_argument(
+        "--mesh", type=str, default=None, metavar="ENS,DATA",
+        help="run the active loop on an (ens, data) mesh of ENS x DATA ranks, e.g. --mesh 2,1: "
+        "members over ens, rays over data (one process per rank; ranks share a device when "
+        "there are fewer devices than ranks)",
+    )
     return p.parse_args(argv)
 
 
-def build_mapper(args):
+def build_mapper(args, mesh=None):
     from ..config import PipelineConfig, load_scene_config
     from .mapper import ActiveNeRFMapper
 
@@ -71,7 +81,8 @@ def build_mapper(args):
         from ..sim.habitat import HabitatSim
 
         sim = HabitatSim(args.habitat_scene, args.habitat_config_file, cfg.img_w, cfg.img_h)
-    return ActiveNeRFMapper(cfg, sim, seed=args.seed, device=args.device, save_viz=args.viz)
+    return ActiveNeRFMapper(cfg, sim, seed=args.seed, device=args.device, save_viz=args.viz,
+                            mesh=mesh)
 
 
 def profile_run(fn, out_dir: str, device) -> str:
@@ -90,23 +101,47 @@ def profile_run(fn, out_dir: str, device) -> str:
     return path
 
 
-def main(argv=None):
-    args = parse_args(argv)
+def run(args, mesh=None):
+    """Build the mapper (on ``mesh``, when given) and run the loop → the
+    mapper."""
     random.seed(args.seed)
     np.random.seed(args.seed)
-    mapper = build_mapper(args)
+    mapper = build_mapper(args, mesh)
     if args.profile:
-        profile_run(mapper.pipeline, args.profile, mapper.device)
+        out = args.profile if mesh is None else os.path.join(args.profile, f"rank{mesh.rank}")
+        profile_run(mapper.pipeline, out, mapper.device)
     else:
         mapper.pipeline()
-    if mapper.throughput_log:
-        last = mapper.throughput_log[-1]
-        print(
-            f"throughput: {last['samples_per_sec']:.3e} samples/s, "
-            f"{last['rays_per_sec']:.3e} rays/s"
-        )
-    print(f"done; artifacts in {mapper.save_path}")
     return mapper
+
+
+def _mesh_rank(mesh, args) -> dict:
+    """One rank of ``--mesh``: the loop on the mesh → what rank 0 reports."""
+    mapper = run(args, mesh)
+    return {"save_path": mapper.save_path, "throughput_log": mapper.throughput_log,
+            "errors_hist": mapper.errors_hist, "loss_hist": mapper.loss_hist}
+
+
+def main(argv=None):
+    """The loop of ``argv`` → its mapper, or with ``--mesh`` the report of
+    every rank (``_mesh_rank``)."""
+    args = parse_args(argv)
+    if args.mesh:
+        from ..parallel.launch import launch
+
+        n_ens, n_data = (int(v) for v in args.mesh.split(","))
+        ranks = launch(_mesh_rank, n_ens, n_data, args, device=args.device)
+        log, save_path, result = ranks[0]["throughput_log"], ranks[0]["save_path"], ranks
+    else:
+        mapper = run(args)
+        log, save_path, result = mapper.throughput_log, mapper.save_path, mapper
+    if log:
+        print(
+            f"throughput: {log[-1]['samples_per_sec']:.3e} samples/s, "
+            f"{log[-1]['rays_per_sec']:.3e} rays/s"
+        )
+    print(f"done; artifacts in {save_path}")
+    return result
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ package loads what the other saved.
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,10 +46,14 @@ def fetch_rays(
     training: bool = True,
     generator: Optional[torch.Generator] = None,
     draws: Optional[dict] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> RayBatch:
     """``num_rays`` random pixels of one image as a ray batch. ``draws``
     (``{"x", "y", "bkgd"}``: pixel columns and rows [R] int, background
-    [3] in [0, 1)) replaces the generator's draws."""
+    [3] in [0, 1)) replaces the generator's draws. ``shard=(i, n)``: the
+    same ``num_rays`` global pixels are drawn, and only this shard's
+    contiguous ``num_rays // n`` of them are gathered (``dataset.py:54-72``),
+    so the shards of a data-parallel step see the unsharded step's rays."""
     H, W = images.shape[1], images.shape[2]
     dev = images.device
     if draws is None:
@@ -58,6 +62,12 @@ def fetch_rays(
         bkgd = torch.rand((3,), generator=generator, device=dev)
     else:
         x, y, bkgd = draws["x"].to(dev).long(), draws["y"].to(dev).long(), draws["bkgd"].to(dev)
+    if shard is not None:
+        i, n = shard
+        if num_rays % n != 0:
+            raise ValueError(f"num_rays {num_rays} % data axis {n} != 0")
+        local = num_rays // n
+        x, y = x[i * local:(i + 1) * local], y[i * local:(i + 1) * local]
     flat = image_idx.long() * (H * W) + y * W + x
     rgb8 = images.reshape(-1, 3)[flat]
     dep = depths.reshape(-1)[flat]

@@ -47,9 +47,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     return ap.parse_args(argv)
 
 
-def build_mapper(args):
+def build_mapper(args, mesh=None):
     """→ (the mapper on a ``ReplaySim`` of ``args.npz``, the sim, the
-    held-out frame indices)."""
+    held-out frame indices); on ``mesh`` (``parallel/mesh.py``) the
+    mesh-mode mapper, one per rank, each rank on its own ``ReplaySim``."""
     from .active.mapper import ActiveNeRFMapper
     from .config import PipelineConfig
     from .sim.replay import ReplaySim
@@ -86,14 +87,15 @@ def build_mapper(args):
         test_quat=(tuple(sim.pose7s[test_idx[0], 3:]),),
         global_origin=tuple(sim.pose7s[0]),
     )
-    mapper = ActiveNeRFMapper(cfg, sim, save_path=args.out, seed=9, device=args.device)
+    mapper = ActiveNeRFMapper(cfg, sim, save_path=args.out, seed=9, device=args.device,
+                              mesh=mesh)
     return mapper, sim, test_idx
 
 
-def run(args):
-    """The replay loop of ``args`` → (its rows, the mapper), printing the
-    JSON line."""
-    m, sim, test_idx = build_mapper(args)
+def run(args, mesh=None):
+    """The replay loop of ``args`` (on ``mesh``, when given) → (its rows,
+    the mapper), printing the JSON line."""
+    m, sim, test_idx = build_mapper(args, mesh)
     m.initialization(initial_samples=args.init_samples)
     m.nerf_training(args.steps, initial_train=True, planning_step=-1)
     m._evaluate(planning_step=0)

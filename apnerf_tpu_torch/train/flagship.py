@@ -50,7 +50,7 @@ from ..models import spectral
 from ..models.propnet import prop_loss
 from ..ops.cuda.fused_field_volrend import LOSS_WEIGHTS, loss_terms
 from ..ops.cuda.volrend_cuda import fused_render_weights
-from ..ops.occupancy import OccGridState, init_occ_grid, update_occ_grid
+from ..ops.occupancy import OccGridState, _draw, init_occ_grid, update_occ_grid
 from ..render.prop_renderer import prop_sample_intervals, render_rays_prop
 from .phase import make_train_phase
 from .schedule import cyclic_lr
@@ -167,7 +167,7 @@ def default_route(s_cfg: spectral.SpectralConfig) -> str:
 
 
 def make_flagship_member_core(cfg: PipelineConfig, route: Optional[str] = None, schedule=None,
-                              fused_prop: bool = False):
+                              fused_prop: bool = False, grad_reduce: Optional[Callable] = None):
     """One member's train step → ``member_core(member, opt_state, batch,
     step, generator=None, noise=None) -> CoreOutput``. ``route`` is one of
     ``ROUTES`` (see the module docstring), or None for
@@ -178,7 +178,11 @@ def make_flagship_member_core(cfg: PipelineConfig, route: Optional[str] = None, 
     update in place. ``noise`` [R, S+1] replaces the stratified draw of
     proposal sampling. The occupancy grid is not touched here: the planner
     reads it, and ``make_flagship_occ_update`` refreshes it once per chunk
-    (``flagship.py:196-204``)."""
+    (``flagship.py:196-204``). ``grad_reduce`` (a list of gradients → a
+    list) is applied to the raw gradients before the NaN guard and Adam
+    (``flagship.py:98-112``): the data-parallel phase's mean over ``data``,
+    so every data rank of a member applies the same update, and a NaN on
+    one rank skips the step on all of them."""
     s_cfg, p_cfg = make_spectral_config(cfg), make_prop_config(cfg)
     if route is None:
         route = default_route(s_cfg)
@@ -275,6 +279,8 @@ def make_flagship_member_core(cfg: PipelineConfig, route: Optional[str] = None, 
     def member_core(member, opt_state, batch, step, generator=None, noise=None) -> CoreOutput:
         del step  # the schedule reads the optimizer's own count
         loss, aux, grads = loss_and_grads(member, batch, generator, noise)
+        if grad_reduce is not None:
+            grads = grad_reduce(grads)
         return finish(member, opt_state, loss, aux, grads)
 
     return member_core
@@ -291,10 +297,13 @@ def make_flagship_train_phase(cfg: PipelineConfig, schedule=None, route: Optiona
 
 def make_flagship_occ_update(cfg: PipelineConfig) -> Callable:
     """→ ``occ_update_fn(members, occ, step, occ_thre, generator=None,
-    draws=None) -> new occ list``: one EMA update and re-binarization per
-    member from its main field's density times ``render_step_size``.
-    ``draws``, when given, holds one dict of draws per member (see
-    ``update_occ_grid``)."""
+    draws=None, local=None) -> new occ list``: one EMA update and
+    re-binarization per member from its main field's density times
+    ``render_step_size``. ``draws``, when given, holds one dict of draws
+    per member (see ``update_occ_grid``). ``local``: the indices of
+    ``members`` among ``cfg.n_ensembles`` (a mesh rank's); the generator
+    then makes every member's draws in order and each member takes its
+    own."""
     s_cfg = make_spectral_config(cfg)
 
     @torch.no_grad()
@@ -305,7 +314,14 @@ def make_flagship_occ_update(cfg: PipelineConfig) -> Callable:
         occ_thre: float,
         generator: Optional[torch.Generator] = None,
         draws: Optional[Sequence[dict]] = None,
+        local: Optional[Sequence[int]] = None,
     ) -> List[OccGridState]:
+        if draws is None:
+            n_cells = occ[0].occs.numel()
+            n_idx = n_cells if step < cfg.occ_warmup_steps else 2 * (n_cells // 4)
+            every = [_draw(n_cells, n_idx, generator, occ[0].occs.device)
+                     for _ in range(len(members) if local is None else cfg.n_ensembles)]
+            draws = every if local is None else [every[m] for m in local]
         out = []
         for i, (member, grid) in enumerate(zip(members, occ)):
             def occ_eval_fn(x, main=member.main):
@@ -315,7 +331,7 @@ def make_flagship_occ_update(cfg: PipelineConfig) -> Callable:
                 update_occ_grid(
                     grid, occ_eval_fn, step, occ_thre,
                     ema_decay=cfg.occ_ema_decay, warmup_steps=cfg.occ_warmup_steps,
-                    generator=generator, draws=draws[i] if draws is not None else None,
+                    draws=draws[i],
                 )
             )
         return out

@@ -4,8 +4,10 @@ Port of ``apnerf_tpu/train/step.py``: ``EnsembleState``,
 ``make_optimizer`` (``:72-104``: ``optax.adam``, ``optax.adamw`` with
 ``cfg.weight_decay`` and the chain that decays the main field's spectrum
 only, ``cfg.spectral_spectrum_wd``), ``reset_opt_state``, and the
-(ngp, occ) oracle path's ``make_ngp_config``, ``init_ensemble`` and
-``make_member_core``. The optimizer is written as plain tensor ops, not
+(ngp, occ) oracle path's ``make_ngp_config``, ``init_ensemble``,
+``make_member_core``, ``fetch_ensemble_batch`` and ``make_train_step``
+(one ensemble step for given images, which the sharded train step
+builds on). The optimizer is written as plain tensor ops, not
 ``torch.optim.Adam``, for two reasons:
   * optax evaluates the schedule at its OWN update count, which starts at
     0 and is not the train step (the bench starts training at step 1000);
@@ -24,9 +26,10 @@ import torch
 import torch.nn.functional as F
 
 from ..config import PipelineConfig
+from ..data.dataset import RayBatch, fetch_rays
 from ..models import ngp
 from ..ops.grid_march import candidate_lattice
-from ..ops.occupancy import OccGridState, init_occ_grid, maybe_update_occ_grid
+from ..ops.occupancy import OccGridState, _draw, init_occ_grid, maybe_update_occ_grid
 from ..render.renderer import render_train
 from .schedule import cyclic_lr
 
@@ -207,7 +210,8 @@ def make_lattice(cfg: PipelineConfig, device=None) -> torch.Tensor:
 
 
 def make_member_core(cfg: PipelineConfig, lattice: torch.Tensor,
-                     schedule: Optional[Callable] = None):
+                     schedule: Optional[Callable] = None,
+                     grad_reduce: Optional[Callable] = None):
     """One NGP member's train step (``step.py:134-209``) →
     ``member_core(member, opt_state, batch, step, occ, occ_thre,
     generator=None, occ_draws=None) -> CoreOutput``:
@@ -222,6 +226,10 @@ def make_member_core(cfg: PipelineConfig, lattice: torch.Tensor,
          gradients by autograd (the weights kernel's backward on the card);
       4. Adam with the reduction-only NaN guard: a non-finite gradient
          leaves the parameters, both moments and the count as they were.
+    ``grad_reduce`` (a list of gradients → a list) is applied to the raw
+    gradients before the guard and Adam: the data-parallel phase's mean
+    over ``data`` (the JAX core gets it from GSPMD); a NaN on one rank
+    reaches every rank through it, so the guard agrees across ranks.
     The member's parameters update in place; the new grid is returned in
     ``CoreOutput.occ``. The core's ``updates_occ`` attribute tells the
     train phase to hand it the grid and the phase's threshold."""
@@ -255,9 +263,109 @@ def make_member_core(cfg: PipelineConfig, lattice: torch.Tensor,
             l_sem = F.cross_entropy(out["sem"], batch.sem.long())
             loss = l_rgb * 10.0 + l_dep / 5.0 + l_sem / 2.0
             grads = torch.autograd.grad(loss, list(params))
+        if grad_reduce is not None:
+            grads = grad_reduce(grads)
         new_state, bad = opt.step(list(params), grads, opt_state, names=names)
         return CoreOutput(new_state, loss.detach(), l_rgb.detach(), l_dep.detach(),
                           l_sem.detach(), out["n_samples"], bad, occ)
 
     member_core.updates_occ = True
     return member_core
+
+
+class TrainStepOutput(NamedTuple):
+    """One ensemble step's result: the state and per-member [E] values."""
+
+    state: EnsembleState
+    loss: torch.Tensor
+    loss_rgb: torch.Tensor
+    loss_dep: torch.Tensor
+    loss_sem: torch.Tensor
+    n_samples: torch.Tensor
+    skipped: torch.Tensor
+
+
+def fetch_ensemble_batch(cfg: PipelineConfig, images, depths, semantics, camtoworlds, K,
+                         image_idx: torch.Tensor, generator: Optional[torch.Generator] = None,
+                         draws: Optional[dict] = None, members: Optional[Sequence[int]] = None,
+                         shard: Optional[Tuple[int, int]] = None) -> List[RayBatch]:
+    """One ray batch per member (``step.py:212-222``): member m's
+    ``num_rays`` pixels of image ``image_idx[m]``. Every member's pixels
+    are drawn (``draws``: ``x``, ``y`` [E, R] and ``bkgd`` [E, 3], or
+    ``generator``, member by member), and ``members`` keeps some of them,
+    each on its ``shard`` of the rays (``fetch_rays``)."""
+    E = len(image_idx)
+    members = range(E) if members is None else members
+    out = {}
+    for m in range(E):
+        d = None if draws is None else {k: draws[k][m] for k in ("x", "y", "bkgd")}
+        if d is None:
+            H, W, dev = images.shape[1], images.shape[2], images.device
+            d = {"x": torch.randint(0, W, (cfg.num_rays,), generator=generator, device=dev),
+                 "y": torch.randint(0, H, (cfg.num_rays,), generator=generator, device=dev),
+                 "bkgd": torch.rand((3,), generator=generator, device=dev)}
+        if m in members:
+            out[m] = fetch_rays(images, depths, semantics, camtoworlds, K, image_idx[m],
+                                cfg.num_rays, training=True, draws=d, shard=shard)
+    return [out[m] for m in members]
+
+
+def make_train_step(cfg: PipelineConfig, lattice: torch.Tensor,
+                    schedule: Optional[Callable] = None, mesh=None):
+    """One (ngp, occ) ensemble step for given images (``step.py:225-263``)
+    → ``step_fn(state, images, depths, semantics, camtoworlds, K, image_idx
+    [E], occ_thre, generator=None, draws=None) -> TrainStepOutput``.
+    ``draws`` holds ``x``, ``y``, ``bkgd`` as ``fetch_ensemble_batch``
+    takes them and ``occ``, one occupancy draw per member (or None), made
+    after every member's pixels, as JAX splits its fetch keys before its
+    occupancy keys. On ``mesh`` (``parallel/sharding.make_sharded_train_step``)
+    the state holds this rank's members, each step runs on this rank's
+    rays with its gradients averaged over ``data``, and every rank returns
+    all E: losses averaged over ``data``, samples summed over it."""
+    from ..parallel.mesh import Mesh
+
+    mesh = mesh or Mesh.single()
+    grad_reduce = mesh.mean_data if mesh.n_data > 1 else None
+    member_core = make_member_core(cfg, lattice, schedule, grad_reduce)
+
+    def step_fn(state: EnsembleState, images, depths, semantics, camtoworlds, K,
+                image_idx: torch.Tensor, occ_thre: float,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[dict] = None) -> TrainStepOutput:
+        E = len(state.members) * mesh.n_ens
+        local = mesh.members(E)
+        shard = (mesh.data_index, mesh.n_data) if mesh.n_data > 1 else None
+        batches = fetch_ensemble_batch(cfg, images, depths, semantics, camtoworlds, K,
+                                       image_idx, generator, draws, local, shard)
+        if draws is not None:
+            occ_draws = draws["occ"]
+        else:
+            n_cells = state.occ[0].occs.numel()
+            occ_draws = [
+                _draw(n_cells, n_cells if state.step < cfg.occ_warmup_steps
+                      else 2 * (n_cells // 4), generator, images.device)
+                if state.step % cfg.occ_every_n == 0 else None
+                for _ in range(E)
+            ]
+        outs = [
+            member_core(state.members[j], state.opt[j], batches[j], state.step, state.occ[j],
+                        occ_thre, generator=generator, occ_draws=occ_draws[m])
+            for j, m in enumerate(local)
+        ]
+        new_state = state._replace(opt=[o.opt for o in outs], occ=[o.occ for o in outs],
+                                   step=state.step + 1)
+
+        def per_member(field, reduce="mean"):
+            v = torch.stack([getattr(o, field) for o in outs])
+            if reduce == "mean":
+                return mesh.mean_data_gather_ens(v)
+            return mesh.gather_ens(mesh.sum_data(v))  # counts add up over the rays' shards
+
+        return TrainStepOutput(
+            state=new_state, loss=per_member("loss"), loss_rgb=per_member("loss_rgb"),
+            loss_dep=per_member("loss_dep"), loss_sem=per_member("loss_sem"),
+            n_samples=per_member("n_samples", "sum"), skipped=mesh.gather_ens(
+                torch.stack([o.skipped for o in outs])),
+        )
+
+    return step_fn

@@ -168,7 +168,24 @@ Phases, each of which must pass:
      colour maps, and those renders against the plain route within phase
      9's limits for the fused field-and-render kernel (on the 99.9th
      percentile over rays).
-Phases 13 to 17 and 19 run after phase 9, phases 18 and 20 to 23 after phase 11. Phase 1 also
+ 24. the mesh (``parallel/``) at full width on ranks that share the card:
+     the sharded flagship phase (phase 7's sizes, 20 steps from the bench's
+     trained state, then the chunk's occupancy update) and ngp+occ phase
+     (phase 19's, 10 steps from its trained state) on (2, 1) and (1, 2)
+     meshes, each against the unsharded phase in this process on the same
+     draws and weights ((2, 1) to one member step's limits, (1, 2) to JAX's
+     shard_map bounds, the ngp+occ phase to ``NGP_STEP_TOL``), with exact
+     launches per rank; 4 candidates of 40 views x 4096 x 256 rendered on
+     both meshes, bit for bit against the unsharded render; ms per ensemble
+     step on each mesh, the render's wall, the backend and device map.
+ 25. the mesh-mode mapper: phase 22's replay loop on a (2, 1) mesh at its
+     settings (the same trajectory as phase 22, its rows reported against
+     phase 22's, every camera a recorded one, exact launches per rank, rank
+     0's checkpoints reloaded into an unsharded mapper bit for bit), then
+     ``--mesh 2,1`` at ``config_faketiny.yaml`` and ``python -m
+     apnerf_tpu_torch.dryrun 4`` as subprocesses, each exiting 0 with
+     finite rows.
+Phases 13 to 17, 19 and 24 run after phase 9, phases 18, 20 to 23 and 25 after phase 11. Phase 1 also
 holds the host's mirrors of the tile's shared-memory layouts to the
 kernels' own at every instance. ``--field-kernels`` runs phase 1 and the
 kernel comparisons of phases 6, 8, 9 and 13 (the two render backwards and
@@ -531,8 +548,10 @@ def main(argv=None) -> int:
     phase_widths(dev)
     phase_member_widths(dev, bench_run)
     # ---- 19. the ngp+occ path's weights-kernel shapes and member step ---------------
-    phase_ngp_step(dev, bench_run)
-    del bench_run
+    ngp_state = phase_ngp_step(dev, bench_run)
+    # ---- 24. the sharded train phases and render on ranks that share the card ---------
+    mesh_launches = phase_mesh(dev, bench_run, ngp_state)
+    del bench_run, ngp_state
 
     # ---- 10-11. the loop through the CLI, and its renders on both routes ----------
     loop_mapper, launches = phase_loop(dev)
@@ -549,6 +568,8 @@ def main(argv=None) -> int:
     # ---- 22-23. the replay loop, and the visualisation renders on its mapper -----------
     replay_mapper = phase_replay(dev)
     phase_viz(replay_mapper)
+    # ---- 25. the mesh-mode mapper on phase 22's recording, --mesh and the dry run ------
+    phase_mesh_loop(dev, replay_mapper)
     del replay_mapper
 
     kernels = [
@@ -608,6 +629,9 @@ def main(argv=None) -> int:
             k["max_err_over_leaf_scale"] = rel[0]
         if ngp_launches[k["name"]]:
             k["ngp_loop_launches"] = ngp_launches[k["name"]]
+        if mesh_launches.get(k["name"]):
+            # each rank's launches over phase 24's sharded flagship phase on (2, 1)
+            k["mesh_rank_launches"] = mesh_launches[k["name"]]
         if k["name"] in trainer_launches:
             # launches over the timed chunks of phase 21's four trainers, and the
             # kernel at each trainer's shape (times as in the row, bound from these inputs)
@@ -3223,6 +3247,7 @@ def phase_ngp_step(dev, bench_run):
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
     print(f"profiled ngp+occ member step (no grid update): wall {t_p * 1e3:.3f} ms, device busy "
           f"{busy * 1e3:.3f} ms, idle share {1 - busy / t_p:.1%}", flush=True)
+    return state
 
 
 def _render_calls(rays: int, samples: int) -> int:
@@ -3910,6 +3935,463 @@ def phase_trainers(dev):
           f"timed chunks {launches_total}", flush=True)
     return launches_total, records
 
+
+# phase 24: the sharded train phases and render at full width, on ranks that
+# share the card, each against the unsharded phase on the same draws.
+# Flagship (2, 1): every loss and the 20 steps' update (final - initial
+# parameters, err / max-abs of each tensor) at one member step's limits
+# kernels against plain versions (compare_member_step's): each rank does
+# its member's unsharded arithmetic, and only the proposal loss's float
+# atomics move it. Flagship (1, 2): JAX's own bounds for its shard_map
+# phase against its unsharded phase (tests/test_sharding.py:270-287), on
+# JAX's protocol of 3 steps: their losses within rtol 1e-2 / atol 1e-3, and
+# the drift of the trunk's first layer after them, mean under 0.3 and
+# median under 2 learning rates. Two halves' gradients averaged round
+# otherwise, and Adam turns the rounding of a near-zero gradient into a
+# step of up to one learning rate either way, so the runs part with the
+# steps: after 20, on an H100 (PERF.md), the losses read up to 3.0e-2 apart
+# and the drift 0.30-0.60 lr, from the bench's trained state. Both are
+# printed. ngp+occ, both meshes:
+# NGP_STEP_TOL, which holds one member step, on the first step's update
+# and gradient (from Adam's first moment) and on every loss; the 10 steps'
+# update and moment are printed beside two unsharded runs' spread (the
+# table's index_add_ atomics are not bit-repeatable).
+MESH_STEPS = 20
+MESH_NGP_STEPS = 10
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_CANDIDATES = 4
+MESH_LOSS_TOL = (1e-2, 1e-3)
+MESH_DRIFT_TOL = (0.3, 2.0)
+MESH_DRIFT_STEPS = 3
+
+
+def _counted_jobs(mesh, todo, t_launch=None, refs=None):
+    """A rank's run of ``parallel/runs.py`` jobs, each with the kernels'
+    launches it made on that rank and its wall seconds; the first job's
+    also with the seconds since ``t_launch`` (the rank's start-up). With
+    ``refs`` (per job None, or the unsharded run's arrays on the card and
+    its initial state), rank 0 holds a train job's result to
+    them here (``_train_summary``) and every rank sends back digests of
+    its arrays: the ngp+occ tables need not travel back."""
+    from apnerf_tpu_torch.parallel.runs import _sync, output_digest
+
+    counters = all_counters()
+    out = []
+    for i, (job, kw) in enumerate(todo):
+        t0 = time.time()
+        reset_counts(counters)
+        res = job(mesh, **kw)
+        _sync(mesh.device)
+        ref = refs[i] if refs is not None else None
+        if ref is not None:
+            arrays, state = ref
+            if mesh.rank == 0:
+                host = {k: v.cpu().numpy() for k, v in arrays.items() if k != "at"}
+                host["at"] = {n: {k: v.cpu().numpy() for k, v in a.items()}
+                              for n, a in arrays["at"].items()}
+                res["summary"] = _train_summary(res, host, state)
+            digest = lambda v: output_digest(v) if isinstance(v, np.ndarray) else v  # noqa: E731
+            res = {k: digest(v) for k, v in res.items()}
+            res["at"] = {n: {k: digest(v) for k, v in a.items()} for n, a in res["at"].items()}
+        res["job_s"] = time.time() - t0
+        if t_launch is not None and not out:
+            res["startup_s"] = t0 - t_launch
+        out.append((res, read_counts(counters)))
+    return out
+
+
+def _train_summary(got, ref, state):
+    """What phase 24 holds of a train run against the unsharded one on the
+    same draws (both as ``runs.train_job`` returns them, with arrays):
+    losses, the whole run's update (final - initial, worst err / max-abs
+    of a tensor) and Adam first moment, the trunk's first layer's drift,
+    grids; after ``MESH_DRIFT_STEPS`` or 1 step where snapshotted, the
+    drift or the first step's update and gradient."""
+    out = {
+        "loss_rel": float(np.max(np.abs(got["losses"] - ref["losses"]) / np.abs(ref["losses"]))),
+        "losses_close": bool(np.allclose(got["losses"][:MESH_DRIFT_STEPS],
+                                         ref["losses"][:MESH_DRIFT_STEPS], rtol=MESH_LOSS_TOL[0],
+                                         atol=MESH_LOSS_TOL[1])),
+        "bits": all(np.array_equal(got[k], ref[k]) for k in ("losses", "params")),
+        "occ_err": float(np.abs(got["occs"] - ref["occs"]).max()),
+        "binaries_equal": bool(np.array_equal(got["binaries"], ref["binaries"])),
+    }
+    out["update"], out["drift"] = _drift(got["params"], ref["params"], state)
+    cut = np.cumsum([p.numel() for p in state.members[0].parameters()])[:-1]
+    out["mu"] = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                    for m in range(len(state.members))
+                    for a, b in zip(np.split(got["mu"][m], cut), np.split(ref["mu"][m], cut)))
+    if MESH_DRIFT_STEPS in got["at"]:
+        out["drift_at"] = _drift(got["at"][MESH_DRIFT_STEPS]["params"],
+                                 ref["at"][MESH_DRIFT_STEPS]["params"], state)[1]
+    if 1 in got["at"]:
+        out["update_1"], out["grad_1"] = _ngp_first_step(got["at"][1], ref["at"][1], state)
+    return out
+
+
+def _on_card(res, dev):
+    """A train job's arrays as tensors on the card (for the ranks, through
+    CUDA IPC)."""
+    keys = ("losses", "params", "mu", "occs", "binaries")
+    out = {k: torch.as_tensor(res[k], device=dev) for k in keys}
+    out["at"] = {n: {k: torch.as_tensor(v, device=dev) for k, v in a.items()}
+                 for n, a in res["at"].items()}
+    return out
+
+
+def _mesh_inputs(cfg, state, ds, dev, seed, n_steps, updates_occ):
+    """The store and every step's draws for ``state`` (made here from one
+    seeded generator; each rank keeps its share), on the card like the
+    state: the ranks, on the same card, open them through CUDA IPC, and
+    each job copies the members it trains."""
+    from apnerf_tpu_torch.train.phase import draw_step, pools_from_dataset
+
+    gen = _generator(dev, seed)
+    E, n = cfg.n_ensembles, ds.size
+    draws = [draw_step(cfg, E, state.step + i, (cfg.img_h, cfg.img_w), dev, gen, updates_occ,
+                       state.occ[0].occs.numel()) for i in range(n_steps)]
+    pools, counts = pools_from_dataset(ds)
+    store = (ds.images[:n], ds.depths[:n], ds.semantics[:n], ds.camtoworlds[:n], ds.K, pools,
+             counts, n)
+    return store, draws
+
+
+def _candidate_rays(cfg, center, k):
+    """Candidate ``k``'s 40 views at the planner's 0.1 scale (4096 rays a
+    view, the reference's flat-index subsampling): a flight across the
+    room that turns as it goes."""
+    from apnerf_tpu_torch.ops.rays import make_intrinsics, pose_matrix_from_quat, rays_from_pixels
+
+    rng = np.random.default_rng(240 + k)
+    pos = np.asarray(center) + np.linspace(rng.uniform(-1, 1, 3) * [1, 0.2, 1],
+                                           rng.uniform(-1, 1, 3) * [1, 0.2, 1], N_VIEWS)
+    yaw = np.linspace(0, 2 * np.pi, N_VIEWS) + rng.uniform(0, np.pi)
+    c2w = np.stack([pose_matrix_from_quat(p, np.array([0, np.sin(a / 2), 0, np.cos(a / 2)]))
+                    for p, a in zip(pos, yaw)]).astype(np.float32)
+    H, W = cfg.img_h, cfg.img_w
+    idx = np.round(np.linspace(0, H * W - 1, int(H * 0.1) * int(W * 0.1))).astype(np.int64)
+    K = torch.as_tensor(make_intrinsics(W, H, cfg.hfov))
+    rays = rays_from_pixels(torch.as_tensor(idx % W, dtype=torch.float32)[None],
+                            torch.as_tensor(idx // W, dtype=torch.float32)[None],
+                            torch.as_tensor(c2w)[:, None], K)
+    return rays.origins, rays.viewdirs
+
+
+def _drift(got, ref, state):
+    """Per tensor of member 0..E-1, the update's err / max-abs of (final -
+    initial) against the reference, and the absolute drift of the main
+    trunk's first layer (mean, median over its elements)."""
+    names = [n for n, _ in state.members[0].named_parameters()]
+    sizes = [p.numel() for p in state.members[0].parameters()]
+    p0 = np.stack([torch.cat([p.detach().reshape(-1) for p in m.parameters()]).cpu().numpy()
+                   for m in state.members])
+    cut = np.cumsum(sizes)[:-1]
+    worst, w0 = 0.0, None
+    for m in range(len(state.members)):
+        for name, a, b, s0 in zip(names, np.split(got[m], cut), np.split(ref[m], cut),
+                                  np.split(p0[m], cut)):
+            ua, ub = a - s0, b - s0
+            worst = max(worst, float(np.abs(ua - ub).max() / max(np.abs(ub).max(), 1e-30)))
+            if name == "main.mlp_base.w0":
+                d = np.abs(a - b) if w0 is None else np.concatenate([w0, np.abs(a - b)])
+                w0 = d
+    return worst, (float(w0.mean()), float(np.median(w0))) if w0 is not None else (0.0, 0.0)
+
+
+def _ngp_first_step(got, ref, state, b1=0.9):
+    """(update, gradient) worst err / max-abs over the tensors after one
+    step; the gradient recovered from Adam's first moment as in
+    ``compare_member_step``."""
+    upd, _ = _drift(got["params"], ref["params"], state)
+    cut = np.cumsum([p.numel() for p in state.members[0].parameters()])[:-1]
+    worst = 0.0
+    for m, opt in enumerate(state.opt):
+        mu0 = opt.mu.cpu().numpy()
+        for a, b, z in zip(np.split(got["mu"][m], cut), np.split(ref["mu"][m], cut),
+                           np.split(mu0, cut)):
+            ga, gb = (a - b1 * z) / (1 - b1), (b - b1 * z) / (1 - b1)
+            worst = max(worst, float(np.abs(ga - gb).max() / max(np.abs(gb).max(), 1e-30)))
+    return upd, worst
+
+
+def phase_mesh(dev, bench_run, ngp_state):
+    """Phase 24: the sharded flagship and ngp+occ phases and the sharded
+    candidate render at full width on (2, 1) and (1, 2) meshes whose two
+    ranks share the card, each against the unsharded run in this process
+    on the same draws and weights, with exact launches per rank → each
+    rank's launches over the (2, 1) flagship phase."""
+    from apnerf_tpu_torch import bench
+    from apnerf_tpu_torch.parallel import runs
+    from apnerf_tpu_torch.parallel.launch import launch
+    from apnerf_tpu_torch.parallel.mesh import Mesh
+
+    t_phase = time.perf_counter()
+    data, run = bench_run
+    cfg, ngp_cfg = bench.bench_config(), _ngp_config()
+    E = cfg.n_ensembles
+    fl_state = run.state
+    store, fl_draws = _mesh_inputs(cfg, fl_state, run.dataset, dev, 24, MESH_STEPS, False)
+    _, ng_draws = _mesh_inputs(ngp_cfg, ngp_state, run.dataset, dev, 25, MESH_NGP_STEPS, True)
+    todo = [
+        (runs.train_job, dict(cfg=cfg, kind="flagship", state=fl_state, store=store,
+                              n_steps=MESH_STEPS, draws=fl_draws, one_step_calls=True,
+                              occ_update=True, occ_thre=bench.OCC_THRE,
+                              snapshots=(MESH_DRIFT_STEPS,))),
+        (runs.train_job, dict(cfg=ngp_cfg, kind="ngp", state=ngp_state, store=store,
+                              n_steps=MESH_NGP_STEPS, draws=ng_draws, one_step_calls=True,
+                              occ_thre=ngp_cfg.occ_thre_for_phase(-1), snapshots=(1,))),
+    ]
+    for k in range(MESH_CANDIDATES):
+        o, d = _candidate_rays(cfg, data.center, k)
+        todo.append((runs.render_job, dict(cfg=cfg, state=fl_state, origins=o, viewdirs=d,
+                                           bkgd=torch.zeros(3), max_samples=256,
+                                           with_variance=True, digest=True)))
+    single = _counted_jobs(Mesh.single(dev), todo)
+    # the unsharded ngp+occ phase again: two runs differ by the table's atomics alone
+    spread = _train_summary(runs.train_job(Mesh.single(dev), **todo[1][1]), single[1][0],
+                            ngp_state)
+    refs = [(_on_card(single[0][0], dev), fl_state),
+            (_on_card(single[1][0], dev), ngp_state)] + [None] * MESH_CANDIDATES
+    results = {}
+    for shape in MESH_SHAPES:
+        t0 = time.perf_counter()
+        results[shape] = launch(_counted_jobs, *shape, todo, time.time(), refs, device=dev)
+        r0 = [res for res, _ in results[shape][0]]
+        print(f"  mesh {shape}: launch and run {time.perf_counter() - t0:.1f} s; rank 0 reached "
+              f"its first job after {r0[0]['startup_s']:.1f} s, its jobs took "
+              + ", ".join(f"{r['job_s']:.1f}" for r in r0) + " s", flush=True)
+    lr = cfg.spectral_lr
+    ms = lambda r: 1e3 * float(np.median(r["seconds"][5:]))  # noqa: E731
+    dev_ms = lambda r: float(np.median(r["device_ms"][5:]))  # noqa: E731
+    print(f"mesh: flagship phase of {MESH_STEPS} steps, 2 members x {cfg.num_rays} rays x "
+          f"{cfg.max_samples_train} samples, from the bench's trained state: unsharded "
+          f"{ms(single[0][0]):.3f} ms per ensemble step (device events {dev_ms(single[0][0]):.3f})"
+          + "".join(f"; {shape} {ms(results[shape][0][0][0]):.3f} ms (rank 0's events "
+                    f"{dev_ms(results[shape][0][0][0]):.3f})" for shape in MESH_SHAPES),
+          flush=True)
+    print(f"mesh: ngp+occ phase of {MESH_NGP_STEPS} steps: unsharded {ms(single[1][0]):.3f} ms "
+          f"per ensemble step" + "".join(f"; {shape} {ms(results[shape][0][1][0]):.3f} ms"
+                                        for shape in MESH_SHAPES), flush=True)
+    render_s = lambda rs: sum(r[0]["seconds"] for r in rs[2:])  # noqa: E731
+    print(f"mesh: {MESH_CANDIDATES} candidates x {N_VIEWS} views x 4096 rays x 256 samples, "
+          f"render wall: unsharded {render_s(single):.3f} s"
+          + "".join(f"; {shape} {render_s(results[shape][0]):.3f} s (rank 0)"
+                    for shape in MESH_SHAPES), flush=True)
+    print(f"  two unsharded ngp+occ runs: losses max rel {spread['loss_rel']:.3e}, update worst "
+          f"err/scale {spread['update']:.3e}, Adam's first moment {spread['mu']:.3e}", flush=True)
+    bad = []
+    for shape in MESH_SHAPES:
+        ranks = results[shape]
+        n_ens, n_data = shape
+        E_l = E // n_ens
+        for rank, rr in enumerate(ranks):
+            (fl, fl_n), (ng, ng_n) = rr[0], rr[1]
+            # launches, exact per rank
+            want = dict.fromkeys(fl_n, 0)
+            want.update(fused_field_volrend_lossgrad=MESH_STEPS * E_l,
+                        fused_render_weights_bwd=MESH_STEPS * E_l,
+                        fused_render_weights=2 * MESH_STEPS * E_l,
+                        fused_spectral_field=E_l)  # the chunk's occupancy update
+            if fl_n != want:
+                bad.append(f"{shape} rank {rank} flagship launches {fl_n}, expected {want}")
+            want = dict.fromkeys(ng_n, 0)
+            want.update(fused_render_weights=MESH_NGP_STEPS * E_l,
+                        fused_render_weights_bwd=MESH_NGP_STEPS * E_l)
+            if ng_n != want:
+                bad.append(f"{shape} rank {rank} ngp launches {ng_n}, expected {want}")
+            renders = sum(n["fused_field_heads"] for _, n in rr[2:])
+            if renders != MESH_CANDIDATES * N_VIEWS * E // (n_ens * n_data):
+                bad.append(f"{shape} rank {rank} rendered {renders} member views")
+            # every rank holds the same gathered results (their digests)
+            for a, b in zip(rr[:2], ranks[0][:2]):
+                for k in ("losses", "params", "occs"):
+                    if a[0][k] != b[0][k]:
+                        bad.append(f"{shape} rank {rank} {k} differ from rank 0's")
+        fl, ng = ranks[0][0][0]["summary"], ranks[0][1][0]["summary"]
+        (mean_w0, med_w0), (mean_3, med_3) = fl["drift"], fl["drift_at"]
+        print(f"  {shape} flagship vs unsharded: losses max rel {fl['loss_rel']:.3e} (within rtol "
+              f"{MESH_LOSS_TOL[0]}, atol {MESH_LOSS_TOL[1]} over the first {MESH_DRIFT_STEPS}: "
+              f"{fl['losses_close']}), update worst "
+              f"err/scale {fl['update']:.3e}, trunk w0 drift after {MESH_DRIFT_STEPS} steps mean "
+              f"{mean_3:.3e} median {med_3:.3e}, after {MESH_STEPS} mean {mean_w0:.3e} median "
+              f"{med_w0:.3e} (lr {lr}); grids max-abs {fl['occ_err']:.3e}, binaries equal "
+              f"{fl['binaries_equal']}; bit for bit {fl['bits']}", flush=True)
+        if n_data == 1:
+            if not (fl["loss_rel"] <= STEP_LOSS_RTOL and fl["update"] <= STEP_UPDATE_TOL):
+                bad.append(f"{shape} flagship off the unsharded phase (loss {fl['loss_rel']:.3e}, "
+                           f"update {fl['update']:.3e})")
+        elif not (fl["losses_close"] and mean_3 < MESH_DRIFT_TOL[0] * lr
+                  and med_3 < MESH_DRIFT_TOL[1] * lr):
+            bad.append(f"{shape} flagship off the unsharded phase over {MESH_DRIFT_STEPS} steps "
+                       f"(losses within bounds: {fl['losses_close']}, w0 drift {mean_3:.3e}, "
+                       f"{med_3:.3e})")
+        print(f"  {shape} ngp+occ vs unsharded: losses max rel {ng['loss_rel']:.3e} (tol "
+              f"{NGP_STEP_TOL[0]}); the first step's update worst err/scale {ng['update_1']:.3e} "
+              f"(tol {NGP_STEP_TOL[1]}), gradient {ng['grad_1']:.3e} (tol {NGP_STEP_TOL[2]}); "
+              f"after {MESH_NGP_STEPS} steps update {ng['update']:.3e}, Adam's first moment "
+              f"{ng['mu']:.3e}; grids max-abs {ng['occ_err']:.3e}", flush=True)
+        if not (ng["loss_rel"] <= NGP_STEP_TOL[0] and ng["update_1"] <= NGP_STEP_TOL[1]
+                and ng["grad_1"] <= NGP_STEP_TOL[2]):
+            bad.append(f"{shape} ngp+occ off the unsharded phase")
+        for k, ((got, _), (want, _)) in enumerate(zip(ranks[0][2:], single[2:])):
+            off = [name for name in want
+                   if name not in ("seconds", "job_s", "startup_s") and got[name][0] != want[name][0]]
+            if off:
+                bad.append(f"{shape} candidate {k}: {off} not bit for bit (sums "
+                           + ", ".join(f"{n} {got[n][2]!r} vs {want[n][2]!r}" for n in off) + ")")
+        nonzero = lambda n: {k: v for k, v in n.items() if v}  # noqa: E731
+        print(f"  {shape} launches of rank 0: flagship {nonzero(ranks[0][0][1])}; ngp "
+              f"{nonzero(ranks[0][1][1])}; render {nonzero(ranks[0][2][1])} a candidate",
+              flush=True)
+    print(f"mesh: phase 24 wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        fail("phase 24: " + "; ".join(bad))
+    return results[(2, 1)][0][0][1]
+
+
+def _replay_rank(mesh, argv):
+    """A rank of phase 25: the replay loop on the mesh → its rows, the
+    cameras it supervised, its launches and every member's final state."""
+    from apnerf_tpu_torch import replay_eval
+    from apnerf_tpu_torch.parallel.mesh import gather_ensemble_state
+    from apnerf_tpu_torch.parallel.runs import state_arrays
+
+    counters = all_counters()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    rows, m = replay_eval.run(replay_eval.parse_args(argv), mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ds = m.train_dataset
+    return {"rows": rows, "wall": wall, "launches": read_counts(counters),
+            "camtoworlds": ds.camtoworlds[:ds.size].cpu().numpy(),
+            "uncertainty": m.trajector_uncertainty_list, "loss_hist": m.loss_hist,
+            "chunks": sum(-(-len(p) // m.steps_per_call) for p in m.loss_hist),
+            "n_test": len(m._test_poses),
+            **state_arrays(gather_ensemble_state(m.state, mesh))}
+
+
+def phase_mesh_loop(dev, replay_mapper):
+    """Phase 25: ``--mesh 2,1`` at ``config_faketiny.yaml`` and ``python -m
+    apnerf_tpu_torch.dryrun 4`` as subprocesses, started first and run
+    alongside the mesh-mode replay loop on phase 22's recording at its
+    settings on (2, 1), which is held to phase 22's mapper."""
+    import yaml
+
+    from apnerf_tpu_torch.ops.cuda import build
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(build.REPO_ROOT, "configs", "config_faketiny.yaml")) as f:
+        doc = yaml.safe_load(f)
+    runs_dir = build.BUILD_DIR / "chip_smoke_mesh_cli"
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    doc["save_path"] = str(runs_dir)
+    cli_cfg = build.BUILD_DIR / "chip_smoke_mesh_faketiny.yaml"
+    cli_cfg.write_text(yaml.safe_dump(doc))
+    procs = {label: subprocess.Popen(cmd, cwd=build.REPO_ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+             for label, cmd in (
+                 ("--mesh 2,1", [sys.executable, "-m", "apnerf_tpu_torch.active.pipeline", "--sim",
+                                 "fake", "--config", str(cli_cfg), "--mesh", "2,1"]),
+                 ("dryrun 4", [sys.executable, "-m", "apnerf_tpu_torch.dryrun", "4"]))}
+    bad = []
+    try:
+        _mesh_replay(dev, replay_mapper, bad)
+        for label, proc in procs.items():
+            out_, err_ = proc.communicate(timeout=600)
+            lines = [ln for ln in out_.splitlines() if ln.startswith(("mesh", "done", "dryrun",
+                                                                      "throughput", "entry"))]
+            print(f"  {label}: exit {proc.returncode}, {time.perf_counter() - t_phase:.1f} s "
+                  "after the phase started: " + " | ".join(lines), flush=True)
+            if proc.returncode != 0:
+                print(out_[-3000:], err_[-3000:])
+                bad.append(f"{label} exited {proc.returncode}")
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    (run_dir,) = os.listdir(runs_dir) or [None]
+    errors = np.load(runs_dir / run_dir / "errors.npy") if run_dir else np.zeros((0, 4))
+    print(f"  --mesh 2,1 evaluation rows {errors.tolist()}", flush=True)
+    if len(errors) < 3 or not np.isfinite(errors).all():
+        bad.append(f"--mesh 2,1 wrote {errors.tolist()}")
+    print(f"mesh: phase 25 wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        fail("phase 25: " + "; ".join(bad))
+
+
+def _mesh_replay(dev, replay_mapper, bad):
+    """The replay loop of phase 22 on a (2, 1) mesh against phase 22's
+    mapper: the same trajectory, its rows (reported), every camera a
+    recorded one, exact launches per rank, and rank 0's checkpoints
+    reloaded into an unsharded mapper bit for bit. Failures go to ``bad``."""
+    from apnerf_tpu_torch import replay_eval
+    from apnerf_tpu_torch.ops.cuda import build
+    from apnerf_tpu_torch.parallel.launch import launch
+    from apnerf_tpu_torch.parallel.runs import state_arrays
+
+    npz = build.BUILD_DIR / "chip_smoke_replay_rec" / "data0.npz"
+    out = build.BUILD_DIR / "chip_smoke_replay_mesh"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = replay_mapper.cfg
+    ranks = launch(_replay_rank, 2, 1, replay_argv(npz, cfg.aabb, out, REPLAY_STEPS,
+                                                   device="cuda"), device=dev)
+    r = ranks[0]
+    ref_rows = np.asarray(replay_mapper.errors_hist, dtype=float)
+    rows = np.asarray([[x["planning_step"], x["psnr"], x["depth_mse"], x["sem_ce"]]
+                       for x in r["rows"]])
+    ds = replay_mapper.train_dataset
+    ref_cams = ds.camtoworlds[:ds.size].cpu().numpy()
+    same_traj = r["camtoworlds"].shape == ref_cams.shape and np.array_equal(r["camtoworlds"],
+                                                                            ref_cams)
+    diff = (np.abs(rows - ref_rows).max(axis=0).tolist() if rows.shape == ref_rows.shape
+            else "n/a")
+    print(f"mesh replay loop (2, 1), beside the two subprocesses: {r['wall']:.1f} s of wall in "
+          f"rank 0; rows (planning step, PSNR, depth MSE, CE) {rows.tolist()}; phase 22's "
+          f"{ref_rows.tolist()}; max abs difference by column {diff}", flush=True)
+    print(f"  the supervised cameras equal phase 22's (the chosen trajectory): {same_traj}; "
+          f"losses equal phase 22's: {r['loss_hist'] == replay_mapper.loss_hist}; launches of "
+          f"rank 0 {r['launches']}", flush=True)
+    if not same_traj:
+        bad.append("the mesh-mode replay loop flew another trajectory than phase 22")
+    if rows.shape != ref_rows.shape or not np.isfinite(rows).all():
+        bad.append(f"expected {len(ref_rows)} finite error rows, got {rows.tolist()}")
+    elif not np.array_equal(rows, ref_rows):
+        # phase 22's seeded run repeats to the last digit between calls, so
+        # its run-to-run spread is zero: any difference is reported here
+        print("  the held-out rows are not phase 22's to the last digit (reported, not held)",
+              flush=True)
+    poses = np.load(npz)["camtoworlds"]
+    worst = max(float(np.abs(poses - c).max(axis=(1, 2)).min()) for c in r["camtoworlds"])
+    if not worst < 1e-5:
+        bad.append(f"a supervised camera is {worst} from every recorded one")
+    for rank, x in enumerate(ranks):
+        if not (np.array_equal(x["params"], r["params"]) and x["rows"] == r["rows"]):
+            bad.append(f"rank {rank} disagrees with rank 0")
+    E_l, n_test = cfg.n_ensembles // 2, r["n_test"]
+    ran = sum(len(p) for p in r["loss_hist"])
+    scored = sum(len(c) for c in r["uncertainty"])
+    renders = scored * N_VIEWS * E_l
+    eval_renders = len(rows) * n_test * E_l
+    want = dict.fromkeys(r["launches"], 0)
+    want.update(fused_field_volrend_lossgrad=E_l * ran, fused_render_weights_bwd=E_l * ran,
+                fused_spectral_field=E_l * r["chunks"], fused_field_heads=renders,
+                fused_field_volrend=eval_renders,
+                fused_render_weights=2 * E_l * ran + 2 * renders + eval_renders)
+    for rank, x in enumerate(ranks):
+        if x["launches"] != want:
+            bad.append(f"rank {rank} launches {x['launches']}, expected {want}")
+    m, _, _ = replay_eval.build_mapper(replay_eval.parse_args(
+        replay_argv(npz, cfg.aabb, build.BUILD_DIR / "chip_smoke_replay_reload", REPLAY_STEPS,
+                    device=dev)))
+    m.load_checkpoints(str(out / "checkpoints"))
+    got = state_arrays(m.state)
+    reload_ok = all(np.array_equal(got[k], r[k]) for k in ("params", "mu", "count", "occs",
+                                                            "binaries", "step"))
+    print(f"  rank 0's checkpoints reload into an unsharded mapper bit for bit: {reload_ok}",
+          flush=True)
+    if not reload_ok:
+        bad.append("rank 0's checkpoints do not reload bit for bit")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -331,11 +331,12 @@ def test_cli_parse_args_defaults():
     from apnerf_tpu_torch.active import pipeline as t_cli
 
     a_t, a_j = vars(t_cli.parse_args([])), vars(j_cli.parse_args([]))
-    for k in ("sem_num", "habitat_scene", "habitat_config_file", "sim", "config", "seed"):
+    for k in ("sem_num", "habitat_scene", "habitat_config_file", "sim", "config", "seed", "mesh"):
         assert a_t[k] == a_j[k], k
     assert a_t["device"] == "cuda" and a_t["viz"] is False and a_t["profile"] is None
     assert set(a_t) - set(a_j) == {"device", "viz"}
-    assert set(a_j) - set(a_t) == {"platform", "mesh"}
+    assert set(a_j) - set(a_t) == {"platform"}
+    assert t_cli.parse_args(["--mesh", "2,1"]).mesh == j_cli.parse_args(["--mesh", "2,1"]).mesh
     got = t_cli.parse_args(["--sim", "fake", "--sem-num", "29", "--device", "cpu", "--seed", "3"])
     assert (got.sim, got.sem_num, got.device, got.seed) == ("fake", 29, "cpu", 3)
     # --sim habitat builds sim/habitat.py's facade, which needs habitat_sim

@@ -89,6 +89,12 @@ SLICE_MODULES = [
     "apnerf_tpu_torch.eval.frontier",
     "apnerf_tpu_torch.eval.offline_eval",
     "apnerf_tpu_torch.planning.multirotor",
+    "apnerf_tpu_torch.parallel",
+    "apnerf_tpu_torch.parallel.mesh",
+    "apnerf_tpu_torch.parallel.launch",
+    "apnerf_tpu_torch.parallel.sharding",
+    "apnerf_tpu_torch.parallel.runs",
+    "apnerf_tpu_torch.dryrun",
     "chip_smoke",
 ]
 

@@ -163,16 +163,18 @@ def make_data(device) -> BenchData:
 
 
 def run(device="cuda", timed=None, route: str = "lossgrad", fused_prop: bool = False,
-        n_calls: int = N_CALLS, data: Optional[BenchData] = None) -> BenchRun:
+        n_calls: int = N_CALLS, data: Optional[BenchData] = None,
+        cfg: Optional[PipelineConfig] = None) -> BenchRun:
     """The whole protocol on the member core's ``route``. ``timed``, when
     given, is a context-manager factory entered around exactly the timed
     chunks (``chip_smoke.py`` counts kernel launches there); ``n_calls``
     cuts the number of timed chunks; ``data`` reuses a scan (``make_data``)
-    instead of rendering it again."""
+    instead of rendering it again; ``cfg`` replaces ``bench_config()`` (a
+    field of other widths on the same scan)."""
     device = torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the bench measures a CUDA device, and none is available")
-    cfg = bench_config()
+    cfg = cfg or bench_config()
     sim, center, ds = data if data is not None else make_data(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)

@@ -26,7 +26,16 @@
 // zero past 2m: the plain chain's own column order, so the kernel's f32
 // sums are the plain chain's, 16-column step by step (a reordered encoding
 // changes the sums' rounding, and with it bf16 roundings of the hidden
-// layers). Where the encoding fits the tile's buffer it is formed in place
+// layers). The whole field's kernels are instances of a tier too, the
+// padded widths of the trunk output and the semantic output, (T_out,
+// C_pad) in (16, 64), (32, 128), (48, 256) (APNERF_FIELD_TIERS): a field
+// with 1 + geo <= T_out and classes <= C_pad runs on the smallest tier
+// that takes both. The trunk output and the heads' first layers are
+// products of that width (T_out / 16 k-steps back into the trunk); the
+// semantic output is formed 64 columns a slab, C_pad / 64 slabs, each
+// product staged and written before the next. Both counts are
+// compile-time: a wgmma chain in a loop of run-time length spills.
+// Where the encoding fits the tile's buffer it is formed in place
 // at once (each sincosf gives a cos and a sin column); a wider one is
 // formed block by block into two staging images in turn, block b + 1
 // while block b's product runs, one sincosf a column. The trunk kernels'
@@ -90,6 +99,7 @@ struct FieldWeights {
   int tile_h;                 // trunk width H: the instance
   int n_hidden;               // trunk hidden layers, 2 or 3
   int geo, n_classes;
+  int t_out, c_tile;          // the whole field's tier: trunk output and semantic output, padded
   int n_freq, n_kb;           // frequencies of the encode; the first layer's 64-column k-blocks
   int out;                    // the trunk alone: its output width
 };
@@ -101,15 +111,48 @@ struct NoSave {
 
 // the trunk widths H of the tile's kernels
 #define APNERF_TILE_WIDTHS(X) X(64) X(128) X(256) X(512)
+// the whole field's tiers: (tier, T_out, C_pad), the padded widths of the
+// trunk output (1 + geo) and of the semantic output (classes)
+#define APNERF_FIELD_TIERS(X) X(0, 16, 64) X(1, 32, 128) X(2, 48, 256)
+
+// A source that defines APNERF_PARTS before this header is compiled once
+// per part p with -DAPNERF_PART=p (ops/cuda/build.py), so that the tile's
+// instances compile in parallel: instance (H, tier) in part part_of(H,
+// tier), everything else in part 0, which dispatches to the parts' entries
+// (name_p0, name_p1, ...; kElsewhere: not an instance of that part).
+#ifndef APNERF_PART
+#define APNERF_PART 0
+#endif
+#define APNERF_CAT_(a, b) a##b
+#define APNERF_CAT(a, b) APNERF_CAT_(a, b)
+#define APNERF_IN_PART(name) APNERF_CAT(name, APNERF_CAT(_p, APNERF_PART))
+
+constexpr int kElsewhere = -1;
+
+constexpr int width_index(int h) { return h == 64 ? 0 : h == 128 ? 1 : h == 256 ? 2 : 3; }
+
+template <int kParts>
+constexpr int part_of(int h, int tier) {
+  return (width_index(h) + 4 * tier) % kParts;
+}
+
+// the tier of (T_out, C_pad), or -1
+inline int tier_of(int t_out, int c_tile) {
+#define APNERF_TIER(T_, TO_, CP_) \
+  if (t_out == TO_ && c_tile == CP_) return T_;
+  APNERF_FIELD_TIERS(APNERF_TIER)
+#undef APNERF_TIER
+  return -1;
+}
 
 namespace {
 
 using namespace hopper;
 
-constexpr int kShw = 16;     // SH features of a ray direction
-constexpr int kTOut = 16;    // the whole field's trunk output width, padded (1 + geo <= 16)
-constexpr int kRgbPad = 16;  // rgb-head output width, padded
-constexpr int kCPad = 64;    // semantic-head output width, padded
+constexpr int kShw = 16;       // SH features of a ray direction
+constexpr int kRgbPad = 16;    // rgb-head output width, padded
+constexpr int kSemChunk = 64;  // semantic-output columns a forward slab (C_pad / 64 slabs)
+constexpr int kOutChunk = 16;  // the trunk alone's output columns a forward slab
 constexpr float kTwoPi = 6.283185307179586f;
 
 constexpr int kTileRows = 64;
@@ -144,12 +187,13 @@ struct Tile {
   static constexpr int kActBytes = kBufBytes / kTiles;  // a tile's activation buffer
   static constexpr int kXsImg = kActBytes / kImgBytes64 - 1;  // the heads' input image
   static constexpr int kStages = kSplit == 2 ? 2 : 4;  // forward and backward rings
-  // a forward ring slot: a trunk slab, or the heads' second layers or outputs
+  // a forward ring slot: a trunk slab, or the heads' second layers or the
+  // first of their output slabs
   static constexpr int kFwdSlot =
       kTrunkSlab > 2 * kHI * kHeadImg
-          ? (kTrunkSlab > kHI * (kRgbPad + kCPad) * kImgRowBytes
+          ? (kTrunkSlab > kHI * (kRgbPad + kSemChunk) * kImgRowBytes
                  ? kTrunkSlab
-                 : kHI * (kRgbPad + kCPad) * kImgRowBytes)
+                 : kHI * (kRgbPad + kSemChunk) * kImgRowBytes)
           : 2 * kHI * kHeadImg;
 };
 
@@ -183,11 +227,12 @@ struct FwdSmem {
   int ring, act, bias, u, y, bars, total;
 };
 
-// biases: the hidden layers', the trunk output's (16), the heads' first and
-// second layers (rgb, sem: H/4 each) and their outputs (16, 64). The trunk
-// alone's output bias (any width) follows the hidden ones in global memory.
-__host__ __device__ inline int bias_floats(int n_hidden, int h) {
-  return n_hidden * h + kTOut + h + kRgbPad + kCPad;
+// biases: the hidden layers', the trunk output's (t_out), the heads' first
+// and second layers (rgb, sem: H/4 each) and their outputs (16, c_tile).
+// The trunk alone's output bias (any width) follows the hidden ones in
+// global memory.
+__host__ __device__ inline int bias_floats(int n_hidden, int h, int t_out, int c_tile) {
+  return n_hidden * h + t_out + h + kRgbPad + c_tile;
 }
 
 __host__ __device__ inline int fwd_stages(int h) { return h > 256 ? 2 : 4; }
@@ -202,16 +247,17 @@ __host__ __device__ inline int fwd_slot(int h) {
   const int hh = h / 4, hi = (hh + 63) / 64;
   int s = h * kImgRowBytes;
   if (2 * hi * hh * kImgRowBytes > s) s = 2 * hi * hh * kImgRowBytes;
-  if (hi * (kRgbPad + kCPad) * kImgRowBytes > s) s = hi * (kRgbPad + kCPad) * kImgRowBytes;
+  if (hi * (kRgbPad + kSemChunk) * kImgRowBytes > s) s = hi * (kRgbPad + kSemChunk) * kImgRowBytes;
   return s;
 }
 
-__host__ __device__ inline FwdSmem fwd_smem(int h, int n_hidden) {
+// at the instance h and the tier (t_out, c_tile)
+__host__ __device__ inline FwdSmem fwd_smem(int h, int n_hidden, int t_out, int c_tile) {
   FwdSmem s;
   s.ring = 0;
   s.act = fwd_stages(h) * fwd_slot(h);
   s.bias = s.act + kBufBytes;
-  s.u = s.bias + (bias_floats(n_hidden, h) * 4 + 127) / 128 * 128;
+  s.u = s.bias + (bias_floats(n_hidden, h, t_out, c_tile) * 4 + 127) / 128 * 128;
   s.y = s.u + 2 * 2 * kUTileBytes;  // per tile: this pass's coordinates and the next one's
   s.bars = s.y + 2 * kYStageBytes;
   s.total = s.bars + 16 * fwd_stages(h) + kAlignSlack;
@@ -220,21 +266,27 @@ __host__ __device__ inline FwdSmem fwd_smem(int h, int n_hidden) {
 
 // (byte offset, bytes) of forward slab s of the schedule (field_images.py::
 // fwd_slabs): the first layer's n_kb slabs, the hidden layers', then with
-// the heads the trunk output, the heads' two layers and their outputs, or
-// for the trunk alone its output layer 16 columns a slab
-template <int H>
+// the heads the trunk output (kTO columns), the heads' two layers and their
+// outputs (rgb with the first 64 semantic columns, then 64 semantic
+// columns a slab), or for the trunk alone its output layer 16 columns a slab
+template <int H, int kTO>
 __device__ __forceinline__ void fwd_slab(int s, int n_trunk, bool heads, uint32_t& off,
                                          uint32_t& bytes) {
   using T = Tile<H>;
   const int t = s - n_trunk;
   const uint32_t base = (uint32_t)n_trunk * T::kTrunkSlab;
-  const uint32_t out_t = T::kHImgs * kTOut * kImgRowBytes;
+  const uint32_t out_t = T::kHImgs * kTO * kImgRowBytes;
   const uint32_t l1 = 2 * T::kHeadImg, l2 = 2 * T::kHI * T::kHeadImg;
+  const uint32_t o0 = T::kHI * (kRgbPad + kSemChunk) * kImgRowBytes;
+  const uint32_t oc = T::kHI * kSemChunk * kImgRowBytes;
   if (t < 0) {
     off = (uint32_t)s * T::kTrunkSlab;
     bytes = T::kTrunkSlab;
-  } else if (!heads || t == 0) {
-    off = base + (uint32_t)t * out_t;
+  } else if (!heads) {
+    bytes = T::kHImgs * kOutChunk * kImgRowBytes;
+    off = base + (uint32_t)t * bytes;
+  } else if (t == 0) {
+    off = base;
     bytes = out_t;
   } else if (t == 1) {
     off = base + out_t;
@@ -242,9 +294,12 @@ __device__ __forceinline__ void fwd_slab(int s, int n_trunk, bool heads, uint32_
   } else if (t == 2) {
     off = base + out_t + l1;
     bytes = l2;
-  } else {
+  } else if (t == 3) {
     off = base + out_t + l1 + l2;
-    bytes = T::kHI * (kRgbPad + kCPad) * kImgRowBytes;
+    bytes = o0;
+  } else {
+    off = base + out_t + l1 + l2 + o0 + (uint32_t)(t - 4) * oc;
+    bytes = oc;
   }
 }
 
@@ -430,11 +485,14 @@ __device__ __forceinline__ void form_block(const P& a, const void* x, int x_f32,
 // backwards: Epi is then not called) or, where Epi::kTrunkOut, after the
 // trunk's output layer (the trunk kernels' forwards: Epi writes y). Epi
 // stages a tile's values in shared memory (density, rgb, sem) and writes
-// them out (flush). kWhole: the first layer is the encoding in place in
-// all of the buffer's images (n_kb = their count); else any first layer.
-// smem is the block's dynamic shared memory, fwd_smem().total bytes. Every
-// thread of the block calls it.
-template <int H, bool kWhole, class P, class S, class Epi>
+// them out: at C_pad = 64 every value of a tile at once (flush), past it the
+// density and rgb (flush_head) and then 64 semantic columns a chunk
+// (flush_sem). kWhole: the first layer is the encoding in place in all of
+// the buffer's images (n_kb = their count); else any first layer. kCP,
+// kTO: the tier (C_pad, T_out; the trunk kernels, without the heads, take
+// the first). smem is the block's dynamic shared memory, fwd_smem().total
+// bytes. Every thread of the block calls it.
+template <int H, bool kWhole, int kCP, int kTO, class P, class S, class Epi>
 __device__ __forceinline__ void field_forward(const P& a, const S& sv,
                                               const float* __restrict__ u, const void* x,
                                               int x_f32, int din, bool heads,
@@ -446,7 +504,7 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
   constexpr int kSt = T::kStages;
   unsigned char* smem = align_smem(smem_raw);
   const int nh = a.n_hidden, nkb = a.n_kb;
-  const FwdSmem L = fwd_smem(H, nh);
+  const FwdSmem L = fwd_smem(H, nh, kTO, kCP);
   float* bias_s = reinterpret_cast<float*>(smem + L.bias);
   const uint32_t full = smem_u32(smem + L.bars), empty = full + 8 * kSt;
   const uint32_t ring_base = smem_u32(smem + L.ring);
@@ -454,7 +512,7 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
   constexpr int kImgs = T::kActBytes / kImgBytes64;  // a tile buffer's images
   // the whole encoding at once, or block by block
   const bool in_place = kWhole || (encode && nkb <= kImgs);
-  const int n_bias_s = heads ? bias_floats(nh, H) : nh * H;
+  const int n_bias_s = heads ? bias_floats(nh, H, kTO, kCP) : nh * H;
   for (int i = threadIdx.x; i < n_bias_s; i += kFieldThreads) bias_s[i] = a.bias[i];
   if (threadIdx.x == 0) ring_init<kSt>(full, empty, 2);
   __syncthreads();
@@ -462,7 +520,8 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
   const int n_trunk = nkb + (nh - 1) * T::kHImgs;
   bool out_layer = heads;
   if constexpr (Epi::kTrunkOut) out_layer = true;
-  const int n_out = heads ? 4 : (Epi::kTrunkOut ? (a.out + 15) / 16 : 0);
+  constexpr int kNch = kCP / kSemChunk;  // the semantic output's slabs
+  const int n_out = heads ? 3 + kNch : (Epi::kTrunkOut ? (a.out + 15) / 16 : 0);
   const int n_slabs = n_trunk + n_out;
   Ring<kSt> ring;
   ring.full = full;
@@ -476,7 +535,7 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
       for (int pass = blockIdx.x; pass < n_pass; pass += gridDim.x) {
         for (int s = 0; s < n_slabs; ++s) {
           uint32_t off, bytes;
-          fwd_slab<H>(s, n_trunk, heads, off, bytes);
+          fwd_slab<H, kTO>(s, n_trunk, heads, off, bytes);
           ring.wait_empty();
           mbar_expect_tx(ring.full_bar(), bytes);
           bulk_load(ring_base + ring.stage * kSlot, w + off, bytes, ring.full_bar());
@@ -673,7 +732,7 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
             wgmma_n16<0, 0>(dd, kmajor_desc(act_a + kb * kImgBytes64, ks),
-                            kmajor_desc(slab + kb * kTOut * kImgRowBytes, ks), (kb | ks) != 0);
+                            kmajor_desc(slab + kb * kOutChunk * kImgRowBytes, ks), (kb | ks) != 0);
         }
         slab_end(ring, tid);
         if (cw == 0) {
@@ -696,7 +755,7 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
     // first writes what follows from it
     float sig[2] = {0.f, 0.f}, dsd[2] = {0.f, 0.f};
     {
-      float dd[8];
+      float dd[kTO / 2];
       fresh(dd);
       {
         const uint32_t slab = slab_begin(ring, ring_base, kSlot);
@@ -704,8 +763,8 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
         for (int kb = 0; kb < T::kHImgs; ++kb) {
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
-            wgmma_n16<0, 0>(dd, kmajor_desc(act_a + kb * kImgBytes64, ks),
-                            kmajor_desc(slab + kb * kTOut * kImgRowBytes, ks), (kb | ks) != 0);
+            wgmma<kTO, 0, 0>(dd, kmajor_desc(act_a + kb * kImgBytes64, ks),
+                             kmajor_desc(slab + kb * kTO * kImgRowBytes, ks), (kb | ks) != 0);
         }
         slab_end(ring, tid);
       }
@@ -714,7 +773,7 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
       unsigned char* xs = act + T::kXsImg * kImgBytes64;
       if (cw == 0) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
+        for (int e = 0; e < kTO / 2; ++e) {
           const int c = 8 * (e / 4) + 2 * q + (e & 1), half = (e >> 1) & 1;
           const int i = r_lo + 8 * half;
           const float v = dd[e] + b[c];
@@ -725,16 +784,17 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
                             ur[1] < 1.f && ur[2] > 0.f && ur[2] < 1.f;
             sig[half] = in ? expf(v - 1.f) : 0.f;
             dsd[half] = in ? expf(fminf(v - 1.f, 15.f)) : 0.f;
-            *reinterpret_cast<bf16*>(xs + img_off(i, 2 * kShw - 1)) = __float2bfloat16(0.f);
+            *reinterpret_cast<bf16*>(xs + img_off(i, kShw + kTO - 1)) = __float2bfloat16(0.f);
           } else {
             *reinterpret_cast<bf16*>(xs + img_off(i, kShw - 1 + c)) =
                 __float2bfloat16(c <= G ? v : 0.f);
           }
         }
       }
-      // chunks 0, 1: SH of the row's ray; chunks 4..7: zero
-      for (int e = tt; e < kTileRows * 6; e += kTT) {
-        const int i = e / 6, ch = e % 6 < 2 ? e % 6 : e % 6 + 2;
+      // chunks 0, 1: SH of the row's ray; the chunks past [SH | trunk output]: zero
+      constexpr int kXsCh = 8 - kTO / 8;  // chunks of a row written here
+      for (int e = tt; e < kTileRows * kXsCh; e += kTT) {
+        const int i = e / kXsCh, ch = e % kXsCh < 2 ? e % kXsCh : e % kXsCh + kTO / 8;
         const int row = row0 + i;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
         if (ch < 2 && row < n_rows) {
@@ -766,7 +826,7 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
         const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHhw * kImgRowBytes;
         if (l == 0) {
 #pragma unroll
-          for (int ks = 0; ks < 2; ++ks) {
+          for (int ks = 0; ks < 1 + kTO / 16; ++ks) {
             wgmma<kHhw, 0, 0>(dr, kmajor_desc(xs_a, ks), kmajor_desc(slab, ks), ks != 0);
             wgmma<kHhw, 0, 0>(ds, kmajor_desc(xs_a, ks), kmajor_desc(slab + T::kHeadImg, ks),
                               ks != 0);
@@ -784,7 +844,7 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
         slab_end(ring, tid);
       }
       before_overwrite();
-      const float* br = bias_s + nh * H + kTOut + l * 2 * kHh;
+      const float* br = bias_s + nh * H + kTO + l * 2 * kHh;
       const float* bs = br + kHh;
 #pragma unroll
       for (int j = 0; j < kHhw / 8; ++j) {
@@ -836,15 +896,27 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
       sv.mask_h[((size_t)(row0 + r_lo + 8) * 4 + q) * T::kSplit + cw] = make_uint2(mh[2], mh[3]);
     }
 
-    // head outputs into the staging area (the whole buffer is free by then);
-    // with two column halves the first forms rgb, the second the semantics
-    {
+    // head outputs, one slab of 64 semantic columns at a time (rgb's with the
+    // first); with two column halves the first forms rgb, the second the
+    // semantics. At C_pad = 64 a tile's values are staged together over the
+    // buffer (the whole of it is free by then); past it the density and rgb
+    // over the rgb head's activation (free after the first slab) and each
+    // semantic chunk [64, 64] f32 past the heads' activations, which the
+    // later chunks still multiply
+    const float* br = bias_s + nh * H + kTO + 4 * kHh;
+    const float* bs = br + kRgbPad;
+    float* st = reinterpret_cast<float*>(act);
+    float* ss = kNch == 1 ? st : reinterpret_cast<float*>(act + 2 * kHI * kImgBytes64);
+    const int n_valid = min(kTileRows, n_rows - row0);
+#pragma unroll
+    for (int ch = 0; ch < kNch; ++ch) {
       float dr[8], ds[32];
       fresh(dr);
       fresh(ds);
-      const bool do_rgb = cw == 0, do_sem = cw == T::kSplit - 1;
+      const bool do_rgb = cw == 0 && ch == 0, do_sem = cw == T::kSplit - 1;
       {
         const uint32_t slab = slab_begin(ring, ring_base, kSlot);
+        const uint32_t sem_w = slab + (ch == 0 ? kHI * kRgbPad * kImgRowBytes : 0);
 #pragma unroll
         for (int ks = 0; ks < kHh / 16; ++ks) {
           const int kb = ks / 4;
@@ -853,16 +925,11 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
                             kmajor_desc(slab + kb * kRgbPad * kImgRowBytes, ks % 4), ks != 0);
           if (do_sem)
             wgmma_n64<0, 0>(ds, kmajor_desc(act_a + (kHI + kb) * kImgBytes64, ks % 4),
-                            kmajor_desc(slab + kHI * kRgbPad * kImgRowBytes + kb * kImgBytes64,
-                                        ks % 4),
-                            ks != 0);
+                            kmajor_desc(sem_w + kb * kImgBytes64, ks % 4), ks != 0);
         }
         slab_end(ring, tid);
       }
       before_overwrite();
-      float* st = reinterpret_cast<float*>(act);
-      const float* br = bias_s + nh * H + kTOut + 4 * kHh;
-      const float* bs = br + kRgbPad;
       if (do_rgb) {
         if (q == 0) {
           epi.density(st, r_lo, sig[0], dsd[0]);
@@ -879,14 +946,25 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int c = 8 * j + 2 * q + (e & 1);
-            if (c < C) epi.sem(st, r_lo + 8 * (e >> 1), c, ds[4 * j + e] + bs[c]);
+            const int c = 8 * j + 2 * q + (e & 1), i = r_lo + 8 * (e >> 1);
+            const float v = ds[4 * j + e] + bs[kSemChunk * ch + c];
+            if constexpr (kNch == 1) {
+              if (c < C) epi.sem(st, i, c, v);
+            } else {
+              ss[i * kSemChunk + c] = v;
+            }
           }
         }
       }
       tile_sync();
-      const int n_valid = min(kTileRows, n_rows - row0);
-      if (n_valid > 0) epi.flush(st, row0, n_valid, tt, kTT);
+      if (n_valid > 0) {
+        if constexpr (kNch == 1) {
+          epi.flush(st, row0, n_valid, tt, kTT);
+        } else {
+          if (ch == 0) epi.flush_head(st, row0, n_valid, tt, kTT);
+          epi.flush_sem(ss, row0, n_valid, ch, tt, kTT);
+        }
+      }
       tile_sync();
     }
   }

@@ -53,7 +53,7 @@ struct FvrArgs {
   __nv_bfloat16* gout_sem;  // [Np, c_pad] cotangent of the semantic logits
   float* ray_part;      // [R, 16 + c_pad] per-ray f32 sums of those cotangents
   // cotangents as images, the dY operands of the weight gradients
-  __nv_bfloat16* gout;   // 2 images: gout_rgb | gout_sem, zero-padded
+  __nv_bfloat16* gout;   // 1 + c_tile / 64 images: gout_rgb | gout_sem, zero-padded
   __nv_bfloat16* g2;     // 2 kHI images: second hidden layer's pre-activation, rgb | sem
   __nv_bfloat16* g1;     // 2 kHI images: first hidden layer's
   __nv_bfloat16* gt;     // 1 image: trunk output [graw | d geo | 0]; the trunk alone ceil(out / 64)
@@ -77,6 +77,7 @@ struct FvrArgs {
   int n_rows, n_rays, n_samples;
   int tile_h;  // the instance: trunk width
   int n_hidden, geo, n_classes, c_pad;  // c_pad: classes padded to a multiple of 16
+  int t_out, c_tile;  // the whole field's tier: trunk output and semantic output, padded
   int heads;  // 1: the whole field; 0: the trunk alone
   int x_f32, din, out;  // x's dtype and width; the trunk output's width
   int n_freq, n_kb;     // frequencies of the encode; the first layer's 64-column k-blocks

@@ -12,13 +12,16 @@
 // What bounds it on an H100: tensor-core math. A row of the shipping field
 // costs ~0.45 MFLOP (the 3x256 trunk and both 64-wide heads) against 12 B
 // read and 132 B written, ~3,300 FLOP/B, far above the card's ~295 FLOP/B
-// balance. The kernel is a template on the trunk width H, one instance for
-// each width field_tile.cuh takes. The design is field_tile.cuh's:
+// balance. The kernel is a template on the trunk width H and the tier
+// (T_out, C_pad), one instance for each pair field_tile.cuh takes, compiled
+// in APNERF_PARTS parts in parallel. The design is field_tile.cuh's:
 // persistent blocks of two wgmma consumer
 // warpgroups and a producer warp that streams the weights' tile images
 // through a shared-memory ring with cp.async.bulk; no activation is
 // written back, and a tile's packed rows [64, 4 + C] are staged in shared
-// memory and leave as one contiguous run of 16-byte stores. It reaches
+// memory and leave as one contiguous run of 16-byte stores (past 64
+// classes: the density and rgb columns, then 64 logits a chunk, strided
+// 4-byte stores). It reaches
 // about a third of the bound (1.4 ms against 0.45 at 1,048,576 rows,
 // PERF.md); field_tile.cuh says where the rest goes. The forward-only
 // render kernel (fused_field_volrend.cu) runs this launch as its field
@@ -48,6 +51,9 @@
 // and leave as 16-byte stores where the row width allows (any width
 // goes), rows past n_rows never written.
 
+// this file is compiled once per part (field_tile.cuh)
+#define APNERF_PARTS 3
+
 #include "field_train_args.cuh"
 #include "warp_reduce.cuh"
 
@@ -66,16 +72,29 @@ struct FfhArgs {
 
 namespace {
 
-// stages a tile's packed rows [64, 4 + C]; they are one contiguous run of y
+// stages a tile's packed rows [64, 4 + C], one contiguous run of y; past
+// 64 classes their first four columns [64, 4], then a chunk of 64 logits
 struct PackedEpilogue {
   static constexpr bool kTrunkOut = false;
   float* y;
-  int ld;  // 4 + C
-  __device__ void density(float* st, int i, float sigma, float) { st[i * ld + 3] = sigma; }
-  __device__ void rgb(float* st, int i, int c, float v) { st[i * ld + c] = v; }
-  __device__ void sem(float* st, int i, int c, float v) { st[i * ld + 4 + c] = v; }
+  int ld;   // 4 + C
+  int sld;  // a staged row: ld, or 4 past 64 classes
+  __device__ void density(float* st, int i, float sigma, float) { st[i * sld + 3] = sigma; }
+  __device__ void rgb(float* st, int i, int c, float v) { st[i * sld + c] = v; }
+  __device__ void sem(float* st, int i, int c, float v) { st[i * sld + 4 + c] = v; }
   __device__ void flush(const float* st, int row0, int n_valid, int t, int nt) {
     copy_out(y + (size_t)row0 * ld, st, n_valid * ld, t, nt);
+  }
+  __device__ void flush_head(const float* st, int row0, int n_valid, int t, int nt) {
+    for (int e = t; e < n_valid * 4; e += nt) y[(size_t)(row0 + e / 4) * ld + e % 4] = st[e];
+  }
+  // logits 64 ch .. 64 ch + 63 from ss [64, 64]
+  __device__ void flush_sem(const float* ss, int row0, int n_valid, int ch, int t, int nt) {
+    const int c0 = kSemChunk * ch, w = min(kSemChunk, ld - 4 - c0);
+    for (int e = t; e < n_valid * kSemChunk; e += nt) {
+      const int c = e % kSemChunk;
+      if (c < w) y[(size_t)(row0 + e / kSemChunk) * ld + 4 + c0 + c] = ss[e];
+    }
   }
 };
 
@@ -104,42 +123,70 @@ struct TrunkEpilogue {
   __device__ void rgb(float*, int, int, float) {}
   __device__ void sem(float*, int, int, float) {}
   __device__ void flush(const float*, int, int, int, int) {}
+  __device__ void flush_head(const float*, int, int, int, int) {}
+  __device__ void flush_sem(const float*, int, int, int, int, int) {}
 };
 
-template <int H, bool kWhole>
+template <int H, bool kWhole, int kCP, int kTO>
 __global__ void __launch_bounds__(kFieldThreads, 1)
     ffh_fwd_kernel(const __grid_constant__ FfhArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  field_forward<H, kWhole>(a.p, NoSave{}, a.u, nullptr, 0, 0, true, a.sh, a.n_rows,
-                               a.n_samples, smem, PackedEpilogue{a.y, 4 + a.p.n_classes});
+  const int ld = 4 + a.p.n_classes;
+  field_forward<H, kWhole, kCP, kTO>(a.p, NoSave{}, a.u, nullptr, 0, 0, true, a.sh, a.n_rows,
+                                     a.n_samples, smem,
+                                     PackedEpilogue{a.y, ld, kCP == kSemChunk ? ld : 4});
 }
 
+// the trunk alone: the first tier's instance (it has no heads)
 template <int H, bool kWhole>
 __global__ void __launch_bounds__(kFieldThreads, 1)
     trunk_fwd_kernel(const __grid_constant__ FfhArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  field_forward<H, kWhole>(a.p, NoSave{}, a.u, a.x, a.x_f32, a.din, false, nullptr, a.n_rows,
-                               1, smem, TrunkEpilogue{a.y, a.p.out});
+  field_forward<H, kWhole, 64, 16>(a.p, NoSave{}, a.u, a.x, a.x_f32, a.din, false, nullptr,
+                                   a.n_rows, 1, smem, TrunkEpilogue{a.y, a.p.out});
 }
 
-template <int H, bool kWhole>
+template <int H, bool kWhole, int kCP, int kTO>
 int launch_ffh_fwd(const FfhArgs* a, int grid, cudaStream_t stream) {
-  const size_t smem = fwd_smem(H, a->p.n_hidden).total;
-  int err = set_smem((const void*)ffh_fwd_kernel<H, kWhole>, smem);
+  const size_t smem = fwd_smem(H, a->p.n_hidden, kTO, kCP).total;
+  int err = set_smem((const void*)ffh_fwd_kernel<H, kWhole, kCP, kTO>, smem);
   if (err) return err;
-  ffh_fwd_kernel<H, kWhole><<<grid, kFieldThreads, smem, stream>>>(*a);
+  ffh_fwd_kernel<H, kWhole, kCP, kTO><<<grid, kFieldThreads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
 template <int H, bool kWhole>
 int launch_trunk_fwd(const FfhArgs* a, int grid, cudaStream_t stream) {
-  const size_t smem = fwd_smem(H, a->p.n_hidden).total;
+  const size_t smem = fwd_smem(H, a->p.n_hidden, 16, 64).total;
   int err = set_smem((const void*)trunk_fwd_kernel<H, kWhole>, smem);
   if (err) return err;
   trunk_fwd_kernel<H, kWhole><<<grid, kFieldThreads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
+// instance (H, tier) where this part compiles it, else kElsewhere
+template <int H, int kTier, int kTO, int kCP>
+int ffh_fwd_at(const FfhArgs* a, int grid, cudaStream_t stream) {
+  if constexpr (part_of<APNERF_PARTS>(H, kTier) == APNERF_PART) {
+    return whole_enc(H, true, a->p.n_kb) ? launch_ffh_fwd<H, true, kCP, kTO>(a, grid, stream)
+                                         : launch_ffh_fwd<H, false, kCP, kTO>(a, grid, stream);
+  } else {
+    return kElsewhere;
+  }
+}
+
+template <int H>
+int trunk_fwd_at(const FfhArgs* a, int grid, cudaStream_t stream) {
+  if constexpr (part_of<APNERF_PARTS>(H, 0) == APNERF_PART) {
+    return whole_enc(H, a->x == nullptr, a->p.n_kb)
+               ? launch_trunk_fwd<H, true>(a, grid, stream)
+               : launch_trunk_fwd<H, false>(a, grid, stream);
+  } else {
+    return kElsewhere;
+  }
+}
+
+#if APNERF_PART == 0
 constexpr int kPackWarps = 8;  // rays per block of ffh_bwd_pack_kernel
 
 // One warp per ray; reads a.g_packed and the forward's a.rgb, a.dsd, writes
@@ -182,33 +229,65 @@ __global__ void __launch_bounds__(kPackWarps * 32) ffh_bwd_pack_kernel(FvrArgs a
     part[c] = v;
   }
 }
+#endif  // APNERF_PART == 0
 
 }  // namespace
 
-// Launch `grid` persistent blocks of the instance a->p.tile_h on `stream`
-// and return cudaGetLastError() (cudaErrorInvalidValue for another width);
-// allocate nothing. apnerf_ffh_fwd: the packed field; apnerf_trunk_fwd:
-// the trunk alone, on the encode of a->u or, where a->x is given, on x.
-extern "C" int apnerf_ffh_fwd(const FfhArgs* a, int grid, void* stream) {
-#define APNERF_CASE(H_)                                                                 \
-  if (a->p.tile_h == H_)                                                                \
-    return whole_enc(H_, a->x == nullptr, a->p.n_kb)                                   \
-               ? launch_ffh_fwd<H_, true>(a, grid, (cudaStream_t)stream)                \
-               : launch_ffh_fwd<H_, false>(a, grid, (cudaStream_t)stream);
+// This part's instances: launch `grid` persistent blocks of the instance
+// (a->p.tile_h, the tier) on `stream` and return cudaGetLastError(), or
+// kElsewhere where another part compiles it; allocate nothing.
+extern "C" int APNERF_IN_PART(apnerf_ffh_fwd)(const FfhArgs* a, int grid, void* stream) {
+  const int tier = tier_of(a->p.t_out, a->p.c_tile);
+#define APNERF_CASE(T_, TO_, CP_, H_) \
+  if (a->p.tile_h == H_ && tier == T_) \
+    return ffh_fwd_at<H_, T_, TO_, CP_>(a, grid, (cudaStream_t)stream);
+#define APNERF_TIER(T_, TO_, CP_) \
+  APNERF_CASE(T_, TO_, CP_, 64) APNERF_CASE(T_, TO_, CP_, 128) APNERF_CASE(T_, TO_, CP_, 256) \
+  APNERF_CASE(T_, TO_, CP_, 512)
+  APNERF_FIELD_TIERS(APNERF_TIER)
+#undef APNERF_TIER
+#undef APNERF_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int APNERF_IN_PART(apnerf_trunk_fwd)(const FfhArgs* a, int grid, void* stream) {
+#define APNERF_CASE(H_) \
+  if (a->p.tile_h == H_) return trunk_fwd_at<H_>(a, grid, (cudaStream_t)stream);
   APNERF_TILE_WIDTHS(APNERF_CASE)
 #undef APNERF_CASE
   return (int)cudaErrorInvalidValue;
 }
 
+#if APNERF_PART == 0
+
+#define APNERF_EACH_PART(X) X(0) X(1) X(2)
+#define APNERF_DECLARE(P_)                                                 \
+  extern "C" int apnerf_ffh_fwd_p##P_(const FfhArgs*, int, void*); \
+  extern "C" int apnerf_trunk_fwd_p##P_(const FfhArgs*, int, void*);
+APNERF_EACH_PART(APNERF_DECLARE)
+#undef APNERF_DECLARE
+
+// Launch `grid` persistent blocks of the instance (a->p.tile_h, the tier
+// of a->p.t_out and a->p.c_tile) on `stream` and return
+// cudaGetLastError() (cudaErrorInvalidValue for another instance);
+// allocate nothing. apnerf_ffh_fwd: the packed field; apnerf_trunk_fwd:
+// the trunk alone, on the encode of a->u or, where a->x is given, on x.
+extern "C" int apnerf_ffh_fwd(const FfhArgs* a, int grid, void* stream) {
+  int err = kElsewhere;
+#define APNERF_TRY(P_) \
+  if (err == kElsewhere) err = apnerf_ffh_fwd_p##P_(a, grid, stream);
+  APNERF_EACH_PART(APNERF_TRY)
+#undef APNERF_TRY
+  return err == kElsewhere ? (int)cudaErrorInvalidValue : err;
+}
+
 extern "C" int apnerf_trunk_fwd(const FfhArgs* a, int grid, void* stream) {
-#define APNERF_CASE(H_)                                                                 \
-  if (a->p.tile_h == H_)                                                                \
-    return whole_enc(H_, a->x == nullptr, a->p.n_kb)                                   \
-               ? launch_trunk_fwd<H_, true>(a, grid, (cudaStream_t)stream)              \
-               : launch_trunk_fwd<H_, false>(a, grid, (cudaStream_t)stream);
-  APNERF_TILE_WIDTHS(APNERF_CASE)
-#undef APNERF_CASE
-  return (int)cudaErrorInvalidValue;
+  int err = kElsewhere;
+#define APNERF_TRY(P_) \
+  if (err == kElsewhere) err = apnerf_trunk_fwd_p##P_(a, grid, stream);
+  APNERF_EACH_PART(APNERF_TRY)
+#undef APNERF_TRY
+  return err == kElsewhere ? (int)cudaErrorInvalidValue : err;
 }
 
 // The packed cotangent a->g_packed to the per-sample cotangents of the field
@@ -218,3 +297,5 @@ extern "C" int apnerf_ffh_bwd_pack(const FvrArgs* a, void* stream) {
                         static_cast<cudaStream_t>(stream)>>>(*a);
   return (int)cudaGetLastError();
 }
+
+#endif  // APNERF_PART == 0

@@ -26,7 +26,9 @@
 // matrix pass is wgmma on 128-byte-swizzled tile images, its weights
 // streamed through a shared-memory ring by cp.async.bulk (hopper_tile.cuh,
 // field_tile.cuh), at each of the tile's four instances H in 64, 128, 256,
-// 512 (the first layer's width is a run-time count of k-blocks):
+// 512 and each tier (T_out, C_pad) of the field's trunk output and
+// semantic output, compiled in APNERF_PARTS parts in parallel (the first
+// layer's width is a run-time count of k-blocks):
 //   1. fvr_field_fwd_kernel: the whole field (field_tile.cuh) with a save
 //      struct: the bf16 activations leave as tile images by bulk stores
 //      (~0.7 GB per call at the shipping shape), the ReLU masks as bits,
@@ -75,16 +77,22 @@
 
 #include <cfloat>
 
+// this file is compiled once per part (field_tile.cuh)
+#define APNERF_PARTS 6
+
 #include "field_train_args.cuh"
 #include "warp_reduce.cuh"
 
 namespace {
 
-constexpr int kRayWarps = 8;    // rays per block of fvr_ray_kernel
-constexpr int kRayChan = 128;   // per-ray channel slots in shared memory (3 + C <= 64, twice)
+constexpr int kRayWarps = 8;  // rays per block of fvr_ray_kernel
+
+// per-ray channel slots in shared memory, twice (3 + C of them): 128, or
+// c_pad + 4 where that is more
+__host__ __device__ inline int ray_chan(int c_pad) { return c_pad + 4 > 128 ? c_pad + 4 : 128; }
 
 // bias layout of a tile_part row: trunk pre-activation sums (n_hidden x H),
-// trunk output (t_pad: 16, or the trunk alone's output padded to 64), rgb
+// trunk output (t_pad: the tier's T_out, or the trunk alone's output padded to 64), rgb
 // head (H/4, H/4), sem head (H/4, H/4), dphase (mp), dW_spec (3 x mp, scaled
 // by 2 pi); mp = 32 n_kb with the encode, else 0
 __host__ __device__ inline int n_bias(int n_hidden, int h, int t_pad, int mp) {
@@ -94,7 +102,8 @@ __host__ __device__ inline int n_bias(int n_hidden, int h, int t_pad, int mp) {
 // ---- 1. field forward -------------------------------------------------------
 
 // per-sample outputs of the train step's field pass: each staged as the
-// tile's contiguous run of its array
+// tile's contiguous run of its array (past 64 classes the semantics 64
+// columns a chunk)
 struct TrainEpilogue {
   static constexpr bool kTrunkOut = false;
   float* sigma;
@@ -110,22 +119,33 @@ struct TrainEpilogue {
   __device__ void sem(float* st, int i, int c, float v) {
     st[5 * kTileRows + i * n_classes + c] = v;
   }
-  __device__ void flush(const float* st, int row0, int n_valid, int t, int nt) {
+  __device__ void flush_head(const float* st, int row0, int n_valid, int t, int nt) {
     copy_out(sigma + row0, st, n_valid, t, nt);
     copy_out(dsd + row0, st + kTileRows, n_valid, t, nt);
     copy_out(rgb_out + (size_t)row0 * 3, st + 2 * kTileRows, n_valid * 3, t, nt);
+  }
+  __device__ void flush(const float* st, int row0, int n_valid, int t, int nt) {
+    flush_head(st, row0, n_valid, t, nt);
     copy_out(sem_out + (size_t)row0 * n_classes, st + 5 * kTileRows, n_valid * n_classes, t, nt);
+  }
+  // classes 64 ch .. 64 ch + 63 from ss [64, 64]
+  __device__ void flush_sem(const float* ss, int row0, int n_valid, int ch, int t, int nt) {
+    const int c0 = kSemChunk * ch, w = min(kSemChunk, n_classes - c0);
+    for (int e = t; e < n_valid * kSemChunk; e += nt) {
+      const int c = e % kSemChunk;
+      if (c < w) sem_out[(size_t)(row0 + e / kSemChunk) * n_classes + c0 + c] = ss[e];
+    }
   }
 };
 
-template <int H, bool kWhole>
+template <int H, bool kWhole, int kCP, int kTO>
 __global__ void __launch_bounds__(kFieldThreads, 1)
     fvr_field_fwd_kernel(const __grid_constant__ FvrArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
   // the call's arguments are the field's weights and its save buffers
-  field_forward<H, kWhole>(a, a, a.u, a.x, a.x_f32, a.din, a.heads != 0, a.sh, a.n_rows,
-                               a.n_samples, smem,
-                               TrainEpilogue{a.sigma, a.dsd, a.rgb, a.sem, a.n_classes});
+  field_forward<H, kWhole, kCP, kTO>(a, a, a.u, a.x, a.x_f32, a.din, a.heads != 0, a.sh,
+                                     a.n_rows, a.n_samples, smem,
+                                     TrainEpilogue{a.sigma, a.dsd, a.rgb, a.sem, a.n_classes});
 }
 
 // ---- 2. per-ray volume rendering, loss and cotangents -------------------------
@@ -141,11 +161,11 @@ __global__ void __launch_bounds__(kRayWarps * 32) fvr_ray_kernel(FvrArgs a) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int ray = blockIdx.x * kRayWarps + warp;
   if (ray >= a.n_rays) return;  // uniform across the warp
-  const int S = a.n_samples, C = a.n_classes, NC = 3 + C;
-  float* wb = rsm + (size_t)warp * (2 * S + 2 * kRayChan);
+  const int S = a.n_samples, C = a.n_classes, NC = 3 + C, n_ch = ray_chan(a.c_pad);
+  float* wb = rsm + (size_t)warp * (2 * S + 2 * n_ch);
   float* tb = wb + S;
-  float* acc = tb + S;         // [NC] per-ray sums: rgb, then semantics
-  float* gch = acc + kRayChan;  // [NC] their bf16-rounded cotangents
+  float* acc = tb + S;      // [NC] per-ray sums: rgb, then semantics
+  float* gch = acc + n_ch;  // [NC] their bf16-rounded cotangents
   const size_t base = (size_t)ray * S;
   const float eps = FLT_EPSILON;
 
@@ -306,6 +326,7 @@ __global__ void __launch_bounds__(kRayWarps * 32) fvr_ray_kernel(FvrArgs a) {
 // 3 opacity, 4 depth numerator, 5: semantics. One warp per ray, the scan
 // chunked by 32 with a carry, so any S and any ray count go. Memory-bound:
 // it reads 4 (4 + C) + 8 bytes per sample once and writes 4.
+#if APNERF_PART == 0
 __global__ void __launch_bounds__(kRayWarps * 32)
     fvr_fwd_ray_kernel(const float* __restrict__ y, const float* __restrict__ dt,
                        const float* __restrict__ tm, float* __restrict__ acc,
@@ -354,6 +375,7 @@ __global__ void __launch_bounds__(kRayWarps * 32)
     out[4] = dn;
   }
 }
+#endif  // APNERF_PART == 0
 
 // ---- 3. field backward ------------------------------------------------------------
 //
@@ -368,9 +390,13 @@ __global__ void __launch_bounds__(kRayWarps * 32)
 // order, two words a thread a layer. Image slots of a tile's buffer over
 // time (kHI = images of a head's activation):
 //   0 gout_rgb, 1 gout_sem -> g2 at 2 kHI .. 4 kHI -> g1 at 0 .. 2 kHI
-//   -> gt at 2 kHI, its f32 copy (for its column sums) at 2 kHI + 1
-// then the first H / 64 hold gh[l]. The trunk alone forms its output's
-// cotangent 64 columns at a time in images 0 and 1. The first layer goes
+//   -> gt at 2 kHI, its f32 copy (for its column sums) at 2 kHI + 1 (at
+//   T_out = 48, [64, 48] f32, at 0 .. 1)
+// then the first H / 64 hold gh[l]. Past 64 classes the semantic
+// cotangent enters image 1 64 columns at a time, each block's product
+// (its own slab of the output layer's weights) done before the next. The
+// trunk alone forms its output's cotangent 64 columns at a time in images
+// 0 and 1. The first layer goes
 // back in blocks of 64 columns: x's, for dx, or with the encode 32
 // frequencies a block, each two groups of 16 as [cos 16 | sin 16] (the
 // backward slabs' own order, not the forward's), so that a thread holds a
@@ -465,12 +491,15 @@ __device__ __forceinline__ void group_dproj(const float (&dg)[kBw / 2], const un
   }
 }
 
-template <int H, int kG>
+template <int H, int kG, int kCP, int kTO>
 __global__ void __launch_bounds__(kFieldThreads, 1)
     fvr_field_bwd_kernel(const __grid_constant__ FvrArgs a) {
   using T = Tile<H>;
   constexpr int kHw = T::kHw, kHh = T::kHh, kHhw = T::kHhw, kHI = T::kHI, kTT = T::kTT;
   constexpr int kSt = T::kStages;
+  constexpr int kNsb = kCP / kSemChunk;  // blocks of the semantic cotangent
+  constexpr int kGout = 1 + kNsb;      // gout images a tile: rgb, then the semantic blocks
+  constexpr int kXw = kShw + kTO;      // the heads' input columns back: [SH | trunk output]
   constexpr int kOne = kG > 0;                        // every block in one product
   constexpr int kGB = kG > 0 ? kG : 1;                // blocks a product
   constexpr int kBw = 64 * kGB / T::kSplit;           // first-layer columns a warpgroup forms
@@ -509,11 +538,15 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
       for (int pass = blockIdx.x; pass < n_pass; pass += gridDim.x) {
         const unsigned char* src = w;
         if (heads) {
-          const uint32_t sizes[3] = {2u * T::kHeadImg, 2u * kHI * T::kHeadImg,
-                                     2u * kHI * 32 * kImgRowBytes};
-          for (int s = 0; s < 3; ++s) {
-            push(src, sizes[s]);
-            src += sizes[s];
+          // the outputs back (rgb with the first semantic block, then one
+          // semantic block a slab), the second layers back, the first layers back
+          for (int s = 0; s < kNsb + 2; ++s) {
+            const uint32_t size = s == 0        ? 2u * T::kHeadImg
+                                  : s < kNsb    ? (uint32_t)T::kHeadImg
+                                  : s == kNsb   ? 2u * kHI * T::kHeadImg
+                                                : 2u * kHI * kXw * kImgRowBytes;
+            push(src, size);
+            src += size;
           }
         }
         for (int s = 0; s < n_gt + (nh - 1) * T::kHImgs; ++s, src += T::kTrunkSlab)
@@ -542,7 +575,7 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
   unsigned char* act = smem + L.act + tl * T::kActBytes;
   const uint32_t act_a = smem_u32(act);
   const int G = a.geo, cp = a.c_pad;
-  const int t_pad = heads ? kTOut : 64 * n_gt, mp = encode ? kGF * n_groups : 0;
+  const int t_pad = heads ? kTO : 64 * n_gt, mp = encode ? kGF * n_groups : 0;
   const int mc = a.n_freq;  // the forward's encoding: [cos of m | sin of m]
   const int nb = n_bias(nh, H, t_pad, mp);
   const int off_gtr = nh * H;
@@ -568,9 +601,10 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
     float* part = a.tile_part + tile * nb;
     // what the end of the pass reads from device memory is fetched now
     if (encode && cw == 0) stash_u(u_s, fetch_u(a.u, row0, a.n_rows, tid), tid);
-    const int gti = 2 * kHI;  // gt's image, its f32 copy in the next
+    constexpr int gti = 2 * kHI;  // gt's image, its f32 copy [64, kTO] in the next or at 0
     unsigned char* gt = act + gti * kImgBytes64;
-    float* gtf = reinterpret_cast<float*>(act + (gti + 1) * kImgBytes64);  // [64, 16]
+    float* gtf = reinterpret_cast<float*>(
+        act + (kTO * kTileRows * 4 <= kImgBytes64 ? gti + 1 : 0) * kImgBytes64);
     if (heads) {
       const uint2 mh_lo = a.mask_h[(size_t)(row0 + r_lo) * mrow + q * T::kSplit + cw];
       const uint2 mh_hi = a.mask_h[(size_t)(row0 + r_lo + 8) * mrow + q * T::kSplit + cw];
@@ -604,7 +638,8 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
         *reinterpret_cast<uint4*>(act + which * kImgBytes64 + img_off(i, ch * 8)) = gv[k];
       }
       after_write();
-      if (tt == 0) bulk_store(a.gout + tile * kImgBytes64, act_a, 2 * kImgBytes64);
+      bf16* gout_t = a.gout + tile * kGout * (kImgBytes64 / 2);
+      if (tt == 0) bulk_store(gout_t, act_a, 2 * kImgBytes64);
 
       // heads, from the top: layer 2's and layer 1's pre-activation cotangents
       // (columns past H/4 zero)
@@ -616,7 +651,7 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
           const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHhw * kImgRowBytes;
           if (l == 1) {
             wgmma<kHhw, 0, 0>(dr, kmajor_desc(act_a, 0), kmajor_desc(slab, 0), 0);
-            for (int ks = 0; ks < cp / 16; ++ks)
+            for (int ks = 0; ks < min(cp, 64) / 16; ++ks)
               wgmma<kHhw, 0, 0>(ds, kmajor_desc(act_a + kImgBytes64, ks),
                                 kmajor_desc(slab + T::kHeadImg, ks), ks != 0);
           } else {
@@ -631,6 +666,38 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
             }
           }
           slab_end(ring, tid);
+        }
+        if (l == 1) {
+          // the semantic cotangent's further blocks, each into image 1 (its
+          // copy saved) and through its own slab
+#pragma unroll
+          for (int k = 1; k < kNsb; ++k) {
+            constexpr int kPer1 = kTileRows * 8 / kTT;
+            uint4 sv_[kPer1];
+#pragma unroll
+            for (int r = 0; r < kPer1; ++r) {
+              const int e = tt + r * kTT, i = e / 8, col = 64 * k + (e % 8) * 8;
+              sv_[r] = make_uint4(0u, 0u, 0u, 0u);
+              if (row0 + i < a.n_rows && col < cp)
+                sv_[r] =
+                    *reinterpret_cast<const uint4*>(a.gout_sem + (size_t)(row0 + i) * cp + col);
+            }
+            before_overwrite();
+#pragma unroll
+            for (int r = 0; r < kPer1; ++r) {
+              const int e = tt + r * kTT;
+              *reinterpret_cast<uint4*>(act + kImgBytes64 + img_off(e / 8, (e % 8) * 8)) = sv_[r];
+            }
+            after_write();
+            if (tt == 0)
+              bulk_store(gout_t + (1 + k) * (kImgBytes64 / 2), act_a + kImgBytes64, kImgBytes64);
+            const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHhw * kImgRowBytes;
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              wgmma<kHhw, 0, 0>(ds, kmajor_desc(act_a + kImgBytes64, ks), kmajor_desc(slab, ks),
+                                1);
+            slab_end(ring, tid);
+          }
         }
         before_overwrite();
         unsigned char* dst = act + (l == 1 ? 2 * kHI * kImgBytes64 : 0);
@@ -675,29 +742,29 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
       // one accumulator (both column halves form it, the first writes it); the
       // trunk output's cotangent [graw | d geo | 0] as image gti (bf16) and in
       // the next image (f32, for its column sums)
-      float dx[16];
+      float dx[kXw / 2];
       fresh(dx);
       {
         const uint32_t slab = slab_begin(ring, ring_base, kSlot);
 #pragma unroll
         for (int ks = 0; ks < kHh / 16; ++ks)
-          wgmma_n32<0, 0>(dx, kmajor_desc(act_a + (ks / 4) * kImgBytes64, ks % 4),
-                          kmajor_desc(slab + (ks / 4) * 32 * kImgRowBytes, ks % 4), ks != 0);
+          wgmma<kXw, 0, 0>(dx, kmajor_desc(act_a + (ks / 4) * kImgBytes64, ks % 4),
+                           kmajor_desc(slab + (ks / 4) * kXw * kImgRowBytes, ks % 4), ks != 0);
 #pragma unroll
         for (int ks = 0; ks < kHh / 16; ++ks)
-          wgmma_n32<0, 0>(dx, kmajor_desc(act_a + (kHI + ks / 4) * kImgBytes64, ks % 4),
-                          kmajor_desc(slab + (kHI + ks / 4) * 32 * kImgRowBytes, ks % 4), 1);
+          wgmma<kXw, 0, 0>(dx, kmajor_desc(act_a + (kHI + ks / 4) * kImgBytes64, ks % 4),
+                           kmajor_desc(slab + (kHI + ks / 4) * kXw * kImgRowBytes, ks % 4), 1);
         slab_end(ring, tid);
       }
       before_overwrite();
       if (cw == 0) {
 #pragma unroll
-        for (int e = 8; e < 16; ++e) {
-          const int c = 8 * (e / 4) + 2 * q + (e & 1);  // column of [SH | geo], 16..31
+        for (int e = 8; e < kXw / 2; ++e) {
+          const int c = 8 * (e / 4) + 2 * q + (e & 1);  // column of [SH | geo], 16..
           const int i = r_lo + 8 * ((e >> 1) & 1), k = c - kShw;
-          if (k < kTOut - 1) {
+          if (k < kTO - 1) {
             const float v = k < G ? dx[e] : 0.f;
-            gtf[i * kTOut + 1 + k] = v;
+            gtf[i * kTO + 1 + k] = v;
             *reinterpret_cast<bf16*>(gt + img_off(i, 1 + k)) = __float2bfloat16(v);
           }
         }
@@ -706,21 +773,23 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
           for (int half = 0; half < 2; ++half) {
             const int i = r_lo + 8 * half;
             const float v = graw[half];
-            gtf[i * kTOut] = v;
+            gtf[i * kTO] = v;
             *reinterpret_cast<bf16*>(gt + img_off(i, 0)) = __float2bfloat16(v);
           }
         }
       }
-      for (int e = tt; e < kTileRows * 6; e += kTT)
-        *reinterpret_cast<uint4*>(gt + img_off(e / 6, (2 + e % 6) * 8)) =
+      // the chunks past the trunk output's columns: zero
+      constexpr int kGtCh = 8 - kTO / 8;
+      for (int e = tt; e < kTileRows * kGtCh; e += kTT)
+        *reinterpret_cast<uint4*>(gt + img_off(e / kGtCh, (kTO / 8 + e % kGtCh) * 8)) =
             make_uint4(0u, 0u, 0u, 0u);
       after_write();
       if (tt == 0)
         bulk_store(a.gt + tile * (kImgBytes64 / 2), act_a + gti * kImgBytes64, kImgBytes64);
-      if (tt < kTOut) {
+      if (tt < kTO) {
         float s = 0.f;
 #pragma unroll 16
-        for (int i = 0; i < kTileRows; ++i) s += gtf[i * kTOut + tt];
+        for (int i = 0; i < kTileRows; ++i) s += gtf[i * kTO + tt];
         part[off_gtr + tt] = s;
       }
     } else {
@@ -742,9 +811,12 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
       float d[kHw / 2];
       fresh(d);
       if (l == nh - 1 && heads) {
-        // gh[nh - 1] = gt @ w_out^T: one k-step (16 columns)
+        // gh[nh - 1] = gt @ w_out^T: kTO / 16 k-steps
         const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
-        wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + gti * kImgBytes64, 0), kmajor_desc(slab, 0), 0);
+#pragma unroll
+        for (int ks = 0; ks < kTO / 16; ++ks)
+          wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + gti * kImgBytes64, ks), kmajor_desc(slab, ks),
+                           ks != 0);
         slab_end(ring, tid);
       } else if (l == nh - 1) {
         // the trunk alone: g [64, out] (zero past out and past n_rows) 64
@@ -979,6 +1051,7 @@ __host__ __device__ inline DwSmem dw_smem() {
   return s;
 }
 
+#if APNERF_PART == 0
 template <int N>
 __device__ __forceinline__ void dw_store(const float (&d)[N / 2], float* dst, int tid) {
   const int r_lo = 16 * (tid / 32) + (tid % 32) / 4, q = tid % 4;
@@ -1102,44 +1175,97 @@ __global__ void dw_reduce_kernel(const __grid_constant__ DwArgs a) {
   for (int c = 0; c < item.chunks; ++c) s += p[c * ld];
   a.out[e] = s;
 }
+#endif  // APNERF_PART == 0
 
-template <int H, bool kWhole>
+template <int H, bool kWhole, int kCP, int kTO>
 int launch_field_fwd(const FvrArgs* a, int grid, cudaStream_t stream) {
-  const size_t smem = fwd_smem(H, a->n_hidden).total;
-  int err = set_smem((const void*)fvr_field_fwd_kernel<H, kWhole>, smem);
+  const size_t smem = fwd_smem(H, a->n_hidden, kTO, kCP).total;
+  int err = set_smem((const void*)fvr_field_fwd_kernel<H, kWhole, kCP, kTO>, smem);
   if (err) return err;
-  fvr_field_fwd_kernel<H, kWhole><<<grid, kFieldThreads, smem, stream>>>(*a);
+  fvr_field_fwd_kernel<H, kWhole, kCP, kTO><<<grid, kFieldThreads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
-template <int H, int kG>
+template <int H, int kG, int kCP, int kTO>
 int launch_field_bwd(const FvrArgs* a, int grid, cudaStream_t stream) {
   const size_t smem = bwd_smem(H).total;
-  int err = set_smem((const void*)fvr_field_bwd_kernel<H, kG>, smem);
+  int err = set_smem((const void*)fvr_field_bwd_kernel<H, kG, kCP, kTO>, smem);
   if (err) return err;
-  fvr_field_bwd_kernel<H, kG><<<grid, kFieldThreads, smem, stream>>>(*a);
+  fvr_field_bwd_kernel<H, kG, kCP, kTO><<<grid, kFieldThreads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
-template <int H>
-int launch_field_bwd(const FvrArgs* a, int grid, cudaStream_t stream) {
-  const int n_back = a->x == nullptr ? (a->n_freq + kBlockFreqs - 1) / kBlockFreqs : a->n_kb;
-  switch (back_group(n_back, a->heads ? 1 : (a->out + 63) / 64)) {
-    case 4: return launch_field_bwd<H, 4>(a, grid, stream);
-    case 2: return launch_field_bwd<H, 2>(a, grid, stream);
-    case 1: return launch_field_bwd<H, 1>(a, grid, stream);
-    default: return launch_field_bwd<H, 0>(a, grid, stream);
+// instance (H, tier) where this part compiles it, else kElsewhere; the
+// trunk alone (heads = 0) runs the first tier's
+template <int H, int kTier, int kTO, int kCP>
+int field_fwd_at(const FvrArgs* a, int grid, cudaStream_t stream) {
+  if constexpr (part_of<APNERF_PARTS>(H, kTier) == APNERF_PART) {
+    return whole_enc(H, a->x == nullptr, a->n_kb)
+               ? launch_field_fwd<H, true, kCP, kTO>(a, grid, stream)
+               : launch_field_fwd<H, false, kCP, kTO>(a, grid, stream);
+  } else {
+    return kElsewhere;
+  }
+}
+
+template <int H, int kTier, int kTO, int kCP>
+int field_bwd_at(const FvrArgs* a, int grid, cudaStream_t stream) {
+  if constexpr (part_of<APNERF_PARTS>(H, kTier) == APNERF_PART) {
+    const int n_back = a->x == nullptr ? (a->n_freq + kBlockFreqs - 1) / kBlockFreqs : a->n_kb;
+    switch (back_group(n_back, a->heads ? 1 : (a->out + 63) / 64)) {
+      case 4: return launch_field_bwd<H, 4, kCP, kTO>(a, grid, stream);
+      case 2: return launch_field_bwd<H, 2, kCP, kTO>(a, grid, stream);
+      case 1: return launch_field_bwd<H, 1, kCP, kTO>(a, grid, stream);
+      default: return launch_field_bwd<H, 0, kCP, kTO>(a, grid, stream);
+    }
+  } else {
+    return kElsewhere;
   }
 }
 
 }  // namespace
 
+// This part's instances of the field forward and backward: the instance
+// (a->tile_h, the tier of a->t_out and a->c_tile; the first for the trunk
+// alone), or kElsewhere where another part compiles it.
+#define APNERF_PART_ENTRY(NAME, AT)                                                          \
+  extern "C" int APNERF_IN_PART(NAME)(const FvrArgs* a, int grid, void* stream) {           \
+    const int tier = a->heads ? tier_of(a->t_out, a->c_tile) : 0;                           \
+    APNERF_FIELD_TIERS(APNERF_TIER_OF_##AT)                                                 \
+    return (int)cudaErrorInvalidValue;                                                      \
+  }
+#define APNERF_CASE(AT, T_, TO_, CP_, H_) \
+  if (a->tile_h == H_ && tier == T_) return AT<H_, T_, TO_, CP_>(a, grid, (cudaStream_t)stream);
+#define APNERF_TIER_OF_field_fwd_at(T_, TO_, CP_)                                     \
+  APNERF_CASE(field_fwd_at, T_, TO_, CP_, 64) APNERF_CASE(field_fwd_at, T_, TO_, CP_, 128) \
+  APNERF_CASE(field_fwd_at, T_, TO_, CP_, 256) APNERF_CASE(field_fwd_at, T_, TO_, CP_, 512)
+#define APNERF_TIER_OF_field_bwd_at(T_, TO_, CP_)                                     \
+  APNERF_CASE(field_bwd_at, T_, TO_, CP_, 64) APNERF_CASE(field_bwd_at, T_, TO_, CP_, 128) \
+  APNERF_CASE(field_bwd_at, T_, TO_, CP_, 256) APNERF_CASE(field_bwd_at, T_, TO_, CP_, 512)
+APNERF_PART_ENTRY(apnerf_fvr_field_fwd, field_fwd_at)
+APNERF_PART_ENTRY(apnerf_fvr_field_bwd, field_bwd_at)
+#undef APNERF_TIER_OF_field_fwd_at
+#undef APNERF_TIER_OF_field_bwd_at
+#undef APNERF_CASE
+#undef APNERF_PART_ENTRY
+
+#if APNERF_PART == 0
+
+#define APNERF_EACH_PART(X) X(0) X(1) X(2) X(3) X(4) X(5)
+#define APNERF_DECLARE(P_)                                                    \
+  extern "C" int apnerf_fvr_field_fwd_p##P_(const FvrArgs*, int, void*); \
+  extern "C" int apnerf_fvr_field_bwd_p##P_(const FvrArgs*, int, void*);
+APNERF_EACH_PART(APNERF_DECLARE)
+#undef APNERF_DECLARE
+
 // What field_images.py mirrors, for a check on the card: shared memory
-// (bytes) of the field forward (which = 0), the field backward (1) and the
-// weight gradients (2), and the width of a tile_part row (3), at the
-// instance h, a trunk output padded to t_pad and mp frequencies.
-extern "C" int apnerf_field_layout(int which, int h, int n_hidden, int t_pad, int mp) {
-  return which == 0   ? fwd_smem(h, n_hidden).total
+// (bytes) of the field forward (which = 0) at the tier (t_pad, c_tile), the
+// field backward (1) and the weight gradients (2), and the width of a
+// tile_part row (3), at the instance h, a trunk output padded to t_pad
+// and mp frequencies.
+extern "C" int apnerf_field_layout(int which, int h, int n_hidden, int t_pad, int mp,
+                                   int c_tile) {
+  return which == 0   ? fwd_smem(h, n_hidden, t_pad, c_tile).total
          : which == 1 ? bwd_smem(h).total
          : which == 2 ? dw_smem().total
                       : n_bias(n_hidden, h, t_pad, mp);
@@ -1147,30 +1273,30 @@ extern "C" int apnerf_field_layout(int which, int h, int n_hidden, int t_pad, in
 
 // Each entry launches on `stream` and returns cudaGetLastError(); none
 // allocates. `grid` is the number of persistent blocks. The field kernels
-// run the instance a->tile_h; another width is cudaErrorInvalidValue.
+// run the instance (a->tile_h, the tier); another is cudaErrorInvalidValue.
 extern "C" int apnerf_fvr_field_fwd(const FvrArgs* a, int grid, void* stream) {
-#define APNERF_CASE(H_)                                                                 \
-  if (a->tile_h == H_)                                                                  \
-    return whole_enc(H_, a->x == nullptr, a->n_kb)                                     \
-               ? launch_field_fwd<H_, true>(a, grid, (cudaStream_t)stream)              \
-               : launch_field_fwd<H_, false>(a, grid, (cudaStream_t)stream);
-  APNERF_TILE_WIDTHS(APNERF_CASE)
-#undef APNERF_CASE
-  return (int)cudaErrorInvalidValue;
+  int err = kElsewhere;
+#define APNERF_TRY(P_) \
+  if (err == kElsewhere) err = apnerf_fvr_field_fwd_p##P_(a, grid, stream);
+  APNERF_EACH_PART(APNERF_TRY)
+#undef APNERF_TRY
+  return err == kElsewhere ? (int)cudaErrorInvalidValue : err;
 }
 
 extern "C" int apnerf_fvr_field_bwd(const FvrArgs* a, int grid, void* stream) {
-#define APNERF_CASE(H_) \
-  if (a->tile_h == H_) return launch_field_bwd<H_>(a, grid, (cudaStream_t)stream);
-  APNERF_TILE_WIDTHS(APNERF_CASE)
-#undef APNERF_CASE
-  return (int)cudaErrorInvalidValue;
+  int err = kElsewhere;
+#define APNERF_TRY(P_) \
+  if (err == kElsewhere) err = apnerf_fvr_field_bwd_p##P_(a, grid, stream);
+  APNERF_EACH_PART(APNERF_TRY)
+#undef APNERF_TRY
+  return err == kElsewhere ? (int)cudaErrorInvalidValue : err;
 }
 
 // with_loss = 1: the train step's ray kernel; 0: the render's backward
 // from given cotangents (a->g_acc, a->g_w)
 extern "C" int apnerf_fvr_rays(const FvrArgs* a, int with_loss, void* stream) {
-  const size_t smem = (size_t)kRayWarps * (2 * a->n_samples + 2 * kRayChan) * sizeof(float);
+  const size_t smem =
+      (size_t)kRayWarps * (2 * a->n_samples + 2 * ray_chan(a->c_pad)) * sizeof(float);
   const void* kernel =
       with_loss ? (const void*)fvr_ray_kernel<true> : (const void*)fvr_ray_kernel<false>;
   int err = set_smem(kernel, smem);
@@ -1214,3 +1340,5 @@ extern "C" int apnerf_dw(const DwArgs* a, int n_blocks, void* stream) {
                      static_cast<cudaStream_t>(stream)>>>(*a);
   return (int)cudaGetLastError();
 }
+
+#endif  // APNERF_PART == 0

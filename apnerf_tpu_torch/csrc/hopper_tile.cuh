@@ -210,6 +210,22 @@ __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t 
 }
 
 template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n48(float (&d)[24], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, %27, %28;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -290,7 +306,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-// D[64, N] (+)= A[64, 16] B[16, N] for N in {16, 32, 64, 128, 256}: the
+// D[64, N] (+)= A[64, 16] B[16, N] for N in {16, 32, 48, 64, 128, 256}: the
 // instruction of that width (the kernels that take N from their template
 // widths call this one)
 template <int N, int TA, int TB>
@@ -299,12 +315,14 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
     wgmma_n16<TA, TB>(d, da, db, scale_d);
   } else if constexpr (N == 32) {
     wgmma_n32<TA, TB>(d, da, db, scale_d);
+  } else if constexpr (N == 48) {
+    wgmma_n48<TA, TB>(d, da, db, scale_d);
   } else if constexpr (N == 64) {
     wgmma_n64<TA, TB>(d, da, db, scale_d);
   } else if constexpr (N == 128) {
     wgmma_n128<TA, TB>(d, da, db, scale_d);
   } else {
-    static_assert(N == 256, "wgmma: N is one of 16, 32, 64, 128, 256");
+    static_assert(N == 256, "wgmma: N is one of 16, 32, 48, 64, 128, 256");
     wgmma_n256<TA, TB>(d, da, db, scale_d);
   }
 }

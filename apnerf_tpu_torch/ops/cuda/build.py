@@ -2,7 +2,10 @@
 
 Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into an
 object, all of them at once in parallel, and the objects link into one
-shared library with a plain C interface, loaded with ``ctypes``. The
+shared library with a plain C interface, loaded with ``ctypes``. A source
+that defines ``APNERF_PARTS`` compiles that many times, once per part
+with ``-DAPNERF_PART=p``, each part a share of the field tile's kernel
+instances (``csrc/field_tile.cuh``), so that they compile in parallel. The
 build runs at first use, into ``build/`` at the repository root; the
 library's name carries a hash of the sources, the shared headers and
 the flags, so an edited kernel never loads a stale binary. Nothing here
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -36,6 +40,12 @@ build_log = ""
 
 def _sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def _parts(src: Path) -> int:
+    """How many times ``src`` compiles: its ``APNERF_PARTS``, or once."""
+    found = re.search(r"^#define APNERF_PARTS (\d+)", src.read_text(), re.MULTILINE)
+    return int(found.group(1)) if found else 1
 
 
 def _nvcc() -> str:
@@ -67,17 +77,20 @@ def build() -> Path:
     nvcc = _nvcc()
     tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    objs, procs = [], []
+    objs, procs, names = [], [], []
     for src in _sources():
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        objs.append(obj)
-        procs.append(subprocess.Popen(
-            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ))
+        n_parts = _parts(src)
+        for part in range(n_parts):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.{part}.o"
+            objs.append(obj)
+            names.append(src.name if n_parts == 1 else f"{src.name} part {part}")
+            procs.append(subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, f"-DAPNERF_PART={part}", "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
     logs = [p.communicate()[0] for p in procs]
     build_log = "".join(logs)
-    failed = [src.name for src, p in zip(_sources(), procs) if p.returncode != 0]
+    failed = [name for name, p in zip(names, procs) if p.returncode != 0]
     if not failed:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         link = subprocess.run(
@@ -110,7 +123,7 @@ def library() -> ctypes.CDLL:
     lib.apnerf_fused_render_weights_bwd.restype = i
     lib.apnerf_empty_launch.argtypes = [i, p]
     lib.apnerf_empty_launch.restype = i
-    lib.apnerf_field_layout.argtypes = [i, i, i, i, i]
+    lib.apnerf_field_layout.argtypes = [i, i, i, i, i, i]
     lib.apnerf_field_layout.restype = i
     for name in ("apnerf_fvr_field_fwd", "apnerf_fvr_field_bwd", "apnerf_dw", "apnerf_ffh_fwd",
                  "apnerf_trunk_fwd"):

@@ -25,29 +25,36 @@ frequency's cos and sin cotangents.
 
 **Forward slabs** (``B[n][k] = w[k0 + k][n]``, rows are output units): a
 trunk layer as one ``[H, 64]`` image per k-block of its input, then with
-the heads the trunk's last layer as H / 64 ``[16, 64]`` images and per head
-layer the rgb and the semantic images side by side (the semantic head's
-first layer at input rows 16.., so both heads read the same ``[SH | geo]``
-tile), or for the trunk alone its output layer 16 columns a slab.
+the heads the trunk's last layer as H / 64 ``[T_out, 64]`` images and per
+head layer the rgb and the semantic images side by side (the semantic
+head's first layer at input rows 16.., so both heads read the same ``[SH |
+geo]`` tile; the output layer's rgb images with the first 64 semantic
+columns, then 64 semantic columns a slab), or for the trunk alone its
+output layer 16 columns a slab.
 
 **Backward slabs** (``B[n][k] = w[n][k0 + k]``, rows are input units), in
-the order the field backward walks: heads from the top, the trunk's last
-layer (64 of its columns a slab), the hidden layers downwards, then the
-first layer: per group of ``back_group`` blocks (up to four in one
-product) one ``[64 G, 64]`` slab per 64 of the trunk's units (the trunk
-alone has no head slabs).
+the order the field backward walks: heads from the top (the output layer's
+rgb with its first 64 semantic columns, then 64 semantic columns a slab),
+the trunk's last layer (64 of its columns a slab), the hidden layers
+downwards, then the first layer: per group of ``back_group`` blocks (up to
+four in one product) one ``[64 G, 64]`` slab per 64 of the trunk's units
+(the trunk alone has no head slabs).
 
 **Widths.** The kernels are instances of the trunk width H in ``H_SET``,
-with heads H / 4 wide. A field or a trunk runs on the smallest instance at
-least as wide as it, its units past its own width zero (zero weights and
-biases, which stay zero through every ReLU, so every output and every
-gradient of its own entries is exact): the index tables here do the
-padding, for the whole field (``prepare_field``) and for the trunk alone
+with heads H / 4 wide, and of the whole field's tier (T_out, C_pad) in
+``TIERS``: the trunk output ``1 + geo`` and the classes padded. A field or
+a trunk runs on the smallest instance at least as wide as it, its units
+past its own width zero (zero weights and biases, which stay zero through
+every ReLU, so every output and every gradient of its own entries is
+exact), and a field on the smallest tier that takes both its geometry
+features and its classes: the index tables here do the padding, for the
+whole field (``prepare_field``) and for the trunk alone
 (``field_train.TrunkCall``) alike. So a field takes any H from 4 to 512
-with heads H // 4, any number of frequencies, at most 15 geometry features
-and 64 classes, 2 or 3 hidden layers (``check_widths``); a trunk alone any
-H from 1 to 512, the encode of any number of frequencies or an input that
-is a multiple of 16 wide, and any output width (``check_trunk``).
+with heads H // 4, any number of frequencies, 1 to 47 geometry features
+and 1 to 256 classes, 2 or 3 hidden layers (``check_widths``); a trunk
+alone any H from 1 to 512, the encode of any number of frequencies or an
+input that is a multiple of 16 wide, and any output width
+(``check_trunk``).
 """
 
 from __future__ import annotations
@@ -61,12 +68,15 @@ from .launch import MAX_SMEM
 
 H_SET = (64, 128, 256, 512)  # trunk widths of the instances; the heads are H / 4 wide
 WIDTHS = H_SET  # APNERF_TILE_WIDTHS
+# the whole field's tiers (APNERF_FIELD_TIERS): the trunk output's width
+# (1 + geo) and the semantic output's (classes), padded
+TIERS = ((16, 64), (32, 128), (48, 256))
 SHW = 16  # SH features of a direction
-T_OUT = 16  # the whole field's trunk output width, padded (1 + geo <= 16)
 RGB_PAD = 16  # rgb head output width, padded
-C_PAD = 64  # semantic head output width, padded
-MAX_GEO = 15
-MAX_CLASSES = 64
+SEM_CHUNK = 64  # semantic output columns a forward slab and a backward block
+OUT_CHUNK = 16  # the trunk alone's output columns a forward slab
+MAX_GEO = TIERS[-1][0] - 1
+MAX_CLASSES = TIERS[-1][1]
 BLOCK_FREQS = 32  # frequencies of a k-block of the encoding
 
 IMG_COLS = 64
@@ -98,6 +108,12 @@ def head_width(H: int) -> int:
     return H // 4
 
 
+def tier(G: int, C: int) -> Tuple[int, int]:
+    """The tier (T_out, C_pad) a field of G geometry features and C classes
+    runs on: the first of ``TIERS`` that takes both."""
+    return next(t for t in TIERS if 1 + G <= t[0] and C <= t[1])
+
+
 def split(H: int) -> int:
     """Warpgroups that share a tile's columns (``Tile::kSplit``)."""
     return 2 if H > 256 else 1
@@ -121,9 +137,9 @@ def stages(H: int) -> int:
 
 def fwd_slot_bytes(H: int) -> int:
     """A forward ring slot (``fwd_slot``): a trunk slab ``[H, 64]``, the
-    heads' second layers or their output slab."""
+    heads' second layers or the first of their output slabs."""
     hh, hi = head_width(H), head_imgs(H)
-    return max(H, 2 * hi * hh, hi * (RGB_PAD + C_PAD)) * IMG_ROW_BYTES
+    return max(H, 2 * hi * hh, hi * (RGB_PAD + SEM_CHUNK)) * IMG_ROW_BYTES
 
 
 def bwd_slot_bytes(H: int) -> int:
@@ -195,35 +211,39 @@ def gt_blocks(out: int) -> int:
 # ---- slab schedules ------------------------------------------------------------
 
 
-def fwd_slabs(H: int, n_hidden: int, n_kb: int, heads: bool = True,
-              out: int = 0) -> List[Tuple[int, int]]:
+def fwd_slabs(H: int, n_hidden: int, n_kb: int, heads: bool = True, out: int = 0,
+              t_out: int = TIERS[0][0], c_tile: int = TIERS[0][1]) -> List[Tuple[int, int]]:
     """(byte offset, bytes) of each forward slab, in consumption order; the
-    trunk alone's output layer (``out`` > 0) 16 columns a slab."""
+    whole field at the tier (``t_out``, ``c_tile``), or the trunk alone's
+    output layer (``out`` > 0) 16 columns a slab."""
     trunk = H * IMG_ROW_BYTES
     slabs = [(i * trunk, trunk) for i in range(n_kb + (n_hidden - 1) * H // 64)]
     off = len(slabs) * trunk
-    out_t = H // 64 * T_OUT * IMG_ROW_BYTES  # H / 64 [16, 64] images
     hh, hi = head_width(H) * IMG_ROW_BYTES, head_imgs(H)
-    sizes = ([out_t, 2 * hh,  # heads, first layer: rgb | sem
+    sizes = ([H // 64 * t_out * IMG_ROW_BYTES,  # trunk output: H / 64 [T_out, 64] images
+              2 * hh,  # heads, first layer: rgb | sem
               2 * hi * hh,  # second layer: rgb's k-blocks | sem's
-              hi * (RGB_PAD + C_PAD) * IMG_ROW_BYTES]  # outputs: rgb [16, 64] | sem [64, 64]
-             if heads else [out_t] * out_chunks(out))
+              hi * (RGB_PAD + SEM_CHUNK) * IMG_ROW_BYTES]  # outputs: rgb [16, 64] | sem [64, 64]
+             + [hi * SEM_CHUNK * IMG_ROW_BYTES] * (c_tile // SEM_CHUNK - 1)  # sem's next 64
+             if heads else [H // 64 * OUT_CHUNK * IMG_ROW_BYTES] * out_chunks(out))
     for size in sizes:
         slabs.append((off, size))
         off += size
     return slabs
 
 
-def bwd_slabs(H: int, n_hidden: int, n_back: int, heads: bool = True,
-              out: int = 0) -> List[Tuple[int, int]]:
+def bwd_slabs(H: int, n_hidden: int, n_back: int, heads: bool = True, out: int = 0,
+              t_out: int = TIERS[0][0], c_tile: int = TIERS[0][1]) -> List[Tuple[int, int]]:
     """(byte offset, bytes) of each backward weight slab, in consumption
     order; ``n_back`` first-layer blocks (``pair_blocks`` of the encode, or
-    x's k-blocks)."""
+    x's k-blocks); the whole field at the tier (``t_out``, ``c_tile``)."""
     slabs, off = [], 0
     hh, hi = head_width(H) * IMG_ROW_BYTES, head_imgs(H)
-    sizes = [2 * hh,  # head outputs back: rgb | sem
-             2 * hi * hh,  # second layer back
-             2 * hi * 32 * IMG_ROW_BYTES] if heads else []  # first layer back: [32, 64] images
+    sizes = ([2 * hh]  # head outputs back: rgb | sem's first 64 classes
+             + [hh] * (c_tile // SEM_CHUNK - 1)  # sem's next 64
+             + [2 * hi * hh,  # second layer back
+                2 * hi * (SHW + t_out) * IMG_ROW_BYTES]  # first layer back: [16 + T_out, 64]
+             if heads else [])
     sizes += [H * IMG_ROW_BYTES] * (1 if heads else gt_blocks(out))  # trunk output back
     sizes += [H * IMG_ROW_BYTES] * ((n_hidden - 1) * H // 64)  # hidden layers n_hidden - 1 .. 1
     n_gt = 1 if heads else gt_blocks(out)
@@ -235,10 +255,11 @@ def bwd_slabs(H: int, n_hidden: int, n_back: int, heads: bool = True,
     return slabs
 
 
-def t_pad(heads: bool, out: int) -> int:
-    """Columns of the trunk output's cotangent in a row of tile sums: 16 for
-    the whole field, the trunk alone's output padded to 64."""
-    return T_OUT if heads else 64 * gt_blocks(out)
+def t_pad(heads: bool, out: int, t_out: int = TIERS[0][0]) -> int:
+    """Columns of the trunk output's cotangent in a row of tile sums: the
+    tier's ``t_out`` for the whole field, the trunk alone's output padded
+    to 64."""
+    return t_out if heads else 64 * gt_blocks(out)
 
 
 def n_bias(H: int, n_hidden: int, tpad: int, mp: int) -> int:
@@ -249,14 +270,16 @@ def n_bias(H: int, n_hidden: int, tpad: int, mp: int) -> int:
     return n_hidden * H + tpad + 4 * head_width(H) + 4 * mp
 
 
-def bias_offsets(H: int, n_hidden: int) -> Dict[str, int]:
-    """Float offsets of each layer's bias in the kernels' bias buffer (the
-    trunk alone: the hidden layers', then its output's at ``trunk_out``)."""
+def bias_offsets(H: int, n_hidden: int, t_out: int = TIERS[0][0],
+                 c_tile: int = TIERS[0][1]) -> Dict[str, int]:
+    """Float offsets of each layer's bias in the kernels' bias buffer at the
+    tier (``t_out``, ``c_tile``) (the trunk alone: the hidden layers', then
+    its output's at ``trunk_out``)."""
     o, hh = n_hidden * H, head_width(H)
-    rb0 = o + T_OUT
+    rb0 = o + t_out
     return {"trunk_out": o, "rb0": rb0, "sb0": rb0 + hh, "rb1": rb0 + 2 * hh,
             "sb1": rb0 + 3 * hh, "rb2": rb0 + 4 * hh, "sb2": rb0 + 4 * hh + RGB_PAD,
-            "total": rb0 + 4 * hh + RGB_PAD + C_PAD}
+            "total": rb0 + 4 * hh + RGB_PAD + c_tile}
 
 
 # ---- index tables: image = flat_source[index] ----------------------------------
@@ -342,11 +365,13 @@ def _bwd_image(at, rows: int, k0: int = 0, n0: int = 0, n_shift: int = 0):
 
 
 def _trunk_images(lay: LeafLayout, trunk: Sequence[int], rows: np.ndarray,
-                  back_rows: np.ndarray, H: int, heads: bool, out: int = 0):
+                  back_rows: np.ndarray, H: int, heads: bool, out: int = 0,
+                  t_out: int = TIERS[0][0]):
     """The trunk's forward and backward images, the trunk being the leaf
     numbers of its weights (biases follow each), ``rows`` the first layer's
     input rows in the forward's column order (its k-blocks) and
-    ``back_rows`` in the backward's."""
+    ``back_rows`` in the backward's; with the heads the trunk output
+    ``t_out`` columns wide."""
     n_hidden = len(trunk) - 1
     n_kb = len(rows) // 64
     first = _weight(lay, trunk[0], rows)
@@ -355,8 +380,11 @@ def _trunk_images(lay: LeafLayout, trunk: Sequence[int], rows: np.ndarray,
     fwd = [_fwd_image(first, H, k0=64 * b) for b in range(n_kb)]
     for l in range(1, n_hidden):
         fwd += [_fwd_image(ws[l], H, k0=64 * kb) for kb in range(H // 64)]
-    for ch in range(1 if heads else out_chunks(out)):
-        fwd += [_fwd_image(ws[n_hidden], T_OUT, k0=64 * kb, n0=16 * ch) for kb in range(H // 64)]
+    if heads:
+        fwd += [_fwd_image(ws[n_hidden], t_out, k0=64 * kb) for kb in range(H // 64)]
+    for ch in range(0 if heads else out_chunks(out)):
+        fwd += [_fwd_image(ws[n_hidden], OUT_CHUNK, k0=64 * kb, n0=OUT_CHUNK * ch)
+                for kb in range(H // 64)]
     bwd = [_bwd_image(ws[n_hidden], H, k0=64 * t) for t in range(1 if heads else gt_blocks(out))]
     for l in range(n_hidden - 1, 0, -1):
         bwd += [_bwd_image(ws[l], H, k0=64 * kb) for kb in range(H // 64)]
@@ -367,11 +395,13 @@ def _trunk_images(lay: LeafLayout, trunk: Sequence[int], rows: np.ndarray,
     return fwd, bwd
 
 
-def _bias_index(lay: LeafLayout, H: int, trunk: Sequence[int], total: int, heads=()):
-    """The bias buffer's index table: each layer's bias at its offset, zero
-    elsewhere; ``heads`` holds (name, leaf) of the heads' weights."""
+def _bias_index(lay: LeafLayout, H: int, trunk: Sequence[int], total: int, heads=(),
+                offs: Optional[Dict[str, int]] = None):
+    """The bias buffer's index table: each layer's bias at its offset
+    (``offs``, the first tier's by default), zero elsewhere; ``heads``
+    holds (name, leaf) of the heads' weights."""
     n_hidden = len(trunk) - 1
-    offs = bias_offsets(H, n_hidden)
+    offs = offs or bias_offsets(H, n_hidden)
     bias = np.full(total, lay.zero, dtype=np.int64)
 
     def put(at, leaf):
@@ -396,31 +426,38 @@ def _leaf_ids(n_hidden: int):
 @functools.lru_cache(maxsize=None)
 def index_tables(m: int, h: int, n_hidden: int, G: int, C: int):
     """→ (forward image index, backward image index, bias index) of the
-    whole field of these widths on its instance ``instance(h)``: int64
-    arrays into the flat f32 concatenation of the leaves followed by one
-    zero. ``flat.to(bf16)[fwd]`` is the forward weight buffer, and so on."""
-    H = instance(h)
+    whole field of these widths on its instance ``instance(h)`` and its
+    tier ``tier(G, C)``: int64 arrays into the flat f32 concatenation of
+    the leaves followed by one zero. ``flat.to(bf16)[fwd]`` is the forward
+    weight buffer, and so on."""
+    H, (t_out, c_tile) = instance(h), tier(G, C)
     lay = leaf_layout(m, h, n_hidden, G, C)
     trunk, head, semh = _leaf_ids(n_hidden)
     hh, hi = head_width(H), head_imgs(H)
-    fwd, bwd_trunk = _trunk_images(lay, trunk, enc_rows(m), pair_rows(m), H, heads=True)
+    fwd, bwd_trunk = _trunk_images(lay, trunk, enc_rows(m), pair_rows(m), H, heads=True,
+                                   t_out=t_out)
     rgb = [_weight(lay, leaf) for leaf in head]
     sem = [_weight(lay, leaf) for leaf in semh]
     fwd += [_fwd_image(rgb[0], hh), _fwd_image(sem[0], hh, k_shift=SHW)]
     fwd += [_fwd_image(w[1], hh, k0=64 * kb) for w in (rgb, sem) for kb in range(hi)]
     fwd += [_fwd_image(rgb[2], RGB_PAD, k0=64 * kb) for kb in range(hi)]
-    fwd += [_fwd_image(sem[2], 64, k0=64 * kb) for kb in range(hi)]
-    bwd = [_bwd_image(rgb[2], hh), _bwd_image(sem[2], hh)]
+    fwd += [_fwd_image(sem[2], SEM_CHUNK, k0=64 * kb, n0=SEM_CHUNK * ch)
+            for ch in range(c_tile // SEM_CHUNK) for kb in range(hi)]
+    bwd = [_bwd_image(rgb[2], hh)]
+    bwd += [_bwd_image(sem[2], hh, k0=SEM_CHUNK * ch) for ch in range(c_tile // SEM_CHUNK)]
     bwd += [_bwd_image(w[1], hh, k0=64 * kb) for w in (rgb, sem) for kb in range(hi)]
-    bwd += [_bwd_image(rgb[0], 32, k0=64 * kb) for kb in range(hi)]
-    bwd += [_bwd_image(sem[0], 32, k0=64 * kb, n_shift=SHW) for kb in range(hi)]
+    bwd += [_bwd_image(rgb[0], SHW + t_out, k0=64 * kb) for kb in range(hi)]
+    bwd += [_bwd_image(sem[0], SHW + t_out, k0=64 * kb, n_shift=SHW) for kb in range(hi)]
     bwd += bwd_trunk
-    bias = _bias_index(lay, H, trunk, bias_offsets(H, n_hidden)["total"],
+    offs = bias_offsets(H, n_hidden, t_out, c_tile)
+    bias = _bias_index(lay, H, trunk, offs["total"],
                        (("rb0", head[0]), ("sb0", semh[0]), ("rb1", head[1]), ("sb1", semh[1]),
-                        ("rb2", head[2]), ("sb2", semh[2])))
+                        ("rb2", head[2]), ("sb2", semh[2])), offs)
     fwd, bwd = np.concatenate(fwd), np.concatenate(bwd)
-    assert fwd.size * 2 == sum(b for _, b in fwd_slabs(H, n_hidden, enc_blocks(m)))
-    assert bwd.size * 2 == sum(b for _, b in bwd_slabs(H, n_hidden, pair_blocks(m)))
+    assert fwd.size * 2 == sum(b for _, b in fwd_slabs(H, n_hidden, enc_blocks(m), True, 0,
+                                                       t_out, c_tile))
+    assert bwd.size * 2 == sum(b for _, b in bwd_slabs(H, n_hidden, pair_blocks(m), True, 0,
+                                                       t_out, c_tile))
     return fwd, bwd, bias
 
 
@@ -446,11 +483,13 @@ def trunk_index_tables(din: int, m: int, h: int, n_hidden: int, out: int):
 # ---- shared-memory budgets (mirrors of the .cuh layouts) -----------------------
 
 
-def fwd_smem_bytes(H: int, n_hidden: int) -> int:
-    """``fwd_smem()`` of ``csrc/field_tile.cuh``: the slab ring, the
-    activation buffers, the biases, two tiles of coordinates per tile, the
-    trunk output's staging, the barriers."""
-    bias = -(-bias_offsets(H, n_hidden)["total"] * 4 // 128) * 128
+def fwd_smem_bytes(H: int, n_hidden: int, t_out: int = TIERS[0][0],
+                   c_tile: int = TIERS[0][1]) -> int:
+    """``fwd_smem()`` of ``csrc/field_tile.cuh`` at the tier (``t_out``,
+    ``c_tile``): the slab ring, the activation buffers, the biases, two
+    tiles of coordinates per tile, the trunk output's staging, the
+    barriers."""
+    bias = -(-bias_offsets(H, n_hidden, t_out, c_tile)["total"] * 4 // 128) * 128
     return (ALIGN_SLACK + stages(H) * fwd_slot_bytes(H) + BUF_BYTES + bias + 4 * U_TILE_BYTES
             + 2 * Y_STAGE_BYTES + 16 * stages(H))
 
@@ -517,27 +556,34 @@ def _matrix_items(x: str, x_imgs: int, y: str, y_imgs: int) -> list:
             for p in range(-(-x_imgs // 2)) for y0, n in _col_groups(y_imgs)]
 
 
-def _head_items(H: int) -> list:
-    """The heads' items: first layer (X = the heads' input), second, output;
-    one head a warpgroup, or at H / 4 = 128 one item a head."""
-    k = head_imgs(H)
+def _head_items(H: int, c_tile: int = TIERS[0][1]) -> list:
+    """The heads' items: first layer (X = the heads' input), second, output
+    (dY = ``gout``: the rgb image, then ``c_tile`` / 64 semantic images);
+    one head a warpgroup, or at H / 4 = 128 one item a head. Past 64
+    classes the output layer is an item a head: rgb's on both warpgroups,
+    the semantic columns split between them (at H / 4 = 128: shared)."""
+    k, ns = head_imgs(H), c_tile // SEM_CHUNK
+    ng = 1 + ns
     if k == 1:
-        return [("xs", 1, (0, 0), "g1", 2, (0, 1), 64), ("hid1", 2, (0, 1), "g2", 2, (0, 1), 64),
-                ("hid2", 2, (0, 1), "gout", 2, (0, 1), 64)]
+        out = ([("hid2", 2, (0, 1), "gout", ng, (0, 1), 64)] if ns == 1 else
+               [("hid2", 2, (0, 0), "gout", ng, (0, 0), 64),
+                ("hid2", 2, (1, 1), "gout", ng, (1, 1 + ns // 2), c_tile // 2)])
+        return [("xs", 1, (0, 0), "g1", 2, (0, 1), 64),
+                ("hid1", 2, (0, 1), "g2", 2, (0, 1), 64)] + out
     return [("xs", 1, (0, 0), "g1", 2 * k, (0, k), 64 * k),
             ("hid1", 2 * k, (0, 1), "g2", 2 * k, (0, 0), 64 * k),
             ("hid1", 2 * k, (2, 3), "g2", 2 * k, (k, k), 64 * k),
-            ("hid2", 2 * k, (0, 1), "gout", 2, (0, 0), 64),
-            ("hid2", 2 * k, (2, 3), "gout", 2, (1, 1), 64)]
+            ("hid2", 2 * k, (0, 1), "gout", ng, (0, 0), 64),
+            ("hid2", 2 * k, (2, 3), "gout", ng, (1, 1), c_tile)]
 
 
 def dw_items(H: int, n_hidden: int, n_kb: int, n_tiles: int, n_sm: int, heads: bool = True,
-             out: int = 0) -> List[DwItem]:
+             out: int = 0, c_tile: int = TIERS[0][1]) -> List[DwItem]:
     """The weight-gradient kernel's products, in the order of their outputs:
     per trunk matrix its items, the trunk output's, then with the heads
-    theirs. The pass is bound by device memory, so an item gets row chunks
-    (blocks) in proportion to the images it reads per row tile, ``n_sm``
-    blocks in all."""
+    theirs (the semantic output ``c_tile`` columns). The pass is bound by
+    device memory, so an item gets row chunks (blocks) in proportion to the
+    images it reads per row tile, ``n_sm`` blocks in all."""
     hi = H // 64
     plan = []
     for l in range(n_hidden):
@@ -545,7 +591,7 @@ def dw_items(H: int, n_hidden: int, n_kb: int, n_tiles: int, n_sm: int, heads: b
         plan += _matrix_items(x, x_imgs, f"gh{l}", hi)
     plan += _matrix_items(f"h{n_hidden - 1}", hi, "gt", 1 if heads else gt_blocks(out))
     if heads:
-        plan += _head_items(H)
+        plan += _head_items(H, c_tile)
 
     def images(p):  # read per row tile
         return len(set(p[2])) + p[6] // 64 * len(set(p[5]))
@@ -567,9 +613,9 @@ class DwPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def dw_plan(H: int, n_hidden: int, n_kb: int, n_tiles: int, n_sm: int, heads: bool = True,
-            out: int = 0) -> DwPlan:
+            out: int = 0, c_tile: int = TIERS[0][1]) -> DwPlan:
     rows, block, p_off, out_off = [], 0, 0, 0
-    for it in dw_items(H, n_hidden, n_kb, n_tiles, n_sm, heads, out):
+    for it in dw_items(H, n_hidden, n_kb, n_tiles, n_sm, heads, out, c_tile):
         chunk_tiles = -(-n_tiles // it.chunks)
         chunks = -(-n_tiles // chunk_tiles)  # no chunk is empty
         rows.append((it, chunks, chunk_tiles, block, p_off, out_off))
@@ -612,7 +658,8 @@ def matrix_grads(plan: DwPlan, out, shapes: Sequence[Tuple[int, int]]):
 
 
 _WIDTHS_TEXT = (f"instances H in {H_SET}: H 4..512 with heads H // 4, any number of "
-                f"frequencies, 2 or 3 hidden layers, geo 1..{MAX_GEO}, classes 1..{MAX_CLASSES}")
+                f"frequencies, 2 or 3 hidden layers, geo 1..{MAX_GEO}, classes 1..{MAX_CLASSES} "
+                f"(tiers (T_out, C_pad) in {TIERS})")
 
 
 def check_widths(who: str, shapes: Sequence[Tuple[int, ...]]):

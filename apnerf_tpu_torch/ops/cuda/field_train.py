@@ -57,8 +57,8 @@ class _FvrArgs(ctypes.Structure):
         + [(n, _p) for n in ("tile_part", "w", "lossrows", "g_acc", "g_w", "g_packed", "du",
                              "x", "g_trunk", "dx")]
         + [(n, _i) for n in ("n_rows", "n_rays", "n_samples", "tile_h", "n_hidden", "geo",
-                             "n_classes", "c_pad", "heads", "x_f32", "din", "out", "n_freq",
-                             "n_kb")]
+                             "n_classes", "c_pad", "t_out", "c_tile", "heads", "x_f32", "din",
+                             "out", "n_freq", "n_kb")]
         + [(n, ctypes.c_float) for n in ("c_rgb", "c_dep", "c_sem")]
     )
 
@@ -85,16 +85,17 @@ class _TileCall:
 
     def _setup(self, who: str, dev, N: int, H: int, n_hidden: int, heads: bool, n_kb: int,
                n_freq: int, out: int, weights: Tuple[int, int, int, int, int],
-               sizes: Dict[str, int]):
+               sizes: Dict[str, int], tier: Tuple[int, int] = field_images.TIERS[0]):
         """``weights``: the W, phase, forward-slab, backward-slab and bias
-        pointers; ``sizes``: the caller's own scratch buffers (bytes)."""
+        pointers; ``sizes``: the caller's own scratch buffers (bytes);
+        ``tier``: the whole field's (T_out, C_pad)."""
         self.dev, self.N, self.H, self.nh, self.n_kb = dev, N, H, n_hidden, n_kb
         self.lib = build.library()
         self.run = launcher(who, dev)
         self.Np = Np = field_images.padded_rows(N, H)
         self.n_tiles = T = Np // field_images.TILE_ROWS
         self.grid = field_images.field_grid(N, sm_count(dev), H)
-        self.tpad = field_images.t_pad(heads, out)
+        self.tpad = field_images.t_pad(heads, out, tier[0])
         n_gt = 1 if heads else field_images.gt_blocks(out)
         self.mp = (field_images.BLOCK_FREQS
                    * field_images.back_blocks(field_images.pair_blocks(n_freq), n_gt)
@@ -104,6 +105,7 @@ class _TileCall:
         a.W, a.phase, a.wfwd, a.wbwd, a.bias = weights
         a.n_rows, a.tile_h, a.n_hidden, a.heads = N, H, n_hidden, int(heads)
         a.n_freq, a.n_kb, a.out = n_freq, n_kb, out
+        a.t_out, a.c_tile = tier
         self.ref = ctypes.addressof(a)
         # every scratch buffer of the call is a slice of one allocation (bytes)
         img = field_images.IMG_BYTES
@@ -113,7 +115,7 @@ class _TileCall:
         for l in range(n_hidden):
             sizes.update({f"h{l}": T * H // 64 * img, f"gh{l}": T * H // 64 * img,
                           f"mask_t{l}": mask})
-        self._dw = field_images.dw_plan(H, n_hidden, n_kb, T, sm_count(dev), heads, out)
+        self._dw = field_images.dw_plan(H, n_hidden, n_kb, T, sm_count(dev), heads, out, tier[1])
         sizes["dw_partials"] = self._dw.partial_floats * 4
         self.ptr, total = {}, 0
         for name, size in sizes.items():
@@ -236,14 +238,15 @@ class FieldTrainCall(_TileCall):
         img = field_images.IMG_BYTES
         hi = field_images.head_imgs(H)
         w = fld.weights
+        n_gout = 1 + fld.tier[1] // field_images.SEM_CHUNK  # rgb, then the semantic blocks
         self._setup(who, dev, N, H, fld.n_hidden, True, fld.n_kb, fld.m, 0,
                     (w.W, w.phase, w.wfwd, w.wbwd, w.bias), {
                         "xs": T * img, "hid1": T * 2 * hi * img, "hid2": T * 2 * hi * img,
                         "mask_h": Np * 32 * field_images.split(H), "sigma": N * 4,
                         "dsd": N * 4, "rgb": N * 12, "sem": N * C * 4, "graw": N * 4,
                         "gout_rgb": Np * 32, "gout_sem": Np * cpad * 2,
-                        "ray_part": R * (16 + cpad) * 4, "gout": T * 2 * img,
-                        "g2": T * 2 * hi * img, "g1": T * 2 * hi * img})
+                        "ray_part": R * (16 + cpad) * 4, "gout": T * n_gout * img,
+                        "g2": T * 2 * hi * img, "g1": T * 2 * hi * img}, fld.tier)
         self.du = torch.empty((N, 3), dtype=f32, device=dev) if need_du else None
         a = self.a
         a.u, a.sh = u.data_ptr(), sh.data_ptr()
@@ -269,14 +272,20 @@ class FieldTrainCall(_TileCall):
         G, hh, C = fld.G, fld.hh, fld.C
         trunk, i = self._trunk_grads(out, gb, _enc_rows(self.dev, fld.m), 2 * fld.m, fld.h,
                                      fld.out_t)
-        # the heads' items: [2, 64, n] blocks; one head a warpgroup, or at
-        # H / 4 = 128 one item a head, its 128 input rows over both warpgroups
+        # the heads' items: [2, 64, n] blocks; one head a warpgroup (past 64
+        # classes the output layer an item a head, the semantic columns split
+        # between the warpgroups), or at H / 4 = 128 one item a head, its 128
+        # input rows over both warpgroups
         blocks = [out[row[5]: row[5] + 2 * 64 * row[0].n].view(2, 64, row[0].n)
                   for row in self._dw.items[i:]]
         if len(blocks) == 3:
             l1, l2, l3 = blocks
             rgb = [l1[0], l2[0], l3[0]]
             sem = [l1[1], l2[1], l3[1]]
+        elif field_images.head_imgs(fld.H) == 1:
+            l1, l2, l3r, l3s = blocks
+            rgb = [l1[0], l2[0], l3r[0]]
+            sem = [l1[1], l2[1], torch.cat([l3s[0], l3s[1]], dim=1)]
         else:
             l1, l2r, l2s, l3r, l3s = blocks
             rgb = [l1[0], l2r.reshape(128, -1), l3r.reshape(128, -1)]
@@ -284,7 +293,7 @@ class FieldTrainCall(_TileCall):
         dws = [rgb[0][: 16 + G, :hh], rgb[1][:hh, :hh], rgb[2][:hh, :3],
                sem[0][16: 16 + G, :hh], sem[1][:hh, :hh], sem[2][:hh, :C]]
         H, hH = fld.H, field_images.head_width(fld.H)
-        off_r1 = fld.n_hidden * H + 16
+        off_r1 = fld.n_hidden * H + fld.tier[0]
         off_s1 = off_r1 + 2 * hH
         dbs = [gb[off_r1: off_r1 + hh], gb[off_r1 + hH: off_r1 + hH + hh], gr[:3],
                gb[off_s1: off_s1 + hh], gb[off_s1 + hH: off_s1 + hH + hh], gr[16: 16 + C]]

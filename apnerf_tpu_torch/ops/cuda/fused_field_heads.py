@@ -76,8 +76,8 @@ class FieldWeightsStruct(ctypes.Structure):
     """Mirrors ``FieldWeights`` in ``csrc/field_tile.cuh`` field by field."""
 
     _fields_ = [("W", _p), ("phase", _p), ("wfwd", _p), ("wbwd", _p), ("bias", _p)] + [
-        (n, ctypes.c_int) for n in ("tile_h", "n_hidden", "geo", "n_classes", "n_freq", "n_kb",
-                                    "out")]
+        (n, ctypes.c_int) for n in ("tile_h", "n_hidden", "geo", "n_classes", "t_out", "c_tile",
+                                    "n_freq", "n_kb", "out")]
 
 
 class _FfhArgs(ctypes.Structure):
@@ -103,6 +103,7 @@ class PreparedField(NamedTuple):
     C: int
     n_hidden: int  # trunk hidden layers, 2 or 3
     n_kb: int  # the encoding's k-blocks
+    tier: Tuple[int, int]  # (T_out, C_pad): the trunk output and the classes, padded
 
 
 def prepare_field(who: str, leaves: Sequence[torch.Tensor], dev) -> PreparedField:
@@ -115,7 +116,8 @@ def prepare_field(who: str, leaves: Sequence[torch.Tensor], dev) -> PreparedFiel
         check_tensor(who, t, f"leaf {i}", torch.float32, shape, dev)
     weights, images = field_weights(leaves, dev, m, h, n_hidden, G, C)
     return PreparedField(weights, images, m, weights.tile_h, h, 1 + G, G,
-                         field_images.head_width(h), C, n_hidden, weights.n_kb)
+                         field_images.head_width(h), C, n_hidden, weights.n_kb,
+                         (weights.t_out, weights.c_tile))
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,13 +145,14 @@ def repack(leaves, dev, key: tuple):
 
 def field_weights(leaves, dev, m: int, h: int, n_hidden: int, G: int, C: int):
     """The whole field's leaves repacked (``repack``) on the instance
-    ``field_images.instance(h)`` → (the kernels' struct, the tensors it
-    points at)."""
+    ``field_images.instance(h)`` and the tier ``field_images.tier(G, C)``
+    → (the kernels' struct, the tensors it points at)."""
     images = repack(leaves, dev, (m, h, n_hidden, G, C))
     w = FieldWeightsStruct()
     w.W, w.phase = leaves[0].data_ptr(), leaves[1].data_ptr()
     w.wfwd, w.wbwd, w.bias = (t.data_ptr() for t in images)
     w.tile_h, w.n_hidden, w.geo, w.n_classes = field_images.instance(h), n_hidden, G, C
+    w.t_out, w.c_tile = field_images.tier(G, C)
     w.n_freq, w.n_kb = m, field_images.enc_blocks(m)
     return w, images
 

@@ -154,7 +154,7 @@ def default_route(s_cfg: spectral.SpectralConfig) -> str:
     or another depth, where the JAX package runs its XLA chain. The
     renderers of the mapper take the packed kernels exactly where this is
     ``lossgrad``. The kernels take every width up to a 512-wide trunk with
-    heads H // 4, at most 15 geometry features and 64 classes
+    heads H // 4, 1 to 47 geometry features and 1 to 256 classes
     (``ops/cuda/field_images.check_widths``); a field past those raises
     from their wrappers: its route is not changed for it. An unbounded
     field takes ``field``: the packed kernels decline it

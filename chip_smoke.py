@@ -185,12 +185,31 @@ Phases, each of which must pass:
      ``--mesh 2,1`` at ``config_faketiny.yaml`` and ``python -m
      apnerf_tpu_torch.dryrun 4`` as subprocesses, each exiting 0 with
      finite rows.
-Phases 13 to 17, 19 and 24 run after phase 9, phases 18, 20 to 23 and 25 after phase 11. Phase 1 also
-holds the host's mirrors of the tile's shared-memory layouts to the
-kernels' own at every instance. ``--field-kernels`` runs phase 1 and the
+ 26. the field tile past 64 classes and 15 geometry features: fields past
+     the set (257 classes, 48 geometry features, a 1024-wide trunk) raise
+     from K4's, K5's and K6's wrappers before any launch; K4 fwd and
+     bwd, K5 fwd and bwd and K6 against their plain versions at (H, geo,
+     classes) = (256, 31, 101), (256, 47, 256), (512, 31, 150) and (64, 15,
+     65), each on its tier (T_out, C_pad) of the trunk output and the
+     semantic output, at 512 x 128 rows, zero and random biases, each limit
+     shown to catch a zeroed and a negated output; K4 fwd, K5 fwd and K6 at
+     the candidate render's, the evaluation's and the train step's shapes
+     with the main path's wide field (``config_fakeprod.yaml``'s widths,
+     ``geo_feat_dim: 31``, 101 classes), times and bounds; the bench
+     protocol at that field's full width (a warm-up and a timed chunk of
+     100 steps on phase 7's scan, exact launches, ms per step beside phase
+     7's), one member step against the plain versions and one traced; then
+     ``apnerf_tpu_torch.active.pipeline.main --sem-num 101`` at
+     ``config_fakeprod.yaml``'s width with ``geo_feat_dim: 31``, its depth
+     cut to 1 planning step of 4 candidates, 20 train steps a phase and one
+     test location: finite losses and rows, exact launches.
+Phases 13 to 17, 26, 19 and 24 run after phase 9, phases 18, 20 to 23
+and 25 after phase 11. Phase 1 also holds the host's mirrors of the tile's
+shared-memory layouts to the kernels' own at every instance and tier. ``--field-kernels`` runs phase 1 and the
 kernel comparisons of phases 6, 8, 9 and 13 (the two render backwards and
 the trunk kernels forward and backward), K1 fwd at 1,048,576 rows, the
-packed field kernel's launch alone and the device time of K6's kernels,
+packed field kernel's launch alone, the device time of K6's kernels and
+a sha256 of the shipping field's kernels' outputs on seeded inputs,
 prints one line of times for each and no ``ok`` line: for comparing two trees in
 one call. With ``--tree DIR`` it runs against the package (and builds the
 kernels) of the checkout in DIR, whose layout mirrors it does not check:
@@ -200,7 +219,8 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, before that one JSON object with
 each kernel's launches, error and times (the weights kernel's rows also
 its launches over the ngp+occ loop and over phase 21's timed chunks, and
-its times at each trainer's shape), and before that the smoke's total
+its times at each trainer's shape; the main field's kernels the tile's
+instances and phase 26's readings), and before that the smoke's total
 wall time. Any failure exits non-zero
 before those lines.
 """
@@ -547,6 +567,8 @@ def main(argv=None) -> int:
     # ---- 16-17. the tile's other widths ---------------------------------------------
     phase_widths(dev)
     phase_member_widths(dev, bench_run)
+    # ---- 26. the tile past 64 classes and 15 geometry features ----------------------
+    wide_records, wide_times, wide_bench, wide_launches = phase_wide(dev, bench_run)
     # ---- 19. the ngp+occ path's weights-kernel shapes and member step ---------------
     ngp_state = phase_ngp_step(dev, bench_run)
     # ---- 24. the sharded train phases and render on ranks that share the card ---------
@@ -632,6 +654,27 @@ def main(argv=None) -> int:
         if mesh_launches.get(k["name"]):
             # each rank's launches over phase 24's sharded flagship phase on (2, 1)
             k["mesh_rank_launches"] = mesh_launches[k["name"]]
+        if k["name"] in WIDE_KERNELS:
+            # the tile's instances (H, T_out, C_pad) this kernel runs on, and
+            # phase 26: the 101-class, geo-31 field at the main path's shape
+            # (ms, bound and error as in the row; launches over its loop or,
+            # for the train routes' kernels, none there), the fields of
+            # WIDE_FIELDS at 512 x 128 (ms)
+            from apnerf_tpu_torch.ops.cuda import field_images
+
+            k["instances"] = [[h, t, c] for h in field_images.WIDTHS
+                              for t, c in field_images.TIERS]
+            wide = {"geo": WIDE_GEO, "classes": WIDE_CLASSES,
+                    "launches": wide_launches.get(k["name"], 0)}
+            if k["name"] in wide_records:
+                err, ms, pms, (bound_ms, bound_by), *device = wide_records[k["name"]]
+                wide.update(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bound_ms,
+                            bound_by=bound_by, **(device[0] if device else {}))
+            if k["name"] == "fused_field_volrend_lossgrad":
+                wide["member_step_ms"] = wide_bench["ms_per_step"]
+            wide["ms_512x128"] = {str(list(f)): t[k["name"]] for f, t in wide_times.items()
+                                  if k["name"] in t}
+            k["wide"] = wide
         if k["name"] in trainer_launches:
             # launches over the timed chunks of phase 21's four trainers, and the
             # kernel at each trainer's shape (times as in the row, bound from these inputs)
@@ -651,24 +694,27 @@ def main(argv=None) -> int:
 
 def check_layouts():
     """The host-side mirrors of the field kernels' layouts, against the
-    kernels' own, at every instance and depth, for the whole field's trunk
-    output and a wide trunk's, with and without the encode."""
+    kernels' own, at every instance, tier and depth, for the whole field's
+    trunk output and a wide trunk's, with and without the encode."""
     from apnerf_tpu_torch.ops.cuda import build, field_images
 
     lib = build.library()
     for h in field_images.WIDTHS:
-        for n_hidden in (2, 3):
-            for t_pad, mp in ((16, 128), (16, 32), (128, 256), (64, 0)):
-                mirror = (field_images.fwd_smem_bytes(h, n_hidden), field_images.bwd_smem_bytes(h),
-                          field_images.dw_smem_bytes(),
+        for (t_out, c_tile), n_hidden in ((t, n) for t in field_images.TIERS for n in (2, 3)):
+            for t_pad, mp in ((t_out, 128), (t_out, 32), (128, 256), (64, 0)):
+                mirror = (field_images.fwd_smem_bytes(h, n_hidden, t_out, c_tile),
+                          field_images.bwd_smem_bytes(h), field_images.dw_smem_bytes(),
                           field_images.n_bias(h, n_hidden, t_pad, mp))
-                own = tuple(lib.apnerf_field_layout(which, h, n_hidden, t_pad, mp)
+                own = tuple(lib.apnerf_field_layout(which, h, n_hidden, t_out if which == 0
+                                                    else t_pad, mp, c_tile)
                             for which in range(4))
                 if mirror != own or max(own[:3]) > field_images.MAX_SMEM:
-                    fail(f"field kernel layouts {own} at H={h} layers={n_hidden} t_pad={t_pad} "
-                         f"mp={mp} differ from their mirrors {mirror}")
-        print(f"field kernels H={h}: shared memory forward / backward / dW {own[:3]} bytes "
-              f"of {field_images.MAX_SMEM}", flush=True)
+                    fail(f"field kernel layouts {own} at H={h} layers={n_hidden} tier "
+                         f"{(t_out, c_tile)} t_pad={t_pad} mp={mp} differ from their mirrors "
+                         f"{mirror}")
+            print(f"field kernels H={h} tier {(t_out, c_tile)} layers={n_hidden}: shared memory "
+                  f"forward / backward / dW {own[:3]} bytes of {field_images.MAX_SMEM}",
+                  flush=True)
 
 
 def field_kernels_alone(dev) -> int:
@@ -677,11 +723,11 @@ def field_kernels_alone(dev) -> int:
     (the trunk kernels at the main trunk's shape; the proposal field's
     shape is printed by their phase), the field kernel (K1 fwd) at
     1,048,576 rows, then the packed field kernel's launch alone with the
-    weights repacked once, and K6's kernels' device time: the short run for
-    comparing two trees in one call. Prints no ``ok`` line."""
+    weights repacked once, K6's kernels' device time and the digests of
+    the shipping kernels' outputs: the short run for comparing two trees in
+    one call. Prints no ``ok`` line."""
     from apnerf_tpu_torch.config import PipelineConfig
     from apnerf_tpu_torch.models import spectral
-    from apnerf_tpu_torch.ops.cuda import build, fused_field_heads as ffh
     from apnerf_tpu_torch.train.flagship import make_spectral_config
 
     for name, phase in (
@@ -699,6 +745,7 @@ def field_kernels_alone(dev) -> int:
             print(f"field kernels alone: {name_}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms, max_abs_err {err:.3e}", flush=True)
     k6_device_time(dev)
+    shipping_digests(dev)
     gen = _generator(dev, 8)
     cfg = PipelineConfig()
     s_cfg = make_spectral_config(cfg)
@@ -713,28 +760,72 @@ def field_kernels_alone(dev) -> int:
               f"{cuda_ms(k1, reps=5, inner=5):.4f} ms, bound "
               f"{k1_fwd_bound(field.W.shape[1], field.mlp_base, R * S)[0]:.4f} ms", flush=True)
         del u1
-    pos, dirs, _, _, _ = _render_inputs(gen, dev, R, S, cfg.aabb)
-    with torch.inference_mode():
-        u, sh = spectral._packed_inputs(s_cfg, pos, dirs)
-        fld = ffh.prepare_field("fused_field_heads", list(field.parameters()), dev)
-        y = torch.empty((R * S, 4 + fld.C), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-
-        def launch():
-            if ffh.launch_field_rows(build.library(), fld, u.data_ptr(), sh.data_ptr(),
-                                     y.data_ptr(), R * S, S, stream) != 0:
-                fail("the packed field kernel did not launch")
-
-        print(f"field kernels alone: fused_field_heads without the wrapper (weights repacked "
-              f"once) N={R * S}: {cuda_ms(launch):.4f} ms", flush=True)
+    k4_launch_ms(dev)
     print(nvidia_smi())
     return 0
 
 
-def k6_device_time(dev, calls=5):
+def shipping_digests(dev):
+    """(``--field-kernels`` only) The shipping field's kernels on seeded
+    inputs at the train shape, one sha256 of each kernel's outputs: the same
+    digests from two trees say their kernels give the same bits."""
+    import hashlib
+
+    from apnerf_tpu_torch.models import spectral
+    from apnerf_tpu_torch.ops.cuda import fused_field_heads as ffh
+    from apnerf_tpu_torch.ops.cuda import fused_field_volrend as fvr
+    from apnerf_tpu_torch.ops.cuda import fused_mlp as fm
+
+    gen, cfg, s_cfg, field, (u, sh, dt, tm) = _train_inputs(dev, 21)
+    _set_random_biases(field, gen, dev)
+    leaves = list(field.parameters())
+    R, S, C = cfg.num_rays, cfg.max_samples_train, cfg.num_semantic_classes
+    inputs = _k6_inputs(gen, dev, R, S, C, cfg.aabb)
+    g_acc, g_w, g_y, g_h = _loss_cotangents(leaves, u, sh, dt, tm, S, C, 21)
+    layers = field.mlp_base.layers()
+
+    def lossgrad():
+        lossrows, w, grads = spectral.forward_packed_lossgrad(field, s_cfg, *inputs)
+        return [lossrows, w, *_flat(grads).values()]
+
+    def heads_bwd():
+        grads, du = ffh.fused_field_heads_bwd(leaves, u, sh, S, g_y, True)
+        return [*grads, du]
+
+    def volrend_bwd():
+        grads, du = fvr.fused_field_volrend_bwd(leaves, u, sh, dt, tm, S, g_acc, g_w, True)
+        return [*grads, du]
+
+    def k1_bwd():
+        dW, dphase, grads, du = fm.fused_spectral_field_bwd(field.W, field.phase, layers, u, g_h,
+                                                            True)
+        return [dW, dphase, *grads, du]
+
+    with torch.no_grad():
+        runs = {
+            "fused_field_heads": lambda: [ffh.fused_field_heads(leaves, u, sh, S)],
+            "fused_field_volrend": lambda: list(fvr.fused_field_volrend(leaves, u, sh, dt, tm,
+                                                                        S)),
+            "fused_field_volrend_lossgrad": lossgrad,
+            "fused_field_heads_bwd": heads_bwd,
+            "fused_field_volrend_bwd": volrend_bwd,
+            "fused_spectral_field": lambda: [fm.fused_spectral_field(
+                field.W, field.phase, field.mlp_base, u)],
+            "fused_spectral_field_bwd": k1_bwd,
+        }
+        for name, run in runs.items():
+            h = hashlib.sha256()
+            for t in run():
+                h.update(t.detach().contiguous().cpu().numpy().tobytes())
+            print(f"field kernels alone: {name} outputs sha256 {h.hexdigest()[:16]} (the "
+                  f"bench's field, random biases, {R} x {S})", flush=True)
+
+
+def k6_device_time(dev, calls=5, cfg=None):
     """The device time of K6's own kernels in one call of the train-step
     wrapper at the bench shape (``torch.profiler`` over ``calls`` calls),
-    by kernel: the wrapper's ``kernel_ms`` is a host time (PERF.md)."""
+    by kernel, the bench configuration's field or ``cfg``'s → ms: the
+    wrapper's ``kernel_ms`` is a host time (PERF.md)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -743,7 +834,7 @@ def k6_device_time(dev, calls=5):
     from apnerf_tpu_torch.train.flagship import make_spectral_config
 
     gen = _generator(dev, 6)
-    cfg = bench.bench_config()
+    cfg = cfg or bench.bench_config()
     s_cfg = make_spectral_config(cfg)
     field = spectral.init_spectral(s_cfg, gen, dev)
     inputs = _k6_inputs(gen, dev, cfg.num_rays, cfg.max_samples_train, cfg.num_semantic_classes,
@@ -762,7 +853,42 @@ def k6_device_time(dev, calls=5):
             by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / calls / 1e3
     print(f"field kernels alone: fused_field_volrend_lossgrad's kernels: "
           f"{sum(by_kernel.values()):.4f} ms of device time a call ("
-          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_kernel.items())) + ")", flush=True)
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_kernel.items())) + ") at "
+          f"{cfg.num_semantic_classes} classes, geo {cfg.geo_feat_dim}", flush=True)
+    return sum(by_kernel.values())
+
+
+def k4_launch_ms(dev, cfg=None):
+    """The packed field kernel's launch alone (its weights repacked once)
+    at the candidate render's shape, 4096 x 256, ``PipelineConfig()``'s
+    field or ``cfg``'s → ms of its CUDA-event window."""
+    from apnerf_tpu_torch.config import PipelineConfig
+    from apnerf_tpu_torch.models import spectral
+    from apnerf_tpu_torch.ops.cuda import build, fused_field_heads as ffh
+    from apnerf_tpu_torch.train.flagship import make_spectral_config
+
+    gen = _generator(dev, 8)
+    cfg = cfg or PipelineConfig()
+    s_cfg = make_spectral_config(cfg)
+    R, S = 4096, 256
+    field = spectral.init_spectral(s_cfg, gen, dev)
+    pos, dirs, _, _, _ = _render_inputs(gen, dev, R, S, cfg.aabb)
+    with torch.inference_mode():
+        u, sh = spectral._packed_inputs(s_cfg, pos, dirs)
+        fld = ffh.prepare_field("fused_field_heads", list(field.parameters()), dev)
+        y = torch.empty((R * S, 4 + fld.C), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch():
+            if ffh.launch_field_rows(build.library(), fld, u.data_ptr(), sh.data_ptr(),
+                                     y.data_ptr(), R * S, S, stream) != 0:
+                fail("the packed field kernel did not launch")
+
+        ms = cuda_ms(launch)
+    print(f"field kernels alone: fused_field_heads without the wrapper (weights repacked "
+          f"once) N={R * S} at {cfg.num_semantic_classes} classes, geo {cfg.geo_feat_dim}: "
+          f"{ms:.4f} ms", flush=True)
+    return ms
 
 
 def all_counters():
@@ -1116,23 +1242,24 @@ def _flat(tree, prefix=""):
     return out
 
 
-def phase_k6(dev):
+def phase_k6(dev, cfg=None, limits=None):
     """The train-step kernel against its plain version at the train shape
     → (max-abs error of the weights, kernel ms, plain ms, bound), zero
-    biases."""
+    biases; the bench configuration's field at ``K6_TOL``, or ``cfg``'s at
+    ``limits``."""
     from apnerf_tpu_torch import bench
     from apnerf_tpu_torch.models import spectral
     from apnerf_tpu_torch.ops.cuda import fused_field_volrend as fvr
     from apnerf_tpu_torch.train.flagship import make_spectral_config
 
     gen = _generator(dev, 6)
-    cfg = bench.bench_config()
+    cfg = cfg or bench.bench_config()
     s_cfg = make_spectral_config(cfg)
     R, S = cfg.num_rays, cfg.max_samples_train
     field = spectral.init_spectral(s_cfg, gen, dev)
     inputs = _k6_inputs(gen, dev, R, S, cfg.num_semantic_classes, cfg.aabb)
     record = None
-    for case, (w_tol, l_tol, g_tol, leaf_tol) in K6_TOL.items():
+    for case, (w_tol, l_tol, g_tol, leaf_tol) in (limits or K6_TOL).items():
         if case == "random biases":
             with torch.no_grad():
                 for name, p in field.named_parameters():
@@ -1400,9 +1527,10 @@ def phase_train(dev):
     return data, run
 
 
-def profile_member_step(dev, state, ds, route, fused_prop=False, rows=20):
+def profile_member_step(dev, state, ds, route, fused_prop=False, rows=20, cfg=None):
     """One member step of ``route`` from ``state`` traced with
-    ``torch.profiler``: device time by kernel and the device's idle share."""
+    ``torch.profiler``: device time by kernel and the device's idle share;
+    the bench configuration's field, or ``cfg``'s."""
     import copy
 
     from torch.autograd import DeviceType
@@ -1413,7 +1541,7 @@ def profile_member_step(dev, state, ds, route, fused_prop=False, rows=20):
     from apnerf_tpu_torch.train.step import AdamState
 
     batch, noise = _step_inputs(dev, ds, 123)
-    core = make_flagship_member_core(bench.bench_config(), route, fused_prop=fused_prop)
+    core = make_flagship_member_core(cfg or bench.bench_config(), route, fused_prop=fused_prop)
     member = copy.deepcopy(state.members[0])
     opt = AdamState(*(t.clone() for t in state.opt[0]))
     core(member, opt, batch, state.step, noise=noise)
@@ -1692,10 +1820,11 @@ def _check_groups(label, got, ref, groups, tols, absolute=()):
     return readings
 
 
-def phase_k4(dev):
+def phase_k4(dev, cfg=None, limits=None):
     """The packed field kernel against its plain version at the candidate
     render's shape → (max-abs error of rgb with zero biases, kernel ms,
-    plain ms, bound)."""
+    plain ms, bound); ``PipelineConfig()``'s field at ``K4_TOL``, or
+    ``cfg``'s at ``limits``."""
     from apnerf_tpu_torch.config import PipelineConfig
     from apnerf_tpu_torch.models import spectral
     from apnerf_tpu_torch.ops.cuda.fused_field_heads import (
@@ -1705,7 +1834,7 @@ def phase_k4(dev):
     from apnerf_tpu_torch.train.flagship import make_spectral_config
 
     gen = _generator(dev, 8)
-    cfg = PipelineConfig()
+    cfg = cfg or PipelineConfig()
     s_cfg = make_spectral_config(cfg)
     R, S, C = 4096, 256, cfg.num_semantic_classes
     field = spectral.init_spectral(s_cfg, gen, dev)
@@ -1714,7 +1843,7 @@ def phase_k4(dev):
     record = None
     with torch.inference_mode():
         u, sh = spectral._packed_inputs(s_cfg, pos, dirs)
-        for case, tols in K4_TOL.items():
+        for case, tols in (limits or K4_TOL).items():
             if case == "random biases":
                 _set_random_biases(field, gen, dev)
             leaves = list(field.parameters())
@@ -1745,10 +1874,12 @@ def phase_k4(dev):
     return record
 
 
-def phase_k5(dev):
+def phase_k5(dev, cfg=None, limits=None, shapes=((25600, 256), (4096, 512))):
     """The fused field-and-render kernel against its plain version at the
     evaluation's shape and at S = 512 → (max-abs error of the weights with
-    zero biases at the evaluation's shape, kernel ms, plain ms, bound)."""
+    zero biases at the evaluation's shape, kernel ms, plain ms, bound);
+    ``PipelineConfig()``'s field at ``K5_TOL``, or ``cfg``'s at
+    ``limits``."""
     from apnerf_tpu_torch.config import PipelineConfig
     from apnerf_tpu_torch.models import spectral
     from apnerf_tpu_torch.ops.cuda.fused_field_volrend import (
@@ -1759,13 +1890,13 @@ def phase_k5(dev):
     from apnerf_tpu_torch.train.flagship import make_spectral_config
 
     gen = _generator(dev, 9)
-    cfg = PipelineConfig()
+    cfg = cfg or PipelineConfig()
     s_cfg = make_spectral_config(cfg)
     C = cfg.num_semantic_classes
     groups = {"rgb": slice(0, 3), "opacity": slice(3, 4), "depth": slice(4, 5),
               "sem": slice(5, 5 + C)}
     record = None
-    for R, S in ((25600, 256), (4096, 512)):
+    for R, S in shapes:
         field = spectral.init_spectral(s_cfg, gen, dev)
         pos, dirs, t0_, t1_, miss = _render_inputs(gen, dev, R, S, cfg.aabb)
         with torch.inference_mode():
@@ -1773,7 +1904,7 @@ def phase_k5(dev):
             dt = ((t1_ - t0_) * (~miss)[:, None]).reshape(-1).contiguous()
             tm = (0.5 * (t0_ + t1_)).reshape(-1).contiguous()
             del pos
-            for case, tols in K5_TOL.items():
+            for case, tols in (limits or K5_TOL).items():
                 if case == "random biases":
                     _set_random_biases(field, gen, dev)
                 leaves = list(field.parameters())
@@ -2349,22 +2480,27 @@ def diagnose_width(label, field, s_cfg, inputs, render, k6):
               + f", K5 sem {_errs(sp, sv)[1]:.3e}", flush=True)
 
 
-def _width_config(M, H):
-    """``PipelineConfig()`` at M frequencies and an H-wide trunk."""
+def _width_config(M, H, geo=None, classes=None):
+    """``PipelineConfig()`` at M frequencies and an H-wide trunk (and, where
+    given, ``geo`` geometry features and ``classes`` semantic classes)."""
     from apnerf_tpu_torch.config import PipelineConfig
     from apnerf_tpu_torch.train.flagship import make_spectral_config
 
     cfg = dataclasses.replace(PipelineConfig(), n_levels=M // 8, spectral_neurons=H,
                               spectral_layers=2 if H == 128 else 3)
+    if geo is not None:
+        cfg = dataclasses.replace(cfg, geo_feat_dim=geo, num_semantic_classes=classes)
     s_cfg = make_spectral_config(cfg)
     if (s_cfg.n_freqs, s_cfg.neurons) != (M, H):
         fail(f"the width configuration gives M={s_cfg.n_freqs} H={s_cfg.neurons}, not {M}, {H}")
     return cfg, s_cfg
 
 
-def phase_widths(dev, pairs=None):
+def phase_widths(dev, pairs=None, shapes=WIDTH_SHAPES, tols=None):
     """Every instance of the tile, and the padded trunks, against the plain
-    versions (above) → {(M, H): {kernel: ms}}, zero biases."""
+    versions (above) → {(M, H): {kernel: ms}}, zero biases. ``pairs``: (M,
+    H) or (M, H, geo, classes) of the fields to run instead; ``tols(case,
+    field)`` their limits (``_width_tols``'s form)."""
     from apnerf_tpu_torch.models import spectral
     from apnerf_tpu_torch.ops.cuda import field_images
     from apnerf_tpu_torch.ops.cuda import fused_field_heads as ffh
@@ -2372,9 +2508,11 @@ def phase_widths(dev, pairs=None):
     from apnerf_tpu_torch.ops.cuda import fused_mlp as fm
 
     times = {}
-    for (M, H), (R, S) in ((w, s) for w in pairs or WIDTH_FIELDS for s in WIDTH_SHAPES):
+    tols = tols or _width_tols
+    for width, (R, S) in ((w, s) for w in pairs or WIDTH_FIELDS for s in shapes):
+        M, H = width[:2]
         gen = _generator(dev, 17)
-        cfg, s_cfg = _width_config(M, H)
+        cfg, s_cfg = _width_config(*width)
         C = cfg.num_semantic_classes
         field = spectral.init_spectral(s_cfg, gen, dev)
         names = [n for n, _ in field.named_parameters()]
@@ -2387,10 +2525,11 @@ def phase_widths(dev, pairs=None):
         for case in ("zero biases", "random biases"):
             if case == "random biases":
                 _set_random_biases(field, gen, dev)
-            timed = case == "zero biases" and (R, S) == WIDTH_SHAPES[0]
-            k4_tol, k5_tol, (w_tol, l_tol, g_tol, g_leaf), bwd_tols = _width_tols(case, (M, H))
+            timed = case == "zero biases" and (R, S) == shapes[0]
+            k4_tol, k5_tol, (w_tol, l_tol, g_tol, g_leaf), bwd_tols = tols(case, width)
             leaves = list(field.parameters())
-            label = (f"widths M={M} H={H} layers={s_cfg.layers} rows {R}x{S}={R * S} [{case}]")
+            label = (f"widths M={M} H={H} layers={s_cfg.layers} geo={s_cfg.geo_feat_dim} "
+                     f"C={C} rows {R}x{S}={R * S} [{case}]")
             with torch.inference_mode():
                 yk = ffh.fused_field_heads(leaves, u, sh, S)
                 torch.cuda.synchronize()
@@ -2430,7 +2569,7 @@ def phase_widths(dev, pairs=None):
                         for i in range(3))
             print(f"{label} K6: weights max_abs {w_err:.3e} (tol {w_tol}), loss terms rel "
                   f"{l_err:.3e} (tol {l_tol})", flush=True)
-            if ((M, H), case) in WIDTH_OWN_TOL and (R, S) == WIDTH_SHAPES[0]:
+            if (width, case) in WIDTH_OWN_TOL and (R, S) == shapes[0]:
                 diagnose_width(label, field, s_cfg, inputs, (u, sh, dt, tm, S), (lk, wk))
             if not (w_err <= w_tol and l_err <= l_tol):
                 fail(f"{label}: the train-step kernel disagrees with its plain version")
@@ -2473,9 +2612,9 @@ def phase_widths(dev, pairs=None):
                 del gk, duk, gp, dup
             del g_acc, g_w, g_y, g_h
         if ms:
-            print(f"widths M={M} H={H}: kernel ms at {R} x {S} "
+            print(f"widths {width}: kernel ms at {R} x {S} "
                   + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
-            times[M, H] = ms
+            times[width] = ms
         del field, leaves, inputs, u, sh, dt, tm, pos
         torch.cuda.empty_cache()
     if pairs is None:
@@ -2618,6 +2757,265 @@ def phase_member_widths(dev, bench_run):
     if not (np.isfinite(last) and last < first):
         fail(f"training at spectral_neurons=128 did not lower the loss ({first} -> {last})")
     compare_member_step(dev, state, ds, seed=123, cfg=cfg, tols=WIDTH_STEP_TOL)
+
+
+# ---- 26. the field tile past 64 classes and 15 geometry features
+#
+# (M, H, geo, classes) of the fields held to their plain versions, each on
+# its tier (T_out, C_pad): (32, 128), (48, 256), (32, 256), (16, 128)
+WIDE_FIELDS = ((128, 256, 31, 101), (128, 256, 47, 256), (256, 512, 31, 150), (32, 64, 15, 65))
+WIDE_GEO, WIDE_CLASSES = 31, 101  # the main path's field: fakeprod's widths, --sem-num 101
+WIDE_LOOP_TRAJ, WIDE_LOOP_STEPS = 4, 20  # the loop's depth: candidates, train steps a phase
+WIDE_KERNELS = ("fused_field_heads", "fused_field_heads_bwd", "fused_field_volrend",
+                "fused_field_volrend_bwd", "fused_field_volrend_lossgrad")
+# Limits of phase 26, about 2x the largest reading on an H100 (PERF.md; the
+# kernels and the plain versions are deterministic, seeded inputs), each
+# checked at run time to lie under a zeroed and a negated output's reading.
+# K4, K5 and K6 at the main paths' shapes with the 101-class, geo-31 field
+# (phases 8, 9 and 6's forms): sigma with zero biases reads 1.3e-6 of its
+# scale at 1,048,576 rows (the shipping field 3.0e-7): the trunk output's
+# f32 sums over 32 columns come in another order than the plain chain's.
+WIDE_K4_TOL = {
+    "zero biases": {"rgb": 8e-3, "sigma": 2.6e-6, "sem": 7e-3},
+    "random biases": {"rgb": 1.8e-2, "sigma": 1.7e-2, "sem": 2e-2},
+}
+WIDE_K5_TOL = {
+    "zero biases": {"weights": 2.5e-7, "rgb": 7e-4, "opacity": 2.7e-4, "depth": 3.5e-4,
+                    "sem": 6e-4},
+    "random biases": {"weights": 2.8e-3, "rgb": 9e-3, "opacity": 5.5e-3, "depth": 5e-3,
+                      "sem": 8e-3},
+}
+WIDE_K6_TOL = {
+    "zero biases": (5.5e-7, 2e-5, 1.2e-2, {}),
+    "random biases": (1e-2, 4e-4, 1.8e-2, {"W": 1.9e-1, "phase": 2.2e-1, "mlp_base.w0": 3e-2}),
+}
+# the fields of WIDE_FIELDS at 512 x 128 (``_width_tols``'s form): (K4's, K5's,
+# K6's (weights, loss, gradient, leaf limits), each backward's (limit, leaf
+# limits)), over the largest reading of the four fields
+_WIDE_RENDER_BWD = {
+    "zero biases": (9e-3, {"W": 2.6e-2, "phase": 2.7e-2, "du": 1.6e-2}),
+    "random biases": (2.8e-2, {"W": 2.3e-1, "phase": 2.1e-1, "mlp_base.w0": 9.5e-2, "du": 3.5e-1}),
+}
+WIDE_WIDTH_TOL = {
+    "zero biases": (
+        {"rgb": 6e-3, "sigma": 2.5e-6, "sem": 7e-3},
+        {"weights": 5e-7, "rgb": 6e-4, "opacity": 1.2e-5, "depth": 5e-4, "sem": 9e-4},
+        (3e-7, 1.5e-4, 1.1e-2, {"W": 1.6e-2, "phase": 1.7e-2}),
+        {"fused_field_heads_bwd": _WIDE_RENDER_BWD["zero biases"],
+         "fused_field_volrend_bwd": _WIDE_RENDER_BWD["zero biases"],
+         "fused_spectral_field_bwd": (9e-3, {"W": 1.6e-2, "phase": 1.9e-2, "du": 1.2e-2})}),
+    "random biases": (
+        {"rgb": 2.8e-2, "sigma": 2.6e-2, "sem": 2.2e-2},
+        {"weights": 5e-3, "rgb": 9e-3, "opacity": 8e-3, "depth": 8e-3, "sem": 1.3e-2},
+        (6e-3, 4.5e-4, 4e-2, {"W": 2.3e-1, "phase": 2.6e-1, "mlp_base.w0": 9e-2}),
+        {"fused_field_heads_bwd": _WIDE_RENDER_BWD["random biases"],
+         "fused_field_volrend_bwd": _WIDE_RENDER_BWD["random biases"],
+         "fused_spectral_field_bwd": (2.8e-2, {"W": 1.6e-1, "phase": 1.7e-1, "w0": 8e-2,
+                                               "du": 3.5e-1})}),
+}
+
+
+def _wide_tols(case, width):
+    """The limits of the fields of ``WIDE_FIELDS`` (``_width_tols``'s form)."""
+    return WIDE_WIDTH_TOL[case]
+
+
+def _wide_config(cfg):
+    """``cfg`` with the main path's wide field: ``WIDE_GEO`` geometry
+    features and ``WIDE_CLASSES`` classes."""
+    return dataclasses.replace(cfg, geo_feat_dim=WIDE_GEO, num_semantic_classes=WIDE_CLASSES)
+
+
+def phase_wide(dev, bench_run):
+    """Fields past the set refused on the card (``wide_refusals``); K4
+    fwd/bwd, K5 fwd/bwd and K6 on the tile's wider tiers against their
+    plain versions (``WIDE_FIELDS`` at 512 x 128, zero and random biases);
+    K4 fwd, K5 fwd and K6 at the main paths' shapes with the 101-class,
+    geo-31 field; the bench protocol at that field's full width (a warm-up
+    and a timed chunk of 100 steps on the bench's scan, exact launches),
+    one member step against the plain versions and one traced; then one
+    planning step of ``active.pipeline --sem-num 101`` at
+    ``config_fakeprod.yaml``'s width with ``geo_feat_dim: 31`` → ({kernel:
+    record at the wide field}, {kernel: ms at 512 x 128 by field}, the
+    bench's result, the loop's launches)."""
+    from apnerf_tpu_torch import bench
+    from apnerf_tpu_torch.config import PipelineConfig
+    from apnerf_tpu_torch.ops.cuda import fused_field_volrend as fvr
+    from apnerf_tpu_torch.ops.cuda.fused_mlp import fused_spectral_field
+    from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
+        fused_render_weights,
+        fused_render_weights_bwd,
+    )
+    from apnerf_tpu_torch.train.flagship import default_route, make_spectral_config
+
+    t_phase = time.perf_counter()
+    wide_refusals(dev)
+    times = phase_widths(dev, WIDE_FIELDS, shapes=WIDTH_SHAPES[:1], tols=_wide_tols)
+    records = {
+        "fused_field_heads": phase_k4(dev, _wide_config(PipelineConfig()), WIDE_K4_TOL),
+        "fused_field_volrend": phase_k5(dev, _wide_config(PipelineConfig()), WIDE_K5_TOL,
+                                        shapes=((25600, 256),)),
+        "fused_field_volrend_lossgrad": phase_k6(dev, _wide_config(bench.bench_config()),
+                                                 WIDE_K6_TOL),
+    }
+    # device times beside the shipping field's, in turns: K6's kernels, K4's launch alone
+    device = {"fused_field_volrend_lossgrad": [], "fused_field_heads": []}
+    for wide in (False, True, True, False):
+        device["fused_field_volrend_lossgrad"].append(k6_device_time(
+            dev, cfg=_wide_config(bench.bench_config()) if wide else None))
+        device["fused_field_heads"].append(k4_launch_ms(
+            dev, _wide_config(PipelineConfig()) if wide else None))
+    for name, (s1, w1, w2, s2) in device.items():
+        records[name] += ({"device_ms": (w1 + w2) / 2, "shipping_device_ms": (s1 + s2) / 2},)
+    t_kernels = time.perf_counter() - t_phase
+
+    cfg = _wide_config(bench.bench_config())
+    s_cfg = make_spectral_config(cfg)
+    if (s_cfg.geo_feat_dim, s_cfg.num_semantic_classes, default_route(s_cfg)) != (
+            WIDE_GEO, WIDE_CLASSES, "lossgrad"):
+        fail(f"the wide member step runs geo {s_cfg.geo_feat_dim} classes "
+             f"{s_cfg.num_semantic_classes} on {default_route(s_cfg)}")
+    counters = (fused_spectral_field, fused_render_weights, fused_render_weights_bwd,
+                fvr.fused_field_volrend_lossgrad)
+    counts = {}
+
+    @contextlib.contextmanager
+    def timed():
+        for c in counters:
+            c.launches = 0
+        yield
+        counts.update({c.__name__: c.launches for c in counters})
+
+    run = bench.run(dev, timed=timed, n_calls=1, data=bench_run[0], cfg=cfg)
+    res = run.result
+    E, n = cfg.n_ensembles, res["timed_steps"]
+    print(f"wide member step (geo {WIDE_GEO}, {WIDE_CLASSES} classes, 3x256 on 16x8 "
+          f"frequencies, route lossgrad): {res['ms_per_step']:.3f} ms per step over {n} timed "
+          f"steps (phase {res['phase_ms_per_step']:.3f}), {res['value']:.6e} samples/s; the "
+          f"29-class field's {bench_run[1].result['ms_per_step']:.3f} ms (phase 7); final loss "
+          f"{res['final_loss']:.6f}, canary {res['psnr_100steps']:.3f} dB after 200 steps; "
+          f"launches {counts}", flush=True)
+    expected = {"fused_field_volrend_lossgrad": E * n, "fused_render_weights_bwd": E * n,
+                "fused_render_weights": 2 * E * n, "fused_spectral_field": E}
+    if counts != expected:
+        fail(f"wide member step launch counts {counts}, expected {expected}")
+    if not (np.isfinite(res["final_loss"]) and res["final_loss"] < float(run.losses[:10].mean())):
+        fail(f"the wide member steps' loss is not finite or did not fall: {res['final_loss']}")
+    compare_member_step(dev, run.state, run.dataset, seed=123, cfg=cfg)
+    profile_member_step(dev, run.state, run.dataset, "lossgrad", cfg=cfg)
+    del run
+    t_steps = time.perf_counter() - t_phase - t_kernels
+    loop_counts = phase_wide_loop(dev)
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s (kernels {t_kernels:.1f} s, member "
+          f"steps {t_steps:.1f} s, the loop the rest)", flush=True)
+    return records, times, res, loop_counts
+
+
+def wide_refusals(dev):
+    """Fields past the set (257 classes, 48 geometry features, a 1024-wide
+    trunk) on the card: every main-field kernel's wrapper raises before any
+    launch, naming the set, and no counter moves."""
+    from apnerf_tpu_torch.models import spectral
+    from apnerf_tpu_torch.ops.cuda import fused_field_heads as ffh
+    from apnerf_tpu_torch.ops.cuda import fused_field_volrend as fvr
+    from apnerf_tpu_torch.train.flagship import make_spectral_config
+
+    gen = _generator(dev, 26)
+    R, S = 64, 8
+    counters = all_counters()
+    reset_counts(counters)
+    for H, geo, classes in ((256, 15, 257), (256, 48, 29), (1024, 15, 29)):
+        cfg = dataclasses.replace(_width_config(128, 256)[0], spectral_neurons=H,
+                                  geo_feat_dim=geo, num_semantic_classes=classes)
+        s_cfg = make_spectral_config(cfg)
+        leaves = list(spectral.init_spectral(s_cfg, gen, dev).parameters())
+        pos, dirs, t0_, t1_, miss = _render_inputs(gen, dev, R, S, cfg.aabb)
+        u, sh = spectral._packed_inputs(s_cfg, pos, dirs)
+        dt = ((t1_ - t0_) * (~miss)[:, None]).reshape(-1).contiguous()
+        tm = (0.5 * (t0_ + t1_)).reshape(-1).contiguous()
+        inputs = _k6_inputs(gen, dev, R, S, classes, cfg.aabb)[5:]
+        for name, call in (
+            ("fused_field_heads", lambda: ffh.fused_field_heads(leaves, u, sh, S)),
+            ("fused_field_volrend", lambda: fvr.fused_field_volrend(leaves, u, sh, dt, tm, S)),
+            ("fused_field_volrend_lossgrad", lambda: fvr.fused_field_volrend_lossgrad(
+                leaves, u, sh, dt, tm, *inputs, S)),
+        ):
+            try:
+                with torch.no_grad():
+                    call()
+            except ValueError as e:
+                if "geo 1..47, classes 1..256" not in str(e):
+                    fail(f"{name} refused H={H} geo {geo} classes {classes} without naming the "
+                         f"set: {e}")
+            else:
+                fail(f"{name} took H={H} geo {geo} classes {classes} on the card")
+        print(f"wide refusals: H={H} geo {geo} classes {classes}: K4, K5 and K6 raise before any "
+              f"launch", flush=True)
+    if any(read_counts(counters).values()):
+        fail(f"a refused field launched a kernel: {read_counts(counters)}")
+
+
+def phase_wide_loop(dev):
+    """One planning step of the loop through its CLI entry at
+    ``config_fakeprod.yaml``'s width with ``geo_feat_dim: 31`` and
+    ``--sem-num 101``, its depth cut to ``WIDE_LOOP_TRAJ`` candidates, train
+    phases of ``WIDE_LOOP_STEPS`` steps and one test location: finite
+    losses, finite evaluation rows, exact launches → the loop's launches."""
+    import yaml
+
+    from apnerf_tpu_torch.active import pipeline
+    from apnerf_tpu_torch.ops.cuda import build
+
+    with open(build.REPO_ROOT / "configs" / "config_fakeprod.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw.update(planning_step=1, training_steps=WIDE_LOOP_STEPS, num_traj=WIDE_LOOP_TRAJ,
+               geo_feat_dim=WIDE_GEO, test_loc=LOOP_TEST_LOC[:1],
+               save_path=str(build.BUILD_DIR / "chip_smoke_wide_loop"))
+    cfg_path = build.BUILD_DIR / "chip_smoke_wide_loop.yaml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    from apnerf_tpu_torch.active.mapper import ActiveNeRFMapper
+
+    counters = all_counters()
+    walls = {}
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _timed_methods(ActiveNeRFMapper, LOOP_TIMED, walls):
+        mapper = pipeline.main(["--sim", "fake", "--sem-num", str(WIDE_CLASSES), "--device",
+                                str(dev), "--config", str(cfg_path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(counters)
+    cfg = mapper.cfg
+    rows = np.asarray(mapper.errors_hist)
+    print(f"wide loop: {cfg_path.name} = config_fakeprod.yaml with geo_feat_dim {WIDE_GEO}, "
+          f"--sem-num {WIDE_CLASSES}, planning_step 1, num_traj {WIDE_LOOP_TRAJ}, "
+          f"training_steps {WIDE_LOOP_STEPS}, 1 test location: {wall:.1f} s of wall; host wall "
+          f"by method (calls, seconds): "
+          + ", ".join(f"{k} ({c}, {t:.2f})" for k, (c, t) in walls.items())
+          + f"; evaluation rows {rows.tolist()}; launches {counts}", flush=True)
+    if (cfg.num_semantic_classes, cfg.geo_feat_dim, cfg.img_w, cfg.num_rays) != (
+            WIDE_CLASSES, WIDE_GEO, 640, 2048):
+        fail("the wide loop did not run at its widths")
+    losses = [float(l) for phase in mapper.loss_hist for l in phase]
+    if not np.isfinite(losses).all() or rows.shape != (3, 4) or not np.isfinite(rows).all():
+        fail(f"the wide loop's losses or evaluation rows are not finite: {rows}")
+    E = cfg.n_ensembles
+    ran = len(losses) + mapper.refit_discarded_steps
+    chunks = sum(-(-len(phase) // mapper.steps_per_call) for phase in mapper.loss_hist)
+    renders = cfg.planning_step * cfg.num_traj * N_VIEWS * E
+    eval_renders = 3 * len(mapper._test_poses) * E
+    expected = dict.fromkeys(counts, 0)
+    expected.update({
+        "fused_field_volrend_lossgrad": E * ran, "fused_render_weights_bwd": E * ran,
+        "fused_spectral_field": E * chunks, "fused_field_heads": renders,
+        "fused_field_volrend": eval_renders,
+        "fused_render_weights": 2 * E * ran + 2 * renders + eval_renders,
+    })
+    if counts != expected:
+        fail(f"wide loop launch counts {counts}, expected {expected}")
+    return counts
 
 
 LOOP_ARTIFACTS = (

@@ -21,12 +21,15 @@ from apnerf_tpu_torch.ops.cuda import fused_mlp as t_fm
 
 CSRC = Path(fi.__file__).resolve().parents[2] / "csrc"
 # (M, H, hidden layers, geo, classes): the shipping field at its depths and
-# narrow heads' widths, then every instance and widths between them
+# narrow heads' widths, then every instance and widths between them, then
+# the wider tiers (geo past 15, classes past 64) on every instance
 FIELDS = [(128, 256, 3, 15, 29), (128, 256, 2, 15, 29), (128, 256, 3, 7, 5),
           (128, 256, 2, 3, 1)] + [
     (m, h, 2 + (i % 2), (7, 15, 1)[i % 3], (29, 5, 64)[i % 3])
     for i, (m, h) in enumerate(((32, 64), (64, 128), (32, 256), (256, 512), (48, 96),
-                                (16, 100), (128, 512), (40, 64)))]
+                                (16, 100), (128, 512), (40, 64)))] + [
+    (128, 256, 3, 31, 101), (32, 64, 2, 47, 256), (64, 128, 3, 15, 65), (16, 100, 3, 16, 3),
+    (48, 512, 2, 31, 150), (256, 512, 3, 47, 129)]
 
 
 def _leaves(shapes, seed=0):
@@ -83,7 +86,8 @@ def _pair_row(m, r):
 
 def _ref_trunk(trunk, m, n_kb, H, heads, out=16):
     """The trunk's forward and backward images, element by element; m
-    frequencies of the encode, or 0 for an input x."""
+    frequencies of the encode, or 0 for an input x; with the heads the
+    trunk output ``out`` columns wide (the tier's T_out)."""
     nh = len(trunk) - 1
     row = (lambda r: _enc_row(m, r)) if m else (lambda r: r)
     brow = (lambda r: _pair_row(m, r)) if m else (lambda r: r)
@@ -93,7 +97,10 @@ def _ref_trunk(trunk, m, n_kb, H, heads, out=16):
     for l in range(1, nh):
         for kb in range(H // 64):
             fwd.append(_ref_image(H, lambda n, k: _at(trunk[l], 64 * kb + k, n)))
-    for ch in range(1 if heads else -(-out // 16)):
+    if heads:
+        for kb in range(H // 64):
+            fwd.append(_ref_image(out, lambda n, k: _at(trunk[nh], 64 * kb + k, n)))
+    for ch in range(0 if heads else -(-out // 16)):
         for kb in range(H // 64):
             fwd.append(_ref_image(16, lambda n, k: _at(trunk[nh], 64 * kb + k, 16 * ch + n)))
     bwd = [_ref_image(H, lambda n, k: _at(trunk[nh], n, 64 * t + k))
@@ -111,24 +118,33 @@ def _ref_trunk(trunk, m, n_kb, H, heads, out=16):
     return fwd, bwd
 
 
-def _ref_field(leaves, m, H, n_hidden):
+def _tier(G, C):
+    """(T_out, C_pad): the first of (16, 64), (32, 128), (48, 256) that
+    takes 1 + G and C."""
+    return next(t for t in ((16, 64), (32, 128), (48, 256)) if 1 + G <= t[0] and C <= t[1])
+
+
+def _ref_field(leaves, m, H, n_hidden, t_out=16, c_tile=64):
     trunk = leaves[2: 2 + 2 * (n_hidden + 1): 2]
     head = leaves[2 + 2 * (n_hidden + 1):][0:6:2]
     semh = leaves[2 + 2 * (n_hidden + 1):][6:12:2]
     hh, hi = H // 4, fi.head_imgs(H)
-    fwd, bwd_trunk = _ref_trunk(trunk, m, fi.enc_blocks(m), H, heads=True)
+    fwd, bwd_trunk = _ref_trunk(trunk, m, fi.enc_blocks(m), H, heads=True, out=t_out)
     fwd += [_ref_image(hh, lambda n, k: _at(head[0], k, n)),
             _ref_image(hh, lambda n, k: _at(semh[0], k - 16, n))]
     fwd += [_ref_image(hh, lambda n, k: _at(w[1], 64 * kb + k, n))
             for w in (head, semh) for kb in range(hi)]
     fwd += [_ref_image(16, lambda n, k: _at(head[2], 64 * kb + k, n)) for kb in range(hi)]
-    fwd += [_ref_image(64, lambda n, k: _at(semh[2], 64 * kb + k, n)) for kb in range(hi)]
-    bwd = [_ref_image(hh, lambda n, k: _at(head[2], n, k)),
-           _ref_image(hh, lambda n, k: _at(semh[2], n, k))]
+    # the semantic output 64 columns a slab
+    fwd += [_ref_image(64, lambda n, k: _at(semh[2], 64 * kb + k, 64 * ch + n))
+            for ch in range(c_tile // 64) for kb in range(hi)]
+    bwd = [_ref_image(hh, lambda n, k: _at(head[2], n, k))]
+    bwd += [_ref_image(hh, lambda n, k: _at(semh[2], n, 64 * ch + k)) for ch in range(c_tile // 64)]
     bwd += [_ref_image(hh, lambda n, k: _at(w[1], n, 64 * kb + k))
             for w in (head, semh) for kb in range(hi)]
-    bwd += [_ref_image(32, lambda n, k: _at(head[0], n, 64 * kb + k)) for kb in range(hi)]
-    bwd += [_ref_image(32, lambda n, k: _at(semh[0], n - 16, 64 * kb + k)) for kb in range(hi)]
+    bwd += [_ref_image(16 + t_out, lambda n, k: _at(head[0], n, 64 * kb + k)) for kb in range(hi)]
+    bwd += [_ref_image(16 + t_out, lambda n, k: _at(semh[0], n - 16, 64 * kb + k))
+            for kb in range(hi)]
     return np.concatenate(fwd), np.concatenate(bwd + bwd_trunk)
 
 
@@ -165,24 +181,26 @@ def test_weight_images_match_the_reference(M, H, n_hidden, G, C):
     (the encoding's padded frequencies, the trunk's and the heads' units),
     the bias buffer holds every bias at its offset with zero padding, and
     the slab schedules cover the buffers exactly, every slab in one ring
-    slot."""
+    slot; at the field's tier (T_out, C_pad)."""
     leaves = _leaves(fi.leaf_layout(M, H, n_hidden, G, C).shapes)
     tensors = [torch.from_numpy(x) for x in leaves]
     w, (fwd, bwd, bias) = t_ffh.field_weights(tensors, torch.device("cpu"), M, H, n_hidden, G, C)
-    Hi, n_kb = fi.instance(H), fi.enc_blocks(M)
+    Hi, n_kb, (t_out, c_tile) = fi.instance(H), fi.enc_blocks(M), _tier(G, C)
+    assert fi.tier(G, C) == (t_out, c_tile)
     assert fwd.dtype == torch.bfloat16 and bwd.dtype == torch.bfloat16
-    assert (w.tile_h, w.n_hidden, w.geo, w.n_classes, w.n_freq, w.n_kb) == (
-        Hi, n_hidden, G, C, M, n_kb)
+    assert (w.tile_h, w.n_hidden, w.geo, w.n_classes, w.t_out, w.c_tile, w.n_freq, w.n_kb) == (
+        Hi, n_hidden, G, C, t_out, c_tile, M, n_kb)
     assert w.wfwd == fwd.data_ptr() and w.wbwd == bwd.data_ptr() and w.bias == bias.data_ptr()
-    ref_f, ref_b = _ref_field([_bf16(x) for x in leaves], M, Hi, n_hidden)
+    ref_f, ref_b = _ref_field([_bf16(x) for x in leaves], M, Hi, n_hidden, t_out, c_tile)
     assert np.array_equal(fwd.float().numpy(), ref_f)
     assert np.array_equal(bwd.float().numpy(), ref_b)
-    fs, bs = fi.fwd_slabs(Hi, n_hidden, n_kb), fi.bwd_slabs(Hi, n_hidden, fi.pair_blocks(M))
+    fs = fi.fwd_slabs(Hi, n_hidden, n_kb, True, 0, t_out, c_tile)
+    bs = fi.bwd_slabs(Hi, n_hidden, fi.pair_blocks(M), True, 0, t_out, c_tile)
     _check_slabs(fs, fwd)
     _check_slabs(bs, bwd)
     assert max(size for _, size in fs) <= fi.fwd_slot_bytes(Hi)
     assert max(size for _, size in bs) <= fi.bwd_slot_bytes(Hi)
-    offs = fi.bias_offsets(Hi, n_hidden)
+    offs = fi.bias_offsets(Hi, n_hidden, t_out, c_tile)
     got = bias.numpy()
     assert got.shape == (offs["total"],)
     biases = leaves[3::2]
@@ -244,14 +262,17 @@ def test_weight_images_invert(M, H, n_hidden, G, C):
     """Every weight comes back from the slabs: the forward image of a trunk
     layer is its transpose by 64-column blocks (the first layer's rows in
     the encoding's column order), the backward image the weight itself, and
-    the semantic head's first layer sits at rows 16.."""
+    the semantic head's first layer sits at rows 16.. (at every tier: the
+    head slabs before the trunk's are 2 + C_pad / 64)."""
     leaves = _leaves(fi.leaf_layout(M, H, n_hidden, G, C).shapes, seed=1)
     tensors = [torch.from_numpy(x) for x in leaves]
     _, (fwd, bwd, _) = t_ffh.field_weights(tensors, torch.device("cpu"), M, H, n_hidden, G, C)
     fwd, bwd = fwd.float().numpy(), bwd.float().numpy()
-    Hi, n_kb = fi.instance(H), fi.enc_blocks(M)
-    fs, bs = fi.fwd_slabs(Hi, n_hidden, n_kb), fi.bwd_slabs(Hi, n_hidden, fi.pair_blocks(M))
+    Hi, n_kb, (t_out, c_tile) = fi.instance(H), fi.enc_blocks(M), _tier(G, C)
+    fs = fi.fwd_slabs(Hi, n_hidden, n_kb, True, 0, t_out, c_tile)
+    bs = fi.bwd_slabs(Hi, n_hidden, fi.pair_blocks(M), True, 0, t_out, c_tile)
     hh, hi = Hi // 4, fi.head_imgs(Hi)
+    n_head = 2 + c_tile // 64  # the heads' backward slabs
     # the kernels' column of each row of w0, forward and backward
     order = np.argsort(np.where(fi.enc_rows(M) >= 0, fi.enc_rows(M), 1 << 30))[: 2 * M]
     b_order = np.argsort(np.where(fi.pair_rows(M) >= 0, fi.pair_rows(M), 1 << 30))[: 2 * M]
@@ -266,7 +287,7 @@ def test_weight_images_invert(M, H, n_hidden, G, C):
         assert not full[:, H:].any()
         first_fwd += n_kb_l
         if l == 0:
-            first = 4 + (n_hidden - 1) * Hi // 64
+            first = n_head + 1 + (n_hidden - 1) * Hi // 64
             g = fi.back_group(fi.pair_blocks(M)) or 1
             rows = 64 * g
             back = np.concatenate(
@@ -276,7 +297,7 @@ def test_weight_images_invert(M, H, n_hidden, G, C):
                  for grp in range(fi.back_blocks(fi.pair_blocks(M)) // g)], axis=0)
             assert np.array_equal(back[b_order][:, :H], w)  # [kernel column, unit]
         else:
-            first = 4 + (n_hidden - 1 - l) * Hi // 64
+            first = n_head + 1 + (n_hidden - 1 - l) * Hi // 64
             back = [_from_image(bwd[bs[first + kb][0] // 2:][: Hi * 64], Hi)
                     for kb in range(Hi // 64)]
             assert np.array_equal(np.concatenate(back, axis=1)[:H, :H], w)
@@ -286,7 +307,9 @@ def test_weight_images_invert(M, H, n_hidden, G, C):
     img = _from_image(fwd[fs[first_fwd][0] // 2 + hh * 64:][: hh * 64], hh)  # [n, k]
     assert np.array_equal(img[:hh_own, 16: 16 + G], sem0.T) and not img[:, :16].any()
     assert not img[:, 16 + G:].any() and not img[hh_own:].any()
-    back = np.concatenate([_from_image(bwd[bs[2][0] // 2 + (hi + kb) * 32 * 64:][: 32 * 64], 32)
+    rows = 16 + t_out
+    back = np.concatenate([_from_image(bwd[bs[n_head - 1][0] // 2 + (hi + kb) * rows * 64:]
+                                       [: rows * 64], rows)
                            for kb in range(hi)], axis=1)  # [n - 16, k]
     assert np.array_equal(back[16: 16 + G, :hh_own], sem0) and not back[:16].any()
 
@@ -302,48 +325,68 @@ def test_shared_memory_budgets_mirror_the_kernels(H, n_kb):
     """The Python mirrors of ``fwd_smem``, ``bwd_smem`` and ``dw_smem`` use
     the kernels' own constants, the instances are the kernels' own list, and
     every kernel of the tile fits one block's 232,448 bytes at each trunk
-    depth the wrappers accept, whatever the first layer's width (it streams
-    one k-block at a time: the budgets do not depend on it)."""
+    depth the wrappers accept and at each tier of the trunk output and
+    the classes, whatever the first layer's width (it streams one k-block at
+    a time: the budgets do not depend on it)."""
     tile, vol = _constants("field_tile.cuh"), _constants("fused_field_volrend.cu")
-    assert (tile["kShw"], tile["kTOut"], tile["kRgbPad"], tile["kCPad"]) == (
-        fi.SHW, fi.T_OUT, fi.RGB_PAD, fi.C_PAD)
+    assert (tile["kShw"], tile["kRgbPad"], tile["kSemChunk"], tile["kOutChunk"]) == (
+        fi.SHW, fi.RGB_PAD, fi.SEM_CHUNK, fi.OUT_CHUNK)
     assert vol["kDwStages"] == fi.DW_STAGES and tile["kBlockFreqs"] == fi.BLOCK_FREQS
     assert (tile["kTileRows"], tile["kAlignSlack"]) == (fi.TILE_ROWS, fi.ALIGN_SLACK)
     text = (CSRC / "field_tile.cuh").read_text()
     listed = text[text.index("#define APNERF_TILE_WIDTHS"):].split("\n")[0]
     assert tuple(int(a) for a in re.findall(r"X\((\d+)\)", listed)) == fi.WIDTHS
+    listed = text[text.index("#define APNERF_FIELD_TIERS"):].split("\n")[0]
+    tiers = re.findall(r"X\((\d+), (\d+), (\d+)\)", listed)
+    assert [int(t) for t, _, _ in tiers] == list(range(len(fi.TIERS)))
+    assert tuple((int(o), int(c)) for _, o, c in tiers) == fi.TIERS
+    assert (fi.MAX_GEO, fi.MAX_CLASSES) == (47, 256)
+    assert [fi.tier(g, c) for g, c in ((15, 64), (16, 1), (1, 65), (31, 128), (32, 5),
+                                       (3, 129), (47, 256))] == [
+        (16, 64), (32, 128), (32, 128), (32, 128), (48, 256), (48, 256), (48, 256)]
     assert fi.BUF_BYTES == 8 * fi.IMG_BYTES and fi.DW_STAGE_BYTES == 6 * fi.IMG_BYTES
     assert fi.MAX_SMEM == 232448
     assert (fi.split(H), fi.pass_rows(H), fi.stages(H)) == ((2, 64, 2) if H == 512 else (1, 128, 4))
     hh = H // 4
-    for n_hidden in (2, 3):
-        assert fi.bias_offsets(H, n_hidden)["total"] == n_hidden * H + 16 + 4 * hh + 16 + 64
-        for t_pad, mp in ((16, 32 * n_kb), (64 * n_kb, 0)):
+    for (t_out, c_tile), n_hidden in ((t, n) for t in fi.TIERS for n in (2, 3)):
+        assert fi.bias_offsets(H, n_hidden, t_out, c_tile)["total"] == (
+            n_hidden * H + t_out + 4 * hh + 16 + c_tile)
+        for t_pad, mp in ((t_out, 32 * n_kb), (64 * n_kb, 0)):
             assert fi.n_bias(H, n_hidden, t_pad, mp) == n_hidden * H + t_pad + 4 * hh + 4 * mp
-        fwd = fi.fwd_smem_bytes(H, n_hidden)
+        fwd = fi.fwd_smem_bytes(H, n_hidden, t_out, c_tile)
         # ring, the activation buffers, the biases rounded up to 128 bytes, two
         # tiles of coordinates per tile, the trunk output's staging, barriers, slack
         assert fwd == (fi.stages(H) * fi.fwd_slot_bytes(H) + 8 * 8192
-                       + -(-(n_hidden * H + H + 96) * 4 // 128) * 128 + 4 * 768 + 2 * 4096
-                       + 16 * fi.stages(H) + 1024)
+                       + -(-(n_hidden * H + H + t_out + 16 + c_tile) * 4 // 128) * 128
+                       + 4 * 768 + 2 * 4096 + 16 * fi.stages(H) + 1024)
         assert fwd <= fi.MAX_SMEM
-    # every slab of any schedule fits its slot, at both depths
+        # every slab of the whole field's schedules fits its slot
+        assert max(b for _, b in fi.fwd_slabs(H, n_hidden, n_kb, True, 0, t_out, c_tile)) <= \
+            fi.fwd_slot_bytes(H)
+        assert max(b for _, b in fi.bwd_slabs(H, n_hidden, n_kb, True, 0, t_out, c_tile)) <= \
+            fi.bwd_slot_bytes(H)
+    assert fi.fwd_smem_bytes(H, 3) == fi.fwd_smem_bytes(H, 3, 16, 64)
+    # every slab of the trunk alone's schedules fits its slot, at both depths
     for n_hidden in (2, 3):
-        assert max(b for _, b in fi.fwd_slabs(H, n_hidden, n_kb)) <= fi.fwd_slot_bytes(H)
-        assert max(b for _, b in fi.bwd_slabs(H, n_hidden, n_kb)) <= fi.bwd_slot_bytes(H)
         for out in (1, 17, 64, 300):
             assert max(b for _, b in fi.fwd_slabs(H, n_hidden, n_kb, False, out)) <= \
                 fi.fwd_slot_bytes(H)
             assert max(b for _, b in fi.bwd_slabs(H, n_hidden, n_kb, False, out)) <= \
                 fi.bwd_slot_bytes(H)
-    # the largest staging area (64 rows of 4 + 64 classes, f32) fits a
-    # tile's buffer; a tile's buffer holds a hidden activation and the
-    # heads' images (2 kHI activations twice, the input and gt's f32 copy)
+    # the staging areas fit a tile's buffer: at C_pad = 64 all of a tile's
+    # values (64 rows of 5 + 64 f32); past it the density and rgb over the
+    # rgb head's activation and a [64, 64] f32 chunk of logits past the
+    # heads' activations; a tile's buffer holds a hidden activation and the
+    # heads' images (2 kHI activations twice, the input and gt's f32 copy,
+    # [64, 48] f32 at T_out = 48 over the first two images)
     tile_bytes = fi.BUF_BYTES // (2 // fi.split(H))
-    assert 64 * (5 + fi.MAX_CLASSES) * 4 <= tile_bytes
+    assert 64 * (5 + 64) * 4 <= tile_bytes
+    assert 64 * 5 * 4 <= fi.IMG_BYTES * fi.head_imgs(H)
+    assert 2 * fi.head_imgs(H) * fi.IMG_BYTES + 64 * 64 * 4 <= tile_bytes
     assert H // 64 * fi.IMG_BYTES <= tile_bytes
     assert (4 * fi.head_imgs(H)) * fi.IMG_BYTES <= tile_bytes
     assert (2 * fi.head_imgs(H) + 2) * fi.IMG_BYTES <= tile_bytes
+    assert 64 * 32 * 4 <= fi.IMG_BYTES and 64 * 48 * 4 <= 2 * fi.IMG_BYTES
     bwd = fi.bwd_smem_bytes(H)
     assert bwd == (fi.stages(H) * max(H * 128, 32768) + 8 * 8192 + 2 * 768 + 2 * 8192
                    + 16 * fi.stages(H) + 1024) <= fi.MAX_SMEM
@@ -365,25 +408,31 @@ def _field(M=128, H=256, hh=None, G=15, C=29, n_hidden=3):
 
 def test_wrappers_refuse_what_the_tile_does_not_take():
     """Every field from H = 4 to 512 with heads H // 4 goes, on any number
-    of frequencies (H = 96, H = 512 and M = 256 among them); widths past the
-    set's edges (H = 1024, heads other than H // 4, geo 16, classes 65) and
-    another depth raise before any launch, on shapes alone, with a message
-    that names the set; the trunk alone takes any H up to 512, any output
-    and the encode or an input a multiple of 16 wide; a tensor that is
-    neither on the CPU nor on a card raises on every entry."""
+    of frequencies (H = 96, H = 512 and M = 256 among them), with 1 to 47
+    geometry features and 1 to 256 classes (geo 16 and 31, classes 65 and
+    256 among them); widths past the set's edges (H = 1024, heads other
+    than H // 4, geo 48, classes 257) and another depth raise before any
+    launch, on shapes alone, with a message that names the set; the trunk
+    alone takes any H up to 512, any output and the encode or an input a
+    multiple of 16 wide; a tensor that is neither on the CPU nor on a card
+    raises on every entry."""
     good = fi.leaf_layout(128, 256, 3, 15, 29).shapes
     assert fi.check_widths("t", good) == (128, 256, 3, 15, 29)
     assert fi.check_widths("t", fi.leaf_layout(128, 256, 2, 4, 64).shapes) == (128, 256, 2, 4, 64)
+    for G, C in ((16, 29), (31, 101), (15, 65), (47, 256), (1, 256), (47, 1)):
+        assert fi.check_widths("t", _field(G=G, C=C)) == (128, 256, 3, G, C)
+        assert fi.check_widths("t", _field(M=256, H=512, G=G, C=C)) == (256, 512, 3, G, C)
     for m, h in ((32, 64), (64, 128), (128, 256), (256, 512), (48, 96), (16, 100), (1, 4),
                  (300, 512)):
         assert fi.check_widths("t", _field(M=m, H=h, G=1, C=1)) == (m, h, 3, 1, 1)
     assert fi.check_widths("t", _field(H=96)) == (128, 96, 3, 15, 29)
     assert fi.check_widths("t", _field(M=256, H=512)) == (256, 512, 3, 15, 29)
 
-    for bad in (dict(H=1024), dict(hh=32), dict(H=128, hh=64), dict(H=512, hh=64), dict(G=16),
-                dict(C=65), dict(H=3, hh=0)):
+    for bad in (dict(H=1024), dict(hh=32), dict(H=128, hh=64), dict(H=512, hh=64), dict(G=48),
+                dict(C=257), dict(G=48, C=257), dict(H=3, hh=0)):
         with pytest.raises(ValueError, match=r"unsupported widths.*instances H in \(64, 128, "
-                                             r"256, 512\): H 4\.\.512 with heads H // 4"):
+                                             r"256, 512\): H 4\.\.512 with heads H // 4.*geo "
+                                             r"1\.\.47, classes 1\.\.256"):
             fi.check_widths("t", _field(**bad))
     for n_hidden in (1, 4):
         with pytest.raises(ValueError, match="2 or 3 hidden layers"):
@@ -453,27 +502,33 @@ def test_field_launch_plan(n_sm):
             assert seen == list(range(n_pass))
 
 
-@pytest.mark.parametrize("H,n_hidden,n_kb,n_tiles,n_sm,heads,out", [
-    (256, 3, 4, 4096, 132, True, 0), (256, 2, 4, 4096, 132, True, 0), (256, 3, 4, 2, 132, True, 0),
-    (256, 3, 4, 4096, 16, True, 0), (256, 2, 4, 37, 114, True, 0), (64, 3, 1, 4096, 132, True, 0),
-    (128, 2, 2, 4096, 132, True, 0), (256, 3, 1, 1024, 132, True, 0),
-    (64, 3, 4, 4096, 132, True, 0), (512, 3, 8, 2048, 132, True, 0),
-    (256, 3, 4, 4096, 132, False, 16), (64, 2, 1, 2048, 132, False, 1),
-    (128, 3, 2, 512, 132, False, 64), (64, 2, 4, 4096, 132, False, 17),
-    (512, 3, 8, 1024, 132, False, 32), (256, 3, 23, 4096, 132, False, 300)])
-def test_weight_gradient_launch_plan(H, n_hidden, n_kb, n_tiles, n_sm, heads, out):
+@pytest.mark.parametrize("H,n_hidden,n_kb,n_tiles,n_sm,heads,out,c_tile", [
+    (256, 3, 4, 4096, 132, True, 0, 64), (256, 2, 4, 4096, 132, True, 0, 64),
+    (256, 3, 4, 2, 132, True, 0, 64), (256, 3, 4, 4096, 16, True, 0, 64),
+    (256, 2, 4, 37, 114, True, 0, 64), (64, 3, 1, 4096, 132, True, 0, 64),
+    (128, 2, 2, 4096, 132, True, 0, 64), (256, 3, 1, 1024, 132, True, 0, 64),
+    (64, 3, 4, 4096, 132, True, 0, 64), (512, 3, 8, 2048, 132, True, 0, 64),
+    (256, 3, 4, 4096, 132, False, 16, 64), (64, 2, 1, 2048, 132, False, 1, 64),
+    (128, 3, 2, 512, 132, False, 64, 64), (64, 2, 4, 4096, 132, False, 17, 64),
+    (512, 3, 8, 1024, 132, False, 32, 64), (256, 3, 23, 4096, 132, False, 300, 64),
+    (256, 3, 4, 4096, 132, True, 0, 128), (256, 3, 4, 4096, 132, True, 0, 256),
+    (64, 2, 1, 2048, 132, True, 0, 256), (512, 3, 8, 2048, 132, True, 0, 128),
+    (512, 2, 4, 2048, 132, True, 0, 256)])
+def test_weight_gradient_launch_plan(H, n_hidden, n_kb, n_tiles, n_sm, heads, out, c_tile):
     """Every weight has its items, in the leaves' order (a trunk matrix one
     per 128 input rows and group of up to 256 output columns, the trunk
     alone without the heads' items); an item's images fit a stage and its
     chunks partition the row tiles with none empty; blocks, partials and
-    sums are laid end to end; at the train shape the launch is one wave."""
-    plan = fi.dw_plan(H, n_hidden, n_kb, n_tiles, n_sm, heads, out)
+    sums are laid end to end; at the train shape the launch is one wave.
+    Past 64 classes (``c_tile``) the output layer's dY is the rgb image and
+    ``c_tile`` / 64 semantic ones, an item a head."""
+    plan = fi.dw_plan(H, n_hidden, n_kb, n_tiles, n_sm, heads, out, c_tile)
     items = [row[0] for row in plan.items]
     groups = lambda y_imgs: -(-y_imgs // 4) if y_imgs % 4 in (0, 1, 2) else y_imgs // 4 + 1
     n_gt = 1 if heads else -(-out // 64)
     per = ([-(-n_kb // 2) * -(-H // 256)] + [-(-H // 128) * -(-H // 256)] * (n_hidden - 1)
            + [-(-H // 128) * len(fi._col_groups(n_gt))])
-    n_heads = (3 if H < 512 else 5) if heads else 0
+    n_heads = (3 + (c_tile > 64) if H < 512 else 5) if heads else 0
     assert len(items) == sum(per) + n_heads
     k = 0
     for l, count in enumerate(per):
@@ -488,11 +543,22 @@ def test_weight_gradient_launch_plan(H, n_hidden, n_kb, n_tiles, n_sm, heads, ou
             cols += it.n if it.x_img == items[k].x_img else 0
         assert cols == 64 * y_imgs
         k += count
-    assert [(i.x, i.y) for i in items[k:]] == ([("xs", "g1"), ("hid1", "g2"), ("hid2", "gout")]
+    assert [(i.x, i.y) for i in items[k:]] == ([("xs", "g1"), ("hid1", "g2")]
+                                               + [("hid2", "gout")] * (1 + (c_tile > 64))
                                                if heads and H < 512 else
                                                [("xs", "g1"), ("hid1", "g2"), ("hid1", "g2"),
                                                 ("hid2", "gout"), ("hid2", "gout")]
                                                if heads else [])
+    if heads:
+        # the output layer: every semantic column once, from gout's images past rgb's
+        outs = [i for i in items[k:] if i.y == "gout"]
+        assert all(i.y_imgs == 1 + c_tile // 64 for i in outs)
+        sem = outs[-1]
+        if len(outs) == 1:  # one head a warpgroup: rgb's image, then the semantic one
+            assert sem.y_img == (0, 1) and sem.n == c_tile == 64
+        else:
+            cols = sem.n * (1 if sem.y_img[0] == sem.y_img[1] else 2)
+            assert cols == c_tile and sem.y_img[0] == 1
     block = p_off = out_off = 0
     for it, chunks, chunk_tiles, first_block, p, o in plan.items:
         assert (first_block, p, o) == (block, p_off, out_off)

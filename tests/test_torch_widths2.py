@@ -13,7 +13,11 @@ sums to the port's own host code; the result must equal the plain field or
 trunk at its own, unpadded widths (float64 autograd), to 1e-9 of each
 tensor's scale: the padding is exact, so only summation order differs.
 The widths: H = 96, 100 and 512, M = 16, 48 and 256, din = 48 and 512,
-out = 17 and 64, for a whole field and for a trunk.
+out = 17 and 64, for a whole field and for a trunk; and the whole field's
+wider tiers, its trunk output 32 and 48 wide and its semantic output 128
+and 256 (geo 16 to 47, 65 to 256 classes), with one head's activation a
+tile image (H = 64, 100, 128) and two (H = 512). This is the only CPU check
+of those tiers' images, slab schedules and weight-gradient plans.
 
 Then the plain versions of the port's K1 (``fused_spectral_field``) and K3
 (``fused_mlp_apply``), which are what the wrappers run for CPU tensors and
@@ -100,9 +104,10 @@ def encoding(W, phase, u, m):
     return enc
 
 
-def trunk_forward(sl: Slabs, bias, inp, H, nh, n_kb, chunks):
+def trunk_forward(sl: Slabs, bias, inp, H, nh, n_kb, chunks, width=16):
     """The trunk from its forward slabs → (hidden activations, output [N,
-    16 chunks])."""
+    ``width`` chunks]): the output layer ``width`` columns a slab (the trunk
+    alone's 16, the whole field's T_out in one)."""
     W0 = np.zeros((64 * n_kb, H))
     for b in range(n_kb):
         W0[64 * b: 64 * b + 64] = sl.take(H).T  # B[n][k] = w[k0 + k][n]
@@ -112,11 +117,11 @@ def trunk_forward(sl: Slabs, bias, inp, H, nh, n_kb, chunks):
         for kb in range(H // 64):
             Wl[64 * kb: 64 * kb + 64] = sl.take(H).T
         hs.append(relu(hs[-1] @ Wl + bias[l * H: (l + 1) * H]))
-    Wt = np.zeros((H, 16 * chunks))
+    Wt = np.zeros((H, width * chunks))
     for ch in range(chunks):
         for kb in range(H // 64):
-            Wt[64 * kb: 64 * kb + 64, 16 * ch: 16 * ch + 16] = sl.take(16).T
-    return hs, hs[-1] @ Wt + bias[nh * H: nh * H + 16 * chunks]
+            Wt[64 * kb: 64 * kb + 64, width * ch: width * (ch + 1)] = sl.take(width).T
+    return hs, hs[-1] @ Wt + bias[nh * H: nh * H + width * chunks]
 
 
 def trunk_backward(sl: Slabs, hs, g_top, H, nh, n_kb):
@@ -287,9 +292,12 @@ def _apply(hh, leaves, nh):
     return hh
 
 
-# (frequencies, H, hidden layers, geo, classes): whole fields
+# (frequencies, H, hidden layers, geo, classes): whole fields, the first
+# tier's (T_out 16, C_pad 64), then the wider tiers'
 FIELDS = [(16, 96, 3, 15, 29), (48, 100, 2, 7, 5), (256, 512, 3, 15, 29), (128, 256, 3, 15, 29),
-          (40, 512, 2, 3, 64), (32, 64, 2, 1, 1), (8, 4, 3, 2, 3)]
+          (40, 512, 2, 3, 64), (32, 64, 2, 1, 1), (8, 4, 3, 2, 3),
+          (64, 128, 2, 31, 101), (32, 64, 3, 47, 256), (16, 100, 2, 16, 65),
+          (48, 512, 2, 31, 150), (40, 512, 3, 20, 100)]
 
 
 @pytest.mark.parametrize("m,h,nh,G,C", FIELDS)
@@ -302,6 +310,8 @@ def test_padded_field_emulation_is_the_field(m, h, nh, G, C):
     assert fi.check_widths("t", shapes) == (m, h, nh, G, C)
     H, hH, hi = fi.instance(h), fi.head_width(fi.instance(h)), fi.head_imgs(fi.instance(h))
     n_kb = fi.enc_blocks(m)
+    t_out, c_tile = fi.tier(G, C)
+    n_sem = c_tile // 64
     rng = np.random.default_rng(m + 3 * h + C)
     # He-scaled weights, biases of 0.1: the density's raw value stays moderate
     leaves = [rng.standard_normal(s) * (np.sqrt(2 / s[0]) if len(s) == 2 and i > 1 else 0.1)
@@ -313,12 +323,12 @@ def test_padded_field_emulation_is_the_field(m, h, nh, G, C):
     sh = rng.standard_normal((R, 16))
     g = rng.standard_normal((N, 4 + C))
     fwd, bwd, bias = repacked(leaves, fi.index_tables(m, h, nh, G, C))
-    offs = fi.bias_offsets(H, nh)
+    offs = fi.bias_offsets(H, nh, t_out, c_tile)
 
     # forward: trunk, density, heads
     enc = encoding(leaves[0], leaves[1], u, m)
     sl = Slabs(fwd)
-    hs, t = trunk_forward(sl, bias, enc, H, nh, n_kb, 1)
+    hs, t = trunk_forward(sl, bias, enc, H, nh, n_kb, 1, t_out)
     raw = t[:, 0]
     inside = ((u > 0) & (u < 1)).all(-1)
     xs = np.zeros((N, 64))
@@ -334,22 +344,23 @@ def test_padded_field_emulation_is_the_field(m, h, nh, G, C):
         w2.append(w)
     h2 = [relu(pad(a, 64 * hi) @ w + bias[offs[k]: offs[k] + hH])
           for a, w, k in zip(h1, w2, ("rb1", "sb1"))]
-    w3 = []
-    for rows in (16, 64):
-        w = np.zeros((64 * hi, rows))
+    w3 = [np.zeros((64 * hi, 16)), np.zeros((64 * hi, c_tile))]
+    for kb in range(hi):
+        w3[0][64 * kb: 64 * kb + 64] = sl.take(16).T
+    for ch in range(n_sem):  # 64 semantic columns a slab
         for kb in range(hi):
-            w[64 * kb: 64 * kb + 64] = sl.take(rows).T
-        w3.append(w)
+            w3[1][64 * kb: 64 * kb + 64, 64 * ch: 64 * ch + 64] = sl.take(64).T
     sl.done()
     rgb = 1 / (1 + np.exp(-(pad(h2[0], 64 * hi) @ w3[0] + bias[offs["rb2"]: offs["rb2"] + 16])))
-    sem = pad(h2[1], 64 * hi) @ w3[1] + bias[offs["sb2"]: offs["sb2"] + 64]
+    sem = pad(h2[1], 64 * hi) @ w3[1] + bias[offs["sb2"]: offs["sb2"] + c_tile]
     y = np.concatenate([rgb[:, :3], (np.exp(raw - 1) * inside)[:, None], sem[:, :C]], -1)
 
     # backward, from the packed output's cotangent
-    gout = [pad(g[:, :3] * rgb[:, :3] * (1 - rgb[:, :3]), 64), pad(g[:, 4:], 64)]
+    gout = [pad(g[:, :3] * rgb[:, :3] * (1 - rgb[:, :3]), 64), pad(g[:, 4:], c_tile)]
     graw = g[:, 3] * np.exp(np.minimum(raw - 1, 15)) * inside
     sb = Slabs(bwd)
-    w3b = [sb.take(hH) for _ in range(2)]  # [H/4, 64]: B[n][k] = w[n][k]
+    # [H/4, 64] a block: B[n][k] = w[n][k]; rgb's, then the semantic blocks
+    w3b = [sb.take(hH), np.concatenate([sb.take(hH) for _ in range(n_sem)], axis=1)]
     g2 = [(go @ w.T) * (a > 0) for go, w, a in zip(gout, w3b, h2)]
     w2b = []
     for _ in range(2):
@@ -358,30 +369,30 @@ def test_padded_field_emulation_is_the_field(m, h, nh, G, C):
             w[:, 64 * kb: 64 * kb + 64] = sb.take(hH)
         w2b.append(w)
     g1 = [(pad(a, 64 * hi) @ w.T) * (b > 0) for a, w, b in zip(g2, w2b, h1)]
-    dxs = np.zeros((N, 32))
+    dxs = np.zeros((N, 16 + t_out))
     for a in g1:
-        w = np.zeros((32, 64 * hi))
+        w = np.zeros((16 + t_out, 64 * hi))
         for kb in range(hi):
-            w[:, 64 * kb: 64 * kb + 64] = sb.take(32)
+            w[:, 64 * kb: 64 * kb + 64] = sb.take(16 + t_out)
         dxs += pad(a, 64 * hi) @ w.T
     gt = np.zeros((N, 64))
     gt[:, 0], gt[:, 1: 1 + G] = graw, dxs[:, 16: 16 + G]
     ghs, g_in = trunk_backward(sb, hs, gt, H, nh, fi.pair_blocks(m))
     sb.done()
 
-    plan = fi.dw_plan(H, nh, n_kb, 1, 132, True)
+    plan = fi.dw_plan(H, nh, n_kb, 1, 132, True, 0, c_tile)
     both = lambda pair: np.concatenate([pad(a, 64 * hi) for a in pair], -1)
     bufs = {"enc": enc, "gt": gt, "xs": xs, "hid1": both(h1), "hid2": both(h2), "g1": both(g1),
             "g2": both(g2), "gout": np.concatenate(gout, -1),
             **{f"h{l}": hs[l] for l in range(nh)}, **{f"gh{l}": ghs[l] for l in range(nh)}}
     out_buf = weight_products(plan, bufs)
     mp = 32 * fi.back_blocks(fi.pair_blocks(m))
-    gb = np.zeros(fi.n_bias(H, nh, 16, mp))
+    gb = np.zeros(fi.n_bias(H, nh, t_out, mp))
     for l in range(nh):
         gb[l * H: (l + 1) * H] = ghs[l].sum(0)
     o = nh * H
-    gb[o: o + 16] = gt[:, :16].sum(0)
-    o += 16
+    gb[o: o + t_out] = gt[:, :t_out].sum(0)
+    o += t_out
     for a in (g1[0], g2[0], g1[1], g2[1]):
         gb[o: o + hH] = a.sum(0)
         o += hH
@@ -390,8 +401,8 @@ def test_padded_field_emulation_is_the_field(m, h, nh, G, C):
     cpad = -(-C // 16) * 16
     gr = np.concatenate([gout[0][:, :16].sum(0), gout[1][:, :cpad].sum(0)])
     fld = types.SimpleNamespace(m=m, H=H, h=h, out_t=1 + G, G=G, hh=h // 4, C=C, n_hidden=nh,
-                                n_kb=n_kb)
-    host = _FieldHost(H=H, nh=nh, n_kb=n_kb, _dw=plan, tpad=16, mp=mp, fld=fld,
+                                n_kb=n_kb, tier=(t_out, c_tile))
+    host = _FieldHost(H=H, nh=nh, n_kb=n_kb, _dw=plan, tpad=t_out, mp=mp, fld=fld,
                       dev=torch.device("cpu"))
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     grads = host._field_grads(T(out_buf), T(gb), T(gr))

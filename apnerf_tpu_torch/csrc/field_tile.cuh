@@ -18,7 +18,7 @@
 // before the bf16 rounding, as Pallas does.
 //
 // Widths. The kernels are templates on the trunk width H in {64, 128, 256,
-// 512} (APNERF_TILE_WIDTHS), with heads H/4 wide; a narrower field runs on
+// 512, 1024} (APNERF_TILE_WIDTHS), with heads H/4 wide; a narrower field runs on
 // the next instance with its weights zero-padded by the host
 // (field_images.py). The first layer's input is not part of the instance:
 // it is multiplied one 64-column k-block at a time, a run-time count of
@@ -28,13 +28,17 @@
 // changes the sums' rounding, and with it bf16 roundings of the hidden
 // layers). The whole field's kernels are instances of a tier too, the
 // padded widths of the trunk output and the semantic output, (T_out,
-// C_pad) in (16, 64), (32, 128), (48, 256) (APNERF_FIELD_TIERS): a field
-// with 1 + geo <= T_out and classes <= C_pad runs on the smallest tier
-// that takes both. The trunk output and the heads' first layers are
-// products of that width (T_out / 16 k-steps back into the trunk); the
+// C_pad) in (16, 64), (32, 128), (48, 256), (64, 1024)
+// (APNERF_FIELD_TIERS): a field with 1 + geo <= T_out and classes <= C_pad
+// runs on the smallest tier that takes both. The trunk output and the
+// heads' first layers are products of that width (T_out / 16 k-steps back
+// into the trunk); the heads' input [SH 16 | geo | 0] is one image up to
+// T_out = 48 and two at 64, the heads' first layers a k-block each; the
 // semantic output is formed 64 columns a slab, C_pad / 64 slabs, each
 // product staged and written before the next. Both counts are
-// compile-time: a wgmma chain in a loop of run-time length spills.
+// compile-time: a wgmma chain in a loop of run-time length spills (so the
+// classes stay capped at the last tier's C_pad: a run-time slab count
+// would put the slab loop's wgmma chain in a loop of run-time length).
 // Where the encoding fits the tile's buffer it is formed in place
 // at once (each sincosf gives a cos and a sin column); a wider one is
 // formed block by block into two staging images in turn, block b + 1
@@ -52,10 +56,18 @@
 // 64-row tile of a 128-row pass and every column; at H = 512 both own the
 // one 64-row tile of a pass, and each forms one n = 256 half of every
 // trunk layer's columns (an m64n512 accumulator would be 256 registers a
-// thread), both halves multiplying the same activation buffer. Every layer
+// thread), both halves multiplying the same activation buffer. At H = 1024
+// the tile's activation is 16 images (128 KB) and each warpgroup forms its
+// 512 columns as two products of n = 256 in turn, over the whole input:
+// the first half's bf16 results wait in device memory (64 words a thread,
+// L2-resident) until the second is formed, then both go over the input; the ring has one 64
+// KB slot, each trunk slab [512, 64] holding both warpgroups' 256 rows of
+// one half, each head slab one image, the trunk output one k-block a slab,
+// and the first layer's input lies in place (at most 8 k-blocks). Every layer
 // is a wgmma product m64 x n whose A operand is the tile's activation
 // buffer in shared memory and whose B operand is a weight slab that the
-// producer streams through a ring (4 slots, 2 of 64 KB at H = 512) with
+// producer streams through a ring (4 slots, 2 of 64 KB at H = 512, 1 of 64
+// KB at 1024) with
 // cp.async.bulk and mbarriers (the weights lie in global memory as ready
 // tile images, hopper_tile.cuh), so the next slab's copy overlaps this
 // slab's product and both warpgroups multiply against every slab. The
@@ -96,6 +108,8 @@ struct FieldWeights {
   const __nv_bfloat16* wfwd;  // forward slabs
   const __nv_bfloat16* wbwd;  // backward slabs
   const float* bias;          // every layer's bias, padded (bias_offsets)
+  unsigned int* keep;         // H = 1024: per block, a layer's first half of bf16 results
+                              // [kHwn / 4][256 threads] words (keep_words), else null
   int tile_h;                 // trunk width H: the instance
   int n_hidden;               // trunk hidden layers, 2 or 3
   int geo, n_classes;
@@ -110,10 +124,10 @@ struct NoSave {
 };
 
 // the trunk widths H of the tile's kernels
-#define APNERF_TILE_WIDTHS(X) X(64) X(128) X(256) X(512)
+#define APNERF_TILE_WIDTHS(X) X(64) X(128) X(256) X(512) X(1024)
 // the whole field's tiers: (tier, T_out, C_pad), the padded widths of the
 // trunk output (1 + geo) and of the semantic output (classes)
-#define APNERF_FIELD_TIERS(X) X(0, 16, 64) X(1, 32, 128) X(2, 48, 256)
+#define APNERF_FIELD_TIERS(X) X(0, 16, 64) X(1, 32, 128) X(2, 48, 256) X(3, 64, 1024)
 
 // A source that defines APNERF_PARTS before this header is compiled once
 // per part p with -DAPNERF_PART=p (ops/cuda/build.py), so that the tile's
@@ -129,11 +143,13 @@ struct NoSave {
 
 constexpr int kElsewhere = -1;
 
-constexpr int width_index(int h) { return h == 64 ? 0 : h == 128 ? 1 : h == 256 ? 2 : 3; }
+constexpr int width_index(int h) {
+  return h == 64 ? 0 : h == 128 ? 1 : h == 256 ? 2 : h == 512 ? 3 : 4;
+}
 
 template <int kParts>
 constexpr int part_of(int h, int tier) {
-  return (width_index(h) + 4 * tier) % kParts;
+  return (width_index(h) + 5 * tier) % kParts;
 }
 
 // the tier of (T_out, C_pad), or -1
@@ -162,39 +178,64 @@ constexpr int kFieldThreads = 3 * kWg;  // two consumer warpgroups and the produ
 // the shipping one needs them (ptxas refused it at 128), the narrower ones
 // leave some unused
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kBufBytes = 8 * kImgBytes64;  // the consumers' activation buffers, together
 constexpr int kBlockFreqs = 32;             // frequencies of a k-block of the encoding
 constexpr int kAlignSlack = 1024;
 constexpr int kUTileBytes = kTileRows * 3 * 4;       // a tile's coordinates
 constexpr int kYStageBytes = kTileRows * 16 * 4;     // a tile's 16 trunk-output columns, f32
 
+// H = 1024: words a block keeps of a layer's first half (its 256 consumer
+// threads' 64 each), a thread's at stride 256
+__host__ __device__ constexpr int keep_words(int h) { return h > 512 ? 64 * 256 : 0; }
+
+// the consumers' activation buffers, together: two 64-row tiles of a
+// hidden activation up to H = 512 (one at 512), one tile's at 1024
+__host__ __device__ constexpr int buf_bytes(int h) { return (h > 512 ? 16 : 8) * kImgBytes64; }
+
+// the forward and backward rings' slots
+__host__ __device__ constexpr int fwd_stages(int h) { return h > 512 ? 1 : h > 256 ? 2 : 4; }
+
+// a trunk slab: [H, 64], or at H = 1024 [512, 64], both warpgroups' rows of
+// one half of a layer's columns
+__host__ __device__ constexpr int trunk_slab(int h) {
+  return (h > 512 ? h / 2 : h) * kImgRowBytes;
+}
+
+// A forward ring slot: a trunk slab, the heads' first or second layers
+// (at H = 1024 one image a slab) or the first of their output slabs
+__host__ __device__ constexpr int fwd_slot(int h) {
+  const int hh = h / 4, hi = (hh + 63) / 64;
+  const int heads = h > 512 ? hh * kImgRowBytes : 2 * hi * hh * kImgRowBytes;
+  const int out0 = hi * (kRgbPad + kSemChunk) * kImgRowBytes;
+  const int s = trunk_slab(h) > heads ? trunk_slab(h) : heads;
+  return s > out0 ? s : out0;
+}
+
 // The widths of one instance, in images and bytes.
 template <int H>
 struct Tile {
-  static_assert(H == 64 || H == 128 || H == 256 || H == 512, "H is 64, 128, 256 or 512");
+  static_assert(H == 64 || H == 128 || H == 256 || H == 512 || H == 1024,
+                "H is 64, 128, 256, 512 or 1024");
   static constexpr int kSplit = H > 256 ? 2 : 1;       // warpgroups that share a tile's columns
   static constexpr int kTiles = 2 / kSplit;            // 64-row tiles of a pass
   static constexpr int kPassRows = kTileRows * kTiles;
   static constexpr int kTT = kWg * kSplit;             // threads of a tile
   static constexpr int kHw = H / kSplit;               // trunk columns a warpgroup forms
+  static constexpr int kNh = kHw > 256 ? 2 : 1;        // products a warpgroup forms them in
+  static constexpr int kHwn = kHw / kNh;               // trunk columns of one product
   static constexpr int kHh = H / 4;                    // head width
   static constexpr int kHhw = kHh / kSplit;            // head columns a warpgroup forms
   static constexpr int kHI = (kHh + 63) / 64;          // images of a head's activation
+  static constexpr int kMhw = kHhw > 64 ? 2 : 1;       // a head's ReLU mask words a row half
   static constexpr int kHImgs = H / 64;                // k-blocks of a hidden layer
   static constexpr int kHBytes = kHImgs * kImgBytes64;  // a tile's hidden activation
-  static constexpr int kTrunkSlab = H * kImgRowBytes;   // a trunk slab: [H, 64]
+  static constexpr int kTrunkSlab = trunk_slab(H);
   static constexpr int kHeadImg = kHh * kImgRowBytes;   // a head image: [H/4, 64]
-  static constexpr int kActBytes = kBufBytes / kTiles;  // a tile's activation buffer
-  static constexpr int kXsImg = kActBytes / kImgBytes64 - 1;  // the heads' input image
-  static constexpr int kStages = kSplit == 2 ? 2 : 4;  // forward and backward rings
-  // a forward ring slot: a trunk slab, or the heads' second layers or the
-  // first of their output slabs
-  static constexpr int kFwdSlot =
-      kTrunkSlab > 2 * kHI * kHeadImg
-          ? (kTrunkSlab > kHI * (kRgbPad + kSemChunk) * kImgRowBytes
-                 ? kTrunkSlab
-                 : kHI * (kRgbPad + kSemChunk) * kImgRowBytes)
-          : 2 * kHI * kHeadImg;
+  static constexpr int kActBytes = buf_bytes(H) / kTiles;  // a tile's activation buffer
+  static constexpr int kStages = fwd_stages(H);        // forward and backward rings
+  static constexpr int kFwdSlot = fwd_slot(H);
+  // one image a slab for the heads' layers and one k-block a slab for the
+  // trunk output (H = 1024), or each layer one slab
+  static constexpr bool kPerImage = H > 512;
 };
 
 // allow `kernel` that much dynamic shared memory -> the CUDA error code
@@ -235,20 +276,13 @@ __host__ __device__ inline int bias_floats(int n_hidden, int h, int t_out, int c
   return n_hidden * h + t_out + h + kRgbPad + c_tile;
 }
 
-__host__ __device__ inline int fwd_stages(int h) { return h > 256 ? 2 : 4; }
+// images of the heads' input [SH | geo | 0] at the tier's T_out
+__host__ __device__ constexpr int xs_imgs(int t_out) { return (kShw + t_out + 63) / 64; }
 
 // whether a forward at the instance h is the kWhole instance: its first
-// layer the encoding in place, n_kb = a tile buffer's images
+// layer the encoding in place, n_kb = a tile buffer's images (none at 1024)
 inline bool whole_enc(int h, bool encode, int n_kb) {
-  return encode && n_kb == (h > 256 ? 8 : 4);
-}
-
-__host__ __device__ inline int fwd_slot(int h) {
-  const int hh = h / 4, hi = (hh + 63) / 64;
-  int s = h * kImgRowBytes;
-  if (2 * hi * hh * kImgRowBytes > s) s = 2 * hi * hh * kImgRowBytes;
-  if (hi * (kRgbPad + kSemChunk) * kImgRowBytes > s) s = hi * (kRgbPad + kSemChunk) * kImgRowBytes;
-  return s;
+  return h <= 512 && encode && n_kb == (h > 256 ? 8 : 4);
 }
 
 // at the instance h and the tier (t_out, c_tile)
@@ -256,7 +290,7 @@ __host__ __device__ inline FwdSmem fwd_smem(int h, int n_hidden, int t_out, int 
   FwdSmem s;
   s.ring = 0;
   s.act = fwd_stages(h) * fwd_slot(h);
-  s.bias = s.act + kBufBytes;
+  s.bias = s.act + buf_bytes(h);
   s.u = s.bias + (bias_floats(n_hidden, h, t_out, c_tile) * 4 + 127) / 128 * 128;
   s.y = s.u + 2 * 2 * kUTileBytes;  // per tile: this pass's coordinates and the next one's
   s.bars = s.y + 2 * kYStageBytes;
@@ -265,40 +299,46 @@ __host__ __device__ inline FwdSmem fwd_smem(int h, int n_hidden, int t_out, int 
 }
 
 // (byte offset, bytes) of forward slab s of the schedule (field_images.py::
-// fwd_slabs): the first layer's n_kb slabs, the hidden layers', then with
-// the heads the trunk output (kTO columns), the heads' two layers and their
-// outputs (rgb with the first 64 semantic columns, then 64 semantic
-// columns a slab), or for the trunk alone its output layer 16 columns a slab
+// fwd_slabs): the first layer's n_kb slabs, the hidden layers' (n_trunk in
+// all; at H = 1024 each layer's two halves in turn), then with the heads
+// the trunk output (kTO columns), the heads' two layers (the first a
+// k-block per image of their input) and their outputs (rgb with the first
+// 64 semantic columns, then 64 semantic columns a slab), or for the trunk
+// alone its output layer 16 columns a slab. At H = 1024 the trunk output
+// is one k-block a slab and the heads' layers one image a slab.
 template <int H, int kTO>
 __device__ __forceinline__ void fwd_slab(int s, int n_trunk, bool heads, uint32_t& off,
                                          uint32_t& bytes) {
   using T = Tile<H>;
-  const int t = s - n_trunk;
-  const uint32_t base = (uint32_t)n_trunk * T::kTrunkSlab;
-  const uint32_t out_t = T::kHImgs * kTO * kImgRowBytes;
-  const uint32_t l1 = 2 * T::kHeadImg, l2 = 2 * T::kHI * T::kHeadImg;
-  const uint32_t o0 = T::kHI * (kRgbPad + kSemChunk) * kImgRowBytes;
-  const uint32_t oc = T::kHI * kSemChunk * kImgRowBytes;
+  constexpr bool kPI = T::kPerImage;
+  constexpr int kXs = xs_imgs(kTO);
+  constexpr uint32_t out_t = T::kHImgs * kTO * kImgRowBytes;
+  constexpr uint32_t l1 = 2 * kXs * T::kHeadImg, l2 = 2 * T::kHI * T::kHeadImg;
+  constexpr int n_out = kPI ? T::kHImgs : 1, n_l1 = kPI ? 2 * kXs : 1, n_l2 = kPI ? 2 * T::kHI : 1;
+  constexpr uint32_t o0 = T::kHI * (kRgbPad + kSemChunk) * kImgRowBytes;
+  constexpr uint32_t oc = T::kHI * kSemChunk * kImgRowBytes;
+  int t = s - n_trunk;
+  uint32_t base = (uint32_t)n_trunk * T::kTrunkSlab;
   if (t < 0) {
     off = (uint32_t)s * T::kTrunkSlab;
     bytes = T::kTrunkSlab;
   } else if (!heads) {
     bytes = T::kHImgs * kOutChunk * kImgRowBytes;
     off = base + (uint32_t)t * bytes;
-  } else if (t == 0) {
-    off = base;
-    bytes = out_t;
-  } else if (t == 1) {
-    off = base + out_t;
-    bytes = l1;
-  } else if (t == 2) {
-    off = base + out_t + l1;
-    bytes = l2;
-  } else if (t == 3) {
+  } else if (t < n_out) {
+    bytes = out_t / n_out;
+    off = base + (uint32_t)t * bytes;
+  } else if ((t -= n_out) < n_l1) {
+    bytes = l1 / n_l1;
+    off = base + out_t + (uint32_t)t * bytes;
+  } else if ((t -= n_l1) < n_l2) {
+    bytes = l2 / n_l2;
+    off = base + out_t + l1 + (uint32_t)t * bytes;
+  } else if ((t -= n_l2) == 0) {
     off = base + out_t + l1 + l2;
     bytes = o0;
   } else {
-    off = base + out_t + l1 + l2 + o0 + (uint32_t)(t - 4) * oc;
+    off = base + out_t + l1 + l2 + o0 + (uint32_t)(t - 1) * oc;
     bytes = oc;
   }
 }
@@ -477,7 +517,8 @@ __device__ __forceinline__ void form_block(const P& a, const void* x, int x_f32,
 // The field over every pass of this block, at the instance H. P holds the
 // FieldWeights members; S is NoSave or holds
 //   enc, h[3], xs, hid1, hid2   bf16 tile images per 64-row tile: n_kb,
-//                               H/64, 1, 2 kHI, 2 kHI images (hid: rgb | sem)
+//                               H/64, xs_imgs(kTO), 2 kHI, 2 kHI images
+//                               (hid: rgb | sem)
 //   mask_t[3], mask_h           uint2 per (row, lane % 4, column half): the ReLU masks
 // The first layer's input is the encoding of u or, where x is given, x
 // itself [n_rows, din] (bf16, or f32 when x_f32). With `heads` false the
@@ -499,7 +540,8 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
                                               const float* __restrict__ sh, int n_rows,
                                               int n_samples, unsigned char* smem_raw, Epi epi) {
   using T = Tile<H>;
-  constexpr int kHw = T::kHw, kHhw = T::kHhw, kHh = T::kHh, kHI = T::kHI, kTT = T::kTT;
+  constexpr int kHw = T::kHw, kHwn = T::kHwn, kHhw = T::kHhw, kHh = T::kHh, kHI = T::kHI;
+  constexpr int kTT = T::kTT;
   constexpr int kSlot = T::kFwdSlot;
   constexpr int kSt = T::kStages;
   unsigned char* smem = align_smem(smem_raw);
@@ -510,18 +552,23 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
   const uint32_t ring_base = smem_u32(smem + L.ring);
   const bool encode = x == nullptr;
   constexpr int kImgs = T::kActBytes / kImgBytes64;  // a tile buffer's images
-  // the whole encoding at once, or block by block
-  const bool in_place = kWhole || (encode && nkb <= kImgs);
+  constexpr int kXs = xs_imgs(kTO), kXs0 = kImgs - kXs;  // the heads' input: its images
+  // the whole first layer's input at once (the encoding or, at H = 1024, x
+  // too; the host keeps it to 8 k-blocks there), or block by block
+  const bool in_place = kWhole || ((encode || T::kNh > 1) && nkb <= kImgs);
   const int n_bias_s = heads ? bias_floats(nh, H, kTO, kCP) : nh * H;
   for (int i = threadIdx.x; i < n_bias_s; i += kFieldThreads) bias_s[i] = a.bias[i];
   if (threadIdx.x == 0) ring_init<kSt>(full, empty, 2);
   __syncthreads();
   const int n_pass = (n_rows + T::kPassRows - 1) / T::kPassRows;
-  const int n_trunk = nkb + (nh - 1) * T::kHImgs;
+  const int n_trunk = T::kNh * (nkb + (nh - 1) * T::kHImgs);
   bool out_layer = heads;
   if constexpr (Epi::kTrunkOut) out_layer = true;
   constexpr int kNch = kCP / kSemChunk;  // the semantic output's slabs
-  const int n_out = heads ? 3 + kNch : (Epi::kTrunkOut ? (a.out + 15) / 16 : 0);
+  // the heads' slabs: the trunk output, their two layers, their outputs
+  constexpr int kHeadSlabs =
+      (T::kPerImage ? T::kHImgs + 2 * kXs + 2 * T::kHI : 3) + kNch;
+  const int n_out = heads ? kHeadSlabs : (Epi::kTrunkOut ? (a.out + 15) / 16 : 0);
   const int n_slabs = n_trunk + n_out;
   Ring<kSt> ring;
   ring.full = full;
@@ -613,7 +660,12 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
           bulk_store(sv.enc + tile * nkb * (kImgBytes64 / 2), act_a, nkb * kImgBytes64);
       }
     } else if (in_place) {
-      encode_all(enc_w, a.n_freq, nkb, ut, act, tt, kTT);
+      if (encode) {
+        encode_all(enc_w, a.n_freq, nkb, ut, act, tt, kTT);
+      } else {
+        for (int b = 0; b < nkb; ++b)
+          load_x_block(x, x_f32, din, row0, n_rows, b, act + b * kImgBytes64, tt, kTT);
+      }
       after_write();
       if constexpr (S::kSaves) {
         if (tt == 0)
@@ -629,86 +681,119 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
     if (encode && cw == 0) stash_u(u_s + (slot ^ 1) * (kUTileBytes / 4), u_next, tid);
 
     // the trunk's hidden layers, in place; the first layer's k-blocks either
-    // lie in place or are staged, block kb + 1 formed while kb's product runs
+    // lie in place or are staged, block kb + 1 formed while kb's product runs.
+    // A warpgroup forms its columns in kNh products (two at H = 1024, each
+    // over the whole input): the first's bf16 results wait in device memory
+    // (each thread its own words, L2-resident) until the last is formed,
+    // then every half goes over the input
     for (int l = 0; l < nh; ++l) {
-      float d[kHw / 2];
-      fresh(d);
-      const bool staged = l == 0 && !in_place;
-      // the products in place: compile-time k-block counts for every hidden
-      // layer and kWhole's first layer (one loop where the two counts agree)
-      if (l > 0 || (kWhole && kImgs == T::kHImgs)) {
-#pragma unroll
-        for (int kb = 0; kb < T::kHImgs; ++kb) {
-          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
-#pragma unroll
-          for (int ks = 0; ks < 4; ++ks)
-            wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
-                             (kb | ks) != 0);
-          slab_end(ring, tid);
-        }
-      } else if (kWhole) {
-#pragma unroll
-        for (int kb = 0; kb < kImgs; ++kb) {
-          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
-#pragma unroll
-          for (int ks = 0; ks < 4; ++ks)
-            wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
-                             (kb | ks) != 0);
-          slab_end(ring, tid);
-        }
-      } else if (!staged) {
-        for (int kb = 0; kb < nkb; ++kb) {
-          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
-#pragma unroll
-          for (int ks = 0; ks < 4; ++ks)
-            wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
-                             (kb | ks) != 0);
-          slab_end(ring, tid);
-        }
-      }
-      const int n_k = kWhole ? 0 : nkb;
-      for (int kb = 0; staged && kb < n_k; ++kb) {
-        const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
-        const uint32_t img = act_a + (kb & 1) * kImgBytes64;
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          wgmma<kHw, 0, 0>(d, kmajor_desc(img, ks), kmajor_desc(slab, ks), (kb | ks) != 0);
-        wgmma_commit();
-        const bool next = kb + 1 < n_k;
-        if (next) {
-          if constexpr (S::kSaves) before_overwrite();
-          form_block(a, x, x_f32, din, row0, n_rows, kb + 1, ut, act, tt, kTT);
-        }
-        wgmma_wait<0>();
-        slab_release(ring, tid);
-        if (next) {
-          after_write();
-          save_block(kb + 1);
-        }
-      }
-      before_overwrite();
+      const bool staged = T::kNh == 1 && l == 0 && !in_place;
       const float* b = bias_s + l * H + cw * kHw;
-      uint32_t mk[4] = {0u, 0u, 0u, 0u};  // [row half][word]
+      // the first half's words [j][row half] of this thread (H = 1024), in device memory
+      uint32_t* keep = T::kNh > 1 ? a.keep + (size_t)blockIdx.x * keep_words(H) + tt : nullptr;
 #pragma unroll
-      for (int j = 0; j < kHw / 8; ++j) {
-        const int c = 8 * j + 2 * q;
-        const float2 bb = *reinterpret_cast<const float2*>(b + c);
-        const uint32_t lo = pack_bf16(fmaxf(d[4 * j] + bb.x, 0.f), fmaxf(d[4 * j + 1] + bb.y, 0.f));
-        const uint32_t hi =
-            pack_bf16(fmaxf(d[4 * j + 2] + bb.x, 0.f), fmaxf(d[4 * j + 3] + bb.y, 0.f));
-        unsigned char* img = act + (cw * kHw / 64 + j / 8) * kImgBytes64;
-        *reinterpret_cast<uint32_t*>(img + img_off(r_lo, c % 64)) = lo;
-        *reinterpret_cast<uint32_t*>(img + img_off(r_lo + 8, c % 64)) = hi;
-        if constexpr (S::kSaves) {
-          mk[j / 16] |= pos_bits(lo) << (2 * (j % 16));
-          mk[2 + j / 16] |= pos_bits(hi) << (2 * (j % 16));
+      for (int hf = 0; hf < T::kNh; ++hf) {
+        float d[kHwn / 2];
+        fresh(d);
+        const uint32_t wrow = cw * kHwn * kImgRowBytes;  // the warpgroup's rows of a slab
+        // the products in place: compile-time k-block counts for every hidden
+        // layer and kWhole's first layer (one loop where the two counts agree)
+        if (l > 0 || (kWhole && kImgs == T::kHImgs)) {
+#pragma unroll
+          for (int kb = 0; kb < T::kHImgs; ++kb) {
+            const uint32_t slab = slab_begin(ring, ring_base, kSlot) + wrow;
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              wgmma<kHwn, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks),
+                                kmajor_desc(slab, ks), (kb | ks) != 0);
+            slab_end(ring, tid);
+          }
+        } else if (kWhole) {
+#pragma unroll
+          for (int kb = 0; kb < kImgs; ++kb) {
+            const uint32_t slab = slab_begin(ring, ring_base, kSlot) + wrow;
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              wgmma<kHwn, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks),
+                                kmajor_desc(slab, ks), (kb | ks) != 0);
+            slab_end(ring, tid);
+          }
+        } else if (!staged) {
+          for (int kb = 0; kb < nkb; ++kb) {
+            const uint32_t slab = slab_begin(ring, ring_base, kSlot) + wrow;
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              wgmma<kHwn, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks),
+                                kmajor_desc(slab, ks), (kb | ks) != 0);
+            slab_end(ring, tid);
+          }
+        }
+        const int n_k = kWhole ? 0 : nkb;
+        for (int kb = 0; staged && kb < n_k; ++kb) {
+          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + wrow;
+          const uint32_t img = act_a + (kb & 1) * kImgBytes64;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma<kHwn, 0, 0>(d, kmajor_desc(img, ks), kmajor_desc(slab, ks), (kb | ks) != 0);
+          wgmma_commit();
+          const bool next = kb + 1 < n_k;
+          if (next) {
+            if constexpr (S::kSaves) before_overwrite();
+            form_block(a, x, x_f32, din, row0, n_rows, kb + 1, ut, act, tt, kTT);
+          }
+          wgmma_wait<0>();
+          slab_release(ring, tid);
+          if (next) {
+            after_write();
+            save_block(kb + 1);
+          }
+        }
+        if (hf + 1 < T::kNh) {
+#pragma unroll
+          for (int j = 0; j < kHwn / 8; ++j) {
+            const float2 bb = *reinterpret_cast<const float2*>(b + hf * kHwn + 8 * j + 2 * q);
+            keep[2 * j * kTT] =
+                pack_bf16(fmaxf(d[4 * j] + bb.x, 0.f), fmaxf(d[4 * j + 1] + bb.y, 0.f));
+            keep[(2 * j + 1) * kTT] =
+                pack_bf16(fmaxf(d[4 * j + 2] + bb.x, 0.f), fmaxf(d[4 * j + 3] + bb.y, 0.f));
+          }
+          continue;
+        }
+        before_overwrite();
+#pragma unroll
+        for (int h2 = 0; h2 < T::kNh; ++h2) {
+          uint32_t mk[4] = {0u, 0u, 0u, 0u};  // [row half][word]
+#pragma unroll
+          for (int j = 0; j < kHwn / 8; ++j) {
+            const int c = h2 * kHwn + 8 * j + 2 * q;  // the warpgroup's column
+            uint32_t lo, hi;
+            if (h2 + 1 < T::kNh) {
+              lo = keep[2 * j * kTT];
+              hi = keep[(2 * j + 1) * kTT];
+            } else {
+              const float2 bb = *reinterpret_cast<const float2*>(b + c);
+              lo = pack_bf16(fmaxf(d[4 * j] + bb.x, 0.f), fmaxf(d[4 * j + 1] + bb.y, 0.f));
+              hi = pack_bf16(fmaxf(d[4 * j + 2] + bb.x, 0.f), fmaxf(d[4 * j + 3] + bb.y, 0.f));
+            }
+            unsigned char* img = act + ((cw * kHw + c) / 64) * kImgBytes64;
+            *reinterpret_cast<uint32_t*>(img + img_off(r_lo, c % 64)) = lo;
+            *reinterpret_cast<uint32_t*>(img + img_off(r_lo + 8, c % 64)) = hi;
+            if constexpr (S::kSaves) {
+              mk[j / 16] |= pos_bits(lo) << (2 * (j % 16));
+              mk[2 + j / 16] |= pos_bits(hi) << (2 * (j % 16));
+            }
+          }
+          if constexpr (S::kSaves) {
+            const int mc = cw * T::kNh + h2;  // the mask's column quarter
+            sv.mask_t[l][((size_t)(row0 + r_lo) * 4 + q) * (T::kSplit * T::kNh) + mc] =
+                make_uint2(mk[0], mk[1]);
+            sv.mask_t[l][((size_t)(row0 + r_lo + 8) * 4 + q) * (T::kSplit * T::kNh) + mc] =
+                make_uint2(mk[2], mk[3]);
+          }
         }
       }
       after_write();
       if constexpr (S::kSaves) {
-        sv.mask_t[l][((size_t)(row0 + r_lo) * 4 + q) * T::kSplit + cw] = make_uint2(mk[0], mk[1]);
-        sv.mask_t[l][((size_t)(row0 + r_lo + 8) * 4 + q) * T::kSplit + cw] =
-            make_uint2(mk[2], mk[3]);
         if (tt == 0) bulk_store(sv.h[l] + tile * (T::kHBytes / 2), act_a, T::kHBytes);
       }
     }
@@ -751,26 +836,32 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
     }
 
     // trunk output (f32), density, and the heads' input [bf16 SH | bf16 geo | 0]
-    // as image kXsImg of the buffer; both column halves form the product, the
-    // first writes what follows from it
+    // as the buffer's last kXs images; both column halves form the product,
+    // the first writes what follows from it
     float sig[2] = {0.f, 0.f}, dsd[2] = {0.f, 0.f};
     {
       float dd[kTO / 2];
       fresh(dd);
-      {
+      constexpr int kOutPer = T::kPerImage ? 1 : T::kHImgs;  // k-blocks a slab
+#pragma unroll
+      for (int g0 = 0; g0 < T::kHImgs; g0 += kOutPer) {
         const uint32_t slab = slab_begin(ring, ring_base, kSlot);
 #pragma unroll
-        for (int kb = 0; kb < T::kHImgs; ++kb) {
+        for (int kb = g0; kb < g0 + kOutPer; ++kb) {
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
             wgmma<kTO, 0, 0>(dd, kmajor_desc(act_a + kb * kImgBytes64, ks),
-                             kmajor_desc(slab + kb * kTO * kImgRowBytes, ks), (kb | ks) != 0);
+                             kmajor_desc(slab + (kb - g0) * kTO * kImgRowBytes, ks),
+                             (kb | ks) != 0);
         }
         slab_end(ring, tid);
       }
       before_overwrite();
       const float* b = bias_s + nh * H;
-      unsigned char* xs = act + T::kXsImg * kImgBytes64;
+      unsigned char* xs = act + kXs0 * kImgBytes64;
+      auto xs_at = [&](int i, int col) {  // element (i, col) of the heads' input
+        return xs + (col / 64) * kImgBytes64 + img_off(i, col % 64);
+      };
       if (cw == 0) {
 #pragma unroll
         for (int e = 0; e < kTO / 2; ++e) {
@@ -784,15 +875,14 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
                             ur[1] < 1.f && ur[2] > 0.f && ur[2] < 1.f;
             sig[half] = in ? expf(v - 1.f) : 0.f;
             dsd[half] = in ? expf(fminf(v - 1.f, 15.f)) : 0.f;
-            *reinterpret_cast<bf16*>(xs + img_off(i, kShw + kTO - 1)) = __float2bfloat16(0.f);
+            *reinterpret_cast<bf16*>(xs_at(i, kShw + kTO - 1)) = __float2bfloat16(0.f);
           } else {
-            *reinterpret_cast<bf16*>(xs + img_off(i, kShw - 1 + c)) =
-                __float2bfloat16(c <= G ? v : 0.f);
+            *reinterpret_cast<bf16*>(xs_at(i, kShw - 1 + c)) = __float2bfloat16(c <= G ? v : 0.f);
           }
         }
       }
       // chunks 0, 1: SH of the row's ray; the chunks past [SH | trunk output]: zero
-      constexpr int kXsCh = 8 - kTO / 8;  // chunks of a row written here
+      constexpr int kXsCh = 8 * kXs - kTO / 8;  // chunks of a row written here
       for (int e = tt; e < kTileRows * kXsCh; e += kTT) {
         const int i = e / kXsCh, ch = e % kXsCh < 2 ? e % kXsCh : e % kXsCh + kTO / 8;
         const int row = row0 + i;
@@ -804,32 +894,66 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
           val = make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w), pack_bf16(hi.x, hi.y),
                            pack_bf16(hi.z, hi.w));
         }
-        *reinterpret_cast<uint4*>(xs + img_off(i, ch * 8)) = val;
+        *reinterpret_cast<uint4*>(xs_at(i, ch * 8)) = val;
       }
       after_write();
       if constexpr (S::kSaves) {
         if (tt == 0)
-          bulk_store(sv.xs + tile * (kImgBytes64 / 2), act_a + T::kXsImg * kImgBytes64,
-                     kImgBytes64);
+          bulk_store(sv.xs + tile * kXs * (kImgBytes64 / 2), act_a + kXs0 * kImgBytes64,
+                     kXs * kImgBytes64);
       }
     }
 
     // heads: rgb on [SH | geo], semantics on geo; hidden activations in
     // images 0 .. kHI - 1 (rgb) and kHI .. 2 kHI - 1 (sem), columns past H/4 zero
-    uint32_t mh[4] = {0u, 0u, 0u, 0u};  // [row half][rgb, sem]; layer 1 low 16 bits, layer 2 high
-    const uint32_t xs_a = act_a + T::kXsImg * kImgBytes64;
+    // the ReLU masks [word][row half][rgb, sem]: one word, layer 1 the low 16
+    // bits and layer 2 the high, or (kMhw = 2) a word a layer
+    constexpr int kMhw = T::kMhw;
+    uint32_t mh[4 * kMhw];
+#pragma unroll
+    for (int w = 0; w < 4 * kMhw; ++w) mh[w] = 0u;
+    const uint32_t xs_a = act_a + kXs0 * kImgBytes64;
     for (int l = 0; l < 2; ++l) {
       float dr[kHhw / 2], ds[kHhw / 2];
       fresh(dr);
       fresh(ds);
-      {
+      if constexpr (T::kPerImage) {
+        // one image a slab: rgb's k-blocks, then sem's
+#pragma unroll
+        for (int hd = 0; hd < 2; ++hd) {
+          float(&acc)[kHhw / 2] = hd ? ds : dr;
+          if (l == 0) {
+#pragma unroll
+            for (int kb = 0; kb < kXs; ++kb) {
+              const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHhw * kImgRowBytes;
+#pragma unroll
+              for (int ks = 0; ks < 4 && 4 * kb + ks < 1 + kTO / 16; ++ks)
+                wgmma<kHhw, 0, 0>(acc, kmajor_desc(xs_a + kb * kImgBytes64, ks),
+                                  kmajor_desc(slab, ks), (kb | ks) != 0);
+              slab_end(ring, tid);
+            }
+          } else {
+#pragma unroll
+            for (int kb = 0; kb < kHI; ++kb) {
+              const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHhw * kImgRowBytes;
+#pragma unroll
+              for (int ks = 0; ks < 4; ++ks)
+                wgmma<kHhw, 0, 0>(acc, kmajor_desc(act_a + (hd * kHI + kb) * kImgBytes64, ks),
+                                  kmajor_desc(slab, ks), (kb | ks) != 0);
+              slab_end(ring, tid);
+            }
+          }
+        }
+      } else {
         const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHhw * kImgRowBytes;
         if (l == 0) {
 #pragma unroll
           for (int ks = 0; ks < 1 + kTO / 16; ++ks) {
-            wgmma<kHhw, 0, 0>(dr, kmajor_desc(xs_a, ks), kmajor_desc(slab, ks), ks != 0);
-            wgmma<kHhw, 0, 0>(ds, kmajor_desc(xs_a, ks), kmajor_desc(slab + T::kHeadImg, ks),
-                              ks != 0);
+            const uint32_t x = xs_a + (ks / 4) * kImgBytes64;  // rgb's k-blocks, then sem's
+            wgmma<kHhw, 0, 0>(dr, kmajor_desc(x, ks % 4),
+                              kmajor_desc(slab + (ks / 4) * T::kHeadImg, ks % 4), ks != 0);
+            wgmma<kHhw, 0, 0>(ds, kmajor_desc(x, ks % 4),
+                              kmajor_desc(slab + (kXs + ks / 4) * T::kHeadImg, ks % 4), ks != 0);
           }
         } else {
 #pragma unroll
@@ -865,11 +989,11 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
         *reinterpret_cast<uint32_t*>(si + img_off(r_lo, cc)) = sl;
         *reinterpret_cast<uint32_t*>(si + img_off(r_lo + 8, cc)) = sh_;
         if constexpr (S::kSaves) {
-          const int at = 16 * l + 2 * j;
-          mh[0] |= pos_bits(rl) << at;
-          mh[1] |= pos_bits(sl) << at;
-          mh[2] |= pos_bits(rh) << at;
-          mh[3] |= pos_bits(sh_) << at;
+          const int at = kMhw == 1 ? 16 * l + 2 * j : 2 * j, w = kMhw == 1 ? 0 : 4 * l;
+          mh[w] |= pos_bits(rl) << at;
+          mh[w + 1] |= pos_bits(sl) << at;
+          mh[w + 2] |= pos_bits(rh) << at;
+          mh[w + 3] |= pos_bits(sh_) << at;
         }
       }
       if constexpr (kHh < 64) {
@@ -892,8 +1016,14 @@ __device__ __forceinline__ void field_forward(const P& a, const S& sv,
       }
     }
     if constexpr (S::kSaves) {
-      sv.mask_h[((size_t)(row0 + r_lo) * 4 + q) * T::kSplit + cw] = make_uint2(mh[0], mh[1]);
-      sv.mask_h[((size_t)(row0 + r_lo + 8) * 4 + q) * T::kSplit + cw] = make_uint2(mh[2], mh[3]);
+#pragma unroll
+      for (int w = 0; w < kMhw; ++w) {
+        const size_t m = (size_t)T::kSplit * kMhw;  // words a (row, q)
+        sv.mask_h[((size_t)(row0 + r_lo) * 4 + q) * m + cw * kMhw + w] =
+            make_uint2(mh[4 * w], mh[4 * w + 1]);
+        sv.mask_h[((size_t)(row0 + r_lo + 8) * 4 + q) * m + cw * kMhw + w] =
+            make_uint2(mh[4 * w + 2], mh[4 * w + 3]);
+      }
     }
 
     // head outputs, one slab of 64 semantic columns at a time (rgb's with the

@@ -15,8 +15,10 @@
 // scope, so the extern "C" entries that take it keep external linkage.
 // "Images" are bf16 tile images (hopper_tile.cuh), so many per 64-row
 // tile; Np is the row count padded to whole passes. kHI is the number of
-// images of a head's activation (2 at H = 512, else 1), kSplit the
-// warpgroups that share a tile's columns (2 at H = 512, else 1).
+// images of a head's activation (2 at H = 512, 4 at 1024, else 1), kSplit
+// the warpgroups that share a tile's columns (2 at H >= 512, else 1), kNh
+// the products a warpgroup forms its trunk columns in (2 at 1024, else 1),
+// kMhw the heads' mask words (2 at 1024, else 1).
 struct FvrArgs {
   static constexpr bool kSaves = true;  // field_forward stores the activations below
   // inputs
@@ -37,12 +39,13 @@ struct FvrArgs {
   // saved activations
   __nv_bfloat16* enc;   // n_kb images a tile: the encoding's k-blocks, or x's zero-padded
   __nv_bfloat16* h[3];  // H / 64 images a tile: trunk hidden activations
-  __nv_bfloat16* xs;    // 1 image: the heads' input [SH | geo | 0]
+  __nv_bfloat16* xs;    // 1 image (2 at T_out = 64): the heads' input [SH | geo | 0]
   __nv_bfloat16* hid1;  // 2 kHI images: first hidden layer of the rgb | the sem head
   __nv_bfloat16* hid2;  // 2 kHI images: second hidden layer
-  uint2* mask_t[3];     // [Np, 4, kSplit] ReLU masks of h[l], in the accumulator's bit order
-  uint2* mask_h;        // [Np, 4, kSplit] x: rgb head, y: sem head; low 16 bits layer 1,
-                        // high layer 2
+  uint2* mask_t[3];     // [Np, 4, kSplit, kNh] ReLU masks of h[l], in the accumulator's bit
+                        // order
+  uint2* mask_h;        // [Np, 4, kSplit, kMhw] x: rgb head, y: sem head; low 16 bits layer
+                        // 1, high layer 2 (kMhw = 2: a word a layer)
   // per-sample values
   float* sigma;         // [N]
   float* dsd;           // [N] d sigma / d raw = exp(min(raw - 1, 15)) * in-cube
@@ -73,6 +76,8 @@ struct FvrArgs {
   const void* x;          // [N, din] bf16 or f32, or null
   const float* g_trunk;   // [N, out] f32
   void* dx;               // [N, din] in x's dtype, or null
+  unsigned int* keep;     // H = 1024: per block, a layer's first half of bf16 results
+                          // (field_tile.cuh::keep_words), else null
   // sizes
   int n_rows, n_rays, n_samples;
   int tile_h;  // the instance: trunk width

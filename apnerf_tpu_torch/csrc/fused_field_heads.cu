@@ -52,7 +52,7 @@
 // goes), rows past n_rows never written.
 
 // this file is compiled once per part (field_tile.cuh)
-#define APNERF_PARTS 3
+#define APNERF_PARTS 4
 
 #include "field_train_args.cuh"
 #include "warp_reduce.cuh"
@@ -168,8 +168,12 @@ int launch_trunk_fwd(const FfhArgs* a, int grid, cudaStream_t stream) {
 template <int H, int kTier, int kTO, int kCP>
 int ffh_fwd_at(const FfhArgs* a, int grid, cudaStream_t stream) {
   if constexpr (part_of<APNERF_PARTS>(H, kTier) == APNERF_PART) {
-    return whole_enc(H, true, a->p.n_kb) ? launch_ffh_fwd<H, true, kCP, kTO>(a, grid, stream)
-                                         : launch_ffh_fwd<H, false, kCP, kTO>(a, grid, stream);
+    if constexpr (H > 512) {
+      return launch_ffh_fwd<H, false, kCP, kTO>(a, grid, stream);  // no kWhole instance
+    } else {
+      return whole_enc(H, true, a->p.n_kb) ? launch_ffh_fwd<H, true, kCP, kTO>(a, grid, stream)
+                                           : launch_ffh_fwd<H, false, kCP, kTO>(a, grid, stream);
+    }
   } else {
     return kElsewhere;
   }
@@ -178,9 +182,13 @@ int ffh_fwd_at(const FfhArgs* a, int grid, cudaStream_t stream) {
 template <int H>
 int trunk_fwd_at(const FfhArgs* a, int grid, cudaStream_t stream) {
   if constexpr (part_of<APNERF_PARTS>(H, 0) == APNERF_PART) {
-    return whole_enc(H, a->x == nullptr, a->p.n_kb)
-               ? launch_trunk_fwd<H, true>(a, grid, stream)
-               : launch_trunk_fwd<H, false>(a, grid, stream);
+    if constexpr (H > 512) {
+      return launch_trunk_fwd<H, false>(a, grid, stream);  // no kWhole instance
+    } else {
+      return whole_enc(H, a->x == nullptr, a->p.n_kb)
+                 ? launch_trunk_fwd<H, true>(a, grid, stream)
+                 : launch_trunk_fwd<H, false>(a, grid, stream);
+    }
   } else {
     return kElsewhere;
   }
@@ -243,7 +251,7 @@ extern "C" int APNERF_IN_PART(apnerf_ffh_fwd)(const FfhArgs* a, int grid, void* 
     return ffh_fwd_at<H_, T_, TO_, CP_>(a, grid, (cudaStream_t)stream);
 #define APNERF_TIER(T_, TO_, CP_) \
   APNERF_CASE(T_, TO_, CP_, 64) APNERF_CASE(T_, TO_, CP_, 128) APNERF_CASE(T_, TO_, CP_, 256) \
-  APNERF_CASE(T_, TO_, CP_, 512)
+  APNERF_CASE(T_, TO_, CP_, 512) APNERF_CASE(T_, TO_, CP_, 1024)
   APNERF_FIELD_TIERS(APNERF_TIER)
 #undef APNERF_TIER
 #undef APNERF_CASE
@@ -260,7 +268,7 @@ extern "C" int APNERF_IN_PART(apnerf_trunk_fwd)(const FfhArgs* a, int grid, void
 
 #if APNERF_PART == 0
 
-#define APNERF_EACH_PART(X) X(0) X(1) X(2)
+#define APNERF_EACH_PART(X) X(0) X(1) X(2) X(3)
 #define APNERF_DECLARE(P_)                                                 \
   extern "C" int apnerf_ffh_fwd_p##P_(const FfhArgs*, int, void*); \
   extern "C" int apnerf_trunk_fwd_p##P_(const FfhArgs*, int, void*);

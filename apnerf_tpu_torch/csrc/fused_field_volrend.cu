@@ -25,8 +25,8 @@
 // launches from one wrapper, all written here, no library product; every
 // matrix pass is wgmma on 128-byte-swizzled tile images, its weights
 // streamed through a shared-memory ring by cp.async.bulk (hopper_tile.cuh,
-// field_tile.cuh), at each of the tile's four instances H in 64, 128, 256,
-// 512 and each tier (T_out, C_pad) of the field's trunk output and
+// field_tile.cuh), at each of the tile's five instances H in 64, 128, 256,
+// 512, 1024 and each tier (T_out, C_pad) of the field's trunk output and
 // semantic output, compiled in APNERF_PARTS parts in parallel (the first
 // layer's width is a run-time count of k-blocks):
 //   1. fvr_field_fwd_kernel: the whole field (field_tile.cuh) with a save
@@ -78,7 +78,7 @@
 #include <cfloat>
 
 // this file is compiled once per part (field_tile.cuh)
-#define APNERF_PARTS 6
+#define APNERF_PARTS 8
 
 #include "field_train_args.cuh"
 #include "warp_reduce.cuh"
@@ -386,12 +386,13 @@ __global__ void __launch_bounds__(kRayWarps * 32)
 // the head outputs (or, for the trunk alone, from the trunk output's
 // cotangent) down to the spectral phase or to dx, with its cotangent buffer
 // as the A operand, at H = 512 both warpgroups on one tile, each forming
-// one column half. The ReLU masks come as bits in the accumulator's own
+// one column half (at 1024 in two products of n = 256, the first's masked
+// results held in registers until the second is formed). The ReLU masks come as bits in the accumulator's own
 // order, two words a thread a layer. Image slots of a tile's buffer over
 // time (kHI = images of a head's activation):
 //   0 gout_rgb, 1 gout_sem -> g2 at 2 kHI .. 4 kHI -> g1 at 0 .. 2 kHI
 //   -> gt at 2 kHI, its f32 copy (for its column sums) at 2 kHI + 1 (at
-//   T_out = 48, [64, 48] f32, at 0 .. 1)
+//   T_out = 48 and 64, [64, T_out] f32, at 0 .. 1)
 // then the first H / 64 hold gh[l]. Past 64 classes the semantic
 // cotangent enters image 1 64 columns at a time, each block's product
 // (its own slab of the output layer's weights) done before the next. The
@@ -411,13 +412,13 @@ __global__ void __launch_bounds__(kRayWarps * 32)
 // bytes of a backward ring slot: a trunk slab, a first-layer slab [64 kG,
 // 64], the heads' slabs, or a tile's saved encoding (up to four images)
 __host__ __device__ inline int bwd_slot(int h) {
-  return h * kImgRowBytes > 4 * kImgBytes64 ? h * kImgRowBytes : 4 * kImgBytes64;
+  return trunk_slab(h) > 4 * kImgBytes64 ? trunk_slab(h) : 4 * kImgBytes64;
 }
 
 // the instance of the backward for n_back first-layer blocks and n_gt
 // blocks of the trunk output's cotangent: kG blocks in one product (all of
 // them, up to four) with one trunk-output block, or 0: one block a product
-// and any number of trunk-output blocks
+// and any number of trunk-output blocks (the only instance at H = 1024)
 inline int back_group(int n_back, int n_gt) {
   return n_gt > 1 ? 0 : n_back == 1 ? 1 : n_back == 2 ? 2 : n_back <= 4 ? 4 : 0;
 }
@@ -432,7 +433,7 @@ __host__ __device__ inline BwdSmem bwd_smem(int h) {
   BwdSmem s;
   s.ring = 0;
   s.act = fwd_stages(h) * bwd_slot(h);
-  s.u = s.act + kBufBytes;
+  s.u = s.act + buf_bytes(h);
   s.dp = s.u + 2 * kUTileBytes;  // a tile's coordinates, then its dproj
   s.bars = s.dp + 2 * kDpBytes;
   s.total = s.bars + 16 * fwd_stages(h) + kAlignSlack;
@@ -495,7 +496,8 @@ template <int H, int kG, int kCP, int kTO>
 __global__ void __launch_bounds__(kFieldThreads, 1)
     fvr_field_bwd_kernel(const __grid_constant__ FvrArgs a) {
   using T = Tile<H>;
-  constexpr int kHw = T::kHw, kHh = T::kHh, kHhw = T::kHhw, kHI = T::kHI, kTT = T::kTT;
+  constexpr int kHw = T::kHw, kHwn = T::kHwn, kHh = T::kHh, kHhw = T::kHhw, kHI = T::kHI;
+  constexpr int kTT = T::kTT, kNh = T::kNh, kMhw = T::kMhw;
   constexpr int kSt = T::kStages;
   constexpr int kNsb = kCP / kSemChunk;  // blocks of the semantic cotangent
   constexpr int kGout = 1 + kNsb;      // gout images a tile: rgb, then the semantic blocks
@@ -539,17 +541,19 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
         const unsigned char* src = w;
         if (heads) {
           // the outputs back (rgb with the first semantic block, then one
-          // semantic block a slab), the second layers back, the first layers back
-          for (int s = 0; s < kNsb + 2; ++s) {
-            const uint32_t size = s == 0        ? 2u * T::kHeadImg
-                                  : s < kNsb    ? (uint32_t)T::kHeadImg
-                                  : s == kNsb   ? 2u * kHI * T::kHeadImg
-                                                : 2u * kHI * kXw * kImgRowBytes;
+          // semantic block a slab), the second layers back, the first layers
+          // back (at H = 1024 these two one image a slab)
+          constexpr int kImg = T::kPerImage ? 2 * kHI : 1;
+          for (int s = 0; s < kNsb + 2 * kImg; ++s) {
+            const uint32_t size = s == 0             ? 2u * T::kHeadImg
+                                  : s < kNsb         ? (uint32_t)T::kHeadImg
+                                  : s < kNsb + kImg  ? 2u * kHI * T::kHeadImg / kImg
+                                                     : 2u * kHI * kXw * kImgRowBytes / kImg;
             push(src, size);
             src += size;
           }
         }
-        for (int s = 0; s < n_gt + (nh - 1) * T::kHImgs; ++s, src += T::kTrunkSlab)
+        for (int s = 0; s < kNh * (n_gt + (nh - 1) * T::kHImgs); ++s, src += T::kTrunkSlab)
           push(src, T::kTrunkSlab);
         for (int s = 0; s < n_groups * T::kHImgs; ++s, src += 64 * kGB * kImgRowBytes)
           push(src, 64 * kGB * kImgRowBytes);
@@ -584,7 +588,8 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
   const int off_dph = off_s2 + kHh;  // then dW_spec at off_dph + mp
   float* u_s = reinterpret_cast<float*>(smem + L.u) + tl * (kUTileBytes / 4);
   float* dp = reinterpret_cast<float*>(smem + L.dp) + tl * (kDpBytes / 4);
-  const size_t mrow = (size_t)4 * T::kSplit;  // mask words a row
+  const size_t mrow = (size_t)4 * T::kSplit * kNh;  // a trunk layer's mask words a row
+  const size_t hrow = (size_t)4 * T::kSplit * kMhw;  // the heads' mask words a row
 
   auto tile_sync = [&]() { named_barrier(bar_id, kTT); };
   auto before_overwrite = [&]() {
@@ -606,8 +611,14 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
     float* gtf = reinterpret_cast<float*>(
         act + (kTO * kTileRows * 4 <= kImgBytes64 ? gti + 1 : 0) * kImgBytes64);
     if (heads) {
-      const uint2 mh_lo = a.mask_h[(size_t)(row0 + r_lo) * mrow + q * T::kSplit + cw];
-      const uint2 mh_hi = a.mask_h[(size_t)(row0 + r_lo + 8) * mrow + q * T::kSplit + cw];
+      // the heads' masks: one word, layer 1 the low 16 bits and layer 2 the
+      // high, or (kMhw = 2) a word a layer
+      uint2 mh_lo[kMhw], mh_hi[kMhw];
+#pragma unroll
+      for (int w = 0; w < kMhw; ++w) {
+        mh_lo[w] = a.mask_h[(size_t)(row0 + r_lo) * hrow + (q * T::kSplit + cw) * kMhw + w];
+        mh_hi[w] = a.mask_h[(size_t)(row0 + r_lo + 8) * hrow + (q * T::kSplit + cw) * kMhw + w];
+      }
       float graw[2] = {0.f, 0.f};
       if (q == 0 && cw == 0) {
         if (row0 + r_lo < a.n_rows) graw[0] = a.graw[row0 + r_lo];
@@ -647,7 +658,23 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
         float dr[kHhw / 2], ds[kHhw / 2];
         fresh(dr);
         fresh(ds);
-        {
+        if (l == 0 && T::kPerImage) {
+          // one image a slab: rgb's k-blocks, then sem's
+          const uint32_t src = act_a + 2 * kHI * kImgBytes64;
+#pragma unroll
+          for (int hd = 0; hd < 2; ++hd) {
+            float(&acc)[kHhw / 2] = hd ? ds : dr;
+#pragma unroll
+            for (int kb = 0; kb < kHI; ++kb) {
+              const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHhw * kImgRowBytes;
+#pragma unroll
+              for (int ks = 0; ks < 4; ++ks)
+                wgmma<kHhw, 0, 0>(acc, kmajor_desc(src + (hd * kHI + kb) * kImgBytes64, ks),
+                                  kmajor_desc(slab, ks), (kb | ks) != 0);
+              slab_end(ring, tid);
+            }
+          }
+        } else {
           const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHhw * kImgRowBytes;
           if (l == 1) {
             wgmma<kHhw, 0, 0>(dr, kmajor_desc(act_a, 0), kmajor_desc(slab, 0), 0);
@@ -701,20 +728,21 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
         }
         before_overwrite();
         unsigned char* dst = act + (l == 1 ? 2 * kHI * kImgBytes64 : 0);
-        const int sft = 16 * l;
+        const int sft = kMhw == 1 ? 16 * l : 0;
+        const uint2 m_lo = mh_lo[kMhw == 1 ? 0 : l], m_hi = mh_hi[kMhw == 1 ? 0 : l];
 #pragma unroll
         for (int j = 0; j < kHhw / 8; ++j) {
           const int col = cw * kHhw + 8 * j + 2 * q, at = sft + 2 * j;
           unsigned char* ri = dst + (col / 64) * kImgBytes64;
           unsigned char* si = dst + (kHI + col / 64) * kImgBytes64;
           *reinterpret_cast<uint32_t*>(ri + img_off(r_lo, col % 64)) =
-              masked_pack(dr[4 * j], dr[4 * j + 1], mh_lo.x >> at);
+              masked_pack(dr[4 * j], dr[4 * j + 1], m_lo.x >> at);
           *reinterpret_cast<uint32_t*>(ri + img_off(r_lo + 8, col % 64)) =
-              masked_pack(dr[4 * j + 2], dr[4 * j + 3], mh_hi.x >> at);
+              masked_pack(dr[4 * j + 2], dr[4 * j + 3], m_hi.x >> at);
           *reinterpret_cast<uint32_t*>(si + img_off(r_lo, col % 64)) =
-              masked_pack(ds[4 * j], ds[4 * j + 1], mh_lo.y >> at);
+              masked_pack(ds[4 * j], ds[4 * j + 1], m_lo.y >> at);
           *reinterpret_cast<uint32_t*>(si + img_off(r_lo + 8, col % 64)) =
-              masked_pack(ds[4 * j + 2], ds[4 * j + 3], mh_hi.y >> at);
+              masked_pack(ds[4 * j + 2], ds[4 * j + 3], m_hi.y >> at);
         }
         if constexpr (kHh < 64) {
 #pragma unroll
@@ -744,7 +772,18 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
       // the next image (f32, for its column sums)
       float dx[kXw / 2];
       fresh(dx);
-      {
+      if constexpr (T::kPerImage) {
+        // one image a slab: rgb's k-blocks, then sem's
+#pragma unroll
+        for (int kb = 0; kb < 2 * kHI; ++kb) {
+          const uint32_t slab = slab_begin(ring, ring_base, kSlot);
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma<kXw, 0, 0>(dx, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
+                             (kb | ks) != 0);
+          slab_end(ring, tid);
+        }
+      } else {
         const uint32_t slab = slab_begin(ring, ring_base, kSlot);
 #pragma unroll
         for (int ks = 0; ks < kHh / 16; ++ks)
@@ -804,71 +843,108 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
       }
     }
 
-    // trunk: gh[l] = bf16((gh[l + 1] @ w[l + 1]^T) * (h[l] > 0)), from the top
-    for (int l = nh - 1; l >= 0; --l) {
-      const uint2 m_lo = a.mask_t[l][(size_t)(row0 + r_lo) * mrow + q * T::kSplit + cw];
-      const uint2 m_hi = a.mask_t[l][(size_t)(row0 + r_lo + 8) * mrow + q * T::kSplit + cw];
-      float d[kHw / 2];
-      fresh(d);
-      if (l == nh - 1 && heads) {
-        // gh[nh - 1] = gt @ w_out^T: kTO / 16 k-steps
-        const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
-#pragma unroll
-        for (int ks = 0; ks < kTO / 16; ++ks)
-          wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + gti * kImgBytes64, ks), kmajor_desc(slab, ks),
-                           ks != 0);
-        slab_end(ring, tid);
-      } else if (l == nh - 1) {
-        // the trunk alone: g [64, out] (zero past out and past n_rows) 64
-        // columns at a time as image k % 2 (bf16), saved; gh[nh - 1] = g @ w_out^T
-        // (one block in the one-product instances: a compile-time count)
-        for (int k = 0; k < (kOne ? 1 : n_gt); ++k) {
-          if (k > 0) before_overwrite();
-          unsigned char* img = act + (k & 1) * kImgBytes64;
-          for (int e = tt; e < kTileRows * 32; e += kTT) {
-            const int i = e / 32, c = 64 * k + 2 * (e % 32);
-            const int row = row0 + i;
-            float v0 = 0.f, v1 = 0.f;
-            if (row < a.n_rows) {
-              const float* gr = a.g_trunk + (size_t)row * a.out;
-              if (c < a.out) v0 = gr[c];
-              if (c + 1 < a.out) v1 = gr[c + 1];
-            }
-            *reinterpret_cast<uint32_t*>(img + img_off(i, c % 64)) = pack_bf16(v0, v1);
-          }
-          after_write();
-          if (tt == 0)
-            bulk_store(a.gt + (tile * n_gt + k) * (kImgBytes64 / 2), act_a + (k & 1) * kImgBytes64,
-                       kImgBytes64);
-          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
-#pragma unroll
-          for (int ks = 0; ks < 4; ++ks)
-            wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + (k & 1) * kImgBytes64, ks),
-                             kmajor_desc(slab, ks), (k | ks) != 0);
-          slab_end(ring, tid);
+    // trunk: gh[l] = bf16((gh[l + 1] @ w[l + 1]^T) * (h[l] > 0)), from the top;
+    // a warpgroup forms its columns in kNh products (two at H = 1024), the
+    // first's masked bf16 results waiting in device memory (`keep`) until the
+    // last is formed
+    auto g_block = [&](int k, unsigned char* img) {
+      // the trunk alone: columns 64 k .. of g [64, out] (zero past out and
+      // past n_rows) as a bf16 image, saved
+      for (int e = tt; e < kTileRows * 32; e += kTT) {
+        const int i = e / 32, c = 64 * k + 2 * (e % 32);
+        const int row = row0 + i;
+        float v0 = 0.f, v1 = 0.f;
+        if (row < a.n_rows) {
+          const float* gr = a.g_trunk + (size_t)row * a.out;
+          if (c < a.out) v0 = gr[c];
+          if (c + 1 < a.out) v1 = gr[c + 1];
         }
-      } else {
-        for (int kb = 0; kb < T::kHImgs; ++kb) {
-          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + cw * kHw * kImgRowBytes;
-#pragma unroll
-          for (int ks = 0; ks < 4; ++ks)
-            wgmma<kHw, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks), kmajor_desc(slab, ks),
-                             (kb | ks) != 0);
-          slab_end(ring, tid);
-        }
+        *reinterpret_cast<uint32_t*>(img + img_off(i, c % 64)) = pack_bf16(v0, v1);
       }
-      before_overwrite();
-      // the masked bf16 cotangent over images 0 .. H / 64 - 1
+      after_write();
+      if (tt == 0)
+        bulk_store(a.gt + (tile * n_gt + k) * (kImgBytes64 / 2), smem_u32(img), kImgBytes64);
+    };
+    if (kNh > 1 && !heads) {
+      // every block of g in place (the host keeps them to 16)
+      for (int k = 0; k < n_gt; ++k) g_block(k, act + k * kImgBytes64);
+    }
+    // the first half's words [j][row half] of this thread (H = 1024), in device memory
+    uint32_t* keep = kNh > 1 ? a.keep + (size_t)blockIdx.x * keep_words(H) + tt : nullptr;
+    for (int l = nh - 1; l >= 0; --l) {
 #pragma unroll
-      for (int j = 0; j < kHw / 8; ++j) {
-        const int c = 8 * j + 2 * q, at = 2 * (j % 16);
-        const uint32_t b_lo = (j < 16 ? m_lo.x : m_lo.y) >> at;
-        const uint32_t b_hi = (j < 16 ? m_hi.x : m_hi.y) >> at;
-        unsigned char* img = act + (cw * kHw / 64 + j / 8) * kImgBytes64;
-        *reinterpret_cast<uint32_t*>(img + img_off(r_lo, c % 64)) =
-            masked_pack(d[4 * j], d[4 * j + 1], b_lo);
-        *reinterpret_cast<uint32_t*>(img + img_off(r_lo + 8, c % 64)) =
-            masked_pack(d[4 * j + 2], d[4 * j + 3], b_hi);
+      for (int hf = 0; hf < kNh; ++hf) {
+        const size_t mq = (size_t)(q * T::kSplit + cw) * kNh + hf;  // the mask's column quarter
+        const uint2 m_lo = a.mask_t[l][(size_t)(row0 + r_lo) * mrow + mq];
+        const uint2 m_hi = a.mask_t[l][(size_t)(row0 + r_lo + 8) * mrow + mq];
+        float d[kHwn / 2];
+        fresh(d);
+        const uint32_t wrow = cw * kHwn * kImgRowBytes;  // the warpgroup's rows of a slab
+        if (l == nh - 1 && heads) {
+          // gh[nh - 1] = gt @ w_out^T: kTO / 16 k-steps
+          const uint32_t slab = slab_begin(ring, ring_base, kSlot) + wrow;
+#pragma unroll
+          for (int ks = 0; ks < kTO / 16; ++ks)
+            wgmma<kHwn, 0, 0>(d, kmajor_desc(act_a + gti * kImgBytes64, ks), kmajor_desc(slab, ks),
+                              ks != 0);
+          slab_end(ring, tid);
+        } else if (l == nh - 1) {
+          // the trunk alone: g 64 columns at a time as image k % 2 (or, at
+          // H = 1024, image k, formed above); gh[nh - 1] = g @ w_out^T (one
+          // block in the one-product instances: a compile-time count)
+          for (int k = 0; k < (kOne ? 1 : n_gt); ++k) {
+            if (kNh == 1) {
+              if (k > 0) before_overwrite();
+              g_block(k, act + (k & 1) * kImgBytes64);
+            }
+            const uint32_t img = act_a + (kNh > 1 ? k : k & 1) * kImgBytes64;
+            const uint32_t slab = slab_begin(ring, ring_base, kSlot) + wrow;
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              wgmma<kHwn, 0, 0>(d, kmajor_desc(img, ks), kmajor_desc(slab, ks), (k | ks) != 0);
+            slab_end(ring, tid);
+          }
+        } else {
+          for (int kb = 0; kb < T::kHImgs; ++kb) {
+            const uint32_t slab = slab_begin(ring, ring_base, kSlot) + wrow;
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              wgmma<kHwn, 0, 0>(d, kmajor_desc(act_a + kb * kImgBytes64, ks),
+                                kmajor_desc(slab, ks), (kb | ks) != 0);
+            slab_end(ring, tid);
+          }
+        }
+        if (hf + 1 < kNh) {
+#pragma unroll
+          for (int j = 0; j < kHwn / 8; ++j) {
+            const int at = 2 * (j % 16);
+            keep[2 * j * kTT] =
+                masked_pack(d[4 * j], d[4 * j + 1], (j < 16 ? m_lo.x : m_lo.y) >> at);
+            keep[(2 * j + 1) * kTT] =
+                masked_pack(d[4 * j + 2], d[4 * j + 3], (j < 16 ? m_hi.x : m_hi.y) >> at);
+          }
+          continue;
+        }
+        before_overwrite();
+        // the masked bf16 cotangent over images 0 .. H / 64 - 1
+#pragma unroll
+        for (int h2 = 0; h2 < kNh; ++h2) {
+#pragma unroll
+          for (int j = 0; j < kHwn / 8; ++j) {
+            const int c = h2 * kHwn + 8 * j + 2 * q, at = 2 * (j % 16);  // the warpgroup's column
+            uint32_t lo, hi;
+            if (h2 + 1 < kNh) {
+              lo = keep[2 * j * kTT];
+              hi = keep[(2 * j + 1) * kTT];
+            } else {
+              lo = masked_pack(d[4 * j], d[4 * j + 1], (j < 16 ? m_lo.x : m_lo.y) >> at);
+              hi = masked_pack(d[4 * j + 2], d[4 * j + 3], (j < 16 ? m_hi.x : m_hi.y) >> at);
+            }
+            unsigned char* img = act + ((cw * kHw + c) / 64) * kImgBytes64;
+            *reinterpret_cast<uint32_t*>(img + img_off(r_lo, c % 64)) = lo;
+            *reinterpret_cast<uint32_t*>(img + img_off(r_lo + 8, c % 64)) = hi;
+          }
+        }
       }
       after_write();
       if (tt == 0) bulk_store(a.gh[l] + tile * (T::kHBytes / 2), act_a, T::kHBytes);
@@ -1200,9 +1276,13 @@ int launch_field_bwd(const FvrArgs* a, int grid, cudaStream_t stream) {
 template <int H, int kTier, int kTO, int kCP>
 int field_fwd_at(const FvrArgs* a, int grid, cudaStream_t stream) {
   if constexpr (part_of<APNERF_PARTS>(H, kTier) == APNERF_PART) {
-    return whole_enc(H, a->x == nullptr, a->n_kb)
-               ? launch_field_fwd<H, true, kCP, kTO>(a, grid, stream)
-               : launch_field_fwd<H, false, kCP, kTO>(a, grid, stream);
+    if constexpr (H > 512) {
+      return launch_field_fwd<H, false, kCP, kTO>(a, grid, stream);  // no kWhole instance
+    } else {
+      return whole_enc(H, a->x == nullptr, a->n_kb)
+                 ? launch_field_fwd<H, true, kCP, kTO>(a, grid, stream)
+                 : launch_field_fwd<H, false, kCP, kTO>(a, grid, stream);
+    }
   } else {
     return kElsewhere;
   }
@@ -1212,11 +1292,16 @@ template <int H, int kTier, int kTO, int kCP>
 int field_bwd_at(const FvrArgs* a, int grid, cudaStream_t stream) {
   if constexpr (part_of<APNERF_PARTS>(H, kTier) == APNERF_PART) {
     const int n_back = a->x == nullptr ? (a->n_freq + kBlockFreqs - 1) / kBlockFreqs : a->n_kb;
-    switch (back_group(n_back, a->heads ? 1 : (a->out + 63) / 64)) {
-      case 4: return launch_field_bwd<H, 4, kCP, kTO>(a, grid, stream);
-      case 2: return launch_field_bwd<H, 2, kCP, kTO>(a, grid, stream);
-      case 1: return launch_field_bwd<H, 1, kCP, kTO>(a, grid, stream);
-      default: return launch_field_bwd<H, 0, kCP, kTO>(a, grid, stream);
+    if constexpr (H > 512) {
+      (void)n_back;
+      return launch_field_bwd<H, 0, kCP, kTO>(a, grid, stream);
+    } else {
+      switch (back_group(n_back, a->heads ? 1 : (a->out + 63) / 64)) {
+        case 4: return launch_field_bwd<H, 4, kCP, kTO>(a, grid, stream);
+        case 2: return launch_field_bwd<H, 2, kCP, kTO>(a, grid, stream);
+        case 1: return launch_field_bwd<H, 1, kCP, kTO>(a, grid, stream);
+        default: return launch_field_bwd<H, 0, kCP, kTO>(a, grid, stream);
+      }
     }
   } else {
     return kElsewhere;
@@ -1238,10 +1323,12 @@ int field_bwd_at(const FvrArgs* a, int grid, cudaStream_t stream) {
   if (a->tile_h == H_ && tier == T_) return AT<H_, T_, TO_, CP_>(a, grid, (cudaStream_t)stream);
 #define APNERF_TIER_OF_field_fwd_at(T_, TO_, CP_)                                     \
   APNERF_CASE(field_fwd_at, T_, TO_, CP_, 64) APNERF_CASE(field_fwd_at, T_, TO_, CP_, 128) \
-  APNERF_CASE(field_fwd_at, T_, TO_, CP_, 256) APNERF_CASE(field_fwd_at, T_, TO_, CP_, 512)
+  APNERF_CASE(field_fwd_at, T_, TO_, CP_, 256) APNERF_CASE(field_fwd_at, T_, TO_, CP_, 512) \
+  APNERF_CASE(field_fwd_at, T_, TO_, CP_, 1024)
 #define APNERF_TIER_OF_field_bwd_at(T_, TO_, CP_)                                     \
   APNERF_CASE(field_bwd_at, T_, TO_, CP_, 64) APNERF_CASE(field_bwd_at, T_, TO_, CP_, 128) \
-  APNERF_CASE(field_bwd_at, T_, TO_, CP_, 256) APNERF_CASE(field_bwd_at, T_, TO_, CP_, 512)
+  APNERF_CASE(field_bwd_at, T_, TO_, CP_, 256) APNERF_CASE(field_bwd_at, T_, TO_, CP_, 512) \
+  APNERF_CASE(field_bwd_at, T_, TO_, CP_, 1024)
 APNERF_PART_ENTRY(apnerf_fvr_field_fwd, field_fwd_at)
 APNERF_PART_ENTRY(apnerf_fvr_field_bwd, field_bwd_at)
 #undef APNERF_TIER_OF_field_fwd_at
@@ -1251,7 +1338,7 @@ APNERF_PART_ENTRY(apnerf_fvr_field_bwd, field_bwd_at)
 
 #if APNERF_PART == 0
 
-#define APNERF_EACH_PART(X) X(0) X(1) X(2) X(3) X(4) X(5)
+#define APNERF_EACH_PART(X) X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7)
 #define APNERF_DECLARE(P_)                                                    \
   extern "C" int apnerf_fvr_field_fwd_p##P_(const FvrArgs*, int, void*); \
   extern "C" int apnerf_fvr_field_bwd_p##P_(const FvrArgs*, int, void*);

@@ -243,6 +243,25 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t 
 }
 
 template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n80(float (&d)[40], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, %43, %44;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -306,7 +325,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-// D[64, N] (+)= A[64, 16] B[16, N] for N in {16, 32, 48, 64, 128, 256}: the
+// D[64, N] (+)= A[64, 16] B[16, N] for N in {16, 32, 48, 64, 80, 128, 256}: the
 // instruction of that width (the kernels that take N from their template
 // widths call this one)
 template <int N, int TA, int TB>
@@ -319,10 +338,12 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
     wgmma_n48<TA, TB>(d, da, db, scale_d);
   } else if constexpr (N == 64) {
     wgmma_n64<TA, TB>(d, da, db, scale_d);
+  } else if constexpr (N == 80) {
+    wgmma_n80<TA, TB>(d, da, db, scale_d);
   } else if constexpr (N == 128) {
     wgmma_n128<TA, TB>(d, da, db, scale_d);
   } else {
-    static_assert(N == 256, "wgmma: N is one of 16, 32, 48, 64, 128, 256");
+    static_assert(N == 256, "wgmma: N is one of 16, 32, 48, 64, 80, 128, 256");
     wgmma_n256<TA, TB>(d, da, db, scale_d);
   }
 }

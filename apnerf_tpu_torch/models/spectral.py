@@ -221,7 +221,7 @@ def _kernel_route(who: str, cfg, params_mlp: MLP, x: torch.Tensor, named: bool) 
     the kernel route: then it runs the plain chain for CPU tensors only and
     raises on any other device, so a named route never becomes the plain
     chain on the card. Nothing here catches a kernel's failure: a field the
-    kernel refuses on its widths (a trunk over 512 wide;
+    kernel refuses on its widths (a trunk over 1024 wide;
     ``ops/cuda/field_images.check_trunk``) raises from the kernel's
     wrapper, and every narrower one runs, zero-padded to the tile's next
     instance."""

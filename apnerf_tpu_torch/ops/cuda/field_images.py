@@ -28,9 +28,10 @@ trunk layer as one ``[H, 64]`` image per k-block of its input, then with
 the heads the trunk's last layer as H / 64 ``[T_out, 64]`` images and per
 head layer the rgb and the semantic images side by side (the semantic
 head's first layer at input rows 16.., so both heads read the same ``[SH |
-geo]`` tile; the output layer's rgb images with the first 64 semantic
-columns, then 64 semantic columns a slab), or for the trunk alone its
-output layer 16 columns a slab.
+geo | 0]`` input, one image up to T_out = 48 and two at 64, its k-blocks;
+the output layer's rgb images with the first 64 semantic columns, then 64
+semantic columns a slab), or for the trunk alone its output layer 16
+columns a slab.
 
 **Backward slabs** (``B[n][k] = w[n][k0 + k]``, rows are input units), in
 the order the field backward walks: heads from the top (the output layer's
@@ -49,12 +50,14 @@ every ReLU, so every output and every gradient of its own entries is
 exact), and a field on the smallest tier that takes both its geometry
 features and its classes: the index tables here do the padding, for the
 whole field (``prepare_field``) and for the trunk alone
-(``field_train.TrunkCall``) alike. So a field takes any H from 4 to 512
-with heads H // 4, any number of frequencies, 1 to 47 geometry features
-and 1 to 256 classes, 2 or 3 hidden layers (``check_widths``); a trunk
-alone any H from 1 to 512, the encode of any number of frequencies or an
-input that is a multiple of 16 wide, and any output width
-(``check_trunk``).
+(``field_train.TrunkCall``) alike. So a field takes any H from 4 to 1024
+with heads H // 4, any number of frequencies (at most 256 past H = 512,
+where the first layer's input lies in a tile's buffer at once), 1 to 63
+geometry features and 1 to 1024 classes, 2 or 3 hidden layers
+(``check_widths``); a trunk alone any H from 1 to 1024, the encode of any
+number of frequencies or an input that is a multiple of 16 wide, and any
+output width (past H = 512: an input of at most 512 columns or 256
+frequencies, an output of at most 1024; ``check_trunk``).
 """
 
 from __future__ import annotations
@@ -66,11 +69,11 @@ import numpy as np
 
 from .launch import MAX_SMEM
 
-H_SET = (64, 128, 256, 512)  # trunk widths of the instances; the heads are H / 4 wide
+H_SET = (64, 128, 256, 512, 1024)  # trunk widths of the instances; the heads are H / 4 wide
 WIDTHS = H_SET  # APNERF_TILE_WIDTHS
 # the whole field's tiers (APNERF_FIELD_TIERS): the trunk output's width
 # (1 + geo) and the semantic output's (classes), padded
-TIERS = ((16, 64), (32, 128), (48, 256))
+TIERS = ((16, 64), (32, 128), (48, 256), (64, 1024))
 SHW = 16  # SH features of a direction
 RGB_PAD = 16  # rgb head output width, padded
 SEM_CHUNK = 64  # semantic output columns a forward slab and a backward block
@@ -85,7 +88,8 @@ TILE_ROWS = 64  # rows of one tile
 IMG_BYTES = TILE_ROWS * IMG_ROW_BYTES  # a 64-row image
 
 ALIGN_SLACK = 1024  # the kernels align their dynamic shared memory themselves
-BUF_BYTES = 8 * IMG_BYTES  # the consumers' activation buffers, together
+BUF_BYTES = 8 * IMG_BYTES  # the consumers' activation buffers, together, up to H = 512
+MAX_IN_BLOCKS_1024 = 8  # the first layer's k-blocks at H = 1024, where they lie in place
 U_TILE_BYTES = TILE_ROWS * 3 * 4
 Y_STAGE_BYTES = TILE_ROWS * 16 * 4
 DP_BYTES = TILE_ROWS * BLOCK_FREQS * 4
@@ -119,6 +123,41 @@ def split(H: int) -> int:
     return 2 if H > 256 else 1
 
 
+def halves(H: int) -> int:
+    """Products of n <= 256 a warpgroup forms its columns in
+    (``Tile::kNh``): two at H = 1024."""
+    return 2 if H > 512 else 1
+
+
+def per_image(H: int) -> bool:
+    """Whether the heads' layers go one image a slab and the trunk output
+    one k-block a slab (``Tile::kPerImage``): at H = 1024."""
+    return H > 512
+
+
+def buf_bytes(H: int) -> int:
+    """The consumers' activation buffers, together (``buf_bytes``)."""
+    return 2 * BUF_BYTES if H > 512 else BUF_BYTES
+
+
+def keep_bytes(H: int) -> int:
+    """Device memory a block keeps a layer's first half of results in
+    (``keep_words``): 64 KB at H = 1024, else none."""
+    return 64 * 256 * 4 if halves(H) > 1 else 0
+
+
+def mask_cols(H: int) -> int:
+    """uint2 mask words of a trunk layer per (row, lane % 4): one per
+    warpgroup and product."""
+    return split(H) * halves(H)
+
+
+def head_mask_words(H: int) -> int:
+    """uint2 words of the heads' masks per (row, lane % 4, warpgroup)
+    (``Tile::kMhw``): two where a warpgroup forms more than 64 head columns."""
+    return 2 if head_width(H) // split(H) > 64 else 1
+
+
 def pass_rows(H: int) -> int:
     """Rows a block handles per pass (``Tile::kPassRows``): two tiles, one at
     H = 512."""
@@ -130,39 +169,54 @@ def head_imgs(H: int) -> int:
     return -(-head_width(H) // 64)
 
 
+def xs_imgs(t_out: int) -> int:
+    """Images of the heads' input ``[SH 16 | geo | 0]`` at the tier's
+    T_out: one up to T_out = 48, two at 64."""
+    return -(-(SHW + t_out) // 64)
+
+
 def stages(H: int) -> int:
     """Slots of the forward and backward rings (``fwd_stages``)."""
-    return 2 if H > 256 else 4
+    return 1 if H > 512 else 2 if H > 256 else 4
+
+
+def trunk_slab_bytes(H: int) -> int:
+    """A trunk slab (``trunk_slab``): ``[H, 64]``, or at H = 1024 ``[512,
+    64]``, both warpgroups' rows of one half of a layer's columns."""
+    return (H // halves(H)) * IMG_ROW_BYTES
 
 
 def fwd_slot_bytes(H: int) -> int:
-    """A forward ring slot (``fwd_slot``): a trunk slab ``[H, 64]``, the
-    heads' second layers or the first of their output slabs."""
+    """A forward ring slot (``fwd_slot``): a trunk slab, the heads' first
+    or second layers (at H = 1024 one image a slab) or the first of their
+    output slabs."""
     hh, hi = head_width(H), head_imgs(H)
-    return max(H, 2 * hi * hh, hi * (RGB_PAD + SEM_CHUNK)) * IMG_ROW_BYTES
+    heads = hh if per_image(H) else 2 * hi * hh
+    return max(trunk_slab_bytes(H), heads * IMG_ROW_BYTES,
+               hi * (RGB_PAD + SEM_CHUNK) * IMG_ROW_BYTES)
 
 
 def bwd_slot_bytes(H: int) -> int:
-    """A backward ring slot (``bwd_slot``): a trunk slab ``[H, 64]``, a
-    first-layer slab ``[64 G, 64]``, the heads' slabs or a tile's saved
-    encoding (up to four images)."""
-    return max(H * IMG_ROW_BYTES, 4 * IMG_BYTES)
+    """A backward ring slot (``bwd_slot``): a trunk slab, a first-layer
+    slab ``[64 G, 64]``, the heads' slabs or a tile's saved encoding (up to
+    four images)."""
+    return max(trunk_slab_bytes(H), 4 * IMG_BYTES)
 
 
-def back_group(n_back: int, n_gt: int = 1) -> int:
+def back_group(n_back: int, n_gt: int = 1, H: int = 64) -> int:
     """The kernel instance of the backward (``back_group``, its kG) for
     ``n_back`` first-layer blocks and ``n_gt`` blocks of the trunk output's
-    cotangent: all first-layer blocks in one product of kG blocks, up to
-    four, with one trunk-output block; or 0: one block a product, any
-    number of trunk-output blocks."""
-    if n_gt > 1:
+    cotangent at the instance ``H``: all first-layer blocks in one product
+    of kG blocks, up to four, with one trunk-output block; or 0: one block a
+    product, any number of trunk-output blocks (the only one at H = 1024)."""
+    if n_gt > 1 or H > 512:
         return 0
     return 1 if n_back == 1 else 2 if n_back == 2 else 4 if n_back <= 4 else 0
 
 
-def back_blocks(n_back: int, n_gt: int = 1) -> int:
+def back_blocks(n_back: int, n_gt: int = 1, H: int = 64) -> int:
     """The backward's first-layer blocks, whole products (``back_group``)."""
-    g = back_group(n_back, n_gt) or 1
+    g = back_group(n_back, n_gt, H) or 1
     return -(-n_back // g) * g
 
 
@@ -215,15 +269,18 @@ def fwd_slabs(H: int, n_hidden: int, n_kb: int, heads: bool = True, out: int = 0
               t_out: int = TIERS[0][0], c_tile: int = TIERS[0][1]) -> List[Tuple[int, int]]:
     """(byte offset, bytes) of each forward slab, in consumption order; the
     whole field at the tier (``t_out``, ``c_tile``), or the trunk alone's
-    output layer (``out`` > 0) 16 columns a slab."""
-    trunk = H * IMG_ROW_BYTES
-    slabs = [(i * trunk, trunk) for i in range(n_kb + (n_hidden - 1) * H // 64)]
+    output layer (``out`` > 0) 16 columns a slab. At H = 1024 every trunk
+    layer goes in two halves, the trunk output one k-block a slab and the
+    heads' layers one image a slab."""
+    trunk = trunk_slab_bytes(H)
+    slabs = [(i * trunk, trunk) for i in range(halves(H) * (n_kb + (n_hidden - 1) * H // 64))]
     off = len(slabs) * trunk
-    hh, hi = head_width(H) * IMG_ROW_BYTES, head_imgs(H)
-    sizes = ([H // 64 * t_out * IMG_ROW_BYTES,  # trunk output: H / 64 [T_out, 64] images
-              2 * hh,  # heads, first layer: rgb | sem
-              2 * hi * hh,  # second layer: rgb's k-blocks | sem's
-              hi * (RGB_PAD + SEM_CHUNK) * IMG_ROW_BYTES]  # outputs: rgb [16, 64] | sem [64, 64]
+    hh, hi, xi = head_width(H) * IMG_ROW_BYTES, head_imgs(H), xs_imgs(t_out)
+    n_out, n_l1, n_l2 = (H // 64, 2 * xi, 2 * hi) if per_image(H) else (1, 1, 1)
+    sizes = ([H // 64 * t_out * IMG_ROW_BYTES // n_out] * n_out  # trunk output: [T_out, 64] each
+             + [2 * xi * hh // n_l1] * n_l1  # heads, first layer: rgb's k-blocks | sem's
+             + [2 * hi * hh // n_l2] * n_l2  # second layer: rgb's k-blocks | sem's
+             + [hi * (RGB_PAD + SEM_CHUNK) * IMG_ROW_BYTES]  # outputs: rgb [16, 64] | sem [64, 64]
              + [hi * SEM_CHUNK * IMG_ROW_BYTES] * (c_tile // SEM_CHUNK - 1)  # sem's next 64
              if heads else [H // 64 * OUT_CHUNK * IMG_ROW_BYTES] * out_chunks(out))
     for size in sizes:
@@ -236,19 +293,23 @@ def bwd_slabs(H: int, n_hidden: int, n_back: int, heads: bool = True, out: int =
               t_out: int = TIERS[0][0], c_tile: int = TIERS[0][1]) -> List[Tuple[int, int]]:
     """(byte offset, bytes) of each backward weight slab, in consumption
     order; ``n_back`` first-layer blocks (``pair_blocks`` of the encode, or
-    x's k-blocks); the whole field at the tier (``t_out``, ``c_tile``)."""
+    x's k-blocks); the whole field at the tier (``t_out``, ``c_tile``). At
+    H = 1024 every trunk layer goes in two halves and the heads' layers
+    back one image a slab."""
     slabs, off = [], 0
     hh, hi = head_width(H) * IMG_ROW_BYTES, head_imgs(H)
+    n_img = 2 * hi if per_image(H) else 1
     sizes = ([2 * hh]  # head outputs back: rgb | sem's first 64 classes
              + [hh] * (c_tile // SEM_CHUNK - 1)  # sem's next 64
-             + [2 * hi * hh,  # second layer back
-                2 * hi * (SHW + t_out) * IMG_ROW_BYTES]  # first layer back: [16 + T_out, 64]
+             + [2 * hi * hh // n_img] * n_img  # second layer back
+             + [2 * hi * (SHW + t_out) * IMG_ROW_BYTES // n_img] * n_img  # first layer back
              if heads else [])
-    sizes += [H * IMG_ROW_BYTES] * (1 if heads else gt_blocks(out))  # trunk output back
-    sizes += [H * IMG_ROW_BYTES] * ((n_hidden - 1) * H // 64)  # hidden layers n_hidden - 1 .. 1
+    trunk = trunk_slab_bytes(H)
+    sizes += [trunk] * halves(H) * (1 if heads else gt_blocks(out))  # trunk output back
+    sizes += [trunk] * halves(H) * ((n_hidden - 1) * H // 64)  # hidden layers n_hidden - 1 .. 1
     n_gt = 1 if heads else gt_blocks(out)
-    g = back_group(n_back, n_gt) or 1  # the first layer: [64 g, 64] per product and 64 units
-    sizes += [64 * g * IMG_ROW_BYTES] * (back_blocks(n_back, n_gt) // g * H // 64)
+    g = back_group(n_back, n_gt, H) or 1  # the first layer: [64 g, 64] a product and 64 units
+    sizes += [64 * g * IMG_ROW_BYTES] * (back_blocks(n_back, n_gt, H) // g * H // 64)
     for size in sizes:
         slabs.append((off, size))
         off += size
@@ -353,15 +414,33 @@ def _weight(lay: LeafLayout, leaf: int, rows: Optional[np.ndarray] = None):
     return at
 
 
-def _fwd_image(at, rows: int, k0: int = 0, n0: int = 0, k_shift: int = 0):
-    """B[n][k] = w[k0 + k - k_shift][n0 + n]."""
-    return _image_index(rows, lambda n, k: np.where(k >= k_shift, at(k0 + k - k_shift, n0 + n),
-                                                    at(-1, 0)))
+def _fwd_image(at, rows: int, k0: int = 0, n0: int = 0):
+    """B[n][k] = w[k0 + k][n0 + n]."""
+    return _image_index(rows, lambda n, k: at(k0 + k, n0 + n))
 
 
 def _bwd_image(at, rows: int, k0: int = 0, n0: int = 0, n_shift: int = 0):
     """B[n][k] = w[n0 + n - n_shift][k0 + k]."""
     return _image_index(rows, lambda n, k: at(n0 + n - n_shift, k0 + k))
+
+
+def _unit_rows(H: int, hf: int) -> np.ndarray:
+    """The units (a layer's output columns in the forward, its input rows in
+    the backward) of the rows of a trunk slab of half ``hf``: all H, or at H
+    = 1024 each warpgroup's 256 of that half, warpgroup 0's first."""
+    r = np.arange(H // halves(H))
+    if halves(H) == 1:
+        return r
+    w = H // split(H) // halves(H)  # the columns of one product
+    return (r // w) * (H // split(H)) + hf * w + r % w
+
+
+def _rows_image(at, units: np.ndarray, k0: int, forward: bool):
+    """A trunk slab: B[n][k] = w[k0 + k][units[n]] (forward) or w[units[n]][k0
+    + k] (backward)."""
+    if forward:
+        return _image_index(len(units), lambda n, k: at(k0 + k, units[n]))
+    return _image_index(len(units), lambda n, k: at(units[n], k0 + k))
 
 
 def _trunk_images(lay: LeafLayout, trunk: Sequence[int], rows: np.ndarray,
@@ -371,26 +450,29 @@ def _trunk_images(lay: LeafLayout, trunk: Sequence[int], rows: np.ndarray,
     numbers of its weights (biases follow each), ``rows`` the first layer's
     input rows in the forward's column order (its k-blocks) and
     ``back_rows`` in the backward's; with the heads the trunk output
-    ``t_out`` columns wide."""
+    ``t_out`` columns wide. A layer's slabs go half by half (two at H =
+    1024), each over every k-block of its input."""
     n_hidden = len(trunk) - 1
     n_kb = len(rows) // 64
     first = _weight(lay, trunk[0], rows)
     back = _weight(lay, trunk[0], back_rows)
     ws = [first] + [_weight(lay, t) for t in trunk[1:]]
-    fwd = [_fwd_image(first, H, k0=64 * b) for b in range(n_kb)]
+    units = [_unit_rows(H, hf) for hf in range(halves(H))]
+    fwd = [_rows_image(first, u, 64 * b, True) for u in units for b in range(n_kb)]
     for l in range(1, n_hidden):
-        fwd += [_fwd_image(ws[l], H, k0=64 * kb) for kb in range(H // 64)]
+        fwd += [_rows_image(ws[l], u, 64 * kb, True) for u in units for kb in range(H // 64)]
     if heads:
         fwd += [_fwd_image(ws[n_hidden], t_out, k0=64 * kb) for kb in range(H // 64)]
     for ch in range(0 if heads else out_chunks(out)):
         fwd += [_fwd_image(ws[n_hidden], OUT_CHUNK, k0=64 * kb, n0=OUT_CHUNK * ch)
                 for kb in range(H // 64)]
-    bwd = [_bwd_image(ws[n_hidden], H, k0=64 * t) for t in range(1 if heads else gt_blocks(out))]
+    n_gt = 1 if heads else gt_blocks(out)
+    bwd = [_rows_image(ws[n_hidden], u, 64 * t, False) for u in units for t in range(n_gt)]
     for l in range(n_hidden - 1, 0, -1):
-        bwd += [_bwd_image(ws[l], H, k0=64 * kb) for kb in range(H // 64)]
-    n_back, n_gt = len(back_rows) // 64, 1 if heads else gt_blocks(out)
-    g = back_group(n_back, n_gt) or 1
-    for grp in range(back_blocks(n_back, n_gt) // g):
+        bwd += [_rows_image(ws[l], u, 64 * kb, False) for u in units for kb in range(H // 64)]
+    n_back = len(back_rows) // 64
+    g = back_group(n_back, n_gt, H) or 1
+    for grp in range(back_blocks(n_back, n_gt, H) // g):
         bwd += [_bwd_image(back, 64 * g, k0=64 * kb, n0=64 * g * grp) for kb in range(H // 64)]
     return fwd, bwd
 
@@ -438,7 +520,12 @@ def index_tables(m: int, h: int, n_hidden: int, G: int, C: int):
                                    t_out=t_out)
     rgb = [_weight(lay, leaf) for leaf in head]
     sem = [_weight(lay, leaf) for leaf in semh]
-    fwd += [_fwd_image(rgb[0], hh), _fwd_image(sem[0], hh, k_shift=SHW)]
+    xi = xs_imgs(t_out)
+
+    def sem0(i, j):  # the semantic head's first layer at input rows SHW..
+        return sem[0](np.asarray(i) - SHW, j)
+
+    fwd += [_fwd_image(w, hh, k0=64 * kb) for w in (rgb[0], sem0) for kb in range(xi)]
     fwd += [_fwd_image(w[1], hh, k0=64 * kb) for w in (rgb, sem) for kb in range(hi)]
     fwd += [_fwd_image(rgb[2], RGB_PAD, k0=64 * kb) for kb in range(hi)]
     fwd += [_fwd_image(sem[2], SEM_CHUNK, k0=64 * kb, n0=SEM_CHUNK * ch)
@@ -490,7 +577,7 @@ def fwd_smem_bytes(H: int, n_hidden: int, t_out: int = TIERS[0][0],
     tiles of coordinates per tile, the trunk output's staging, the
     barriers."""
     bias = -(-bias_offsets(H, n_hidden, t_out, c_tile)["total"] * 4 // 128) * 128
-    return (ALIGN_SLACK + stages(H) * fwd_slot_bytes(H) + BUF_BYTES + bias + 4 * U_TILE_BYTES
+    return (ALIGN_SLACK + stages(H) * fwd_slot_bytes(H) + buf_bytes(H) + bias + 4 * U_TILE_BYTES
             + 2 * Y_STAGE_BYTES + 16 * stages(H))
 
 
@@ -498,7 +585,7 @@ def bwd_smem_bytes(H: int) -> int:
     """``bwd_smem()`` of ``csrc/fused_field_volrend.cu``: the slab ring, the
     cotangent buffers, a tile of coordinates and a k-block's f32 dproj per
     tile, the barriers."""
-    return (ALIGN_SLACK + stages(H) * bwd_slot_bytes(H) + BUF_BYTES + 2 * U_TILE_BYTES
+    return (ALIGN_SLACK + stages(H) * bwd_slot_bytes(H) + buf_bytes(H) + 2 * U_TILE_BYTES
             + 2 * DP_BYTES + 16 * stages(H))
 
 
@@ -556,32 +643,41 @@ def _matrix_items(x: str, x_imgs: int, y: str, y_imgs: int) -> list:
             for p in range(-(-x_imgs // 2)) for y0, n in _col_groups(y_imgs)]
 
 
-def _head_items(H: int, c_tile: int = TIERS[0][1]) -> list:
-    """The heads' items: first layer (X = the heads' input), second, output
-    (dY = ``gout``: the rgb image, then ``c_tile`` / 64 semantic images);
-    one head a warpgroup, or at H / 4 = 128 one item a head. Past 64
-    classes the output layer is an item a head: rgb's on both warpgroups,
-    the semantic columns split between them (at H / 4 = 128: shared)."""
-    k, ns = head_imgs(H), c_tile // SEM_CHUNK
+def _head_items(H: int, c_tile: int = TIERS[0][1], t_out: int = TIERS[0][0]) -> list:
+    """The heads' items: first layer (X = the heads' input, one item per
+    image of it), second, output (dY = ``gout``: the rgb image, then
+    ``c_tile`` / 64 semantic images); one head a warpgroup, or at H / 4 =
+    128 one item a head. Past 64 classes the output layer is an item for
+    rgb on both warpgroups and the semantic columns in items of at most 256:
+    split between the warpgroups (at H / 4 = 128: shared)."""
+    k, ns, xi = head_imgs(H), c_tile // SEM_CHUNK, xs_imgs(t_out)
     ng = 1 + ns
     if k == 1:
-        out = ([("hid2", 2, (0, 1), "gout", ng, (0, 1), 64)] if ns == 1 else
-               [("hid2", 2, (0, 0), "gout", ng, (0, 0), 64),
-                ("hid2", 2, (1, 1), "gout", ng, (1, 1 + ns // 2), c_tile // 2)])
-        return [("xs", 1, (0, 0), "g1", 2, (0, 1), 64),
-                ("hid1", 2, (0, 1), "g2", 2, (0, 1), 64)] + out
-    return [("xs", 1, (0, 0), "g1", 2 * k, (0, k), 64 * k),
-            ("hid1", 2 * k, (0, 1), "g2", 2 * k, (0, 0), 64 * k),
-            ("hid1", 2 * k, (2, 3), "g2", 2 * k, (k, k), 64 * k),
-            ("hid2", 2 * k, (0, 1), "gout", ng, (0, 0), 64),
-            ("hid2", 2 * k, (2, 3), "gout", ng, (1, 1), c_tile)]
+        first = [("xs", xi, (x, x), "g1", 2, (0, 1), 64) for x in range(xi)]
+        second = [("hid1", 2, (0, 1), "g2", 2, (0, 1), 64)]
+        if ns == 1:
+            return first + second + [("hid2", 2, (0, 1), "gout", ng, (0, 1), 64)]
+        per = min(2, ns // 2)  # semantic images a warpgroup of an item
+        return first + second + [("hid2", 2, (0, 0), "gout", ng, (0, 0), 64)] + [
+            ("hid2", 2, (1, 1), "gout", ng, (1 + j, 1 + j + per), 64 * per)
+            for j in range(0, ns, 2 * per)]
+    # H / 4 = 128 or 256: per head, its X images in pairs (128 input rows on
+    # both warpgroups) and its dY images in groups of at most 256 columns
+    return ([("xs", xi, (x, x), "g1", 2 * k, (j, k + j), 64 * min(2, k - j))
+             for x in range(xi) for j in range(0, k, 2)]
+            + [("hid1", 2 * k, (hd * k + 2 * p, hd * k + 2 * p + 1), "g2", 2 * k,
+                (hd * k + y, hd * k + y), 64 * min(4, k - y))
+               for hd in (0, 1) for p in range(k // 2) for y in range(0, k, 4)]
+            + [("hid2", 2 * k, (2 * p, 2 * p + 1), "gout", ng, (0, 0), 64) for p in range(k // 2)]
+            + [("hid2", 2 * k, (k + 2 * p, k + 2 * p + 1), "gout", ng, (1 + j, 1 + j),
+                64 * min(4, ns - j)) for p in range(k // 2) for j in range(0, ns, 4)])
 
 
 def dw_items(H: int, n_hidden: int, n_kb: int, n_tiles: int, n_sm: int, heads: bool = True,
-             out: int = 0, c_tile: int = TIERS[0][1]) -> List[DwItem]:
+             out: int = 0, c_tile: int = TIERS[0][1], t_out: int = TIERS[0][0]) -> List[DwItem]:
     """The weight-gradient kernel's products, in the order of their outputs:
     per trunk matrix its items, the trunk output's, then with the heads
-    theirs (the semantic output ``c_tile`` columns). The pass is bound by
+    theirs at the tier (``t_out``, ``c_tile``). The pass is bound by
     device memory, so an item gets row chunks (blocks) in proportion to the
     images it reads per row tile, ``n_sm`` blocks in all."""
     hi = H // 64
@@ -591,7 +687,7 @@ def dw_items(H: int, n_hidden: int, n_kb: int, n_tiles: int, n_sm: int, heads: b
         plan += _matrix_items(x, x_imgs, f"gh{l}", hi)
     plan += _matrix_items(f"h{n_hidden - 1}", hi, "gt", 1 if heads else gt_blocks(out))
     if heads:
-        plan += _head_items(H, c_tile)
+        plan += _head_items(H, c_tile, t_out)
 
     def images(p):  # read per row tile
         return len(set(p[2])) + p[6] // 64 * len(set(p[5]))
@@ -613,9 +709,9 @@ class DwPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def dw_plan(H: int, n_hidden: int, n_kb: int, n_tiles: int, n_sm: int, heads: bool = True,
-            out: int = 0, c_tile: int = TIERS[0][1]) -> DwPlan:
+            out: int = 0, c_tile: int = TIERS[0][1], t_out: int = TIERS[0][0]) -> DwPlan:
     rows, block, p_off, out_off = [], 0, 0, 0
-    for it in dw_items(H, n_hidden, n_kb, n_tiles, n_sm, heads, out, c_tile):
+    for it in dw_items(H, n_hidden, n_kb, n_tiles, n_sm, heads, out, c_tile, t_out):
         chunk_tiles = -(-n_tiles // it.chunks)
         chunks = -(-n_tiles // chunk_tiles)  # no chunk is empty
         rows.append((it, chunks, chunk_tiles, block, p_off, out_off))
@@ -657,9 +753,10 @@ def matrix_grads(plan: DwPlan, out, shapes: Sequence[Tuple[int, int]]):
     return grads, i
 
 
-_WIDTHS_TEXT = (f"instances H in {H_SET}: H 4..512 with heads H // 4, any number of "
-                f"frequencies, 2 or 3 hidden layers, geo 1..{MAX_GEO}, classes 1..{MAX_CLASSES} "
-                f"(tiers (T_out, C_pad) in {TIERS})")
+_WIDTHS_TEXT = (f"instances H in {H_SET}: H 4..{max(H_SET)} with heads H // 4, any number of "
+                f"frequencies up to H = 512 and 1..{32 * MAX_IN_BLOCKS_1024} past it, 2 or 3 "
+                f"hidden layers, geo 1..{MAX_GEO}, classes 1..{MAX_CLASSES} (tiers (T_out, C_pad) "
+                f"in {TIERS})")
 
 
 def check_widths(who: str, shapes: Sequence[Tuple[int, ...]]):
@@ -681,7 +778,8 @@ def check_widths(who: str, shapes: Sequence[Tuple[int, ...]]):
     C = shapes[first + 10][1] if len(shapes[first + 10]) == 2 else -1
     G = out_t - 1
     if (m < 1 or not 4 <= h <= max(H_SET) or hh != head_width(h) or not 1 <= G <= MAX_GEO
-            or not 1 <= C <= MAX_CLASSES):
+            or not 1 <= C <= MAX_CLASSES
+            or (h > 512 and enc_blocks(m) > MAX_IN_BLOCKS_1024)):
         raise ValueError(
             f"{who}: unsupported widths M={m} H={h} head={hh} geo={G} classes={C} (the "
             f"kernels take {_WIDTHS_TEXT})")
@@ -695,9 +793,11 @@ def check_widths(who: str, shapes: Sequence[Tuple[int, ...]]):
 def check_trunk(who: str, shapes: Sequence[Tuple[int, ...]], m: int = 0):
     """Raise unless the (w, b) pairs' shapes are a trunk the tile takes: the
     encode of ``m`` >= 1 frequencies (the input 2m wide) or, with ``m = 0``,
-    an input x whose width is a multiple of 16; H from 1 to 512; 2 or 3
-    hidden layers; any output width → (din, h, n_hidden, out), the trunk's
-    own widths (it runs on the instance ``instance(h)``, zero-padded)."""
+    an input x whose width is a multiple of 16; H from 1 to 1024 (past 512
+    an input of at most 512 columns, 256 frequencies, and an output of at
+    most 1024); 2 or 3 hidden layers; any output width up to H = 512 →
+    (din, h, n_hidden, out), the trunk's own widths (it runs on the
+    instance ``instance(h)``, zero-padded)."""
     if len(shapes) % 2 or len(shapes) // 2 not in (3, 4):
         raise ValueError(f"{who}: the trunk needs 2 or 3 hidden layers, as (w, b) pairs")
     n_hidden = len(shapes) // 2 - 1
@@ -705,11 +805,15 @@ def check_trunk(who: str, shapes: Sequence[Tuple[int, ...]], m: int = 0):
     h = shapes[0][1] if len(shapes[0]) == 2 else -1
     out = shapes[-2][1] if len(shapes[-2]) == 2 else -1
     ok_in = din == 2 * m and m >= 1 if m else din > 0 and din % 16 == 0
-    if not ok_in or not 1 <= h <= max(H_SET) or out < 1:
+    n_kb = enc_blocks(m) if m else x_blocks(din)
+    wide_ok = h <= 512 or (n_kb <= MAX_IN_BLOCKS_1024 and gt_blocks(out) <= 16)
+    if not ok_in or not 1 <= h <= max(H_SET) or out < 1 or not wide_ok:
         raise ValueError(
             f"{who}: unsupported trunk widths in={din} H={h} out={out} (the tile takes the "
             f"encode of any number of frequencies or an input that is a multiple of 16 wide, "
-            f"H 1..{max(H_SET)} on the instances H in {H_SET}, any output width)")
+            f"H 1..{max(H_SET)} on the instances H in {H_SET}, any output width; past H = 512 "
+            f"an input of at most {64 * MAX_IN_BLOCKS_1024} columns and an output of at most "
+            f"1024)")
     want = trunk_layout(din, h, n_hidden, out).shapes
     for i, (got, exp) in enumerate(zip(shapes, want)):
         if tuple(got) != tuple(exp):

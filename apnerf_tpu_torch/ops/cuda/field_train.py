@@ -55,7 +55,7 @@ class _FvrArgs(ctypes.Structure):
             "gout", "g2", "g1", "gt")]
         + [("gh", _p * 3)]
         + [(n, _p) for n in ("tile_part", "w", "lossrows", "g_acc", "g_w", "g_packed", "du",
-                             "x", "g_trunk", "dx")]
+                             "x", "g_trunk", "dx", "keep")]
         + [(n, _i) for n in ("n_rows", "n_rays", "n_samples", "tile_h", "n_hidden", "geo",
                              "n_classes", "c_pad", "t_out", "c_tile", "heads", "x_f32", "din",
                              "out", "n_freq", "n_kb")]
@@ -98,7 +98,7 @@ class _TileCall:
         self.tpad = field_images.t_pad(heads, out, tier[0])
         n_gt = 1 if heads else field_images.gt_blocks(out)
         self.mp = (field_images.BLOCK_FREQS
-                   * field_images.back_blocks(field_images.pair_blocks(n_freq), n_gt)
+                   * field_images.back_blocks(field_images.pair_blocks(n_freq), n_gt, H)
                    if n_freq else 0)
         self.n_bias = field_images.n_bias(H, n_hidden, self.tpad, self.mp)
         self.a = a = _FvrArgs()
@@ -109,14 +109,17 @@ class _TileCall:
         self.ref = ctypes.addressof(a)
         # every scratch buffer of the call is a slice of one allocation (bytes)
         img = field_images.IMG_BYTES
-        mask = Np * 32 * field_images.split(H)
+        mask = Np * 32 * field_images.mask_cols(H)
         sizes = dict(sizes, enc=T * n_kb * img, gt=T * self.tpad // 64 * img if not heads
                      else T * img, tile_part=T * self.n_bias * 4)
         for l in range(n_hidden):
             sizes.update({f"h{l}": T * H // 64 * img, f"gh{l}": T * H // 64 * img,
                           f"mask_t{l}": mask})
-        self._dw = field_images.dw_plan(H, n_hidden, n_kb, T, sm_count(dev), heads, out, tier[1])
+        self._dw = field_images.dw_plan(H, n_hidden, n_kb, T, sm_count(dev), heads, out, tier[1],
+                                        tier[0])
         sizes["dw_partials"] = self._dw.partial_floats * 4
+        if field_images.keep_bytes(H):
+            sizes["keep"] = self.grid * field_images.keep_bytes(H)
         self.ptr, total = {}, 0
         for name, size in sizes.items():
             self.ptr[name] = total
@@ -185,9 +188,12 @@ class _TileCall:
         list, the index of the first item past the trunk's)."""
         H, nh = self.H, self.nh
         kin = 64 * self.n_kb
-        shapes = [(kin, h)] + [(h, h)] * (nh - 1) + [(h, out_t)]
+        # every matrix's items cover the instance's input rows (H past the
+        # first layer), whatever the trunk's own width: read them all
+        shapes = [(kin, h)] + [(H, h)] * (nh - 1) + [(H, out_t)]
         dws, n_items = field_images.matrix_grads(self._dw, out, shapes)
         dws[0] = dws[0][:din] if rows is None else dws[0].index_select(0, rows)
+        dws[1:] = [dw[:h] for dw in dws[1:]]
         dbs = [gb[l * H: l * H + h] for l in range(nh)] + [gb[nh * H: nh * H + out_t]]
         grads = []
         for dw, db in zip(dws, dbs):
@@ -241,8 +247,10 @@ class FieldTrainCall(_TileCall):
         n_gout = 1 + fld.tier[1] // field_images.SEM_CHUNK  # rgb, then the semantic blocks
         self._setup(who, dev, N, H, fld.n_hidden, True, fld.n_kb, fld.m, 0,
                     (w.W, w.phase, w.wfwd, w.wbwd, w.bias), {
-                        "xs": T * img, "hid1": T * 2 * hi * img, "hid2": T * 2 * hi * img,
-                        "mask_h": Np * 32 * field_images.split(H), "sigma": N * 4,
+                        "xs": T * field_images.xs_imgs(fld.tier[0]) * img,
+                        "hid1": T * 2 * hi * img, "hid2": T * 2 * hi * img,
+                        "mask_h": Np * 32 * field_images.split(H) * field_images.head_mask_words(H),
+                        "sigma": N * 4,
                         "dsd": N * 4, "rgb": N * 12, "sem": N * C * 4, "graw": N * 4,
                         "gout_rgb": Np * 32, "gout_sem": Np * cpad * 2,
                         "ray_part": R * (16 + cpad) * 4, "gout": T * n_gout * img,
@@ -272,24 +280,38 @@ class FieldTrainCall(_TileCall):
         G, hh, C = fld.G, fld.hh, fld.C
         trunk, i = self._trunk_grads(out, gb, _enc_rows(self.dev, fld.m), 2 * fld.m, fld.h,
                                      fld.out_t)
-        # the heads' items: [2, 64, n] blocks; one head a warpgroup (past 64
-        # classes the output layer an item a head, the semantic columns split
-        # between the warpgroups), or at H / 4 = 128 one item a head, its 128
-        # input rows over both warpgroups
+        # the heads' items, [2, 64, n] blocks (field_images._head_items): the
+        # first layer an item per image of its input, 64 input rows each; one
+        # head a warpgroup, or at H / 4 = 128 one item a head, its 128 input
+        # rows over both warpgroups; the output layer's semantic columns in
+        # items of their own past 64 classes
         blocks = [out[row[5]: row[5] + 2 * 64 * row[0].n].view(2, 64, row[0].n)
                   for row in self._dw.items[i:]]
-        if len(blocks) == 3:
-            l1, l2, l3 = blocks
-            rgb = [l1[0], l2[0], l3[0]]
-            sem = [l1[1], l2[1], l3[1]]
-        elif field_images.head_imgs(fld.H) == 1:
-            l1, l2, l3r, l3s = blocks
-            rgb = [l1[0], l2[0], l3r[0]]
-            sem = [l1[1], l2[1], torch.cat([l3s[0], l3s[1]], dim=1)]
+        xi, k = field_images.xs_imgs(fld.tier[0]), field_images.head_imgs(fld.H)
+        if k == 1:
+            l1, rest = blocks[:xi], blocks[xi:]
+            first = [torch.cat([b[w] for b in l1], dim=0) for w in (0, 1)]
+            l2, l3 = rest[0], rest[1:]
+            rgb = [first[0], l2[0], l3[0][0]]
+            sem = [first[1], l2[1], l3[0][1] if len(l3) == 1 else
+                   torch.cat([b[w] for b in l3[1:] for w in (0, 1)], dim=1)]
         else:
-            l1, l2r, l2s, l3r, l3s = blocks
-            rgb = [l1[0], l2r.reshape(128, -1), l3r.reshape(128, -1)]
-            sem = [l1[1], l2s.reshape(128, -1), l3s.reshape(128, -1)]
+            # per 128 input rows (an X pair) the items of its column groups
+            it = iter(blocks)
+
+            def rows(n_pairs, n_groups):
+                return torch.cat([torch.cat([next(it).reshape(128, -1) for _ in range(n_groups)],
+                                            dim=1) for _ in range(n_pairs)], dim=0)
+
+            l1 = [[next(it) for _ in range(k // 2)] for _ in range(xi)]
+            first = [torch.cat([torch.cat([b[w] for b in row], dim=1) for row in l1], dim=0)
+                     for w in (0, 1)]
+            n_y = -(-k // 4)
+            l2r, l2s = rows(k // 2, n_y), rows(k // 2, n_y)
+            l3r = rows(k // 2, 1)
+            l3s = rows(k // 2, -(-fld.tier[1] // 256))
+            rgb = [first[0], l2r, l3r]
+            sem = [first[1], l2s, l3s]
         dws = [rgb[0][: 16 + G, :hh], rgb[1][:hh, :hh], rgb[2][:hh, :3],
                sem[0][16: 16 + G, :hh], sem[1][:hh, :hh], sem[2][:hh, :C]]
         H, hH = fld.H, field_images.head_width(fld.H)
@@ -359,10 +381,13 @@ class TrunkForwardCall(TrunkCall):
         else:
             a.x, a.x_f32 = self.x.data_ptr(), int(self.x.dtype == torch.float32)
         p.wfwd, p.wbwd, p.bias = (t.data_ptr() for t in self.images)
+        grid = field_images.field_grid(self.N, sm_count(self.dev), self.H)
+        keep = (torch.empty((grid * field_images.keep_bytes(self.H),), dtype=torch.uint8,
+                            device=self.dev) if field_images.keep_bytes(self.H) else None)
+        p.keep = keep.data_ptr() if keep is not None else None
         p.tile_h, p.n_hidden, p.n_freq, p.n_kb, p.out = self.H, self.nh, self.m, self.n_kb, \
             self.out_t
         a.y, a.n_rows, a.n_samples, a.din = y.data_ptr(), self.N, 1, self.din
-        grid = field_images.field_grid(self.N, sm_count(self.dev), self.H)
         launcher(self.who, self.dev)(lib.apnerf_trunk_fwd, ctypes.addressof(a), grid)
         return y
 

@@ -75,7 +75,8 @@ def fused_field_heads_plain(leaves, u, sh, S: int, compute_dtype=torch.bfloat16)
 class FieldWeightsStruct(ctypes.Structure):
     """Mirrors ``FieldWeights`` in ``csrc/field_tile.cuh`` field by field."""
 
-    _fields_ = [("W", _p), ("phase", _p), ("wfwd", _p), ("wbwd", _p), ("bias", _p)] + [
+    _fields_ = [("W", _p), ("phase", _p), ("wfwd", _p), ("wbwd", _p), ("bias", _p),
+                ("keep", _p)] + [
         (n, ctypes.c_int) for n in ("tile_h", "n_hidden", "geo", "n_classes", "t_out", "c_tile",
                                     "n_freq", "n_kb", "out")]
 
@@ -93,7 +94,7 @@ class PreparedField(NamedTuple):
     buffers alive for as long as ``weights`` points at them."""
 
     weights: FieldWeightsStruct
-    images: Tuple[torch.Tensor, ...]  # forward slabs, backward slabs, biases
+    images: Tuple[torch.Tensor, ...]  # forward slabs, backward slabs, biases (, keep)
     m: int  # frequencies
     H: int  # the instance's trunk width
     h: int  # the field's own trunk width (zero-padded up to H)
@@ -151,6 +152,11 @@ def field_weights(leaves, dev, m: int, h: int, n_hidden: int, G: int, C: int):
     w = FieldWeightsStruct()
     w.W, w.phase = leaves[0].data_ptr(), leaves[1].data_ptr()
     w.wfwd, w.wbwd, w.bias = (t.data_ptr() for t in images)
+    keep = field_images.keep_bytes(field_images.instance(h))
+    if keep:
+        # a layer's first half of results, per persistent block (at most one an SM)
+        images += (torch.empty((sm_count(dev) * keep,), dtype=torch.uint8, device=dev),)
+        w.keep = images[-1].data_ptr()
     w.tile_h, w.n_hidden, w.geo, w.n_classes = field_images.instance(h), n_hidden, G, C
     w.t_out, w.c_tile = field_images.tier(G, C)
     w.n_freq, w.n_kb = m, field_images.enc_blocks(m)

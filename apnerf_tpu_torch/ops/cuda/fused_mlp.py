@@ -23,12 +23,14 @@ encode (or read x) and the hidden layers with the bf16 activations saved,
 go back from the output's cotangent, rounded to bf16, through the trunk,
 and reduce the weight gradients in a fixed order: every layer's dW and
 db, then dW_spec, dphase and du, or dx in x's dtype. Both directions take
-one set of widths (``field_images.check_trunk``): H from 1 to 512 on the
-instances H in 64, 128, 256, 512 (a trunk between two zero-padded up to
-the next), 2 or 3 hidden layers, any output width, and the encode of any
-number of frequencies or an input x of any width that is a multiple of
-16. A deeper trunk, or one wider than 512, raises on the card before any
-launch. The plain backwards are autograd through the plain forwards.
+one set of widths (``field_images.check_trunk``): H from 1 to 1024 on the
+instances H in 64, 128, 256, 512, 1024 (a trunk between two zero-padded up
+to the next), 2 or 3 hidden layers, any output width, and the encode of
+any number of frequencies or an input x of any width that is a multiple
+of 16 (past H = 512: at most 256 frequencies or 512 input columns, an
+output of at most 1024). A deeper trunk, or one wider than 1024, raises on
+the card before any launch. The plain backwards are autograd through the
+plain forwards.
 """
 
 from __future__ import annotations
@@ -220,7 +222,7 @@ class _MlpApply(torch.autograd.Function):
 
 def fused_mlp_apply(params: MLP, x: torch.Tensor) -> torch.Tensor:
     """y = MLP(x) for a ReLU MLP [Din, H, ..., H, Dout] with 2 or 3 hidden
-    layers, Din a multiple of 16, H up to 512; x [N, Din] in bf16 or f32 (a
+    layers, Din a multiple of 16, H up to 1024; x [N, Din] in bf16 or f32 (a
     bf16 x is read as it is), y [N, Dout] f32. A CUDA tensor launches the
     kernel or raises. Differentiable in the parameters and x (dx in x's
     dtype)."""

@@ -153,8 +153,9 @@ def default_route(s_cfg: spectral.SpectralConfig) -> str:
     a field without classes or without viewdirs; ``plain`` for f32 compute
     or another depth, where the JAX package runs its XLA chain. The
     renderers of the mapper take the packed kernels exactly where this is
-    ``lossgrad``. The kernels take every width up to a 512-wide trunk with
-    heads H // 4, 1 to 47 geometry features and 1 to 256 classes
+    ``lossgrad``. The kernels take every width up to a 1024-wide trunk with
+    heads H // 4 (past 512, at most 256 frequencies), 1 to 63 geometry
+    features and 1 to 1024 classes
     (``ops/cuda/field_images.check_widths``); a field past those raises
     from their wrappers: its route is not changed for it. An unbounded
     field takes ``field``: the packed kernels decline it

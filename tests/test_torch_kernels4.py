@@ -340,13 +340,18 @@ def test_shared_memory_budgets_mirror_the_kernels(H, n_kb):
     tiers = re.findall(r"X\((\d+), (\d+), (\d+)\)", listed)
     assert [int(t) for t, _, _ in tiers] == list(range(len(fi.TIERS)))
     assert tuple((int(o), int(c)) for _, o, c in tiers) == fi.TIERS
-    assert (fi.MAX_GEO, fi.MAX_CLASSES) == (47, 256)
+    assert (fi.MAX_GEO, fi.MAX_CLASSES) == (63, 1024)
     assert [fi.tier(g, c) for g, c in ((15, 64), (16, 1), (1, 65), (31, 128), (32, 5),
-                                       (3, 129), (47, 256))] == [
-        (16, 64), (32, 128), (32, 128), (32, 128), (48, 256), (48, 256), (48, 256)]
+                                       (3, 129), (47, 256), (48, 1), (1, 257), (63, 1024))] == [
+        (16, 64), (32, 128), (32, 128), (32, 128), (48, 256), (48, 256), (48, 256),
+        (64, 1024), (64, 1024), (64, 1024)]
+    assert [fi.xs_imgs(t) for t, _ in fi.TIERS] == [1, 1, 1, 2]
     assert fi.BUF_BYTES == 8 * fi.IMG_BYTES and fi.DW_STAGE_BYTES == 6 * fi.IMG_BYTES
+    assert fi.buf_bytes(H) == (16 if H == 1024 else 8) * fi.IMG_BYTES
     assert fi.MAX_SMEM == 232448
-    assert (fi.split(H), fi.pass_rows(H), fi.stages(H)) == ((2, 64, 2) if H == 512 else (1, 128, 4))
+    assert (fi.split(H), fi.halves(H), fi.pass_rows(H), fi.stages(H)) == {
+        512: (2, 1, 64, 2), 1024: (2, 2, 64, 1)}.get(H, (1, 1, 128, 4))
+    assert fi.trunk_slab_bytes(H) == (512 if H == 1024 else H) * 128
     hh = H // 4
     for (t_out, c_tile), n_hidden in ((t, n) for t in fi.TIERS for n in (2, 3)):
         assert fi.bias_offsets(H, n_hidden, t_out, c_tile)["total"] == (
@@ -356,7 +361,7 @@ def test_shared_memory_budgets_mirror_the_kernels(H, n_kb):
         fwd = fi.fwd_smem_bytes(H, n_hidden, t_out, c_tile)
         # ring, the activation buffers, the biases rounded up to 128 bytes, two
         # tiles of coordinates per tile, the trunk output's staging, barriers, slack
-        assert fwd == (fi.stages(H) * fi.fwd_slot_bytes(H) + 8 * 8192
+        assert fwd == (fi.stages(H) * fi.fwd_slot_bytes(H) + fi.buf_bytes(H)
                        + -(-(n_hidden * H + H + t_out + 16 + c_tile) * 4 // 128) * 128
                        + 4 * 768 + 2 * 4096 + 16 * fi.stages(H) + 1024)
         assert fwd <= fi.MAX_SMEM
@@ -379,20 +384,68 @@ def test_shared_memory_budgets_mirror_the_kernels(H, n_kb):
     # heads' activations; a tile's buffer holds a hidden activation and the
     # heads' images (2 kHI activations twice, the input and gt's f32 copy,
     # [64, 48] f32 at T_out = 48 over the first two images)
-    tile_bytes = fi.BUF_BYTES // (2 // fi.split(H))
+    tile_bytes = fi.buf_bytes(H) // (2 // fi.split(H))
     assert 64 * (5 + 64) * 4 <= tile_bytes
     assert 64 * 5 * 4 <= fi.IMG_BYTES * fi.head_imgs(H)
     assert 2 * fi.head_imgs(H) * fi.IMG_BYTES + 64 * 64 * 4 <= tile_bytes
     assert H // 64 * fi.IMG_BYTES <= tile_bytes
     assert (4 * fi.head_imgs(H)) * fi.IMG_BYTES <= tile_bytes
     assert (2 * fi.head_imgs(H) + 2) * fi.IMG_BYTES <= tile_bytes
-    assert 64 * 32 * 4 <= fi.IMG_BYTES and 64 * 48 * 4 <= 2 * fi.IMG_BYTES
+    assert 64 * 32 * 4 <= fi.IMG_BYTES and 64 * 64 * 4 <= 2 * fi.IMG_BYTES
     bwd = fi.bwd_smem_bytes(H)
-    assert bwd == (fi.stages(H) * max(H * 128, 32768) + 8 * 8192 + 2 * 768 + 2 * 8192
-                   + 16 * fi.stages(H) + 1024) <= fi.MAX_SMEM
+    assert bwd == (fi.stages(H) * max(fi.trunk_slab_bytes(H), 32768) + fi.buf_bytes(H) + 2 * 768
+                   + 2 * 8192 + 16 * fi.stages(H) + 1024) <= fi.MAX_SMEM
     # a tile's saved encoding of up to four k-blocks (the one-group backward) fits a slot
     assert 4 * fi.IMG_BYTES <= fi.bwd_slot_bytes(H)
     assert fi.dw_smem_bytes() == 3 * 6 * 8192 + 48 + 1024 <= fi.MAX_SMEM
+
+
+
+@pytest.mark.parametrize("H,tier", [(h, t) for h in fi.WIDTHS for t in fi.TIERS])
+def test_each_instance_and_tier_fits_its_block(H, tier):
+    """At every instance H and tier (T_out, C_pad): the forward's shared
+    memory fits one block at both depths; every slab fits its ring slot;
+    the heads' input (one image, or two at T_out = 64) sits past the hidden
+    activation and the heads' activations in a tile's buffer; and the
+    weight-gradient plan's head items are products the kernel takes (n of
+    64, 128 or 256, at most 128 where the warpgroups read different dY
+    images), the first layer's items per image of its input, and the
+    output layer's images each read by one warpgroup of one item per 128
+    of the heads' input rows."""
+    t_out, c_tile = tier
+    xi, hi = fi.xs_imgs(t_out), fi.head_imgs(H)
+    imgs = fi.buf_bytes(H) // (2 // fi.split(H)) // fi.IMG_BYTES  # a tile's buffer
+    assert xi == (2 if t_out == 64 else 1)
+    assert 2 * hi <= imgs - xi and H // 64 <= imgs
+    for n_hidden in (2, 3):
+        assert fi.fwd_smem_bytes(H, n_hidden, t_out, c_tile) <= fi.MAX_SMEM
+        for n_kb in (1, 4, 8):
+            assert max(b for _, b in fi.fwd_slabs(H, n_hidden, n_kb, True, 0, *tier)) <= \
+                fi.fwd_slot_bytes(H)
+            assert max(b for _, b in fi.bwd_slabs(H, n_hidden, n_kb, True, 0, *tier)) <= \
+                fi.bwd_slot_bytes(H)
+    # the heads' first layer is one [H / 4, 64] image per head and per image of its
+    # input: one slab, or at H = 1024 one image a slab after the trunk output's k-blocks
+    fwd = fi.fwd_slabs(H, 3, 4, True, 0, *tier)
+    n_trunk = fi.halves(H) * (4 + 2 * H // 64)
+    n_out, n_l1 = (H // 64, 2 * xi) if fi.per_image(H) else (1, 1)
+    assert sum(b for _, b in fwd[n_trunk: n_trunk + n_out]) == H // 64 * t_out * 128
+    assert [b for _, b in fwd[n_trunk + n_out: n_trunk + n_out + n_l1]] == \
+        [2 * xi * (H // 4) * fi.IMG_ROW_BYTES // n_l1] * n_l1
+    heads = fi._head_items(H, c_tile, t_out)
+    per = max(1, hi // 2)  # the first layer's items per image of its input
+    assert [h[2] for h in heads[:xi * per]] == [(x, x) for x in range(xi) for _ in range(per)]
+    assert all(h[0] == "xs" and h[1] == xi for h in heads[:xi * per])
+    read = []
+    for x, x_imgs, x_img, y, y_imgs, y_img, n in heads:
+        assert n in (64, 128, 256) and (y_img[0] == y_img[1] or n <= 128)
+        assert max(x_img) < x_imgs and max(y_img) + n // 64 <= y_imgs
+        if y == "gout":
+            read += [y_img[0] + j for j in range(n // 64)]
+            if y_img[1] != y_img[0]:
+                read += [y_img[1] + j for j in range(n // 64)]
+    # each output image once per 128 of the head's input rows
+    assert sorted(read) == sorted(list(range(1 + c_tile // 64)) * per)
 
 
 def _field(M=128, H=256, hh=None, G=15, C=29, n_hidden=3):
@@ -407,11 +460,13 @@ def _field(M=128, H=256, hh=None, G=15, C=29, n_hidden=3):
 
 
 def test_wrappers_refuse_what_the_tile_does_not_take():
-    """Every field from H = 4 to 512 with heads H // 4 goes, on any number
-    of frequencies (H = 96, H = 512 and M = 256 among them), with 1 to 47
-    geometry features and 1 to 256 classes (geo 16 and 31, classes 65 and
-    256 among them); widths past the set's edges (H = 1024, heads other
-    than H // 4, geo 48, classes 257) and another depth raise before any
+    """Every field from H = 4 to 1024 with heads H // 4 goes, on any number
+    of frequencies up to H = 512 and 1 to 256 past it (H = 96, 512, 600 and
+    1024, M = 256 among them), with 1 to 63 geometry features and 1 to 1024
+    classes (geo 16, 31, 48 and 63, classes 65, 256, 257 and 1024 among
+    them); widths past the set's edges (H = 2048, heads other than H // 4,
+    geo 64, classes 1025, 257 frequencies at H = 1024) and another depth
+    raise before any
     launch, on shapes alone, with a message that names the set; the trunk
     alone takes any H up to 512, any output and the encode or an input a
     multiple of 16 wide; a tensor that is neither on the CPU nor on a card
@@ -419,20 +474,25 @@ def test_wrappers_refuse_what_the_tile_does_not_take():
     good = fi.leaf_layout(128, 256, 3, 15, 29).shapes
     assert fi.check_widths("t", good) == (128, 256, 3, 15, 29)
     assert fi.check_widths("t", fi.leaf_layout(128, 256, 2, 4, 64).shapes) == (128, 256, 2, 4, 64)
-    for G, C in ((16, 29), (31, 101), (15, 65), (47, 256), (1, 256), (47, 1)):
+    for G, C in ((16, 29), (31, 101), (15, 65), (47, 256), (1, 256), (47, 1), (48, 257),
+                 (63, 1024), (1, 1024), (63, 1), (63, 847)):
         assert fi.check_widths("t", _field(G=G, C=C)) == (128, 256, 3, G, C)
         assert fi.check_widths("t", _field(M=256, H=512, G=G, C=C)) == (256, 512, 3, G, C)
+        assert fi.check_widths("t", _field(M=256, H=1024, G=G, C=C)) == (256, 1024, 3, G, C)
     for m, h in ((32, 64), (64, 128), (128, 256), (256, 512), (48, 96), (16, 100), (1, 4),
-                 (300, 512)):
+                 (300, 512), (128, 1024), (256, 1024), (1, 1024), (100, 600), (8, 513)):
         assert fi.check_widths("t", _field(M=m, H=h, G=1, C=1)) == (m, h, 3, 1, 1)
     assert fi.check_widths("t", _field(H=96)) == (128, 96, 3, 15, 29)
     assert fi.check_widths("t", _field(M=256, H=512)) == (256, 512, 3, 15, 29)
 
-    for bad in (dict(H=1024), dict(hh=32), dict(H=128, hh=64), dict(H=512, hh=64), dict(G=48),
-                dict(C=257), dict(G=48, C=257), dict(H=3, hh=0)):
+    for bad in (dict(H=2048), dict(hh=32), dict(H=128, hh=64), dict(H=512, hh=64), dict(G=64),
+                dict(C=1025), dict(G=64, C=1025), dict(H=3, hh=0), dict(M=257, H=1024),
+                dict(M=300, H=600), dict(H=1024, hh=128)):
         with pytest.raises(ValueError, match=r"unsupported widths.*instances H in \(64, 128, "
-                                             r"256, 512\): H 4\.\.512 with heads H // 4.*geo "
-                                             r"1\.\.47, classes 1\.\.256"):
+                                             r"256, 512, 1024\): H 4\.\.1024 with heads H // 4, "
+                                             r"any number of frequencies up to H = 512 and "
+                                             r"1\.\.256 past it.*geo 1\.\.63, classes "
+                                             r"1\.\.1024"):
             fi.check_widths("t", _field(**bad))
     for n_hidden in (1, 4):
         with pytest.raises(ValueError, match="2 or 3 hidden layers"):
@@ -447,10 +507,13 @@ def test_wrappers_refuse_what_the_tile_does_not_take():
     trunk = lambda din, H=256, out=16, nh=3: list(fi.trunk_layout(din, H, nh, out).shapes)
     for shapes, m in ((trunk(512), 256), (trunk(24), 12), (trunk(272), 0), (trunk(1472), 0),
                       (trunk(256, H=100), 128), (trunk(256, out=17), 128),
-                      (trunk(256, H=512), 0), (trunk(512, H=512, out=64), 0)):
+                      (trunk(256, H=512), 0), (trunk(512, H=512, out=64), 0),
+                      (trunk(512, H=1024), 256), (trunk(512, H=1024, out=1024), 0),
+                      (trunk(96, H=700, out=17), 48)):
         assert fi.check_trunk("t", shapes, m) == (shapes[0][0], shapes[0][1], 3, shapes[-2][1])
-    for shapes, m in ((trunk(512, H=1024), 256), (trunk(40), 0), (trunk(24), 0),
-                      (trunk(256), 64)):
+    for shapes, m in ((trunk(512, H=2048), 256), (trunk(40), 0), (trunk(24), 0),
+                      (trunk(256), 64), (trunk(528, H=1024), 0), (trunk(514, H=1024), 257),
+                      (trunk(512, H=1024, out=1025), 0)):
         with pytest.raises(ValueError, match="unsupported trunk widths"):
             fi.check_trunk("t", shapes, m)
     with pytest.raises(ValueError, match="2 or 3 hidden layers"):
@@ -458,7 +521,7 @@ def test_wrappers_refuse_what_the_tile_does_not_take():
 
     leaves = [torch.empty(s, device="meta") for s in good]
     with pytest.raises(ValueError, match="unsupported widths"):
-        t_ffh.prepare_field("t", [torch.empty(s, device="meta") for s in _field(H=1024)], "meta")
+        t_ffh.prepare_field("t", [torch.empty(s, device="meta") for s in _field(H=2048)], "meta")
     with pytest.raises(ValueError, match="must be torch.float32"):
         t_ffh.prepare_field("t", [t.double() for t in leaves], torch.device("meta"))
     meta = lambda *shape: torch.empty(shape, device="meta")

@@ -1,4 +1,4 @@
-"""The field tile's widths up to H = 512 on the CPU.
+"""The field tile's widths up to H = 1024 on the CPU.
 
 The host side of the tile (``apnerf_tpu_torch/ops/cuda/field_images.py``
 and ``field_train.py``) decides everything about a width that the kernels
@@ -12,12 +12,17 @@ forward and backward, and hands its weight-gradient products and column
 sums to the port's own host code; the result must equal the plain field or
 trunk at its own, unpadded widths (float64 autograd), to 1e-9 of each
 tensor's scale: the padding is exact, so only summation order differs.
-The widths: H = 96, 100 and 512, M = 16, 48 and 256, din = 48 and 512,
-out = 17 and 64, for a whole field and for a trunk; and the whole field's
+The widths: H = 96, 100, 512, 600, 700 and 1024 (two products of n = 256
+a warpgroup, each layer's slabs half by half), M = 16, 48 and 256, din =
+48, 256 and 512, out = 17, 64, 130 and 1024, for a whole field and for a
+trunk; and the whole field's
 wider tiers, its trunk output 32 and 48 wide and its semantic output 128
-and 256 (geo 16 to 47, 65 to 256 classes), with one head's activation a
-tile image (H = 64, 100, 128) and two (H = 512). This is the only CPU check
-of those tiers' images, slab schedules and weight-gradient plans.
+and 256 (geo 16 to 47, 65 to 256 classes) and the last tier's, its trunk
+output 64 wide (the heads' input over two tile images) and its semantic
+output 1024 (geo 48 to 63, 257 to 1024 classes), with one head's
+activation a tile image (H = 64, 100, 128, 256) and two (H = 512). This
+is the only CPU check of those tiers' images, slab schedules and
+weight-gradient plans.
 
 Then the plain versions of the port's K1 (``fused_spectral_field``) and K3
 (``fused_mlp_apply``), which are what the wrappers run for CPU tensors and
@@ -108,15 +113,17 @@ def trunk_forward(sl: Slabs, bias, inp, H, nh, n_kb, chunks, width=16):
     """The trunk from its forward slabs → (hidden activations, output [N,
     ``width`` chunks]): the output layer ``width`` columns a slab (the trunk
     alone's 16, the whole field's T_out in one)."""
-    W0 = np.zeros((64 * n_kb, H))
-    for b in range(n_kb):
-        W0[64 * b: 64 * b + 64] = sl.take(H).T  # B[n][k] = w[k0 + k][n]
-    hs = [relu(inp @ W0 + bias[:H])]
+    def layer(n_blocks):  # a layer's slabs, half by half: B[n][k] = w[k0 + k][units[n]]
+        W = np.zeros((64 * n_blocks, H))
+        for hf in range(fi.halves(H)):
+            units = fi._unit_rows(H, hf)
+            for b in range(n_blocks):
+                W[64 * b: 64 * b + 64, units] = sl.take(len(units)).T
+        return W
+
+    hs = [relu(inp @ layer(n_kb) + bias[:H])]
     for l in range(1, nh):
-        Wl = np.zeros((H, H))
-        for kb in range(H // 64):
-            Wl[64 * kb: 64 * kb + 64] = sl.take(H).T
-        hs.append(relu(hs[-1] @ Wl + bias[l * H: (l + 1) * H]))
+        hs.append(relu(hs[-1] @ layer(H // 64) + bias[l * H: (l + 1) * H]))
     Wt = np.zeros((H, width * chunks))
     for ch in range(chunks):
         for kb in range(H // 64):
@@ -128,19 +135,21 @@ def trunk_backward(sl: Slabs, hs, g_top, H, nh, n_kb):
     """From the trunk output's cotangent (64 columns a k-block) down to the
     first layer's input in the backward's column order (``n_kb`` blocks) →
     (gh per layer, g_in)."""
+    def layer(n_blocks):  # a layer's slabs, half by half: B[n][k] = w[units[n]][k0 + k]
+        W = np.zeros((H, 64 * n_blocks))
+        for hf in range(fi.halves(H)):
+            units = fi._unit_rows(H, hf)
+            for b in range(n_blocks):
+                W[units, 64 * b: 64 * b + 64] = sl.take(len(units))
+        return W
+
     n_gt = g_top.shape[1] // 64
-    Wt = np.zeros((H, 64 * n_gt))
-    for t in range(n_gt):
-        Wt[:, 64 * t: 64 * t + 64] = sl.take(H)  # B[n][k] = w[n][k0 + k]
     ghs = [None] * nh
-    ghs[-1] = (g_top @ Wt.T) * (hs[-1] > 0)
+    ghs[-1] = (g_top @ layer(n_gt).T) * (hs[-1] > 0)
     for l in range(nh - 1, 0, -1):
-        Wl = np.zeros((H, H))
-        for kb in range(H // 64):
-            Wl[:, 64 * kb: 64 * kb + 64] = sl.take(H)
-        ghs[l - 1] = (ghs[l] @ Wl.T) * (hs[l - 1] > 0)
+        ghs[l - 1] = (ghs[l] @ layer(H // 64).T) * (hs[l - 1] > 0)
     n_gt = g_top.shape[1] // 64
-    n_bk, g = fi.back_blocks(n_kb, n_gt), fi.back_group(n_kb, n_gt) or 1
+    n_bk, g = fi.back_blocks(n_kb, n_gt, H), fi.back_group(n_kb, n_gt, H) or 1
     W0 = np.zeros((64 * n_bk, H))
     for grp in range(n_bk // g):
         for kb in range(H // 64):
@@ -198,7 +207,9 @@ def _autograd(fn, inputs, cot):
 # layers, output)
 TRUNKS = [(512, 256, 512, 3, 32), (32, 16, 96, 2, 17), (96, 48, 100, 3, 64),
           (512, 0, 512, 3, 17), (48, 0, 96, 2, 64), (256, 128, 256, 3, 16),
-          (1472, 0, 256, 3, 16), (16, 8, 1, 2, 1), (64, 0, 64, 2, 7)]
+          (1472, 0, 256, 3, 16), (16, 8, 1, 2, 1), (64, 0, 64, 2, 7),
+          (512, 256, 1024, 3, 64), (256, 0, 1024, 2, 17), (96, 48, 600, 2, 130),
+          (512, 0, 1000, 3, 1024), (96, 48, 300, 3, 17), (64, 0, 160, 2, 5)]
 
 
 @pytest.mark.parametrize("din,m,h,nh,out", TRUNKS)
@@ -235,7 +246,7 @@ def test_padded_trunk_emulation_is_the_trunk(din, m, h, nh, out):
             **{f"gh{l}": ghs[l] for l in range(nh)}}
     out_buf = weight_products(plan, bufs)
     tpad = fi.t_pad(False, out)
-    mp = 32 * fi.back_blocks(fi.pair_blocks(m), fi.gt_blocks(out)) if m else 0
+    mp = 32 * fi.back_blocks(fi.pair_blocks(m), fi.gt_blocks(out), H) if m else 0
     gb = np.zeros(fi.n_bias(H, nh, tpad, mp))
     for l in range(nh):
         gb[l * H: (l + 1) * H] = ghs[l].sum(0)
@@ -297,7 +308,11 @@ def _apply(hh, leaves, nh):
 FIELDS = [(16, 96, 3, 15, 29), (48, 100, 2, 7, 5), (256, 512, 3, 15, 29), (128, 256, 3, 15, 29),
           (40, 512, 2, 3, 64), (32, 64, 2, 1, 1), (8, 4, 3, 2, 3),
           (64, 128, 2, 31, 101), (32, 64, 3, 47, 256), (16, 100, 2, 16, 65),
-          (48, 512, 2, 31, 150), (40, 512, 3, 20, 100)]
+          (48, 512, 2, 31, 150), (40, 512, 3, 20, 100),
+          (16, 64, 3, 63, 1000), (32, 128, 2, 48, 257), (48, 512, 3, 63, 1024),
+          (16, 100, 2, 50, 300), (8, 256, 3, 3, 847),
+          (128, 1024, 3, 15, 29), (64, 1024, 2, 63, 1024), (32, 700, 3, 31, 101),
+          (256, 1024, 2, 47, 256), (40, 300, 3, 7, 5)]
 
 
 @pytest.mark.parametrize("m,h,nh,G,C", FIELDS)
@@ -311,7 +326,7 @@ def test_padded_field_emulation_is_the_field(m, h, nh, G, C):
     H, hH, hi = fi.instance(h), fi.head_width(fi.instance(h)), fi.head_imgs(fi.instance(h))
     n_kb = fi.enc_blocks(m)
     t_out, c_tile = fi.tier(G, C)
-    n_sem = c_tile // 64
+    n_sem, xi = c_tile // 64, fi.xs_imgs(t_out)
     rng = np.random.default_rng(m + 3 * h + C)
     # He-scaled weights, biases of 0.1: the density's raw value stays moderate
     leaves = [rng.standard_normal(s) * (np.sqrt(2 / s[0]) if len(s) == 2 and i > 1 else 0.1)
@@ -331,10 +346,11 @@ def test_padded_field_emulation_is_the_field(m, h, nh, G, C):
     hs, t = trunk_forward(sl, bias, enc, H, nh, n_kb, 1, t_out)
     raw = t[:, 0]
     inside = ((u > 0) & (u < 1)).all(-1)
-    xs = np.zeros((N, 64))
+    xs = np.zeros((N, 64 * xi))  # the heads' input [SH | geo | 0], xi images
     xs[:, :16] = np.repeat(sh, S, axis=0)
     xs[:, 16: 16 + G] = t[:, 1: 1 + G]
-    w1 = [sl.take(hH).T for _ in range(2)]  # rgb, sem: [64, H/4]
+    # rgb's k-blocks, then sem's: [64 xi, H/4] each
+    w1 = [np.concatenate([sl.take(hH).T for _ in range(xi)]) for _ in range(2)]
     h1 = [relu(xs @ w + bias[offs[k]: offs[k] + hH]) for w, k in zip(w1, ("rb0", "sb0"))]
     w2 = []
     for _ in range(2):
@@ -380,13 +396,13 @@ def test_padded_field_emulation_is_the_field(m, h, nh, G, C):
     ghs, g_in = trunk_backward(sb, hs, gt, H, nh, fi.pair_blocks(m))
     sb.done()
 
-    plan = fi.dw_plan(H, nh, n_kb, 1, 132, True, 0, c_tile)
+    plan = fi.dw_plan(H, nh, n_kb, 1, 132, True, 0, c_tile, t_out)
     both = lambda pair: np.concatenate([pad(a, 64 * hi) for a in pair], -1)
     bufs = {"enc": enc, "gt": gt, "xs": xs, "hid1": both(h1), "hid2": both(h2), "g1": both(g1),
             "g2": both(g2), "gout": np.concatenate(gout, -1),
             **{f"h{l}": hs[l] for l in range(nh)}, **{f"gh{l}": ghs[l] for l in range(nh)}}
     out_buf = weight_products(plan, bufs)
-    mp = 32 * fi.back_blocks(fi.pair_blocks(m))
+    mp = 32 * fi.back_blocks(fi.pair_blocks(m), 1, H)
     gb = np.zeros(fi.n_bias(H, nh, t_out, mp))
     for l in range(nh):
         gb[l * H: (l + 1) * H] = ghs[l].sum(0)

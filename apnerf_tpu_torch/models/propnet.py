@@ -8,7 +8,9 @@ example trainer samples 'lindisp'. The proposal weights go through
 ``fused_render_weights``, the CUDA weights kernel on the card. Nothing
 here detaches: as in JAX, the resampled edges carry the gradient of the
 proposal weights they were drawn from (``prop_loss`` alone stops it on
-the final weights and edges).
+the final weights and edges). ``_outer``'s two gathers go through
+``gather_rows_pair``, whose backward on the card is a CUDA kernel that
+sums without atomics, so the proposal gradient repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops.pdf import importance_sampling, searchsorted
+from ..ops.cuda.gather_rows import gather_rows_pair
 from ..ops.cuda.volrend_cuda import fused_render_weights
 
 
@@ -79,8 +82,8 @@ def _outer(t0, t1, y, t0_env, t1_env, y_env) -> torch.Tensor:
     cy = torch.cat([torch.zeros_like(y[..., :1]), torch.cumsum(y, dim=-1)], dim=-1)
     idx_lo_l, _ = searchsorted(t1, t0_env)
     _, idx_hi_r = searchsorted(t0, t1_env)
-    cy_lo = cy.gather(-1, idx_lo_l)
-    cy_hi = cy.gather(-1, idx_hi_r.clamp(0, y.shape[-1]))
+    # one backward for both gathers, summed in a fixed order on the card
+    cy_lo, cy_hi = gather_rows_pair(cy, idx_lo_l, idx_hi_r.clamp(0, y.shape[-1]))
     return (cy_hi - cy_lo).clamp(min=0.0)
 
 

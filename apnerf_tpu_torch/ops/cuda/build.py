@@ -137,5 +137,7 @@ def library() -> ctypes.CDLL:
     lib.apnerf_fvr_fwd_rays.restype = i
     lib.apnerf_col_sums.argtypes = [p, i, ll, i, p, p]
     lib.apnerf_col_sums.restype = i
+    lib.apnerf_gather_rows_bwd.argtypes = [p, p, p, p, i, i, i, p, p]
+    lib.apnerf_gather_rows_bwd.restype = i
     _lib = lib
     return lib

@@ -6,6 +6,10 @@ pick the same bins: bin b is chosen iff cdf[b] <= u < cdf[b+1], with the
 last bin closed, which is exactly ``searchsorted(side="right") - 1``
 clamped to the row. They were a TPU workaround and are not ported.
 
+The four gathers of the inverse CDF go through ``gather_rows_pair``: where
+the weights or edges carry a gradient (the NGP + proposal example
+trainer), its backward is a CUDA kernel that sums without atomics.
+
 Stratified draws come from a ``torch.Generator``, or are passed in as
 ``noise`` (uniform [0, 1) of shape [R, n_samples]) so a test can feed the
 JAX draws to both implementations.
@@ -16,6 +20,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from .cuda.gather_rows import gather_rows_pair
 
 
 def searchsorted(
@@ -56,8 +62,8 @@ def sample_from_weighted(
         u = u + (noise - 0.5) / n_samples
     u = u * cdf[:, -1:]  # clamp to the available mass
     left, right = searchsorted(cdf, u)
-    cdf_l, cdf_r = cdf.gather(-1, left), cdf.gather(-1, right)
-    bin_l, bin_r = bins.gather(-1, left), bins.gather(-1, right)
+    cdf_l, cdf_r = gather_rows_pair(cdf, left, right)
+    bin_l, bin_r = gather_rows_pair(bins, left, right)
     span = cdf_r - cdf_l
     frac = ((u - cdf_l) / torch.where(span > eps, span, torch.ones_like(span))).clamp(0.0, 1.0)
     samples = bin_l + frac * (bin_r - bin_l)

@@ -93,7 +93,8 @@ Phases, each of which must pass:
      step, a finite falling loss, exact launch counts, one member step of
      the route against the same route on the plain versions (the main
      field's tensors and the proposal field's each at their limits; with
-     the proposal field through the field kernel, its update against the
+     the proposal field through the field kernel, the plain step on the
+     kernel step's final intervals, and the proposal update against the
      same step with that kernel's plain backward on the same cotangents),
      and one member step traced.
  15. (``--diagnose`` only) for the routes ``packed`` and ``volrend``, one
@@ -176,14 +177,17 @@ Phases, each of which must pass:
      trained state, then the chunk's occupancy update) and ngp+occ phase
      (phase 19's, 10 steps from its trained state) on (2, 1) and (1, 2)
      meshes, each against the unsharded phase in this process on the same
-     draws and weights ((2, 1) to one member step's limits, (1, 2) to JAX's
-     shard_map bounds, the ngp+occ phase to ``NGP_STEP_TOL``), with exact
-     launches per rank; 4 candidates of 40 views x 4096 x 256 rendered on
+     draws and weights ((2, 1) bit for bit, (1, 2) to JAX's shard_map
+     bounds, the ngp+occ phase to ``NGP_STEP_TOL``), with exact launches
+     per rank; the unsharded flagship phase run ``REPEAT_RUNS`` times more,
+     each run's losses, parameters and every step's gradients bit for bit
+     against the first, and the proposal loss's backward repeated on one
+     step's inputs; 4 candidates of 40 views x 4096 x 256 rendered on
      both meshes, bit for bit against the unsharded render; ms per ensemble
      step on each mesh, the render's wall, the backend and device map.
  25. the mesh-mode mapper: phase 22's replay loop on a (2, 1) mesh at its
-     settings (the same trajectory as phase 22, its rows reported against
-     phase 22's, every camera a recorded one, exact launches per rank, rank
+     settings (the same trajectory as phase 22, its rows phase 22's to the
+     last digit, every camera a recorded one, exact launches per rank, rank
      0's checkpoints reloaded into an unsharded mapper bit for bit), then
      ``--mesh 2,1`` at ``config_faketiny.yaml`` and ``python -m
      apnerf_tpu_torch.dryrun 4`` as subprocesses, each exiting 0 with
@@ -218,20 +222,37 @@ Phases, each of which must pass:
      ``spectral_neurons: 1024``, its depth cut to 1 planning step of 4
      candidates, 20 train steps a phase and one test location: finite
      losses and rows, exact launches.
-Phases 13 to 17, 26, 27, 19 and 24 run after phase 9, phases 18, 20 to 23
-and 25 after phase 11. Phase 1 also holds the host's mirrors of the tile's
-shared-memory layouts to the kernels' own at every instance and tier. ``--field-kernels`` runs phase 1 and the
-kernel comparisons of phases 6, 8, 9 and 13 (the two render backwards and
-the trunk kernels forward and backward), K1 fwd at 1,048,576 rows, the
-packed field kernel's launch alone, the device time of K6's kernels and
-a sha256 of the shipping field's kernels' outputs on seeded inputs,
-prints one line of times for each and no ``ok`` line: for comparing two trees in
-one call. ``--prop-states N`` runs phase 1, then phase 21's NGP + proposal
-step comparison at N trained states against each reference of
-``K2_REFERENCES`` (``probe_prop_states``) and no ``ok`` line. With ``--tree
-DIR`` it runs against the package (and builds the
-kernels) of the checkout in DIR, whose layout mirrors it does not check:
-the same script times an older tree and this one.
+ 28. the backward of the proposal loss's gathers (``gather_rows_bwd``)
+     against its plain version, ``scatter_add_`` into zeros on the CPU, bit
+     for bit (shown to catch a zeroed and a negated output), at the
+     flagship's ``_outer`` ([2048, 128] into 65 bins, both gathers and
+     one), the NGP + proposal trainer's ``_outer`` and inverse CDF ([4096,
+     48], [4096, 49]), on unsorted indices and past the kernel's 128-query
+     tile; beside its time, the plain version's (the card's ``scatter_add_``,
+     with atomics), one ``scatter_add``'s and the bound.
+Phase 28 runs after phase 5, phases 13 to 17, 26, 27, 19 and 24 after
+phase 9, phases 18, 20 to 23 and 25 after phase 11. Phase 1 also holds the
+host's mirrors of the tile's shared-memory layouts to the kernels' own at
+every instance and tier. ``--field-kernels`` runs phase 1 and the kernel
+comparisons of phases 6, 8, 9 and 13 (the two render backwards and the
+trunk kernels forward and backward), K1 fwd at 1,048,576 rows, the packed
+field kernel's launch alone, the device time of K6's kernels and a sha256
+of the shipping field's kernels' outputs on seeded inputs, prints one line
+of times for each and no ``ok`` line: for comparing two trees in one call.
+``--repeats N [L]`` runs phase 1, the bench protocol of phase 7, then
+phase 24's unsharded flagship job N + 1 times with every step's gradients
+recorded, each run held to the first bit for bit, and L (2, 1) launches
+of it (``flagship_repeats``), and no ``ok`` line. ``--route-states N`` runs
+phase 1, then phase 14's route ``field`` with ``fused_prop`` and its
+member-step comparison at N trained states, 8 batches each, held as phase
+14 holds it and beside it with the plain step drawing its own samples
+(``probe_route_states``), and no ``ok`` line. ``--prop-states N`` runs
+phase 1, then phase 21's NGP + proposal step comparison at N trained
+states against each reference of ``K2_REFERENCES`` (``probe_prop_states``)
+and no ``ok`` line. With ``--tree DIR`` (and ``--field-kernels``,
+``--repeats`` or ``--route-states``) it runs against the package (and builds the kernels) of the
+checkout in DIR, whose layout mirrors it does not check: the same script
+times an older tree and this one, and shows whether its runs repeat.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, before that one JSON object with
@@ -372,8 +393,8 @@ def main(argv=None) -> int:
         fail("torch.cuda.is_available() is false: this script runs only on a GPU")
     tree = argv[argv.index("--tree") + 1] if "--tree" in argv else None
     if tree is not None:
-        if "--field-kernels" not in argv:
-            fail("--tree runs with --field-kernels only")
+        if not {"--field-kernels", "--repeats", "--route-states"} & set(argv):
+            fail("--tree runs with --field-kernels, --repeats or --route-states only")
         sys.path.insert(0, os.path.abspath(tree))
 
     # ---- 1. device and build -------------------------------------------------
@@ -402,6 +423,12 @@ def main(argv=None) -> int:
         return field_kernels_alone(dev, widest=tree is None)
     if "--prop-states" in argv:
         return probe_prop_states(dev, int(argv[argv.index("--prop-states") + 1]))
+    if "--route-states" in argv:
+        return probe_route_states(dev, int(argv[argv.index("--route-states") + 1]))
+    if "--repeats" in argv:
+        at = argv.index("--repeats")
+        counts = [int(a) for a in argv[at + 1:at + 3] if a.isdigit()]
+        return probe_repeats(dev, counts[0], counts[1] if len(counts) > 1 else 0)
 
     from apnerf_tpu_torch import native
     from apnerf_tpu_torch.active.mapper import ActiveNeRFMapper
@@ -568,6 +595,8 @@ def main(argv=None) -> int:
 
     # ---- 5-7. the train step's kernels and the train path ------------------------
     records["fused_render_weights_bwd"] = phase_k2_bwd(dev)
+    # ---- 28. the proposal loss's gathers' backward -------------------------------
+    records["gather_rows_bwd"] = phase_gather_rows(dev)
     records["fused_field_volrend_lossgrad"] = phase_k6(dev)
     bench_run = phase_train(dev)
 
@@ -650,6 +679,12 @@ def main(argv=None) -> int:
         {"name": "fused_mlp_apply_bwd", "route": "cuda",
          "source": "apnerf_tpu_torch/csrc/fused_field_volrend.cu",
          "replaces": "apnerf_tpu/ops/pallas/fused_mlp.py:292"},
+        # no Pallas kernel: the JAX gradient is XLA's transpose of the gather
+        {"name": "gather_rows_bwd", "route": "cuda",
+         "source": "apnerf_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "apnerf_tpu/models/propnet.py:122",
+         "note": "no Pallas counterpart: XLA's transpose of take_along_axis / take_onehot "
+                 "(apnerf_tpu/models/propnet.py:119-125, apnerf_tpu/ops/pdf.py:74)"},
     ]
     for k in kernels:
         err, ms, pms, (bound_ms, bound_by), *rel = records[k["name"]]
@@ -658,14 +693,15 @@ def main(argv=None) -> int:
             k.update(rel.pop())
         # launches: over the main path that runs the kernel: the loop of phase
         # 10, or for the kernels of the train routes the timed chunk of its
-        # route in phase 14. No single PyTorch call computes any of these
-        # functions (a whole field, a render, its backward, a whole MLP with
-        # the bf16 contract), so no library time.
+        # route in phase 14. No single PyTorch call computes the field and
+        # render kernels' functions (a whole field, a render, its backward, a
+        # whole MLP with the bf16 contract), so no library time; the gathers'
+        # backward has one, scatter_add over both lists' indices.
         n = launches[k["name"]] or route_launches.get(k["name"], 0)
         if n == 0:
             fail(f"no main path launched {k['name']}")
         k.update(launches=n, max_abs_err=err, ms=ms, plain_ms=pms,
-                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=k.get("library_ms"))
         if rel:
             # a backward's leaves differ in scale by orders of magnitude, so its
             # max-abs error is that of the largest leaf: the worst error over
@@ -946,6 +982,7 @@ def all_counters():
         fused_spectral_field,
         fused_spectral_field_bwd,
     )
+    from apnerf_tpu_torch.ops.cuda.gather_rows import gather_rows_bwd
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
         fused_render_weights,
         fused_render_weights_bwd,
@@ -955,7 +992,7 @@ def all_counters():
         fused_spectral_field, fused_render_weights, fused_render_weights_bwd,
         fused_field_volrend_lossgrad, fused_field_heads, fused_field_volrend,
         fused_field_volrend_bwd, fused_field_heads_bwd, fused_spectral_field_bwd,
-        fused_mlp_apply, fused_mlp_apply_bwd)}
+        fused_mlp_apply, fused_mlp_apply_bwd, gather_rows_bwd)}
 
 
 def reset_counts(counters):
@@ -971,7 +1008,8 @@ def read_counts(counters):
 def plain_routes():
     """Every kernel of the render and train paths replaced by its plain
     version where the port's modules look it up (autograd then goes through
-    the plain versions, so no backward kernel runs either)."""
+    the plain versions, so no backward kernel runs either; the gathers'
+    through PyTorch's own backward)."""
     from apnerf_tpu_torch.models import propnet, spectral
     from apnerf_tpu_torch.ops.cuda.fused_field_heads import fused_field_heads_plain
     from apnerf_tpu_torch.ops.cuda.fused_field_volrend import fused_field_volrend_plain
@@ -979,6 +1017,7 @@ def plain_routes():
         fused_mlp_apply_plain,
         fused_spectral_field_plain,
     )
+    from apnerf_tpu_torch.ops import pdf
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import fused_render_weights_plain
     from apnerf_tpu_torch.render import prop_renderer, renderer
     from apnerf_tpu_torch.train import examples, flagship
@@ -989,6 +1028,8 @@ def plain_routes():
              (spectral, "fused_field_volrend", fused_field_volrend_plain)]
     swaps += [(m, "fused_render_weights", fused_render_weights_plain)
               for m in (propnet, prop_renderer, renderer, flagship, examples)]
+    swaps += [(m, "gather_rows_pair", lambda src, a, b: (src.gather(-1, a), src.gather(-1, b)))
+              for m in (propnet, pdf) if hasattr(m, "gather_rows_pair")]  # none in older trees
     saved = [getattr(m, name) for m, name, _ in swaps]
     for m, name, plain in swaps:
         setattr(m, name, plain)
@@ -1253,6 +1294,79 @@ def k2_times(dev, R, fn, kernel, label, calls=20):
     return warm, cold, floor
 
 
+# phase 28: the gathers' backward (csrc/gather_rows.cu) against its plain
+# version, scatter_add_ into zeros on the CPU, which adds each row's terms
+# one by one in ascending order as the kernel does: bit for bit. The
+# shapes: _outer's two gathers at the flagship's [2048, 128] into 65 bins
+# and one of them alone, the NGP + proposal trainer's _outer ([4096, 48])
+# and inverse CDF ([4096, 49]), unsorted indices, and a ragged case past
+# the kernel's 128-query tile.
+GATHER_CASES = (("flagship _outer", 2048, 128, 65, 2), ("flagship, one gather", 2048, 128, 65, 1),
+                ("ngp+prop _outer", 4096, 48, 65, 2), ("ngp+prop inverse CDF", 4096, 49, 65, 2),
+                ("unsorted", 2048, 128, 65, 2), ("ragged", 1000, 300, 257, 2))
+
+
+def _gather_case(gen, dev, R, Q, K, n_lists, sorted_=True):
+    """(cotangent, index) pairs as ``_outer`` makes them: searchsorted of a
+    row's Q sorted final intervals, crowded where a density would be, into
+    its K - 1 proposal bins (a bin's index for each end); unsorted: any bin
+    of the row. Cotangents over six decades, so the order of a sum shows."""
+    from apnerf_tpu_torch.ops.pdf import searchsorted
+
+    if sorted_:
+        edges = torch.sort(torch.rand((R, K), generator=gen, device=dev), dim=-1).values
+        final = torch.sort(torch.rand((R, Q + 1), generator=gen, device=dev) ** 3, dim=-1).values
+        lo, _ = searchsorted(edges[:, 1:], final[:, :-1])
+        _, hi = searchsorted(edges[:, :-1], final[:, 1:])
+        idx = [lo, hi.clamp(0, K - 1)][:n_lists]
+    else:
+        idx = [torch.randint(0, K, (R, Q), generator=gen, device=dev) for _ in range(n_lists)]
+    gs = [torch.randn((R, Q), generator=gen, device=dev)
+          * 10.0 ** (6 * torch.rand((R, Q), generator=gen, device=dev) - 3) for _ in idx]
+    return list(zip(gs, idx))
+
+
+def phase_gather_rows(dev):
+    """Phase 28 → the flagship _outer case's record (max-abs error, ms,
+    plain ms, bound, and its device and library times)."""
+    from apnerf_tpu_torch.ops.cuda.gather_rows import gather_rows_bwd, gather_rows_bwd_plain
+
+    gen = _generator(dev, 2828)
+    record = None
+    for label, R, Q, K, n_lists in GATHER_CASES:
+        pairs = _gather_case(gen, dev, R, Q, K, n_lists, sorted_=label != "unsorted")
+        got = gather_rows_bwd(K, pairs)
+        torch.cuda.synchronize()
+        ref = gather_rows_bwd_plain(K, [(g.cpu(), i.cpu()) for g, i in pairs])
+        same = lambda x: torch.equal(x.cpu(), ref)  # noqa: E731
+        err = float((got.cpu() - ref).abs().max())
+        if same(torch.zeros_like(got)) or same(-got):
+            fail(f"gather_rows_bwd ({label}): the bit check would pass a zeroed or negated output")
+        atomics = gather_rows_bwd_plain(K, pairs)  # the card's scatter_add_, with atomics
+        a_err = float((atomics - got).abs().max() / got.abs().max())
+        ms = cuda_ms(lambda: gather_rows_bwd(K, pairs))
+        pms = cuda_ms(lambda: gather_rows_bwd_plain(K, pairs))
+        zero = torch.zeros((R, K), device=dev)
+        g_cat = torch.cat([g for g, _ in pairs], dim=1)
+        i_cat = torch.cat([i for _, i in pairs], dim=1)
+        lib_ms = cuda_ms(lambda: torch.scatter_add(zero, -1, i_cat, g_cat))
+        n_bytes = n_lists * R * Q * (4 + 8) + R * K * 4
+        bnd = bound(n_lists * R * Q, n_bytes, PEAK_F32_FLOPS)
+        dev_ms = kernel_device_ms(lambda: gather_rows_bwd(K, pairs), "gather_rows_bwd_kernel")
+        print(f"gathers' backward [{label}] {n_lists} x [{R}, {Q}] into {K} bins: bit for bit "
+              f"against scatter_add_ on the CPU {same(got)} (max-abs {err:.3e}; zeroed and "
+              f"negated outputs fail the check); the card's scatter_add_ {a_err:.3e} of scale "
+              f"from it | kernel {ms:.4f} ms (device "
+              + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+              + f"), plain {pms:.4f} ms, one scatter_add {lib_ms:.4f} ms, bound {bnd[0]:.5f} ms "
+              f"({bnd[1]}, {n_bytes / 1e6:.2f} MB)", flush=True)
+        if not same(got):
+            fail(f"gather_rows_bwd ({label}) is not its plain version bit for bit: {err}")
+        if label == "flagship _outer":
+            record = (err, ms, pms, bnd, {"library_ms": lib_ms, "device_ms": dev_ms})
+    return record
+
+
 def _k6_inputs(gen, dev, R, S, n_classes, aabb):
     lo, hi = torch.tensor(aabb[:3], device=dev), torch.tensor(aabb[3:], device=dev)
     span = hi - lo
@@ -1400,9 +1514,32 @@ def plain_trunk_backward():
         fm.fused_spectral_field_bwd = saved
 
 
+@contextlib.contextmanager
+def shared_intervals(record=None, replay=None):
+    """The proposal renderer's final intervals (t0, t1), appended to
+    ``record`` as the sampler draws them, or replaced by ``replay``'s: the
+    plain step of a ``fused_prop`` comparison renders the kernel step's
+    samples. The level's edges and weights stay the step's own."""
+    from apnerf_tpu_torch.render import prop_renderer
+
+    saved = prop_renderer.propnet_sampling
+
+    def sampling(*args, **kwargs):
+        t0, t1, levels = saved(*args, **kwargs)
+        if record is not None:
+            record.append((t0.detach().clone(), t1.detach().clone()))
+        return (*(replay if replay is not None else (t0, t1)), levels)
+
+    prop_renderer.propnet_sampling = sampling
+    try:
+        yield
+    finally:
+        prop_renderer.propnet_sampling = saved
+
+
 def compare_member_step(dev, state, ds, seed, route="lossgrad", fused_prop=False,
                         tols=(STEP_LOSS_RTOL, STEP_UPDATE_TOL, STEP_GRAD_TOL), prop_tols=None,
-                        cfg=None):
+                        cfg=None, hold=True, shared=True):
     """One member step of member 0 from ``state`` on a batch drawn with
     ``seed``: ``route`` on the kernels against the same route with the
     plain versions in place of the kernels (for the combined-kernel branch,
@@ -1410,14 +1547,20 @@ def compare_member_step(dev, state, ds, seed, route="lossgrad", fused_prop=False
     ``field`` on the plain versions). Holds the loss (relative) to
     ``tols[0]`` and every tensor's update and gradient (err / max-abs) to
     ``tols[1:]``; ``prop_tols``, where given, are the (update, gradient)
-    limits of the proposal field's tensors. With ``fused_prop`` the
-    proposal field's update is held on the field kernel's backward alone:
-    against the same step with that backward's plain version on the same
-    cotangents (``ROUTE_STEP_TOL``); its gradient on both comparisons. →
-    (loss relative error, worst update and worst gradient over the main
-    field's tensors, the same over the proposal field's). The gradient is
-    recovered from Adam's first moment, g = (mu' - b1 mu) / (1 - b1).
-    ``cfg`` replaces the bench configuration (the members' widths)."""
+    limits of the proposal field's tensors. With ``fused_prop`` the plain
+    step renders the kernel step's final intervals (``shared_intervals``:
+    its own proposal density, which differs from the field kernel's by the
+    bias convention, would draw other samples), and the proposal field's
+    update is held on the field kernel's backward alone: against the same
+    step with that backward's plain version on the same cotangents
+    (``ROUTE_STEP_TOL``); its gradient on both comparisons. → (loss
+    relative error, worst update and worst gradient over the main field's
+    tensors, the same over the proposal field's, what is over its limit).
+    The gradient is recovered from Adam's first moment, g = (mu' - b1 mu) /
+    (1 - b1). ``cfg`` replaces the bench configuration (the members'
+    widths). ``hold=False`` returns where it would fail; ``shared=False``
+    lets the plain step draw its own samples (``probe_route_states`` reads
+    both ways)."""
     import copy
 
     from apnerf_tpu_torch import bench
@@ -1464,8 +1607,10 @@ def compare_member_step(dev, state, ds, seed, route="lossgrad", fused_prop=False
         return (max(r[1] for r in rs if r[0].startswith(part)),
                 max(r[2] for r in rs if r[0].startswith(part)))
 
-    kernels = one_step(make_flagship_member_core(cfg, route, fused_prop=fused_prop))
-    with plain_routes():
+    drawn = []
+    with shared_intervals(record=drawn if fused_prop and shared else None):
+        kernels = one_step(make_flagship_member_core(cfg, route, fused_prop=fused_prop))
+    with plain_routes(), shared_intervals(replay=drawn[0] if drawn else None):
         plain = one_step(make_flagship_member_core(
             cfg, "field" if route == "lossgrad" else route, fused_prop=fused_prop))
     loss_rel = abs(float(kernels[1].loss) - float(plain[1].loss)) / abs(float(plain[1].loss))
@@ -1501,10 +1646,10 @@ def compare_member_step(dev, state, ds, seed, route="lossgrad", fused_prop=False
         held["prop"] = (w_share[0], max(worsts["prop"][1], w_share[1]))
     over = [part for part in limits
             if not (held[part][0] <= limits[part][0] and held[part][1] <= limits[part][1])]
-    if not loss_rel <= tols[0] or over:
+    if hold and (not loss_rel <= tols[0] or over):
         fail(f"the member step on route {route} with the kernels disagrees with the plain "
              f"versions (loss {loss_rel:.3e}, tensors of {over or 'no'} field over their limits)")
-    return loss_rel, worsts["main"], held["prop"]
+    return loss_rel, worsts["main"], held["prop"], over + ["loss"] * (not loss_rel <= tols[0])
 
 
 def phase_train(dev):
@@ -1514,13 +1659,14 @@ def phase_train(dev):
     from apnerf_tpu_torch import bench
     from apnerf_tpu_torch.ops.cuda import fused_field_volrend as fvr
     from apnerf_tpu_torch.ops.cuda.fused_mlp import fused_spectral_field
+    from apnerf_tpu_torch.ops.cuda.gather_rows import gather_rows_bwd
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
         fused_render_weights,
         fused_render_weights_bwd,
     )
 
     counters = (fused_spectral_field, fused_render_weights, fused_render_weights_bwd,
-                fvr.fused_field_volrend_lossgrad)
+                fvr.fused_field_volrend_lossgrad, gather_rows_bwd)
     counts = {}
 
     @contextlib.contextmanager
@@ -1550,6 +1696,7 @@ def phase_train(dev):
     expected = {
         "fused_field_volrend_lossgrad": E * n,  # one per member step
         "fused_render_weights_bwd": E * n,  # the proposal loss's gradient
+        "gather_rows_bwd": E * n,  # and its two gathers' backward
         "fused_render_weights": 2 * E * n,  # proposal sampling + its recompute
         "fused_spectral_field": E * bench.N_CALLS,  # the occupancy update per chunk
     }
@@ -1603,16 +1750,19 @@ def profile_member_step(dev, state, ds, route, fused_prop=False, rows=20, cfg=No
 # About 2x one reading on an H100 (PERF.md; the readings repeated to the
 # last digit over three runs at this depth). A zeroed (negated) gradient
 # reads 0.75 (1.47) for the update and 1 (2) for the gradient, over every
-# limit here. With ``fused_prop`` the two sides sample from proposal
-# densities that differ by the bias convention, so they render other
-# samples, and the proposal field, whose gradients come through the
-# proposal loss alone, takes Adam's update from a state whose conditioning
-# the route's training decides: its update against the plain versions read
-# 1.9e-2 to 1.8e-1 over five trained states on an H100, most of it the
-# forwards' (PERF.md). So its update is held on the backward kernel's own
-# share, against the same step with the kernel's plain backward on the
-# same cotangents (read 1.9e-2 to 3.8e-2), and its gradient on both
-# comparisons.
+# limit here. With ``fused_prop`` the two sides' proposal densities differ
+# by the bias convention, so left alone they draw other samples, and the
+# loss, the proposal gradient or the main update then read over these
+# limits at 4 to 5 of 24 (trained state, batch) pairs on an H100 (PERF.md):
+# the plain step renders the kernel step's final intervals
+# (``shared_intervals``). The proposal field, whose
+# gradients come through the proposal loss alone, takes Adam's update from
+# a state whose conditioning the route's training decides: its update
+# against the plain versions read 1.9e-2 to 1.8e-1 over five trained
+# states on an H100, most of it the forwards' (PERF.md). So its update is
+# held on the backward kernel's own share, against the same step with the
+# kernel's plain backward on the same cotangents (read 1.9e-2 to 3.8e-2),
+# and its gradient on both comparisons.
 ROUTE_STEP_TOL = {
     ("volrend", False): ((4e-4, 3.5e-1, 3.2e-2), None),
     ("packed", False): ((2.5e-4, 2e-1, 9e-2), None),
@@ -1620,6 +1770,73 @@ ROUTE_STEP_TOL = {
     ("field", True): ((3e-4, 2e-1, 9e-2), (1e-1, 2.2e-1)),
     ("trunk", False): ((STEP_LOSS_RTOL, STEP_UPDATE_TOL, STEP_GRAD_TOL), None),
 }
+
+
+PROBE_ROUTE_SEEDS, PROBE_ROUTE_STRIDE = 8, 50
+
+
+def probe_route_states(dev, n_states):
+    """``--route-states N``: phase 14's route ``field`` with ``fused_prop``
+    trained as there, then its member-step comparison at ``n_states`` states
+    ``PROBE_ROUTE_STRIDE`` steps apart, on ``PROBE_ROUTE_SEEDS`` batches
+    each, as phase 14 holds it (the plain step on the kernel step's final
+    intervals) and, beside it, with the plain step drawing its own samples;
+    at the first state, the held comparison with the field kernel's
+    backward zeroed and negated. Fails if the held comparison fails at any
+    state or passes a broken backward → 0."""
+    import copy
+
+    from apnerf_tpu_torch import bench
+    from apnerf_tpu_torch.ops.cuda import fused_mlp as fm
+    from apnerf_tpu_torch.train.flagship import make_flagship_train_phase
+    from apnerf_tpu_torch.train.phase import pools_from_dataset
+
+    cfg = bench.bench_config()
+    run = bench.run(dev, route="field", fused_prop=True, n_calls=1, data=bench.make_data(dev))
+    state, ds = run.state, run.dataset
+    first = copy.deepcopy(state)
+    tols, prop_tols = ROUTE_STEP_TOL["field", True]
+    phase_fn = make_flagship_train_phase(cfg, route="field", fused_prop=True)
+    pools, counts = pools_from_dataset(ds)
+    gen = _generator(dev, 14)
+    over = {True: 0, False: 0}
+    for k in range(n_states):
+        for seed in range(123, 123 + PROBE_ROUTE_SEEDS):
+            for shared in (True, False):
+                loss, main, prop, bad = compare_member_step(
+                    dev, state, ds, seed, "field", True, tols, prop_tols, hold=False,
+                    shared=shared)
+                over[shared] += bool(bad)
+                print(f"route state {k} (step {state.step}) batch {seed}, "
+                      f"{'shared' if shared else 'own'} samples: loss {loss:.3e}, main update "
+                      f"{main[0]:.3e} gradient {main[1]:.3e}, prop update {prop[0]:.3e} "
+                      f"gradient {prop[1]:.3e}" + (f"; over: {bad}" if bad else ""), flush=True)
+        state, _ = phase_fn(state, ds.images, ds.depths, ds.semantics, ds.camtoworlds, ds.K,
+                            pools, counts, ds.size, PROBE_ROUTE_STRIDE, False, gen)
+    real = fm.fused_spectral_field_bwd
+    broken_ok = []
+    for name, factor in (("zeroed", 0.0), ("negated", -1.0)):
+        def broken(*args, factor=factor, **kwargs):
+            dW, dphase, grads, du = real(*args, **kwargs)
+            return (dW * factor, dphase * factor, [x * factor for x in grads],
+                    None if du is None else du * factor)
+
+        broken.launches = 0
+        fm.fused_spectral_field_bwd = broken
+        try:
+            *_, bad = compare_member_step(dev, first, ds, 123, "field", True, tols, prop_tols,
+                                          hold=False)
+        finally:
+            fm.fused_spectral_field_bwd = real
+        print(f"route state 0, the field kernel's backward {name}: over {bad}", flush=True)
+        broken_ok.append(not bad)
+    n = n_states * PROBE_ROUTE_SEEDS
+    print(f"route states: over the limits at {over[True]} of {n} (state, batch) pairs with "
+          f"shared samples, {over[False]} of {n} with the plain step's own", flush=True)
+    if over[True] or any(broken_ok):
+        fail("the route field + fused_prop comparison failed at a state or passed a broken "
+             "backward")
+    return 0
 
 
 def phase_routes(dev, bench_run):
@@ -1679,7 +1896,7 @@ def phase_routes(dev, bench_run):
         expected = dict.fromkeys(counts, 0)
         expected.update(fused_render_weights=(1 + main_w) * E * n,
                         fused_render_weights_bwd=(1 + main_w) * E * n,
-                        fused_spectral_field=E)
+                        fused_spectral_field=E, gather_rows_bwd=E * n)
         for k in kernels:
             expected[k] = expected.get(k, 0) + E * n
         if fused_prop:  # the proposal field's sampling pass, forward and backward
@@ -2943,6 +3160,7 @@ def wide_member_step(dev, bench_run, cfg, label, compare=True):
     from apnerf_tpu_torch import bench
     from apnerf_tpu_torch.ops.cuda import fused_field_volrend as fvr
     from apnerf_tpu_torch.ops.cuda.fused_mlp import fused_spectral_field
+    from apnerf_tpu_torch.ops.cuda.gather_rows import gather_rows_bwd
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
         fused_render_weights,
         fused_render_weights_bwd,
@@ -2956,7 +3174,7 @@ def wide_member_step(dev, bench_run, cfg, label, compare=True):
         fail(f"the {label} member step runs geo {geo} classes {classes} on "
              f"{default_route(s_cfg)}")
     counters = (fused_spectral_field, fused_render_weights, fused_render_weights_bwd,
-                fvr.fused_field_volrend_lossgrad)
+                fvr.fused_field_volrend_lossgrad, gather_rows_bwd)
     counts = {}
 
     @contextlib.contextmanager
@@ -2977,7 +3195,8 @@ def wide_member_step(dev, bench_run, cfg, label, compare=True):
           f"{res['final_loss']:.6f}, canary {res['psnr_100steps']:.3f} dB after 200 steps; "
           f"launches {counts}", flush=True)
     expected = {"fused_field_volrend_lossgrad": E * n, "fused_render_weights_bwd": E * n,
-                "fused_render_weights": 2 * E * n, "fused_spectral_field": E}
+                "fused_render_weights": 2 * E * n, "fused_spectral_field": E,
+                "gather_rows_bwd": E * n}
     if counts != expected:
         fail(f"{label} member step launch counts {counts}, expected {expected}")
     if not (np.isfinite(res["final_loss"]) and res["final_loss"] < float(run.losses[:10].mean())):
@@ -3093,6 +3312,7 @@ def phase_wide_loop(dev, geo, classes, neurons=None):
     expected = dict.fromkeys(counts, 0)
     expected.update({
         "fused_field_volrend_lossgrad": E * ran, "fused_render_weights_bwd": E * ran,
+        "gather_rows_bwd": E * ran,
         "fused_spectral_field": E * chunks, "fused_field_heads": renders,
         "fused_field_volrend": eval_renders,
         "fused_render_weights": 2 * E * ran + 2 * renders + eval_renders,
@@ -3350,6 +3570,7 @@ def phase_loop(dev):
     expected.update({
         "fused_field_volrend_lossgrad": E * ran,
         "fused_render_weights_bwd": E * ran,
+        "gather_rows_bwd": E * ran,
         "fused_spectral_field": E * chunks,  # the occupancy update
         "fused_field_heads": renders,
         "fused_field_volrend": eval_renders,
@@ -3437,6 +3658,7 @@ def phase_faketiny(dev):
     expected.update({
         "fused_field_volrend_lossgrad": E * ran,
         "fused_render_weights_bwd": E * ran,
+        "gather_rows_bwd": E * ran,
         "fused_spectral_field": E * len(chunk_means),  # the occupancy update
         "fused_field_heads": renders,
         "fused_field_volrend": eval_renders,
@@ -3584,6 +3806,7 @@ def phase_replay(dev):
     expected.update({
         "fused_field_volrend_lossgrad": E * ran,
         "fused_render_weights_bwd": E * ran,
+        "gather_rows_bwd": E * ran,
         "fused_spectral_field": E * chunks,  # the occupancy update
         "fused_field_heads": renders,
         "fused_field_volrend": eval_renders,
@@ -4351,11 +4574,11 @@ def _step_passes(name, x, spread=None):
 
 
 def _compare_trainer_step(name, step_fn, state, args, kwargs, counters, fwd, bwd,
-                          sites=K2_SITES, spread=False):
+                          sites=K2_SITES, spread=False, gathers=0):
     """``_trainer_step_readings`` at ``TRAINER_STEP_TOL[name]``: the kernel
     step must pass, K2 zeroed and negated must not, and the kernel step
-    must launch K2 ``fwd`` and ``bwd`` times → the inputs K2 was given in
-    the kernel step."""
+    must launch K2 ``fwd`` and ``bwd`` times and the gathers' backward
+    ``gathers`` times → the inputs K2 was given in the kernel step."""
     res = _trainer_step_readings(name, step_fn, state, args, kwargs, counters, sites,
                                  spread=spread)
     r, zeroed, negated, launches = res["kernel"], res["zeroed"], res["negated"], res["launches"]
@@ -4370,7 +4593,8 @@ def _compare_trainer_step(name, step_fn, state, args, kwargs, counters, fwd, bwd
           f"{zeroed[0]:.3e} / {zeroed[1]:.3e} / {zeroed[2]:.3e}, negated {negated[0]:.3e} / "
           f"{negated[1]:.3e} / {negated[2]:.3e}; launches {launches}", flush=True)
     expected = dict.fromkeys(launches, 0)
-    expected.update(fused_render_weights=fwd, fused_render_weights_bwd=bwd)
+    expected.update(fused_render_weights=fwd, fused_render_weights_bwd=bwd,
+                    gather_rows_bwd=gathers)
     if launches != expected:
         fail(f"a {name} trainer step launched {launches}, expected {expected}")
     if _step_passes(name, zeroed, sp) or _step_passes(name, negated, sp):
@@ -4637,8 +4861,10 @@ def phase_trainers(dev):
           f"{losses[-20:].mean():.5f}, on a fixed batch {probed[0]:.5f} -> {probed[1]:.5f}; "
           f"launches {timed}", flush=True)
     expected = dict.fromkeys(timed, 0)
+    # the gathers' backward: the inverse CDF's and _outer's, each step
     expected.update(fused_render_weights=2 * TRAINER_CHUNKS[-1],
-                    fused_render_weights_bwd=2 * TRAINER_CHUNKS[-1])
+                    fused_render_weights_bwd=2 * TRAINER_CHUNKS[-1],
+                    gather_rows_bwd=2 * TRAINER_CHUNKS[-1])
     if timed != expected:
         fail(f"ngp+prop trainer launch counts {timed}, expected {expected}")
     for k in launches_total:
@@ -4650,7 +4876,7 @@ def phase_trainers(dev):
     # keeps K2 on both sides (it is held alone below) and the final samples' K2 is compared
     seen = _compare_trainer_step("ngp+prop", step_fn, state, (o, d, px, bk),
                                  dict(noises=[noise]), counters, 2, 2, ("train.examples",),
-                                 spread=True)
+                                 spread=True, gathers=2)
     level, final = seen
     if level[3] or not final[3]:
         fail("the proposal level's intervals carry a gradient or the final ones do not")
@@ -4744,11 +4970,10 @@ def phase_trainers(dev):
 
 # phase 24: the sharded train phases and render at full width, on ranks that
 # share the card, each against the unsharded phase on the same draws.
-# Flagship (2, 1): every loss and the 20 steps' update (final - initial
-# parameters, err / max-abs of each tensor) at one member step's limits
-# kernels against plain versions (compare_member_step's): each rank does
-# its member's unsharded arithmetic, and only the proposal loss's float
-# atomics move it. Flagship (1, 2): JAX's own bounds for its shard_map
+# Flagship (2, 1): the losses and parameters bit for bit: each rank does
+# its member's unsharded arithmetic, and every kernel of the step, the
+# proposal loss's gathers' backward too, sums in a fixed order. Flagship
+# (1, 2): JAX's own bounds for its shard_map
 # phase against its unsharded phase (tests/test_sharding.py:270-287), on
 # JAX's protocol of 3 steps: their losses within rtol 1e-2 / atol 1e-3, and
 # the drift of the trunk's first layer after them, mean under 0.3 and
@@ -4920,6 +5145,150 @@ def _ngp_first_step(got, ref, state, b1=0.9):
     return upd, worst
 
 
+REPEAT_RUNS = 10  # repeats of the unsharded flagship job in the smoke (phase 24)
+REPEAT_OUTER_CALLS = 200  # repeats of one recorded proposal-loss backward
+
+
+@contextlib.contextmanager
+def recorded_grads(records):
+    """Every member step's raw gradients (a list per call of the flagship
+    member core, in ``named_parameters`` order), appended to ``records``
+    while the context lasts: the sharded phase's ``grad_reduce`` hook,
+    wrapped. Only flagship phases built inside the context record."""
+    from apnerf_tpu_torch.parallel import sharding
+
+    saved = sharding._grad_reduce
+
+    def hooked(mesh):
+        inner = saved(mesh)
+
+        def record(grads):
+            grads = list(grads) if inner is None else inner(grads)
+            records.append([g.detach().clone() for g in grads])
+            return grads
+        return record
+
+    sharding._grad_reduce = hooked
+    try:
+        yield records
+    finally:
+        sharding._grad_reduce = saved
+
+
+def _first_difference(got, ref, names, n_members):
+    """(step, member, [names of the tensors that differ]) of the first
+    member step whose gradients are not ``ref``'s bit for bit, or None."""
+    for i, (a, b) in enumerate(zip(got, ref)):
+        off = [n for n, x, y in zip(names, a, b) if not torch.equal(x, y)]
+        if off:
+            return i // n_members + 1, i % n_members, off
+    return None
+
+
+def _outer_repeats(dev, captured, calls=REPEAT_OUTER_CALLS):
+    """``_outer``'s backward on one recorded member step's inputs, ``calls``
+    times with one seeded cotangent → the number of distinct results (1:
+    the backward repeats bit for bit)."""
+    from apnerf_tpu_torch.models import propnet
+
+    t0, t1, y, t0_env, t1_env, y_env = captured
+    y = y.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        out = propnet._outer(t0, t1, y, t0_env, t1_env, y_env)
+    g = torch.rand(out.shape, generator=_generator(dev, 7), device=dev)
+    seen = set()
+    for _ in range(calls):
+        (d,) = torch.autograd.grad(out, y, g, retain_graph=True)
+        seen.add(d.cpu().numpy().tobytes())
+    return len(seen)
+
+
+def flagship_repeats(dev, state, ds, n_runs, n_launches=0):
+    """Whether the flagship run repeats: phase 24's unsharded 20-step
+    flagship job (its draws, from ``state``) run ``n_runs`` + 1 times in
+    this process with every member step's gradients recorded, each run
+    held to the first bit for
+    bit (losses, parameters, each step's gradients); the first step and
+    tensors of each run that differs; ``_outer``'s backward on one
+    recorded step's inputs repeated; then ``n_launches`` (2, 1) launches of
+    the same job, each held to the first run → a summary dict."""
+    from apnerf_tpu_torch import bench
+    from apnerf_tpu_torch.models import propnet
+    from apnerf_tpu_torch.parallel import runs
+    from apnerf_tpu_torch.parallel.launch import launch
+    from apnerf_tpu_torch.parallel.mesh import Mesh
+
+    t_start = time.perf_counter()
+    cfg = bench.bench_config()
+    E = cfg.n_ensembles
+    store, draws = _mesh_inputs(cfg, state, ds, dev, 24, MESH_STEPS, False)
+    kw = dict(cfg=cfg, kind="flagship", state=state, store=store, n_steps=MESH_STEPS,
+              draws=draws, one_step_calls=True, occ_update=True, occ_thre=bench.OCC_THRE,
+              snapshots=(MESH_DRIFT_STEPS,))
+    names = [n for n, _ in state.members[0].named_parameters()]
+    captured = []
+    saved_outer = propnet._outer
+
+    def capturing(*args):
+        if not captured:
+            captured.append([a.detach().clone() for a in args])
+        return saved_outer(*args)
+
+    propnet._outer = capturing
+    try:
+        with recorded_grads([]) as ref_grads:
+            ref = runs.train_job(Mesh.single(dev), **kw)
+    finally:
+        propnet._outer = saved_outer
+    differ, firsts = 0, []
+    for k in range(n_runs):
+        with recorded_grads([]) as grads:
+            got = runs.train_job(Mesh.single(dev), **kw)
+        same = all(np.array_equal(got[x], ref[x]) for x in ("losses", "params"))
+        first = _first_difference(grads, ref_grads, names, E)
+        if not same or first is not None:
+            differ += 1
+            loss_rel = float(np.max(np.abs(got["losses"] - ref["losses"])
+                                    / np.abs(ref["losses"])))
+            firsts.append({"run": k + 1, "first": first, "loss_rel": loss_rel})
+            print(f"  repeat {k + 1}: differs from the first run: losses max rel "
+                  f"{loss_rel:.3e}; first gradient difference "
+                  + (f"at step {first[0]}, member {first[1]}: {first[2][:6]}"
+                     + (f" and {len(first[2]) - 6} more" if len(first[2]) > 6 else "")
+                     if first else "none"), flush=True)
+    distinct = _outer_repeats(dev, captured[0]) if captured else 0
+    print(f"flagship repeats: {n_runs} runs of the unsharded {MESH_STEPS}-step flagship job "
+          f"against the first: {differ} differ; _outer's backward on one recorded step's inputs "
+          f"({tuple(captured[0][2].shape)} weights, {tuple(captured[0][3].shape)} queries), "
+          f"{REPEAT_OUTER_CALLS} calls: {distinct} distinct result(s); "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    mesh_bits = []
+    if n_launches:
+        refs = [(_on_card(ref, dev), state)]
+        for k in range(n_launches):
+            ranks = launch(_counted_jobs, 2, 1, [(runs.train_job, kw)], time.time(), refs,
+                           device=dev)
+            fl = ranks[0][0][0]["summary"]
+            mesh_bits.append(fl["bits"])
+            print(f"  (2, 1) launch {k + 1}: bit for bit {fl['bits']}, losses max rel "
+                  f"{fl['loss_rel']:.3e}, update worst err/scale {fl['update']:.3e}", flush=True)
+    return {"runs": n_runs, "differ": differ, "firsts": firsts, "outer_distinct": distinct,
+            "mesh_bits": mesh_bits}
+
+
+def probe_repeats(dev, n_runs, n_launches):
+    """``--repeats N [LAUNCHES]``: the bench's protocol for a trained state
+    (phase 7's), then ``flagship_repeats`` on it; fails if any run differs
+    → 0."""
+    from apnerf_tpu_torch import bench
+
+    run = bench.run(dev, data=bench.make_data(dev))
+    res = flagship_repeats(dev, run.state, run.dataset, n_runs, n_launches)
+    if res["differ"] or res["outer_distinct"] != 1 or not all(res["mesh_bits"]):
+        fail(f"the flagship run does not repeat bit for bit: {res}")
+    return 0
+
+
 def phase_mesh(dev, bench_run, ngp_state):
     """Phase 24: the sharded flagship and ngp+occ phases and the sharded
     candidate render at full width on (2, 1) and (1, 2) meshes whose two
@@ -4953,6 +5322,8 @@ def phase_mesh(dev, bench_run, ngp_state):
                                            bkgd=torch.zeros(3), max_samples=256,
                                            with_variance=True, digest=True)))
     single = _counted_jobs(Mesh.single(dev), todo)
+    # the unsharded flagship job again and again, each run bit for bit
+    repeats = flagship_repeats(dev, fl_state, run.dataset, REPEAT_RUNS)
     # the unsharded ngp+occ phase again: two runs differ by the table's atomics alone
     spread = _train_summary(runs.train_job(Mesh.single(dev), **todo[1][1]), single[1][0],
                             ngp_state)
@@ -4996,6 +5367,7 @@ def phase_mesh(dev, bench_run, ngp_state):
             want = dict.fromkeys(fl_n, 0)
             want.update(fused_field_volrend_lossgrad=MESH_STEPS * E_l,
                         fused_render_weights_bwd=MESH_STEPS * E_l,
+                        gather_rows_bwd=MESH_STEPS * E_l,
                         fused_render_weights=2 * MESH_STEPS * E_l,
                         fused_spectral_field=E_l)  # the chunk's occupancy update
             if fl_n != want:
@@ -5023,9 +5395,9 @@ def phase_mesh(dev, bench_run, ngp_state):
               f"{med_w0:.3e} (lr {lr}); grids max-abs {fl['occ_err']:.3e}, binaries equal "
               f"{fl['binaries_equal']}; bit for bit {fl['bits']}", flush=True)
         if n_data == 1:
-            if not (fl["loss_rel"] <= STEP_LOSS_RTOL and fl["update"] <= STEP_UPDATE_TOL):
-                bad.append(f"{shape} flagship off the unsharded phase (loss {fl['loss_rel']:.3e}, "
-                           f"update {fl['update']:.3e})")
+            if not fl["bits"]:
+                bad.append(f"{shape} flagship not the unsharded phase bit for bit (loss "
+                           f"{fl['loss_rel']:.3e}, update {fl['update']:.3e})")
         elif not (fl["losses_close"] and mean_3 < MESH_DRIFT_TOL[0] * lr
                   and med_3 < MESH_DRIFT_TOL[1] * lr):
             bad.append(f"{shape} flagship off the unsharded phase over {MESH_DRIFT_STEPS} steps "
@@ -5049,6 +5421,9 @@ def phase_mesh(dev, bench_run, ngp_state):
         print(f"  {shape} launches of rank 0: flagship {nonzero(ranks[0][0][1])}; ngp "
               f"{nonzero(ranks[0][1][1])}; render {nonzero(ranks[0][2][1])} a candidate",
               flush=True)
+    if repeats["differ"] or repeats["outer_distinct"] != 1:
+        bad.append(f"{repeats['differ']} of {REPEAT_RUNS} unsharded flagship runs differ from "
+                   f"the first, _outer's backward gave {repeats['outer_distinct']} results")
     print(f"mesh: phase 24 wall {time.perf_counter() - t_phase:.1f} s", flush=True)
     if bad:
         fail("phase 24: " + "; ".join(bad))
@@ -5128,7 +5503,7 @@ def phase_mesh_loop(dev, replay_mapper):
 
 def _mesh_replay(dev, replay_mapper, bad):
     """The replay loop of phase 22 on a (2, 1) mesh against phase 22's
-    mapper: the same trajectory, its rows (reported), every camera a
+    mapper: the same trajectory and rows to the last digit, every camera a
     recorded one, exact launches per rank, and rank 0's checkpoints
     reloaded into an unsharded mapper bit for bit. Failures go to ``bad``."""
     from apnerf_tpu_torch import replay_eval
@@ -5163,10 +5538,9 @@ def _mesh_replay(dev, replay_mapper, bad):
     if rows.shape != ref_rows.shape or not np.isfinite(rows).all():
         bad.append(f"expected {len(ref_rows)} finite error rows, got {rows.tolist()}")
     elif not np.array_equal(rows, ref_rows):
-        # phase 22's seeded run repeats to the last digit between calls, so
-        # its run-to-run spread is zero: any difference is reported here
-        print("  the held-out rows are not phase 22's to the last digit (reported, not held)",
-              flush=True)
+        # each rank's flagship steps are its member's unsharded steps, and
+        # they repeat bit for bit: so do the trajectory and the rows
+        bad.append("the held-out rows are not phase 22's to the last digit")
     poses = np.load(npz)["camtoworlds"]
     worst = max(float(np.abs(poses - c).max(axis=(1, 2)).min()) for c in r["camtoworlds"])
     if not worst < 1e-5:
@@ -5181,6 +5555,7 @@ def _mesh_replay(dev, replay_mapper, bad):
     eval_renders = len(rows) * n_test * E_l
     want = dict.fromkeys(r["launches"], 0)
     want.update(fused_field_volrend_lossgrad=E_l * ran, fused_render_weights_bwd=E_l * ran,
+                gather_rows_bwd=E_l * ran,
                 fused_spectral_field=E_l * r["chunks"], fused_field_heads=renders,
                 fused_field_volrend=eval_renders,
                 fused_render_weights=2 * E_l * ran + 2 * renders + eval_renders)

@@ -85,7 +85,7 @@
 
 namespace {
 
-constexpr int kRayWarps = 8;  // rays per block of fvr_ray_kernel
+constexpr int kRayWarps = 8;  // most rays a block of the ray kernels (one warp each)
 
 // per-ray channel slots in shared memory, twice (3 + C of them): 128, or
 // c_pad + 4 where that is more
@@ -155,17 +155,23 @@ __global__ void __launch_bounds__(kFieldThreads, 1)
 // the per-ray cotangents are given (g_acc, rounded to bf16 as the TPU
 // kernel rounds them, and g_w, which may be null), the weights are
 // recomputed and nothing but the per-sample cotangents is written.
+// blockDim.x / 32 rays a block (the wrapper's plan, 1 to kRayWarps), each
+// warp's w and T [S] in shared memory, or where a warp's do not fit there,
+// in `stage` ([N, 2] floats in device memory: a ray's w, then its T).
 template <bool kLoss>
-__global__ void __launch_bounds__(kRayWarps * 32) fvr_ray_kernel(FvrArgs a) {
+__global__ void __launch_bounds__(kRayWarps * 32) fvr_ray_kernel(FvrArgs a, float* stage) {
   extern __shared__ float rsm[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ray = blockIdx.x * kRayWarps + warp;
+  const int ray = blockIdx.x * (blockDim.x / 32) + warp;
   if (ray >= a.n_rays) return;  // uniform across the warp
   const int S = a.n_samples, C = a.n_classes, NC = 3 + C, n_ch = ray_chan(a.c_pad);
-  float* wb = rsm + (size_t)warp * (2 * S + 2 * n_ch);
+  // the warp's w and T [S] (here or in `stage`), then acc [NC] (the per-ray
+  // sums: rgb, then semantics) and gch [NC] (their bf16-rounded cotangents)
+  float* wb = stage == nullptr ? rsm + (size_t)warp * (2 * S + 2 * n_ch)
+                               : stage + (size_t)ray * 2 * S;
   float* tb = wb + S;
-  float* acc = tb + S;      // [NC] per-ray sums: rgb, then semantics
-  float* gch = acc + n_ch;  // [NC] their bf16-rounded cotangents
+  float* acc = stage == nullptr ? tb + S : rsm + (size_t)warp * 2 * n_ch;
+  float* gch = acc + n_ch;
   const size_t base = (size_t)ray * S;
   const float eps = FLT_EPSILON;
 
@@ -324,19 +330,22 @@ __global__ void __launch_bounds__(kRayWarps * 32) fvr_ray_kernel(FvrArgs a) {
 // bf16(w sem), the TPU kernel's rounding points. y is the packed field
 // output [n_rays * S, 4 + C]; acc is row-major [n_rays, 5 + C]: 0:3 rgb,
 // 3 opacity, 4 depth numerator, 5: semantics. One warp per ray, the scan
-// chunked by 32 with a carry, so any S and any ray count go. Memory-bound:
-// it reads 4 (4 + C) + 8 bytes per sample once and writes 4.
+// chunked by 32 with a carry, so any S and any ray count go: blockDim.x /
+// 32 rays a block (the wrapper's plan), each warp's weights [S] kept in
+// shared memory (`in_smem`), or where they do not fit there read back from
+// w_out. Memory-bound: it reads 4 (4 + C) + 8 bytes per sample once and
+// writes 4.
 #if APNERF_PART == 0
 __global__ void __launch_bounds__(kRayWarps * 32)
     fvr_fwd_ray_kernel(const float* __restrict__ y, const float* __restrict__ dt,
                        const float* __restrict__ tm, float* __restrict__ acc,
-                       float* __restrict__ w_out, int n_rays, int S, int C) {
+                       float* w_out, int n_rays, int S, int C, int in_smem) {
   extern __shared__ float rsm[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ray = blockIdx.x * kRayWarps + warp;
+  const int ray = blockIdx.x * (blockDim.x / 32) + warp;
   if (ray >= n_rays) return;  // uniform across the warp
   const int ld = 4 + C;
-  float* wb = rsm + (size_t)warp * S;
+  float* wb = in_smem ? rsm + (size_t)warp * S : w_out + (size_t)ray * S;
   const size_t base = (size_t)ray * S;
 
   float carry = 0.f, op = 0.f, dn = 0.f;
@@ -353,7 +362,7 @@ __global__ void __launch_bounds__(kRayWarps * 32)
     if (i < S) {
       const float t = expf(-((carry + incl) - s));
       const float w = t * (1.f - expf(-s));
-      wb[i] = w;
+      if (in_smem) wb[i] = w;
       w_out[base + i] = w;
       op += round_bf16(w);
       dn += round_bf16(w * tm[base + i]);
@@ -1380,31 +1389,41 @@ extern "C" int apnerf_fvr_field_bwd(const FvrArgs* a, int grid, void* stream) {
 }
 
 // with_loss = 1: the train step's ray kernel; 0: the render's backward
-// from given cotangents (a->g_acc, a->g_w)
-extern "C" int apnerf_fvr_rays(const FvrArgs* a, int with_loss, void* stream) {
-  const size_t smem =
-      (size_t)kRayWarps * (2 * a->n_samples + 2 * ray_chan(a->c_pad)) * sizeof(float);
+// from given cotangents (a->g_acc, a->g_w). `rays` a block (1..kRayWarps)
+// and `stage` as the wrapper planned them (fused_field_volrend.py::
+// ray_plan): null, each warp's w and T in shared memory; else [N, 2]
+// floats of device memory for them.
+extern "C" int apnerf_fvr_rays(const FvrArgs* a, int with_loss, int rays, float* stage,
+                               void* stream) {
+  if (rays < 1 || rays > kRayWarps) return (int)cudaErrorInvalidValue;
+  const size_t per_warp =
+      (stage == nullptr ? 2 * (size_t)a->n_samples : 0) + 2 * (size_t)ray_chan(a->c_pad);
+  const size_t smem = rays * per_warp * sizeof(float);
   const void* kernel =
       with_loss ? (const void*)fvr_ray_kernel<true> : (const void*)fvr_ray_kernel<false>;
   int err = set_smem(kernel, smem);
   if (err) return err;
-  const int grid = (a->n_rays + kRayWarps - 1) / kRayWarps;
+  const int grid = (a->n_rays + rays - 1) / rays;
   if (with_loss)
-    fvr_ray_kernel<true><<<grid, kRayWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+    fvr_ray_kernel<true><<<grid, rays * 32, smem, static_cast<cudaStream_t>(stream)>>>(*a, stage);
   else
-    fvr_ray_kernel<false><<<grid, kRayWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+    fvr_ray_kernel<false><<<grid, rays * 32, smem, static_cast<cudaStream_t>(stream)>>>(*a, stage);
   return (int)cudaGetLastError();
 }
 
+// `rays` a block (1..kRayWarps) and `in_smem` (each warp's weights in
+// shared memory, or 0: read back from w) as the wrapper planned them
+// (fused_field_volrend.py::fwd_ray_plan).
 extern "C" int apnerf_fvr_fwd_rays(const float* y, const float* dt, const float* tm, float* acc,
-                                   float* w, int n_rays, int n_samples, int n_classes,
-                                   void* stream) {
-  const size_t smem = (size_t)kRayWarps * n_samples * sizeof(float);
+                                   float* w, int n_rays, int n_samples, int n_classes, int rays,
+                                   int in_smem, void* stream) {
+  if (rays < 1 || rays > kRayWarps) return (int)cudaErrorInvalidValue;
+  const size_t smem = in_smem ? (size_t)rays * n_samples * sizeof(float) : 0;
   int err = set_smem((const void*)fvr_fwd_ray_kernel, smem);
   if (err) return err;
-  fvr_fwd_ray_kernel<<<(n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32, smem,
+  fvr_fwd_ray_kernel<<<(n_rays + rays - 1) / rays, rays * 32, smem,
                        static_cast<cudaStream_t>(stream)>>>(y, dt, tm, acc, w, n_rays,
-                                                            n_samples, n_classes);
+                                                            n_samples, n_classes, in_smem);
   return (int)cudaGetLastError();
 }
 

@@ -11,136 +11,172 @@
 //   out[r, k] = sum over lists L in (a, b), then over q ascending with
 //               idx_L[r, q] = k, of g_L[r, q]
 //
-// adding each term to the sum so far, in that order: the order of the
-// CPU's sequential scatter_add_ over list a, then over list b, so it
+// adding each term to the sum so far, from 0.f, in that order: the order of
+// the CPU's sequential scatter_add_ over list a, then over list b, so it
 // matches that plain version bit for bit, for any index order. An index
 // outside [0, n_bins) adds nothing (the forward gather refuses it first).
 //
-// What bounds it on an H100: device memory, and at the port's shapes the
-// launch floor. It reads each cotangent (4 B) and index (8 B) once and
-// writes each output once: at [2048, 128] x 2 into 65 bins 6.8 MB, 2.0 us
-// at 3.35 TB/s. A row's sums are a chain of dependent adds (the order is
-// the result), so the design keeps every row's chain in flight at once,
-// each link short, and the reads coalesced:
+// What bounds it on an H100: device memory. It reads each cotangent (4 B)
+// and index (8 B) once and writes each output once: at [2048, 128] x 2
+// into 65 bins 6.8 MB, 2.0 us at 3.35 TB/s. The design keeps every chain
+// of dependent adds as short as one bin's terms, and the row's reads in
+// flight together:
 //
-// - 16 rows a block (128 blocks for 2048 rows: every SM has one), one
-//   thread a row for the sums (its order is the thread's own program
-//   order), 128 threads to stage: each warp reads whole rows, lane after
-//   lane, of up to two [16, 128] tiles (list a's and list b's queries, in
-//   the order they are summed), every load issued before the first store
-//   into shared memory, rows padded to 129 words, so the row-per-thread
-//   reads hit 32 banks.
-// - A thread takes its row's tile 8 queries at a time into registers and
-//   adds each term to its bin's sum in shared memory: a chain of one load,
-//   one add and one store a term, without branches. (A running sum kept in
-//   registers until the bin changes took twice the device time on an
-//   H100, 19.8 against 9.8 us at the flagship's shape: the bin changes at
-//   different terms in the warp's different rows, so its branch diverges.)
-// - The sums sit in shared memory at [bin][17], so the block's final
-//   coalesced write of its 16 output rows (contiguous in device memory)
-//   hits 32 banks.
+// - One warp a row, 32 queries a chunk (lane l query q0 + l), 4 chunks
+//   loaded at a time, the next 4 in flight while these are summed; both
+//   lists' first chunks are loaded before anything is summed.
+// - Every caller of the port passes rows sorted ascending (searchsorted of
+//   sorted queries into sorted edges, clamped). There each bin's terms are
+//   one run of consecutive queries in each list. A lane whose bin differs
+//   from the lane before starts a run; a ballot of the lanes where the bin
+//   changes gives each start its run's last lane, and the start lane adds
+//   its run's terms in order, read from the other lanes by shuffles (as
+//   many rounds as the chunk's longest run). A run that reaches the
+//   chunk's last lane is carried on into the next chunk. List a's sums are
+//   written to the row's output (zeroed first, for the bins without a
+//   term); list b's runs start from what is there, read for a whole group
+//   of chunks at once. (Keeping the row's sums in shared memory and
+//   writing the output once, and unrolling the shuffles 4 deep, moved the
+//   flagship's 6.4 us of device time by 0.1 us on an H100: not kept.)
+// - A row that is not sorted (a warp-wide check of idx[q] < idx[q - 1]
+//   as the chunks are summed) is summed again in the serial order: each
+//   lane takes a bin and walks both lists whole, adding its bin's terms.
+//   The same launch, the same bits, slower.
+// - Nothing grows with the bins or the queries: a row of any length is a
+//   loop over its chunks, an output of any width a loop over its bins.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRows = 16;          // rows a block, one summing thread each
-constexpr int kThreads = 128;      // threads staging the tiles
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 128;        // queries of a row a tile holds
-constexpr int kTiles = 2;          // tiles staged at a time
-constexpr int kBatch = 8;          // queries a summing thread holds in registers
-constexpr int kTileStride = kChunk + 1;
-constexpr int kAccStride = kRows + 1;
+constexpr int kWarps = 4;          // rows a block, a warp each
+constexpr int kGroup = 4;          // chunks of 32 queries loaded at a time
+constexpr int kGroupQueries = 32 * kGroup;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-    gather_rows_bwd_kernel(const float* __restrict__ g_a, const long long* __restrict__ idx_a,
-                           const float* __restrict__ g_b, const long long* __restrict__ idx_b,
-                           int n_rows, int n_queries, int n_bins, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* acc = smem;                                 // [n_bins][kAccStride]
-  float* tile_g = acc + n_bins * kAccStride;         // [kTiles][kRows][kTileStride]
-  int* tile_k = reinterpret_cast<int*>(tile_g + kTiles * kRows * kTileStride);
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int rows = static_cast<int>(min(static_cast<long long>(kRows), n_rows - row0));
-  for (int i = t; i < n_bins * kAccStride; i += kThreads) acc[i] = 0.f;
+// A lane's query of a chunk: its bin (clamped to [-1, n_bins], which keeps
+// the order; n_bins past the row's end) and its cotangent.
+struct Term {
+  int k;
+  float v;
+};
 
-  // the tiles in the order they are summed: list a's chunks, then list b's
-  const int n_chunks = (n_queries + kChunk - 1) / kChunk;
-  const int n_tiles = (g_b == nullptr ? 1 : 2) * n_chunks;
-  for (int first = 0; first < n_tiles; first += kTiles) {
-    __syncthreads();  // the last tiles are consumed (and the sums zeroed)
-    // every load of the tiles in flight before the first store: each warp
-    // takes rows warp, warp + 4, ..., each lane queries lane, lane + 32, ...
-    constexpr int kRowsPerWarp = kRows / kWarps, kPerLane = kChunk / 32;
-    float vg[kTiles][kRowsPerWarp][kPerLane];
-    long long vk[kTiles][kRowsPerWarp][kPerLane];
+struct Group {
+  Term t[kGroup];
+};
+
+__device__ __forceinline__ Group load_group(const long long* __restrict__ idx,
+                                            const float* __restrict__ g, int q0, int Q,
+                                            int n_bins, int lane) {
+  Group out;
 #pragma unroll
-    for (int slot = 0; slot < kTiles; ++slot) {
-      const int tile = first + slot;
-      const int list = tile / n_chunks, q0 = tile % n_chunks * kChunk;
-      const int qc = tile < n_tiles ? min(kChunk, n_queries - q0) : 0;
-      const float* g = list == 0 ? g_a : g_b;
-      const long long* idx = list == 0 ? idx_a : idx_b;
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int r = warp + kWarps * i;
-        const long long at = (row0 + r) * n_queries + q0;
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) {
-          const int q = lane + 32 * j;
-          const bool in = r < rows && q < qc;
-          vg[slot][i][j] = in ? g[at + q] : 0.f;
-          vk[slot][i][j] = in ? idx[at + q] : -1;
-        }
-      }
-    }
-#pragma unroll
-    for (int slot = 0; slot < kTiles; ++slot) {
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int at = (slot * kRows + warp + kWarps * i) * kTileStride;
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) {
-          const long long k = vk[slot][i][j];
-          tile_g[at + lane + 32 * j] = vg[slot][i][j];
-          tile_k[at + lane + 32 * j] = k >= 0 && k < n_bins ? static_cast<int>(k) : -1;
-        }
-      }
-    }
-    __syncthreads();
-    if (t >= rows) continue;
-    for (int slot = 0; slot < kTiles && first + slot < n_tiles; ++slot) {
-      const int qc = min(kChunk, n_queries - (first + slot) % n_chunks * kChunk);
-      const float* row_g = tile_g + (slot * kRows + t) * kTileStride;
-      const int* row_k = tile_k + (slot * kRows + t) * kTileStride;
-      for (int q = 0; q < qc; q += kBatch) {
-        int ks[kBatch];
-        float gs[kBatch];
-#pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-          ks[j] = q + j < qc ? row_k[q + j] : -1;
-          gs[j] = q + j < qc ? row_g[q + j] : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < kBatch; ++j)
-          if (ks[j] >= 0) acc[ks[j] * kAccStride + t] += gs[j];
-      }
+  for (int j = 0; j < kGroup; ++j) {
+    const int q = q0 + 32 * j + lane;
+    out.t[j] = {n_bins, 0.f};
+    if (q < Q) {
+      const long long k = idx[q];
+      out.t[j] = {k < 0 ? -1 : (k >= n_bins ? n_bins : static_cast<int>(k)), g[q]};
     }
   }
-  __syncthreads();
-  // the block's output rows are contiguous in device memory
-  float* dst = out + row0 * n_bins;
-  for (int e = t; e < rows * n_bins; e += kThreads) {
-    const int r = e / n_bins, k = e - r * n_bins;
-    dst[e] = acc[k * kAccStride + r];
+  return out;
+}
+
+// Adds one list's runs into the row's output o, list a (kFirst) from 0.f and
+// list b from o, the row's first group given; false, with the row half
+// summed, where the list is not sorted.
+template <bool kFirst>
+__device__ bool sum_runs(const long long* __restrict__ idx, const float* __restrict__ g, int Q,
+                         int n_bins, float* o, int lane, Group cur) {
+  float carry = 0.f;  // the sum so far of the run that reaches past the chunk before
+  int carry_bin = -2;  // that run's bin (-2 before the first chunk)
+  for (int q0 = 0; q0 < Q; q0 += kGroupQueries) {
+    Group nxt;
+    if (q0 + kGroupQueries < Q) nxt = load_group(idx, g, q0 + kGroupQueries, Q, n_bins, lane);
+    float from[kGroup];  // list b: the output so far at each lane's bin
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int k = cur.t[j].k;
+      from[j] = !kFirst && k >= 0 && k < n_bins ? o[k] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (q0 + 32 * j >= Q) break;
+      const Term t = cur.t[j];
+      int prev = __shfl_up_sync(kFull, t.k, 1);
+      if (lane == 0) prev = carry_bin;
+      if (__any_sync(kFull, t.k < prev)) return false;
+      if (lane == 0 && carry_bin >= 0 && carry_bin < n_bins && t.k != carry_bin)
+        o[carry_bin] = carry;  // the carried run ended with the last chunk
+      const bool start = lane == 0 || t.k != prev;
+      const int next = __shfl_down_sync(kFull, t.k, 1);
+      const unsigned ends = __ballot_sync(kFull, lane == 31 || t.k != next);
+      const int len = __ffs(ends >> lane);  // from this lane to its run's last lane
+      const int rounds = __reduce_max_sync(kFull, start ? len : 0);
+      float s = lane == 0 && t.k == carry_bin ? carry : from[j];
+      for (int i = 0; i < rounds; ++i) {
+        const float v = __shfl_sync(kFull, t.v, min(lane + i, 31));
+        if (start && i < len) s += v;
+      }
+      const unsigned starts = __ballot_sync(kFull, start);
+      carry = __shfl_sync(kFull, s, 31 - __clz(starts));
+      carry_bin = __shfl_sync(kFull, t.k, 31);
+      if (start && lane + len < 32 && t.k >= 0 && t.k < n_bins) o[t.k] = s;
+    }
+    cur = nxt;
+  }
+  if (lane == 0 && carry_bin >= 0 && carry_bin < n_bins) o[carry_bin] = carry;
+  return true;
+}
+
+// The serial order for a row that is not sorted: lane l takes bins l, l +
+// 32, ... and walks both lists, adding its bin's terms in order.
+__device__ void sum_serial(const long long* const* idx, const float* const* g, int lists, int Q,
+                           int n_bins, float* o, int lane) {
+  for (int k0 = 0; k0 < n_bins; k0 += 32) {
+    const int bin = k0 + lane;
+    float s = 0.f;
+    for (int l = 0; l < lists; ++l) {
+      for (int q0 = 0; q0 < Q; q0 += kGroupQueries) {
+        const Group grp = load_group(idx[l], g[l], q0, Q, n_bins, lane);
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          for (int i = 0; i < 32; ++i) {
+            const int k = __shfl_sync(kFull, grp.t[j].k, i);
+            const float v = __shfl_sync(kFull, grp.t[j].v, i);
+            if (k == bin) s += v;  // past the row k is n_bins: no bin's
+          }
+        }
+      }
+    }
+    if (bin < n_bins) o[bin] = s;
   }
 }
 
-size_t smem_bytes(int n_bins) {
-  return sizeof(float) *
-         (static_cast<size_t>(n_bins) * kAccStride + 2 * kTiles * kRows * kTileStride);
+__global__ void __launch_bounds__(32 * kWarps)
+    gather_rows_bwd_kernel(const float* __restrict__ g_a, const long long* __restrict__ idx_a,
+                           const float* __restrict__ g_b, const long long* __restrict__ idx_b,
+                           int n_rows, int n_queries, int n_bins, float* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  const long long row = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  if (row >= n_rows) return;  // uniform across the warp
+  const int Q = n_queries, lists = g_b == nullptr ? 1 : 2;
+  const long long at = row * Q;
+  const long long* idx[2] = {idx_a + at, g_b == nullptr ? nullptr : idx_b + at};
+  const float* g[2] = {g_a + at, g_b == nullptr ? nullptr : g_b + at};
+  // both lists' first chunks in flight before anything is summed
+  const Group a0 = load_group(idx[0], g[0], 0, Q, n_bins, lane);
+  Group b0;
+  if (lists == 2) b0 = load_group(idx[1], g[1], 0, Q, n_bins, lane);
+  float* o = out + row * n_bins;
+  for (int k = lane; k < n_bins; k += 32) o[k] = 0.f;
+  __syncwarp();
+  bool sorted = sum_runs<true>(idx[0], g[0], Q, n_bins, o, lane, a0);
+  __syncwarp();  // list a's sums are written before list b reads them
+  if (sorted && lists == 2) sorted = sum_runs<false>(idx[1], g[1], Q, n_bins, o, lane, b0);
+  if (!sorted) {
+    __syncwarp();
+    sum_serial(idx, g, lists, Q, n_bins, o, lane);
+  }
 }
 
 }  // namespace
@@ -148,27 +184,15 @@ size_t smem_bytes(int n_bins) {
 // out [n_rows, n_bins] (f32) from one or two lists of cotangents g [n_rows,
 // n_queries] (f32) at indices idx [n_rows, n_queries] (int64), on `stream`;
 // g_b and idx_b null for one list. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a call outside those terms (n_bins past what
-// shared memory holds); allocates nothing.
+// cudaErrorInvalidValue for a call outside those terms; allocates nothing.
 extern "C" int apnerf_gather_rows_bwd(const float* g_a, const long long* idx_a,
                                       const float* g_b, const long long* idx_b, int n_rows,
                                       int n_queries, int n_bins, float* out, void* stream) {
   if (n_rows <= 0 || n_queries <= 0 || n_bins <= 0 || g_a == nullptr || idx_a == nullptr ||
       (g_b == nullptr) != (idx_b == nullptr) || out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(n_bins);
-  int device = 0, limit = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (smem > static_cast<size_t>(limit)) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gather_rows_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (n_rows + kRows - 1) / kRows;
-  gather_rows_bwd_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (n_rows + kWarps - 1) / kWarps;
+  gather_rows_bwd_kernel<<<blocks, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
       g_a, idx_a, g_b, idx_b, n_rows, n_queries, n_bins, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,6 +28,21 @@
 // - S in (512, 1024]: V = 32, still one warp a ray and no shared memory:
 //   the forward needs ~3 V registers a lane and the backward ~4 V, under
 //   the 255 a thread allows (ptxas -v: 142 and 166-206, no spill).
+// - S past 1024: still V = 32 and one warp a ray, walking the row in spans
+//   of 1024 samples (the *_spans kernels; each S up to 1024 keeps the
+//   kernels above). The forward carries the optical depth before the span
+//   from span to span, adding each span's total (the sum of its lane
+//   totals) once. The backward walks the row twice: first to last for each
+//   span's starting optical depth, carried as the forward carries it (kept
+//   in the span's first dsigma slot, which the second walk overwrites),
+//   then last to first, carrying the suffix sum of g w from span to span
+//   the same way, summed directly as inside a span. Nothing grows with S.
+//   Both form alpha as -expm1f(-s): at thousands of samples a ray s is
+//   small, 1 - expf(-s) loses log2(1 / s) bits to cancellation, and the
+//   suffix sum gathers those errors (on an H100 the backward with 1 - expf
+//   read 4.6e-7 of dsigma's scale against its float64 witness at 8192
+//   samples; a float32 emulation of the kernel reads 8.0e-7 that way and
+//   1.6e-7 with expm1f).
 //
 // Precise expf: transmittance feeds the weights directly.
 //
@@ -209,6 +224,129 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kSpan = 32;                 // samples a lane takes in one span past 1024
+constexpr int kSpanSamples = 32 * kSpan;  // samples a warp takes in one span
+
+// The forward past 1024 samples: render_weights_fwd_kernel at V = 32 over
+// each span of the row in turn, the optical depth before it carried on.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    render_weights_fwd_spans_kernel(const float* __restrict__ t0, const float* __restrict__ t1,
+                                    const float* __restrict__ sigma, int n_rays, int n_samples,
+                                    float* __restrict__ w) {
+  const int ray = blockIdx.x * kRaysPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (ray >= n_rays) return;  // uniform across the warp
+  const size_t base = (size_t)ray * n_samples;
+  float carry = 0.f;  // optical depth before this span
+  for (int p0 = 0; p0 < n_samples; p0 += kSpanSamples) {
+    const int first = p0 + lane * kSpan;
+    float a[kSpan], b[kSpan], s[kSpan];
+    load_span<kSpan, kVec>(t0 + base, first, n_samples, a);
+    load_span<kSpan, kVec>(t1 + base, first, n_samples, b);
+    load_span<kSpan, kVec>(sigma + base, first, n_samples, s);
+    float total = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSpan; ++j) {
+      s[j] *= b[j] - a[j];
+      total += s[j];
+    }
+    const float before = lanes_before(total, lane);
+    float excl = carry + before;
+#pragma unroll
+    for (int j = 0; j < kSpan; ++j) {
+      const float tr = expf(-excl);
+      excl += s[j];
+      s[j] = tr * -expm1f(-s[j]);
+    }
+    store_span<kSpan, kVec>(w + base, first, n_samples, s);
+    carry += __shfl_sync(kFull, before + total, 31);  // the span's total
+  }
+}
+
+// The backward past 1024 samples. Pass 1, first span to last: each span's
+// starting optical depth, carried as the forward carries it, into the
+// span's first dsigma slot. Pass 2, last span to first:
+// render_weights_bwd_kernel at V = 32 on the span from that depth, with the
+// suffix sum of g w over the later spans carried in.
+template <bool kVec, bool kDt>
+__global__ void __launch_bounds__(kThreads)
+    render_weights_bwd_spans_kernel(const float* __restrict__ t0, const float* __restrict__ t1,
+                                    const float* __restrict__ sigma, const float* __restrict__ g,
+                                    int n_rays, int n_samples, float* __restrict__ dsigma,
+                                    float* __restrict__ dt0, float* __restrict__ dt1) {
+  const int ray = blockIdx.x * kRaysPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (ray >= n_rays) return;  // uniform across the warp
+  const size_t base = (size_t)ray * n_samples;
+  float carry = 0.f;
+  int last = 0;  // the last span's first sample
+  for (int p0 = 0; p0 < n_samples; p0 += kSpanSamples) {
+    const int first = p0 + lane * kSpan;
+    float a[kSpan], b[kSpan], s[kSpan];
+    load_span<kSpan, kVec>(t0 + base, first, n_samples, a);
+    load_span<kSpan, kVec>(t1 + base, first, n_samples, b);
+    load_span<kSpan, kVec>(sigma + base, first, n_samples, s);
+    float total = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSpan; ++j) {
+      s[j] *= b[j] - a[j];
+      total += s[j];
+    }
+    const float before = lanes_before(total, lane);
+    if (lane == 0) dsigma[base + p0] = carry;
+    carry += __shfl_sync(kFull, before + total, 31);
+    last = p0;
+  }
+  __syncwarp();  // the slots written above are read by every lane below
+  float gcarry = 0.f;  // sum of g w over the later spans
+  for (int p0 = last; p0 >= 0; p0 -= kSpanSamples) {
+    const int first = p0 + lane * kSpan;
+    const float start = dsigma[base + p0];
+    __syncwarp();  // every lane has read the slot before lane 0 overwrites it
+    // x: t0, then s, then g w, then dsigma; gg: g, then g T e, then dt1
+    float x[kSpan], dt[kSpan], sg[kSpan], gg[kSpan];
+    load_span<kSpan, kVec>(t0 + base, first, n_samples, x);
+    load_span<kSpan, kVec>(t1 + base, first, n_samples, dt);
+    load_span<kSpan, kVec>(sigma + base, first, n_samples, sg);
+    load_span<kSpan, kVec>(g + base, first, n_samples, gg);
+    float total = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSpan; ++j) {
+      dt[j] -= x[j];
+      x[j] = sg[j] * dt[j];
+      total += x[j];
+    }
+    float excl = start + lanes_before(total, lane);
+    float gw_total = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSpan; ++j) {
+      const float tr = expf(-excl);
+      const float e = expf(-x[j]);
+      excl += x[j];
+      x[j] = gg[j] * (tr * -expm1f(-x[j]));
+      gg[j] *= tr * e;
+    }
+#pragma unroll
+    for (int j = kSpan - 1; j >= 0; --j) gw_total += x[j];
+    const float after = lanes_after(gw_total, lane);
+    float suffix = gcarry + after;  // g w over the later samples
+#pragma unroll
+    for (int j = kSpan - 1; j >= 0; --j) {
+      const float bracket = gg[j] - suffix;
+      suffix += x[j];
+      x[j] = dt[j] * bracket;
+      if constexpr (kDt) gg[j] = sg[j] * bracket;
+    }
+    store_span<kSpan, kVec>(dsigma + base, first, n_samples, x);
+    if constexpr (kDt) {
+      store_span<kSpan, kVec>(dt1 + base, first, n_samples, gg);
+      store_span<kSpan, kVec>(dt0 + base, first, n_samples, gg, -1.f);
+    }
+    gcarry += __shfl_sync(kFull, after + gw_total, 0);  // the span's total
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) empty_kernel() {}
 
 int grid_of(int n_rays) { return (n_rays + kRaysPerBlock - 1) / kRaysPerBlock; }
@@ -217,7 +355,7 @@ int grid_of(int n_rays) { return (n_rays + kRaysPerBlock - 1) / kRaysPerBlock; }
 // path's promise (row and pointers aligned to the vector width) holds.
 bool valid_call(int n_rays, int n_samples, int span, int vec,
                 std::initializer_list<const void*> ptrs) {
-  if (n_rays <= 0 || n_samples <= 0 || 32 * span < n_samples) return false;
+  if (n_rays <= 0 || n_samples <= 0 || (span != kSpan && 32 * span < n_samples)) return false;
   if (span != 1 && span != 2 && span != 4 && span != 8 && span != 16 && span != 32) return false;
   if (vec) {
     const int wbytes = 4 * (span < 4 ? span : 4);
@@ -231,7 +369,14 @@ bool valid_call(int n_rays, int n_samples, int span, int vec,
 template <int V>
 void launch_fwd(bool vec, const float* t0, const float* t1, const float* sigma, int n_rays,
                 int n_samples, float* w, cudaStream_t stream) {
-  if (vec)
+  if (n_samples > kSpanSamples) {
+    if (vec)
+      render_weights_fwd_spans_kernel<true>
+          <<<grid_of(n_rays), kThreads, 0, stream>>>(t0, t1, sigma, n_rays, n_samples, w);
+    else
+      render_weights_fwd_spans_kernel<false>
+          <<<grid_of(n_rays), kThreads, 0, stream>>>(t0, t1, sigma, n_rays, n_samples, w);
+  } else if (vec)
     render_weights_fwd_kernel<V, true>
         <<<grid_of(n_rays), kThreads, 0, stream>>>(t0, t1, sigma, n_rays, n_samples, w);
   else
@@ -243,7 +388,14 @@ template <int V, bool kDt>
 void launch_bwd_dt(bool vec, const float* t0, const float* t1, const float* sigma, const float* g,
                    int n_rays, int n_samples, float* dsigma, float* dt0, float* dt1,
                    cudaStream_t stream) {
-  if (vec)
+  if (n_samples > kSpanSamples) {
+    if (vec)
+      render_weights_bwd_spans_kernel<true, kDt><<<grid_of(n_rays), kThreads, 0, stream>>>(
+          t0, t1, sigma, g, n_rays, n_samples, dsigma, dt0, dt1);
+    else
+      render_weights_bwd_spans_kernel<false, kDt><<<grid_of(n_rays), kThreads, 0, stream>>>(
+          t0, t1, sigma, g, n_rays, n_samples, dsigma, dt0, dt1);
+  } else if (vec)
     render_weights_bwd_kernel<V, true, kDt><<<grid_of(n_rays), kThreads, 0, stream>>>(
         t0, t1, sigma, g, n_rays, n_samples, dsigma, dt0, dt1);
   else
@@ -282,10 +434,11 @@ extern "C" int apnerf_empty_launch(int n_rays, void* stream) {
   }
 
 // w [n_rays, n_samples] from t0, t1, sigma, on `stream`, at lane span
-// `span` (1, 2, 4, 8, 16 or 32 with 32 span >= n_samples) and with vector
-// accesses where `vec` is set (n_samples a multiple of min(span, 4), every
-// pointer aligned to it). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a call outside those terms; allocates nothing.
+// `span` (1, 2, 4, 8, 16 or 32 with 32 span >= n_samples; past 1024
+// samples 32, over spans of 1024) and with vector accesses where `vec` is
+// set (n_samples a multiple of min(span, 4), every pointer aligned to it).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a call outside
+// those terms; allocates nothing.
 extern "C" int apnerf_fused_render_weights_fwd(const float* t0, const float* t1,
                                                 const float* sigma, int n_rays, int n_samples,
                                                 int span, int vec, float* w, void* stream) {

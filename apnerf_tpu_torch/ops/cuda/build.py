@@ -131,13 +131,15 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.apnerf_ffh_bwd_pack.argtypes = [p, p]
     lib.apnerf_ffh_bwd_pack.restype = i
-    lib.apnerf_fvr_rays.argtypes = [p, i, p]
+    lib.apnerf_fvr_rays.argtypes = [p, i, i, p, p]
     lib.apnerf_fvr_rays.restype = i
-    lib.apnerf_fvr_fwd_rays.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.apnerf_fvr_fwd_rays.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.apnerf_fvr_fwd_rays.restype = i
     lib.apnerf_col_sums.argtypes = [p, i, ll, i, p, p]
     lib.apnerf_col_sums.restype = i
     lib.apnerf_gather_rows_bwd.argtypes = [p, p, p, p, i, i, i, p, p]
     lib.apnerf_gather_rows_bwd.restype = i
+    lib.apnerf_hash_table_bwd.argtypes = [p, p, p, ll, i, i, p, p, p, p, p]
+    lib.apnerf_hash_table_bwd.restype = i
     _lib = lib
     return lib

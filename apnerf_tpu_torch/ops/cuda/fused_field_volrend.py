@@ -50,21 +50,62 @@ import torch.nn.functional as F
 from . import build
 from .field_train import FieldTrainCall
 from .fused_field_heads import field_plain, launch_field_rows, prepare_field
-from .launch import check_tensor, needs_grad
+from .launch import MAX_SMEM, check_tensor, needs_grad
 from .volrend_cuda import fused_render_weights_plain
 
 # the train loss's weights of its rgb, depth and semantic terms
 # (``apnerf_tpu/train/flagship.py:298-308``)
 LOSS_WEIGHTS = (10.0, 1.0 / 5.0, 1.0 / 2.0)
-MAX_SAMPLES = 1024
 # rows of per-sample field values the forward-only render keeps in device
-# memory at a time: 2^21 rows of 4 + C f32 are 277 MB at 29 classes
-FWD_CHUNK_ROWS = 1 << 21
-# rows a differentiable call may have: its backward keeps every row's bf16
+# memory at a time: 2^21 rows of 4 + C f32 are 277 MB at 29 classes. A
+# differentiable call is not chunked: its backward keeps every row's bf16
 # activations and cotangents at once (~5 KB a row at the shipping widths,
-# 1.3 GB at a train step's 262,144 rows), unchunked
-BWD_MAX_ROWS = FWD_CHUNK_ROWS
+# 1.3 GB at a train step's 262,144 rows), as much as the card holds.
+FWD_CHUNK_ROWS = 1 << 21
+RAY_WARPS = 8  # most rays a block of the ray kernels, a warp each (csrc kRayWarps)
 _F32_EPS = float(torch.finfo(torch.float32).eps)
+
+
+def ray_chan(c_pad: int) -> int:
+    """Floats of a ray's channel slots in ``fvr_ray_kernel``'s shared memory,
+    each of its two: 128, or ``c_pad`` + 4 where that is more."""
+    return max(c_pad + 4, 128)
+
+
+def ray_plan(n_samples: int, c_pad: int, limit: int = MAX_SMEM) -> Tuple[int, int, bool]:
+    """(rays a block, shared-memory bytes, staged in device memory) of
+    ``fvr_ray_kernel`` (the train step's and the render backward's ray
+    kernel) at S samples and classes padded to ``c_pad``: each warp keeps
+    its ray's w and T [S] and two channel slots in shared memory, so as
+    many rays as fit, up to ``RAY_WARPS``; where one warp's do not fit, w
+    and T go to a scratch of [N, 2] floats in device memory and the block
+    keeps only the channel slots."""
+    per = 4 * (2 * n_samples + 2 * ray_chan(c_pad))
+    rays = min(RAY_WARPS, limit // per)
+    if rays >= 1:
+        return rays, rays * per, False
+    return RAY_WARPS, RAY_WARPS * 4 * 2 * ray_chan(c_pad), True
+
+
+def fwd_ray_plan(n_samples: int, limit: int = MAX_SMEM) -> Tuple[int, int, bool]:
+    """(rays a block, shared-memory bytes, staged in device memory) of
+    ``fvr_fwd_ray_kernel`` (the forward-only render's): each warp keeps its
+    ray's weights [S] in shared memory, as many rays as fit up to
+    ``RAY_WARPS``, or where one ray's do not fit, reads them back from the
+    weights it writes to device memory."""
+    per = 4 * n_samples
+    rays = min(RAY_WARPS, limit // per)
+    if rays >= 1:
+        return rays, rays * per, False
+    return RAY_WARPS, 0, True
+
+
+def run_rays(call, with_loss: int):
+    """``fvr_ray_kernel`` on the call's rays as ``ray_plan`` plans it."""
+    rays, _, staged = ray_plan(call.a.n_samples, call.a.c_pad)
+    stage = call.buf((2 * call.N,), torch.float32) if staged else None
+    call.run(call.lib.apnerf_fvr_rays, call.ref, with_loss, rays,
+             None if stage is None else stage.data_ptr())
 
 
 def _term_sizes(R: int) -> Tuple[float, float, float]:
@@ -139,8 +180,6 @@ def fused_field_volrend_lossgrad(
         raise ValueError("fused_field_volrend_lossgrad: the CUDA kernel computes in bf16")
     who = "fused_field_volrend_lossgrad"
     N = u.shape[0]
-    if not 0 < S <= MAX_SAMPLES:
-        raise ValueError(f"{who}: S={S} must be in 1..{MAX_SAMPLES}")
     call = FieldTrainCall(who, leaves, u, sh, S)
     dev, R = call.dev, call.R
     f32 = torch.float32
@@ -155,7 +194,7 @@ def fused_field_volrend_lossgrad(
     a = call.a
     a.c_rgb, a.c_dep, a.c_sem = (c / n for c, n in zip(LOSS_WEIGHTS, _term_sizes(R)))
     call.field_forward()
-    call.run(call.lib.apnerf_fvr_rays, call.ref, 1)
+    run_rays(call, 1)
     grads, _ = call.field_backward()
     fused_field_volrend_lossgrad.launches += 1
     return lossrows, w_out, grads
@@ -184,18 +223,10 @@ def fused_field_volrend_plain(leaves, u, sh, dt, tm, S: int, compute_dtype=torch
     return per_sample.reshape(R, S, -1).sum(dim=1), w
 
 
-def _check_backward_rows(who, N):
-    if N > BWD_MAX_ROWS:
-        raise ValueError(
-            f"{who}: a backward keeps every row's activations at once: N={N} exceeds "
-            f"{BWD_MAX_ROWS} rows"
-        )
-
-
 def _check_render_inputs(who, u, sh, dt, tm, S):
     dev, N = u.device, u.shape[0]
-    if not 0 < S <= MAX_SAMPLES or N == 0 or N % S:
-        raise ValueError(f"{who}: N={N} must be a positive multiple of S={S} <= {MAX_SAMPLES}")
+    if S <= 0 or N == 0 or N % S:
+        raise ValueError(f"{who}: N={N} must be a positive multiple of S={S}")
     for name, t, shape in (("u", u, (N, 3)), ("sh", sh, (N // S, 16)), ("dt", dt, (N,)),
                            ("tm", tm, (N,))):
         check_tensor(who, t, name, torch.float32, shape, dev)
@@ -215,6 +246,7 @@ def _launch_forward(leaves, u, sh, dt, tm, S):
     acc = torch.empty((R, 5 + C), dtype=f32, device=dev)
     w = torch.empty((N,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    rays, _, staged = fwd_ray_plan(S)
     for r0 in range(0, R, rays_per_chunk):
         n_rays = min(rays_per_chunk, R - r0)
         row0 = r0 * S
@@ -226,7 +258,7 @@ def _launch_forward(leaves, u, sh, dt, tm, S):
             err = lib.apnerf_fvr_fwd_rays(
                 y.data_ptr(), dt.data_ptr() + row0 * 4, tm.data_ptr() + row0 * 4,
                 acc.data_ptr() + r0 * (5 + C) * 4, w.data_ptr() + row0 * 4, n_rays, S, C,
-                stream,
+                rays, int(not staged), stream,
             )
         if err != 0:
             raise RuntimeError(f"{who}: CUDA launch failed, error {err}")
@@ -277,14 +309,13 @@ def fused_field_volrend_bwd(
         raise ValueError(f"{who}: the CUDA kernels compute in bf16")
     _check_render_inputs(who, u, sh, dt, tm, S)
     N = u.shape[0]
-    _check_backward_rows(who, N)
     call = FieldTrainCall(who, leaves, u, sh, S, need_du)
     check_tensor(who, g_acc, "g_acc", torch.float32, (call.R, 5 + call.fld.C), call.dev)
     if g_w is not None:
         check_tensor(who, g_w, "g_w", torch.float32, (N,), call.dev)
     call.set_inputs(dt=dt, tm=tm, g_acc=g_acc, g_w=g_w)
     call.field_forward()
-    call.run(call.lib.apnerf_fvr_rays, call.ref, 0)
+    run_rays(call, 0)
     out = call.field_backward()
     fused_field_volrend_bwd.launches += 1
     return out
@@ -324,11 +355,11 @@ def fused_field_volrend(
     compute_dtype=torch.bfloat16,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (acc [R, 5 + C] f32 per-ray sums: rgb, opacity, depth numerator,
-    semantic logits; weights [N] f32). Any R, any S up to ``MAX_SAMPLES``.
-    A CUDA tensor launches the kernels or raises. Differentiable in the
-    leaves and ``u`` (``sh``, ``dt`` and ``tm`` get no gradient), up to
-    ``BWD_MAX_ROWS`` rows: a larger differentiable call raises; without
-    gradients any size goes, in chunks of ``FWD_CHUNK_ROWS`` rows."""
+    semantic logits; weights [N] f32). Any R, any S. A CUDA tensor
+    launches the kernels or raises. Differentiable in the leaves and ``u``
+    (``sh``, ``dt`` and ``tm`` get no gradient), as many rows as the card
+    holds the backward's scratch for; without gradients any size goes, in
+    chunks of ``FWD_CHUNK_ROWS`` rows."""
     who = "fused_field_volrend"
     if u.device.type == "cpu":
         return fused_field_volrend_plain(leaves, u, sh, dt, tm, S, compute_dtype)
@@ -338,7 +369,6 @@ def fused_field_volrend(
         raise ValueError(f"{who}: the CUDA kernels compute in bf16")
     _check_render_inputs(who, u, sh, dt, tm, S)
     if needs_grad(*leaves, u):
-        _check_backward_rows(who, u.shape[0])  # now, not when the backward runs
         return _FieldVolrend.apply(S, u, sh, dt, tm, *leaves)
     return _launch_forward(leaves, u, sh, dt, tm, S)
 

@@ -4,11 +4,12 @@
 ``gather_rows_pair(src, idx_a, idx_b)`` two such gathers of one source.
 Their forward is PyTorch's gather, a plain read. Their backward scatters
 the cotangents back into the source's rows: on the card by the CUDA kernel
-``gather_rows_bwd``, which sums each row's terms in ascending order with
-no atomics, so a run repeats bit for bit; for CPU tensors by its plain
-version, ``scatter_add_``, whose sequential sum the kernel matches bit
-for bit. PyTorch's own backward of a gather is ``scatter_add_`` on the
-card too, with ``atomicAdd`` in an order that changes from run to run.
+``gather_rows_bwd``, which sums each (row, bin)'s terms in ascending order
+with no atomics, so a run repeats bit for bit, for any number of bins and
+of queries; for CPU tensors by its plain version, ``scatter_add_``, whose
+sequential sum the kernel matches bit for bit. PyTorch's own backward of a
+gather is ``scatter_add_`` on the card too, with ``atomicAdd`` in an order
+that changes from run to run.
 
 The kernel replaces no Pallas kernel: its JAX counterpart is XLA's
 transpose of ``take_along_axis`` / ``take_onehot``
@@ -25,8 +26,6 @@ from typing import Sequence, Tuple
 import torch
 
 from . import build
-
-MAX_BINS = 1024  # the kernel's shared memory holds a block's 32 rows of sums
 
 
 def gather_rows_bwd_plain(n_bins: int, pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -57,8 +56,8 @@ def gather_rows_bwd(n_bins: int, pairs: Sequence[Tuple[torch.Tensor, torch.Tenso
         raise ValueError(f"gather_rows_bwd: unsupported device {g0.device}")
     if not 1 <= len(pairs) <= 2:
         raise ValueError(f"gather_rows_bwd: one or two index lists, got {len(pairs)}")
-    if g0.dim() != 2 or not 1 <= n_bins <= MAX_BINS:
-        raise ValueError(f"gather_rows_bwd: [R, Q] cotangents into 1..{MAX_BINS} bins, got "
+    if g0.dim() != 2 or n_bins < 1:
+        raise ValueError(f"gather_rows_bwd: [R, Q] cotangents into at least 1 bin, got "
                          f"{tuple(g0.shape)} into {n_bins}")
     for g, idx in pairs:
         if g.dtype != torch.float32 or idx.dtype != torch.int64 or g.device != g0.device \

@@ -6,7 +6,9 @@ function returns them. ``fused_render_weights`` launches the kernels for
 CUDA tensors and takes ``fused_render_weights_plain`` only for CPU
 tensors. The kernels give each lane of a warp a span of ``lane_span(S)``
 consecutive samples of one ray; the wrapper picks that instance and
-whether the rows take 16-byte vector accesses (``vector_access``).
+whether the rows take 16-byte vector accesses (``vector_access``). A row
+past ``SPAN_SAMPLES`` samples takes the widest instance in ``span_count(S)``
+passes of one warp, so any S ≥ 1 goes.
 """
 
 from __future__ import annotations
@@ -16,16 +18,26 @@ import torch
 from ..volrend import render_transmittance_from_density
 from . import build
 
-MAX_SAMPLES = 1024
 LANE_SPANS = (1, 2, 4, 8, 16, 32)  # the kernels' compile-time instances
+SPAN_SAMPLES = 32 * LANE_SPANS[-1]  # samples one warp takes in one pass
 
 
 def lane_span(n_samples: int) -> int:
     """The kernels' samples per lane for rows of ``n_samples``: the
-    smallest instance V with 32 V ≥ S (one warp a ray)."""
-    if not 1 <= n_samples <= MAX_SAMPLES:
-        raise ValueError(f"fused_render_weights: S={n_samples} outside [1, {MAX_SAMPLES}]")
-    return next(v for v in LANE_SPANS if 32 * v >= n_samples)
+    smallest instance V with 32 V ≥ S (one warp a ray), and the widest
+    past ``SPAN_SAMPLES``."""
+    if n_samples < 1:
+        raise ValueError(f"fused_render_weights: S={n_samples} must be at least 1")
+    return next((v for v in LANE_SPANS if 32 * v >= n_samples), LANE_SPANS[-1])
+
+
+def span_count(n_samples: int) -> int:
+    """Passes of ``SPAN_SAMPLES`` samples the kernels' warp makes over a row
+    of ``n_samples``: 1 up to ``SPAN_SAMPLES`` (the one-pass kernels),
+    more past it (the ``_spans`` kernels, which carry the optical depth
+    and the backward's suffix sum from pass to pass)."""
+    lane_span(n_samples)
+    return -(-n_samples // SPAN_SAMPLES)
 
 
 def vector_access(n_samples: int, span: int, ptrs) -> bool:
@@ -86,8 +98,8 @@ def fused_render_weights_bwd(t0, t1, sigmas, g, with_dt: bool = True):
     only."""
     if sigmas.device.type != "cuda":
         raise ValueError(f"fused_render_weights_bwd: unsupported device {sigmas.device}")
-    if sigmas.dim() != 2 or sigmas.shape[1] > MAX_SAMPLES:
-        raise ValueError(f"fused_render_weights_bwd: inputs must be [R, S ≤ {MAX_SAMPLES}]")
+    if sigmas.dim() != 2:
+        raise ValueError("fused_render_weights_bwd: inputs must be [R, S]")
     for name, t in (("t0", t0), ("t1", t1), ("sigmas", sigmas), ("g", g)):
         _check(t, name, sigmas)
     R, S = sigmas.shape
@@ -138,8 +150,6 @@ def fused_render_weights(
         raise ValueError(f"fused_render_weights: unsupported device {sigmas.device}")
     if sigmas.dim() != 2:
         raise ValueError("fused_render_weights: inputs must be [R, S]")
-    if sigmas.shape[1] > MAX_SAMPLES:
-        raise ValueError(f"fused_render_weights: S={sigmas.shape[1]} exceeds {MAX_SAMPLES}")
     for name, t in (("t0", t0), ("t1", t1), ("sigmas", sigmas)):
         _check(t, name, sigmas)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (t0, t1, sigmas)):

@@ -11,9 +11,11 @@ features are blended with trilinear weights.
 ``hash_encode`` gathers every level's corners in one ``index_select`` on
 the flat [L·T, F] table (int32 indices, per-level offsets), each row of F
 float32 features read as one element of F·4 bytes (``_RowGather``); its
-backward is an ``index_add_`` of the rows' cotangents into the flat table.
-On the card that add is made with atomics, so the table's gradient is not
-bit-repeatable between runs. The JAX package's row-gather custom VJP and
+backward adds the rows' cotangents into the flat table with
+``ops/cuda/hash_table.hash_table_bwd``: on the card a CUDA kernel that sums
+each entry's rows in a fixed order, with no atomics, so the table's
+gradient repeats bit for bit from run to run; on the CPU ``index_add_``.
+The JAX package's row-gather custom VJP and
 its ``optimization_barrier`` fences were workarounds for the TPU's
 gathers and are not carried over.
 
@@ -30,6 +32,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .cuda.hash_table import hash_table_bwd
 
 _PRIMES = (1, 2654435761, 805459861)
 _MASK32 = 0xFFFFFFFF
@@ -152,7 +156,7 @@ class _RowGather(torch.autograd.Function):
     indexing, ``gather``, ``embedding``) took 20.2 ms at the train shape,
     33.5M rows, and ``index_select`` of the same rows as 16-byte elements
     0.32 ms; the bits are the same. The backward adds the rows' cotangents
-    into a zero table with ``index_add_``."""
+    into a zero table with ``hash_table_bwd``, in a fixed order."""
 
     @staticmethod
     def forward(ctx, table, idx):
@@ -166,8 +170,7 @@ class _RowGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        d = torch.zeros(ctx.table_shape, dtype=g.dtype, device=g.device)
-        return d.index_add_(0, idx, g), None
+        return hash_table_bwd(ctx.table_shape[0], idx, g.contiguous()), None
 
 
 def hash_encode(

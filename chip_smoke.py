@@ -22,8 +22,9 @@ Phases, each of which must pass:
      time of an empty kernel launched the same way (the launch floor) and
      its bound at 16 B a sample (what it moves) beside 24 B (when it also
      wrote T and alpha); then at S = 1, 33, 130 and 1024 (every lane-span
-     instance's edge, the scalar accesses) and on rows off the 16-byte
-     boundary; each limit shown to catch a zeroed and a negated output;
+     instance's edge, the scalar accesses), 1025, 2048 and 8192 (rows of
+     several passes) and on rows off the 16-byte boundary; each limit shown
+     to catch a zeroed and a negated output;
   4. the planning step at the shipping ``PipelineConfig()`` with 4
      candidates (the loop of phase 10 runs the full 20, twice) and seeded
      random weights: the warm-up occupancy update over every cell, the
@@ -178,7 +179,8 @@ Phases, each of which must pass:
      (phase 19's, 10 steps from its trained state) on (2, 1) and (1, 2)
      meshes, each against the unsharded phase in this process on the same
      draws and weights ((2, 1) bit for bit, (1, 2) to JAX's shard_map
-     bounds, the ngp+occ phase to ``NGP_STEP_TOL``), with exact launches
+     bounds, the ngp+occ phase to ``NGP_STEP_TOL`` and on (2, 1) bit for
+     bit, two unsharded ngp+occ runs bit for bit), with exact launches
      per rank; the unsharded flagship phase run ``REPEAT_RUNS`` times more,
      each run's losses, parameters and every step's gradients bit for bit
      against the first, and the proposal loss's backward repeated on one
@@ -230,8 +232,34 @@ Phases, each of which must pass:
      48], [4096, 49]), on unsorted indices and past the kernel's 128-query
      tile; beside its time, the plain version's (the card's ``scatter_add_``,
      with atomics), one ``scatter_add``'s and the bound.
-Phase 28 runs after phase 5, phases 13 to 17, 26, 27, 19 and 24 after
-phase 9, phases 18, 20 to 23 and 25 after phase 11. Phase 1 also holds the
+ 29. rays of more than 1024 samples and gathers into more than 1024 bins, at
+     the existing limits: the weights kernel forward and backward at [2048,
+     2048] timed (1025, 2048 and 8192 are also phases 3's and 5's widths);
+     the gathers' backward at ``_outer``'s [2048, 1100] into 1101 bins, at
+     [256, 4096] into 8193 and on rows of which every other is unsorted,
+     bit for bit; K4, K5 and K6 with their backwards on the shipping field
+     at 1025 and 2048 samples (zero and random biases) and at 65,536 (the
+     ray kernels' rows in device memory; zero biases), and on the tier (64,
+     1024) at 1025 and 2048, each shape timed beside its bound; the ray
+     kernels' staging in device memory bit for bit against shared memory;
+     one flagship member step at 1100 final and 1100 proposal samples
+     (1024 rays) against the plain versions, one planning step's scoring
+     of 2 candidates at 2048 samples against the plain route, and the NGP
+     + occupancy trainer at ``max_samples`` 1040 (two chunks of 20 steps, a
+     step against K2's plain version), each with exact launches.
+ 30. the hash grid table's backward (``hash_table_bwd``) against a float64
+     sum of the same rows, within the bound of its order of adds (shown to
+     catch a zeroed and a negated output), and repeated bit for bit, at the
+     ngp+occ member step's 33.5M rows into the 16 x 2^19 x 4 table (the
+     corners of uniform positions and of positions in a thin slab), on one
+     index that takes 2^21 rows, and on rows of 2 and 3 features; beside
+     its time, index_add_'s (the plain version, float atomics), the
+     accumulating index_put_'s and the bound. Every ngp path's launches of
+     it are counted exactly in phases 19, 20, 21, 24 and 29, and the (2, 1)
+     ngp+occ phase of phase 24 is held bit for bit, as are two unsharded
+     runs of it.
+Phase 28 runs after phase 5, phases 13 to 17, 26, 27, 29, 30, 19 and 24
+after phase 9, phases 18, 20 to 23 and 25 after phase 11. Phase 1 also holds the
 host's mirrors of the tile's shared-memory layouts to the kernels' own at
 every instance and tier. ``--field-kernels`` runs phase 1 and the kernel
 comparisons of phases 6, 8, 9 and 13 (the two render backwards and the
@@ -259,7 +287,10 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 each kernel's launches, error and times (the weights kernel's rows also
 its launches over the ngp+occ loop and over phase 21's timed chunks, and
 its times at each trainer's shape; the main field's kernels the tile's
-instances and phases 26 and 27's readings), and before that the smoke's total
+instances and phases 26 and 27's readings; K2, K5, K6 and the gathers'
+backward phase 29's, ``long_rays``; the hash table's backward phase 30's
+slab case, with its launches over phase 20's ngp+occ loop), and before
+that the smoke's total
 wall time. Any failure exits non-zero
 before those lines.
 """
@@ -375,6 +406,26 @@ def field_macs(M: int, H: int, n_hidden: int, G: int, hh: int, C: int) -> int:
 
 def field_weight_bytes(field) -> int:
     return sum(p.numel() * 4 for p in field.parameters())
+
+
+def field_render_bounds(s_cfg, field, R: int, S: int) -> dict:
+    """The bounds of K5 fwd, K6 and K5 bwd at R rays of S samples of
+    ``field``: a forward at 2 operations a multiply-add, a backward at 6
+    (the recompute, dX and dW); u, dt and t_mid read and the weights
+    written a sample, the SH read a ray, the parameters read (and their
+    gradients written); K5 fwd also writes the per-ray sums, K6 reads the
+    targets, K5 bwd reads the cotangents and writes du."""
+    C = s_cfg.num_semantic_classes
+    macs = field_macs(s_cfg.n_freqs, s_cfg.neurons, s_cfg.layers, s_cfg.geo_feat_dim,
+                      s_cfg.neurons // 4, C)
+    N, wb = R * S, field_weight_bytes(field)
+    return {
+        "fused_field_volrend": bound(2 * macs * N, N * (12 + 8 + 4) + R * (64 + 4 * (5 + C)) + wb),
+        "fused_field_volrend_lossgrad": bound(6 * macs * N,
+                                              N * (12 + 8 + 4) + R * (64 + 24) + 2 * wb),
+        "fused_field_volrend_bwd": bound(6 * macs * N, N * (12 + 8) + R * 64 + 2 * wb
+                                         + N * (4 + 12) + R * 4 * (5 + C)),
+    }
 
 
 def k1_fwd_bound(M: int, mlp, N: int):
@@ -596,7 +647,7 @@ def main(argv=None) -> int:
     # ---- 5-7. the train step's kernels and the train path ------------------------
     records["fused_render_weights_bwd"] = phase_k2_bwd(dev)
     # ---- 28. the proposal loss's gathers' backward -------------------------------
-    records["gather_rows_bwd"] = phase_gather_rows(dev)
+    records["gather_rows_bwd"] = phase_gather_rows(dev)["flagship _outer"]
     records["fused_field_volrend_lossgrad"] = phase_k6(dev)
     bench_run = phase_train(dev)
 
@@ -620,6 +671,10 @@ def main(argv=None) -> int:
     wide_records, wide_times, wide_bench, wide_launches = phase_wide(dev, bench_run)
     # ---- 27. the tile's last tier: past 47 geometry features and 256 classes ------------
     widest_times, widest_bench, widest_launches, widest_k6_ms = phase_widest(dev, bench_run)
+    # ---- 29. rays past 1024 samples, gathers past 1024 bins --------------------------
+    long_rays = phase_long_rays(dev, bench_run)
+    # ---- 30. the hash grid table's backward ------------------------------------------
+    records["hash_table_bwd"] = phase_hash_table(dev)["slab"]
     # ---- 19. the ngp+occ path's weights-kernel shapes and member step ---------------
     ngp_state = phase_ngp_step(dev, bench_run)
     # ---- 24. the sharded train phases and render on ranks that share the card ---------
@@ -685,6 +740,11 @@ def main(argv=None) -> int:
          "replaces": "apnerf_tpu/models/propnet.py:122",
          "note": "no Pallas counterpart: XLA's transpose of take_along_axis / take_onehot "
                  "(apnerf_tpu/models/propnet.py:119-125, apnerf_tpu/ops/pdf.py:74)"},
+        {"name": "hash_table_bwd", "route": "cuda",
+         "source": "apnerf_tpu_torch/csrc/hash_table_bwd.cu",
+         "replaces": "apnerf_tpu/ops/hashgrid.py:220",
+         "note": "no Pallas counterpart: XLA's scatter-add of the table gather's cotangents "
+                 "(apnerf_tpu/ops/hashgrid.py:220-231)"},
     ]
     for k in kernels:
         err, ms, pms, (bound_ms, bound_by), *rel = records[k["name"]]
@@ -696,8 +756,11 @@ def main(argv=None) -> int:
         # route in phase 14. No single PyTorch call computes the field and
         # render kernels' functions (a whole field, a render, its backward, a
         # whole MLP with the bf16 contract), so no library time; the gathers'
-        # backward has one, scatter_add over both lists' indices.
-        n = launches[k["name"]] or route_launches.get(k["name"], 0)
+        # backward has one, scatter_add over both lists' indices; the hash
+        # table's, the accumulating index_put_. The hash table's backward
+        # runs on the ngp+occ path alone: its launches over phase 20's loop.
+        n = (launches[k["name"]] or route_launches.get(k["name"], 0)
+             or ngp_launches[k["name"]])
         if n == 0:
             fail(f"no main path launched {k['name']}")
         k.update(launches=n, max_abs_err=err, ms=ms, plain_ms=pms,
@@ -744,6 +807,10 @@ def main(argv=None) -> int:
                               member_step_ms_1024=widest_bench[1]["ms_per_step"],
                               device_ms=widest_k6_ms)
             k["widest"] = widest
+        if k["name"] in long_rays:
+            # phase 29: its shapes past 1024 samples or bins (times and bound as
+            # in the row), launches over its main-path items
+            k["long_rays"] = long_rays[k["name"]]
         if k["name"] in trainer_launches:
             # launches over the timed chunks of phase 21's four trainers, and the
             # kernel at each trainer's shape (times as in the row, bound from these inputs)
@@ -983,6 +1050,7 @@ def all_counters():
         fused_spectral_field_bwd,
     )
     from apnerf_tpu_torch.ops.cuda.gather_rows import gather_rows_bwd
+    from apnerf_tpu_torch.ops.cuda.hash_table import hash_table_bwd
     from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
         fused_render_weights,
         fused_render_weights_bwd,
@@ -992,7 +1060,7 @@ def all_counters():
         fused_spectral_field, fused_render_weights, fused_render_weights_bwd,
         fused_field_volrend_lossgrad, fused_field_heads, fused_field_volrend,
         fused_field_volrend_bwd, fused_field_heads_bwd, fused_spectral_field_bwd,
-        fused_mlp_apply, fused_mlp_apply_bwd, gather_rows_bwd)}
+        fused_mlp_apply, fused_mlp_apply_bwd, gather_rows_bwd, hash_table_bwd)}
 
 
 def reset_counts(counters):
@@ -1009,7 +1077,7 @@ def plain_routes():
     """Every kernel of the render and train paths replaced by its plain
     version where the port's modules look it up (autograd then goes through
     the plain versions, so no backward kernel runs either; the gathers'
-    through PyTorch's own backward)."""
+    through PyTorch's own backward, the hash table's through index_add_)."""
     from apnerf_tpu_torch.models import propnet, spectral
     from apnerf_tpu_torch.ops.cuda.fused_field_heads import fused_field_heads_plain
     from apnerf_tpu_torch.ops.cuda.fused_field_volrend import fused_field_volrend_plain
@@ -1030,6 +1098,12 @@ def plain_routes():
               for m in (propnet, prop_renderer, renderer, flagship, examples)]
     swaps += [(m, "gather_rows_pair", lambda src, a, b: (src.gather(-1, a), src.gather(-1, b)))
               for m in (propnet, pdf) if hasattr(m, "gather_rows_pair")]  # none in older trees
+    from apnerf_tpu_torch.ops import hashgrid
+
+    if hasattr(hashgrid, "hash_table_bwd"):  # none in older trees
+        from apnerf_tpu_torch.ops.cuda.hash_table import hash_table_bwd_plain
+
+        swaps.append((hashgrid, "hash_table_bwd", hash_table_bwd_plain))
     saved = [getattr(m, name) for m, name, _ in swaps]
     for m, name, plain in swaps:
         setattr(m, name, plain)
@@ -1088,6 +1162,7 @@ def k2_fwd_case(dev, label, t0_, t1_, sig, timed=True):
         fused_render_weights,
         fused_render_weights_plain,
         lane_span,
+        span_count,
     )
 
     R, S = sig.shape
@@ -1099,7 +1174,8 @@ def k2_fwd_case(dev, label, t0_, t1_, sig, timed=True):
         fail(f"weights kernel {label}: non-finite or misshapen output")
     err = float((got - ref).abs().max())
     zeroed, negated = float(ref.abs().max()), float((got + ref).abs().max())
-    line = (f"weights kernel {label} [{R}, {S}] (lane span {lane_span(S)}): max_abs {err:.3e} "
+    line = (f"weights kernel {label} [{R}, {S}] (lane span {lane_span(S)}, {span_count(S)} "
+            f"pass{'es' * (span_count(S) > 1)}): max_abs {err:.3e} "
             f"(tol {tol}; zeroed reads {zeroed:.3e}, negated {negated:.3e})")
     if not (zeroed > tol and negated > tol):
         fail(f"the limit on the weights kernel {label} would pass a zeroed or negated output")
@@ -1114,7 +1190,7 @@ def k2_fwd_case(dev, label, t0_, t1_, sig, timed=True):
     print(f"{line} | kernel {ms:.4f} ms (event window) | plain {pms:.4f} ms | bound "
           f"{bnd[0]:.4f} ms ({bnd[1]}, 16 B a sample; 24 B: {old[0]:.4f})", flush=True)
     dms, cold, floor = k2_times(dev, R, lambda: fused_render_weights(t0_, t1_, sig),
-                                "render_weights_fwd_kernel", f"weights kernel [{R}, {S}]")
+                                k2_kernel("fwd", S), f"weights kernel [{R}, {S}]")
     return err, ms, pms, bnd, dict(device_ms=dms, cold_device_ms=cold, floor_device_ms=floor)
 
 
@@ -1163,15 +1239,24 @@ def k2_bwd_case(dev, label, t0_, t1_, sig, g, with_dt, timed=True):
     print(f"{line} | kernel {ms:.4f} ms (event window) | plain (autograd backward) {pms:.4f} "
           f"ms | bound {bnd[0]:.4f} ms ({bnd[1]}, {20 + 8 * with_dt} B a sample; 28 B: "
           f"{old[0]:.4f})", flush=True)
-    dms, cold, floor = k2_times(dev, R, run, "render_weights_bwd_kernel",
+    dms, cold, floor = k2_times(dev, R, run, k2_kernel("bwd", S),
                                 f"weights backward [{R}, {S}]")
     return (max(e[0] for e in errs), ms, pms, bnd,
             dict(device_ms=dms, cold_device_ms=cold, floor_device_ms=floor))
 
 
 # widths off the paths' shapes: S = 1, the scalar accesses (S not a
-# multiple of 4) and the widest lane-span instance
-K2_EXTRA_SAMPLES = (1, 33, 130, 1024)
+# multiple of 4), the widest lane-span instance, and rows of 2, 2 and 8
+# passes of 1024 samples (the _spans kernels)
+K2_EXTRA_SAMPLES = (1, 33, 130, 1024, 1025, 2048, 8192)
+
+
+def k2_kernel(which, S):
+    """The name of the weights kernel ``which`` ("fwd" or "bwd") that rows
+    of S samples launch: one pass, or the _spans kernel past 1024."""
+    from apnerf_tpu_torch.ops.cuda.volrend_cuda import span_count
+
+    return f"render_weights_{which}_{'spans_' * (span_count(S) > 1)}kernel"
 
 
 def phase_k2_fwd(dev, R, S, Sp):
@@ -1306,19 +1391,24 @@ GATHER_CASES = (("flagship _outer", 2048, 128, 65, 2), ("flagship, one gather", 
                 ("unsorted", 2048, 128, 65, 2), ("ragged", 1000, 300, 257, 2))
 
 
-def _gather_case(gen, dev, R, Q, K, n_lists, sorted_=True):
+def _gather_case(gen, dev, R, Q, K, n_lists, order="sorted"):
     """(cotangent, index) pairs as ``_outer`` makes them: searchsorted of a
     row's Q sorted final intervals, crowded where a density would be, into
-    its K - 1 proposal bins (a bin's index for each end); unsorted: any bin
-    of the row. Cotangents over six decades, so the order of a sum shows."""
+    its K - 1 proposal bins (a bin's index for each end); "unsorted": any
+    bin of the row; "mixed": sorted, but list a shuffled in every other row.
+    Cotangents over six decades, so the order of a sum shows."""
     from apnerf_tpu_torch.ops.pdf import searchsorted
 
-    if sorted_:
+    if order != "unsorted":
         edges = torch.sort(torch.rand((R, K), generator=gen, device=dev), dim=-1).values
         final = torch.sort(torch.rand((R, Q + 1), generator=gen, device=dev) ** 3, dim=-1).values
         lo, _ = searchsorted(edges[:, 1:], final[:, :-1])
         _, hi = searchsorted(edges[:, :-1], final[:, 1:])
         idx = [lo, hi.clamp(0, K - 1)][:n_lists]
+        if order == "mixed":
+            perm = torch.argsort(torch.rand((R, Q), generator=gen, device=dev), dim=-1)
+            idx[0] = torch.where((torch.arange(R, device=dev) % 2 == 0)[:, None],
+                                 idx[0].gather(-1, perm), idx[0])
     else:
         idx = [torch.randint(0, K, (R, Q), generator=gen, device=dev) for _ in range(n_lists)]
     gs = [torch.randn((R, Q), generator=gen, device=dev)
@@ -1326,15 +1416,17 @@ def _gather_case(gen, dev, R, Q, K, n_lists, sorted_=True):
     return list(zip(gs, idx))
 
 
-def phase_gather_rows(dev):
-    """Phase 28 → the flagship _outer case's record (max-abs error, ms,
-    plain ms, bound, and its device and library times)."""
+def phase_gather_rows(dev, cases=GATHER_CASES, seed=2828):
+    """Phase 28 (and phase 29's ``LONG_GATHER_CASES``) → {label: record
+    (max-abs error, ms, plain ms, bound, and its device and library
+    times)}."""
     from apnerf_tpu_torch.ops.cuda.gather_rows import gather_rows_bwd, gather_rows_bwd_plain
 
-    gen = _generator(dev, 2828)
-    record = None
-    for label, R, Q, K, n_lists in GATHER_CASES:
-        pairs = _gather_case(gen, dev, R, Q, K, n_lists, sorted_=label != "unsorted")
+    gen = _generator(dev, seed)
+    records = {}
+    for label, R, Q, K, n_lists in cases:
+        order = next((o for o in ("unsorted", "mixed") if label.startswith(o)), "sorted")
+        pairs = _gather_case(gen, dev, R, Q, K, n_lists, order)
         got = gather_rows_bwd(K, pairs)
         torch.cuda.synchronize()
         ref = gather_rows_bwd_plain(K, [(g.cpu(), i.cpu()) for g, i in pairs])
@@ -1362,9 +1454,107 @@ def phase_gather_rows(dev):
               f"({bnd[1]}, {n_bytes / 1e6:.2f} MB)", flush=True)
         if not same(got):
             fail(f"gather_rows_bwd ({label}) is not its plain version bit for bit: {err}")
-        if label == "flagship _outer":
-            record = (err, ms, pms, bnd, {"library_ms": lib_ms, "device_ms": dev_ms})
-    return record
+        records[label] = (err, ms, pms, bnd, {"library_ms": lib_ms, "device_ms": dev_ms})
+    return records
+
+
+# phase 30: the hash grid table's backward (csrc/hash_table_bwd.cu) at the
+# ngp+occ member step's shape, PipelineConfig()'s 16 x 2^19 x 4 table and
+# 2^18 positions (33.5M rows; the step marches about 258,000 samples), the
+# corners of positions uniform in the unit cube and of positions in a slab
+# 1 % thick (longer runs at every level), then one index taking 2^21 rows
+# (a run over 2048 tiles) and rows of 2 and 3 features. Each is held to
+# a float64 sum of the same rows: every entry within (5 + 1024 / 32 +
+# the tiles its longest run spans + 1) x 2^-24 x the sum of its terms'
+# magnitudes, the bound of a float32 sum whose chains of dependent adds are
+# that deep (tests/test_torch_hash_table.py holds the kernel's order,
+# emulated, to the same bound); a zeroed and a negated output must fail it.
+# Three more launches must give the same bits. Timed beside index_add_ (the
+# plain version, float atomics) and the accumulating index_put_ (the
+# library's fixed-order call, which sums a run serially).
+HASH_CASES = (("uniform", 1 << 18, 4, None), ("slab", 1 << 18, 4, None),
+              ("one index", 1 << 21, 4, 1000), ("2 features", 1 << 17, 2, 5000),
+              ("3 features", 1 << 17, 3, 5000))
+HASH_REPEATS = 3
+
+
+def _hash_case(gen, dev, kind, N, F, n_rows):
+    """(idx [M] int32, g [M, F], n_rows) for a case of ``HASH_CASES``."""
+    from apnerf_tpu_torch.ops import hashgrid
+
+    if n_rows is None:
+        cfg = hashgrid.HashGridConfig()
+        x = torch.rand((N, 3), generator=gen, device=dev)
+        if kind == "slab":
+            x[:, 2] = 0.3 + 0.01 * x[:, 2]
+        idx = hashgrid._corner_indices_and_weights(x, cfg)[0].reshape(-1)
+        n_rows = cfg.n_levels * cfg.table_size
+    elif kind == "one index":
+        idx = torch.full((N,), n_rows // 2, dtype=torch.int32, device=dev)
+    else:
+        idx = torch.randint(0, n_rows, (N,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.randn((idx.shape[0], F), generator=gen, device=dev)
+    return idx, g, n_rows
+
+
+def phase_hash_table(dev, seed=3030):
+    """Phase 30 → the record of the ngp+occ step's shape (max-abs error
+    against the float64 sum, ms, plain ms, bound, and its device and
+    library times)."""
+    from apnerf_tpu_torch.ops.cuda.hash_table import (
+        TILE,
+        hash_table_bwd,
+        hash_table_bwd_plain,
+    )
+
+    t_phase = time.perf_counter()
+    gen = _generator(dev, seed)
+    records = {}
+    for kind, N, F, n_rows in HASH_CASES:
+        idx, g, n_rows = _hash_case(gen, dev, kind, N, F, n_rows)
+        M = idx.shape[0]
+        got = hash_table_bwd(n_rows, idx, g)
+        wit = hash_table_bwd_plain(n_rows, idx, g.double())
+        mag = hash_table_bwd_plain(n_rows, idx, g.abs().double())
+        longest = int(torch.unique(idx, return_counts=True)[1].max())
+        depth = 5 + TILE // 32 + -(-longest // TILE) + 1
+        limit = depth * 2.0 ** -24 * mag
+        within = lambda x: bool(((x.double() - wit).abs() <= limit).all())  # noqa: E731
+        if within(torch.zeros_like(got)) or within(-got):
+            fail(f"hash_table_bwd ({kind}): the limit would pass a zeroed or negated output")
+        repeats = all(torch.equal(hash_table_bwd(n_rows, idx, g), got)
+                      for _ in range(HASH_REPEATS))
+        ok = within(got)
+        scale = float(wit.abs().max())
+        err = float((got.double() - wit).abs().max())
+        plain = hash_table_bwd_plain(n_rows, idx, g)
+        p_err = float((plain.double() - wit).abs().max())
+        del wit, mag, limit, plain
+        ms = cuda_ms(lambda: hash_table_bwd(n_rows, idx, g))
+        pms = cuda_ms(lambda: hash_table_bwd_plain(n_rows, idx, g))
+        zero = torch.zeros((n_rows, F), device=dev)
+        lib_ms = cuda_ms(lambda: zero.clone().index_put_((idx,), g, accumulate=True), 3, 2)
+        dev_ms = [kernel_device_ms(lambda: hash_table_bwd(n_rows, idx, g), name, calls=10)
+                  for name in ("hash_table_bwd_tiles_kernel", "hash_table_bwd_runs_kernel")]
+        dev_ms = None if None in dev_ms else sum(dev_ms)
+        n_bytes = M * (4 + 4 * F) + n_rows * F * 4
+        bnd = bound(M * F, n_bytes, PEAK_F32_FLOPS)
+        print(f"hash table backward [{kind}] {M} rows of {F} into {n_rows} (longest run "
+              f"{longest}): within the float64 sum's bound ({depth} adds deep) {ok}; max-abs "
+              f"{err:.3e} ({err / scale:.3e} of scale; index_add_'s {p_err / scale:.3e}); zeroed "
+              f"and negated outputs fail the limit; {HASH_REPEATS} more launches bit for bit "
+              f"{repeats} | kernel {ms:.4f} ms with the sort (device, both passes "
+              + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+              + f"), plain index_add_ {pms:.4f} ms, index_put_ {lib_ms:.4f} ms, bound "
+              f"{bnd[0]:.5f} ms ({bnd[1]}, {n_bytes / 1e6:.1f} MB)", flush=True)
+        if not ok:
+            fail(f"hash_table_bwd ({kind}) is off the float64 sum past its bound: {err}")
+        if not repeats:
+            fail(f"hash_table_bwd ({kind}) does not repeat bit for bit")
+        records[kind] = (err, ms, pms, bnd, {"library_ms": lib_ms, "device_ms": dev_ms})
+        del idx, g, got
+    print(f"phase 30: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records
 
 
 def _k6_inputs(gen, dev, R, S, n_classes, aabb):
@@ -1476,22 +1666,18 @@ def phase_k6(dev, cfg=None, limits=None):
             fail(f"train-step kernel ({case}) disagrees with its plain version"
                  + (f" (gradient leaves {over})" if over else ""))
         if case == "zero biases":
-            # forward 2 and backward 4 operations per multiply-add (dX and
-            # dW); u, dt, t_mid read and the weights written per sample, the
-            # parameters read and their gradients written
-            macs = field_macs(s_cfg.n_freqs, s_cfg.neurons, s_cfg.layers, s_cfg.geo_feat_dim,
-                              s_cfg.neurons // 4, s_cfg.num_semantic_classes)
-            n_bytes = R * S * (12 + 8 + 4) + R * (64 + 24) + 2 * field_weight_bytes(field)
-            record = (w_err, ms, pms, bound(6 * macs * R * S, n_bytes))
+            record = (w_err, ms, pms,
+                      field_render_bounds(s_cfg, field, R, S)["fused_field_volrend_lossgrad"])
     return record
 
 
-def _step_inputs(dev, ds, seed):
-    """A train batch from image 5 and the proposal sampling's draw."""
+def _step_inputs(dev, ds, seed, cfg=None):
+    """A train batch from image 5 and the proposal sampling's draw, at the
+    bench configuration's rays and samples or ``cfg``'s."""
     from apnerf_tpu_torch import bench
     from apnerf_tpu_torch.data.dataset import fetch_rays
 
-    cfg = bench.bench_config()
+    cfg = cfg or bench.bench_config()
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     batch = fetch_rays(ds.images, ds.depths, ds.semantics, ds.camtoworlds, ds.K,
@@ -1568,7 +1754,7 @@ def compare_member_step(dev, state, ds, seed, route="lossgrad", fused_prop=False
     from apnerf_tpu_torch.train.step import AdamState
 
     cfg = cfg or bench.bench_config()
-    batch, noise = _step_inputs(dev, ds, seed)
+    batch, noise = _step_inputs(dev, ds, seed, cfg)
     old = state.members[0]
     opt0 = state.opt[0]
     b1 = 0.9
@@ -2171,13 +2357,7 @@ def phase_k5(dev, cfg=None, limits=None, shapes=((25600, 256), (4096, 512))):
                 pms = cuda_ms(lambda: fused_field_volrend_plain(leaves, u, sh, dt, tm, S),
                               reps=3, inner=2)
                 chunks = -(-R // max(FWD_CHUNK_ROWS // S, 1))
-                macs = field_macs(s_cfg.n_freqs, s_cfg.neurons, s_cfg.layers,
-                                  s_cfg.geo_feat_dim, s_cfg.neurons // 4, C)
-                # u, dt, t_mid read and the weights written per sample; SH
-                # read and the sums written per ray; the parameters read
-                n_bytes = (R * S * (12 + 8 + 4) + R * (64 + 4 * (5 + C))
-                           + field_weight_bytes(field))
-                bnd = bound(2 * macs * R * S, n_bytes)
+                bnd = field_render_bounds(s_cfg, field, R, S)["fused_field_volrend"]
                 print(f"fused field-and-render kernel [{case}] R={R} S={S} C={C} "
                       f"({chunks} ray chunks per call): kernel {ms:.3f} ms, plain "
                       f"{pms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
@@ -2775,11 +2955,12 @@ def _width_config(M, H, geo=None, classes=None):
     return cfg, s_cfg
 
 
-def phase_widths(dev, pairs=None, shapes=WIDTH_SHAPES, tols=None):
+def phase_widths(dev, pairs=None, shapes=WIDTH_SHAPES, tols=None,
+                 cases=("zero biases", "random biases")):
     """Every instance of the tile, and the padded trunks, against the plain
     versions (above) → {(M, H): {kernel: ms}}, zero biases. ``pairs``: (M,
     H) or (M, H, geo, classes) of the fields to run instead; ``tols(case,
-    field)`` their limits (``_width_tols``'s form)."""
+    field)`` their limits (``_width_tols``'s form); ``cases`` the bias cases."""
     from apnerf_tpu_torch.models import spectral
     from apnerf_tpu_torch.ops.cuda import field_images
     from apnerf_tpu_torch.ops.cuda import fused_field_heads as ffh
@@ -2801,7 +2982,7 @@ def phase_widths(dev, pairs=None, shapes=WIDTH_SHAPES, tols=None):
         tm = (0.5 * (t0_ + t1_)).reshape(-1).contiguous()
         inputs = _k6_inputs(gen, dev, R, S, C, cfg.aabb)
         ms = {}
-        for case in ("zero biases", "random biases"):
+        for case in cases:
             if case == "random biases":
                 _set_random_biases(field, gen, dev)
             timed = case == "zero biases" and (R, S) == shapes[0]
@@ -2826,6 +3007,9 @@ def phase_widths(dev, pairs=None, shapes=WIDTH_SHAPES, tols=None):
                     "sem": slice(5, 5 + C)}, k5_tol)
                 _check_groups(f"{label} K5", w_k[:, None], w_p[:, None],
                               {"weights": slice(0, 1)}, k5_tol, absolute=("weights",))
+                if timed:
+                    ms["fused_field_volrend"] = cuda_ms(
+                        lambda: fvr.fused_field_volrend(leaves, u, sh, dt, tm, S), reps=3, inner=3)
                 del yk, yp, acc_k, w_k, acc_p, w_p
 
             lk, wk, gk = spectral.forward_packed_lossgrad(field, s_cfg, *inputs)
@@ -2846,8 +3030,12 @@ def phase_widths(dev, pairs=None, shapes=WIDTH_SHAPES, tols=None):
             w_err = _errs(wk, wp)[0]
             l_err = max(abs(float(lk[i].sum()) - float(lp[i].sum())) / abs(float(lp[i].sum()))
                         for i in range(3))
-            print(f"{label} K6: weights max_abs {w_err:.3e} (tol {w_tol}), loss terms rel "
-                  f"{l_err:.3e} (tol {l_tol})", flush=True)
+            w_zeroed, w_negated = _errs(torch.zeros_like(wk), wp)[0], _errs(-wk, wp)[0]
+            print(f"{label} K6: weights max_abs {w_err:.3e} (tol {w_tol}; zeroed reads "
+                  f"{w_zeroed:.3e}, negated {w_negated:.3e}), loss terms rel {l_err:.3e} (tol "
+                  f"{l_tol})", flush=True)
+            if not (w_zeroed > w_tol and w_negated > w_tol):
+                fail(f"{label}: the limit on K6's weights would pass a zeroed or negated output")
             if (width, case) in WIDTH_OWN_TOL and (R, S) == shapes[0]:
                 diagnose_width(label, field, s_cfg, inputs, (u, sh, dt, tm, S), (lk, wk))
             if not (w_err <= w_tol and l_err <= l_tol):
@@ -3446,6 +3634,224 @@ def phase_widest(dev, bench_run):
     return times, (res, res_1024), loop_counts, k6_ms
 
 
+# Phase 29: rays of more than 1024 samples and gathers into more than 1024
+# bins, at the existing limits. The weights kernels timed at [2048, 2048]
+# (their other long widths in phases 3 and 5); the gathers' backward at the
+# flagship's _outer with 1100 proposal samples, at 8193 bins and on rows of
+# which every other is unsorted; K4, K5 and K6 with their backwards on the
+# shipping field at 1025 and 2048 samples and at 65,536 (the ray kernels'
+# rows in device memory), and on the last tier (64, 1024) at 1025 and 2048.
+LONG_K2_SHAPE = (2048, 2048)
+LONG_GATHER_CASES = (("_outer at 1100 proposal samples", 2048, 1100, 1101, 2),
+                     ("8193 bins", 256, 4096, 8193, 2),
+                     ("mixed: every other row unsorted", 256, 1100, 1101, 2))
+LONG_FIELD_SHAPES = ((128, 2048), (128, 1025))
+LONG_WIDEST_SHAPES = ((64, 2048), (64, 1025))
+# past ~28,000 samples the ray kernels keep a ray's w and T in device memory
+# (``ray_plan``, ``fwd_ray_plan``): at this shape the plan stages them there,
+# held to the plain versions with zero biases (the random-bias limits on
+# the weights are absolute, and a 65,536-sample ray's weights, ~1e-5 each,
+# lie under them zeroed); and at ``LONG_STAGED_BITS`` with the staging
+# forced, bit for bit against the same call in shared memory
+LONG_STAGED_SHAPE = (4, 65536)
+LONG_STAGED_BITS = (32, 2048)
+# the main path's items: a flagship member step (1024 rays of 1100 samples,
+# 1100 proposal samples), one planning step's scoring at 2048 samples, the
+# NGP + occupancy trainer at max_samples 1040 (its march at render_step_size
+# 5e-3 over the aabb +-1.5 reaches 1039 samples on the diagonal)
+LONG_STEP = dict(num_rays=1024, max_samples_train=1100, num_prop_samples=1100)
+LONG_CANDIDATES, LONG_CANDIDATE_SAMPLES = 2, 2048
+LONG_NGP_SAMPLES, LONG_NGP_CHUNKS, LONG_NGP_VIEWS, LONG_NGP_RAYS = 1040, (20, 20), 12, 4096
+
+
+def staged_bits(dev):
+    """K5 fwd, K6 and K5 bwd at ``LONG_STAGED_BITS`` with random biases,
+    their ray kernels' rows staged in device memory (the plans' shared-
+    memory limit set to 0), against the same calls with the rows in shared
+    memory: bit for bit."""
+    from apnerf_tpu_torch.models import spectral
+    from apnerf_tpu_torch.ops.cuda import fused_field_volrend as fvr
+
+    gen = _generator(dev, 2932)
+    cfg, s_cfg = _width_config(128, 256)
+    R, S = LONG_STAGED_BITS
+    field = spectral.init_spectral(s_cfg, gen, dev)
+    _set_random_biases(field, gen, dev)
+    leaves = list(field.parameters())
+    pos, dirs, t0_, t1_, miss = _render_inputs(gen, dev, R, S, cfg.aabb)
+    u, sh = spectral._packed_inputs(s_cfg, pos, dirs)
+    dt = ((t1_ - t0_) * (~miss)[:, None]).reshape(-1).contiguous()
+    tm = (0.5 * (t0_ + t1_)).reshape(-1).contiguous()
+    inputs = _k6_inputs(gen, dev, R, S, cfg.num_semantic_classes, cfg.aabb)
+    g_acc, g_w, _, _ = _loss_cotangents(leaves, u, sh, dt, tm, S, cfg.num_semantic_classes, 29)
+
+    def calls():
+        with torch.no_grad():
+            fwd = fvr.fused_field_volrend(leaves, u, sh, dt, tm, S)
+        loss, w, grads = spectral.forward_packed_lossgrad(field, s_cfg, *inputs)
+        bwd, du = fvr.fused_field_volrend_bwd(leaves, u, sh, dt, tm, S, g_acc, g_w, True)
+        return [*fwd, loss, w, *_flat(grads).values(), *bwd, du]
+
+    shared = calls()
+    plans = fvr.ray_plan, fvr.fwd_ray_plan
+    fvr.ray_plan = lambda n, c: plans[0](n, c, limit=0)
+    fvr.fwd_ray_plan = lambda n: plans[1](n, limit=0)
+    try:
+        staged = calls()
+    finally:
+        fvr.ray_plan, fvr.fwd_ray_plan = plans
+    same = all(torch.equal(a, b) for a, b in zip(shared, staged))
+    print(f"ray kernels' rows in device memory against shared memory at [{R}, {S}], random "
+          f"biases, K5 fwd, K6, K5 bwd ({len(shared)} tensors): bit for bit {same}", flush=True)
+    if not same:
+        fail("the ray kernels' staging in device memory changes their results")
+
+
+def phase_long_rays(dev, bench_run):
+    """Phase 29 (above) → {kernel: its readings past 1024 samples or bins,
+    and its launches over the phase's main-path items}."""
+    from apnerf_tpu_torch import bench, train_ngp_occ
+    from apnerf_tpu_torch.active.mapper import ActiveNeRFMapper
+    from apnerf_tpu_torch.config import PipelineConfig
+    from apnerf_tpu_torch.models import spectral
+    from apnerf_tpu_torch.ops.cuda import build
+    from apnerf_tpu_torch.ops.cuda.volrend_cuda import span_count
+    from apnerf_tpu_torch.train import examples
+
+    t_phase = time.perf_counter()
+    counters = all_counters()
+    out = {}
+
+    # -- the kernels, timed beside their bounds ----------------------------------------------
+    gen = _generator(dev, 29)
+    R, S = LONG_K2_SHAPE
+    t0_, t1_, sig = _k2_intervals(gen, dev, R, S)
+    g = torch.randn((R, S), generator=gen, device=dev)
+    for name, rec in (("fused_render_weights", k2_fwd_case(dev, "long rays", t0_, t1_, sig)),
+                      ("fused_render_weights_bwd",
+                       k2_bwd_case(dev, "long rays", t0_, t1_, sig, g, with_dt=False))):
+        err, ms, pms, bnd, dev_ms = rec
+        out[name] = {"shape": [R, S], "passes": span_count(S), "max_abs_err": err, "ms": ms,
+                     "plain_ms": pms, "bound_ms": bnd[0], "bound_by": bnd[1], **dev_ms}
+    del t0_, t1_, sig, g
+    gathers = phase_gather_rows(dev, LONG_GATHER_CASES, seed=2929)
+    out["gather_rows_bwd"] = {
+        label: {"shape": [n, R_, Q], "bins": K, "max_abs_err": r[0], "ms": r[1], "plain_ms": r[2],
+                "bound_ms": r[3][0], "bound_by": r[3][1], **r[4]}
+        for (label, R_, Q, K, n), r in zip(LONG_GATHER_CASES, gathers.values())}
+    # each field and shape on its own, so each is timed (its first bias case) beside its bound
+    for width, shape, tols, cases in (
+            *(((128, 256), sh, None, ("zero biases", "random biases"))
+              for sh in LONG_FIELD_SHAPES),
+            ((128, 256), LONG_STAGED_SHAPE, None, ("zero biases",)),
+            *((WIDEST_FIELDS[0], sh, _widest_tols, ("zero biases", "random biases"))
+              for sh in LONG_WIDEST_SHAPES)):
+        times = phase_widths(dev, [width], shapes=(shape,), tols=tols, cases=cases)[width]
+        _, s_cfg = _width_config(*width)
+        bounds = field_render_bounds(s_cfg, spectral.init_spectral(s_cfg, gen, dev), *shape)
+        for name, (bnd, by) in bounds.items():
+            print(f"long rays: {name} field {list(width)} [{shape[0]}, {shape[1]}] "
+                  f"{times[name]:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+            rec = out.setdefault(name, {"shapes": []})
+            rec["shapes"].append({"field": list(width), "shape": list(shape), "ms": times[name],
+                                  "bound_ms": bnd, "bound_by": by})
+        if (width, shape) == ((128, 256), LONG_FIELD_SHAPES[0]):
+            for name in bounds:
+                out[name].update(out[name]["shapes"][-1])
+    staged_bits(dev)
+    R, S = LONG_FIELD_SHAPES[0]
+    out["fused_field_volrend_lossgrad"]["device_ms"] = k6_device_time(
+        dev, cfg=dataclasses.replace(bench.bench_config(), num_rays=R, max_samples_train=S))
+    t_kernels = time.perf_counter() - t_phase
+    launches = dict.fromkeys(counters, 0)
+
+    def add(label, counts, expected):
+        print(f"long rays, {label}: launches {counts}", flush=True)
+        want = dict.fromkeys(counts, 0)
+        want.update(expected)
+        if counts != want:
+            fail(f"long rays, {label}: launch counts {counts}, expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+
+    # -- a flagship member step at 1100 final and 1100 proposal samples -----------------------
+    cfg = dataclasses.replace(bench.bench_config(), **LONG_STEP)
+    reset_counts(counters)
+    compare_member_step(dev, bench_run[1].state, bench_run[1].dataset, seed=129, cfg=cfg)
+    add("one member step", read_counts(counters), dict(
+        fused_field_volrend_lossgrad=1, fused_render_weights=2, fused_render_weights_bwd=1,
+        gather_rows_bwd=1))
+
+    # -- one planning step's scoring at 2048 samples ----------------------------------------
+    cfg = dataclasses.replace(PipelineConfig(), num_traj=LONG_CANDIDATES,
+                              max_samples_test=LONG_CANDIDATE_SAMPLES)
+    mapper = ActiveNeRFMapper(cfg, None, save_path=os.path.join(build.BUILD_DIR, "chip_smoke_long"),
+                              seed=9, device=dev, max_samples_unc=LONG_CANDIDATE_SAMPLES)
+    mapper.occ = mapper._occ_update_fn(mapper.members, mapper.occ, mapper.step,
+                                       cfg.occ_thre_for_phase(-1), generator=mapper.generator)
+    candidates = mapper._sample_candidates(mapper.binaries_host(),
+                                           mapper.global_origin[:3].copy())
+    reset_counts(counters)
+    t_s = time.perf_counter()
+    mapper._score_candidates(candidates, 1)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t_s
+    counts = read_counts(counters)
+    comps = np.asarray(mapper.trajector_uncertainty_list[0])
+    renders = len(candidates) * cfg.n_ensembles * N_VIEWS
+    print(f"long rays: {len(candidates)} candidates scored at {LONG_CANDIDATE_SAMPLES} samples "
+          f"in {t_s:.3f} s, PI totals {comps.sum(axis=1)}", flush=True)
+    if len(candidates) != LONG_CANDIDATES or comps.shape != (LONG_CANDIDATES, 4) \
+            or not np.isfinite(comps).all():
+        fail("long rays: misshapen or non-finite PI terms at 2048 samples")
+    add("the scoring", counts, dict(fused_field_heads=renders, fused_render_weights=2 * renders))
+    with plain_routes():
+        plain = np.asarray([float(v) for v in mapper.dispatch_uncertainty(candidates[0])])
+    rel = np.abs(plain - comps[0]) / np.maximum(np.abs(plain), 1e-12)
+    print(f"  PI of candidate 0 with plain versions: max rel diff {rel.max():.3e} "
+          f"(tol {PI_RTOL})", flush=True)
+    if not rel.max() <= PI_RTOL:
+        fail(f"long rays: PI with kernels disagrees with the plain versions: {rel.max()}")
+    del mapper
+
+    # -- the NGP + occupancy trainer at max_samples 1040 --------------------------------------
+    views = _views(synthetic_subject(LONG_NGP_VIEWS, 0.0), dev)
+    state, step_fn, _ = examples.make_ngp_occ_trainer(
+        SYNTH_AABB, seed=train_ngp_occ.SEED, device=dev,
+        **dict(train_ngp_occ.TRAINER_KWARGS, max_samples=LONG_NGP_SAMPLES))
+    gen = _generator(dev, 2930)
+    R = LONG_NGP_RAYS
+
+    def step(s_, i):
+        o, d, px, bk, _ = _trainer_batch(gen, views, R)
+        return step_fn(s_, o, d, px, bk, generator=gen)
+
+    probe = _fixed_probe(dev, step_fn, _trainer_batch(_generator(dev, 2931), views, R)[:4])
+    state, losses, samples, wall, counts, probed = _run_chunks(
+        "ngp+occ at 1040 samples", step, state, LONG_NGP_CHUNKS, counters, probe)
+    n = LONG_NGP_CHUNKS[-1]
+    print(f"long rays: ngp+occ trainer at max_samples {LONG_NGP_SAMPLES}, {R} rays: "
+          f"{wall / n * 1e3:.3f} ms per step over the timed chunk of {n}; visible samples a ray "
+          f"{samples[-n:].mean() / R:.2f}; loss on a fixed batch {probed[0]:.5f} -> "
+          f"{probed[1]:.5f}", flush=True)
+    add("ngp+occ trainer's timed chunk", counts,
+        dict(fused_render_weights=n, fused_render_weights_bwd=n, hash_table_bwd=n))
+    o, d, px, bk, _ = _trainer_batch(gen, views, R)
+    state = state._replace(step=-(-state.step // 16) * 16)  # a step that updates the grid
+    seen = _compare_trainer_step("ngp+occ", step_fn, state, (o, d, px, bk),
+                                 dict(occ_draws=_occ_step_draws(state, gen, dev)), counters, 1, 1,
+                                 tables=1)
+    if seen[0][2].shape[1] != LONG_NGP_SAMPLES:
+        fail(f"long rays: the ngp+occ step gave K2 {tuple(seen[0][2].shape)}, not "
+             f"{LONG_NGP_SAMPLES} samples a ray")
+    for k, v in launches.items():
+        if k in out and v:
+            out[k]["launches"] = v
+    print(f"phase 29: {time.perf_counter() - t_phase:.1f} s (kernels {t_kernels:.1f} s); "
+          f"launches over its main-path items {launches}", flush=True)
+    return out
+
+
 LOOP_ARTIFACTS = (
     "train/data0.npz", "test/data0.npz", "uncertainty.npy", "errors.npy", "metrics_ext.npy",
     "throughput.json", "checkpoints/model_0.npz", "checkpoints/model_1.npz",
@@ -3910,10 +4316,11 @@ def phase_viz(mapper):
 # kernel's plain version in place (forward and backward): the loss (relative),
 # each tensor's update and gradient (err / max-abs; the gradient recovered
 # from Adam's first moment), and the occupancy grid, whose update comes
-# before the render and runs no kernel, exactly. The hash table's gradient
-# is an index_add_ with float atomics, so two runs of the same step differ
-# already, and the state the step starts from was trained through the same
-# atomics. Four readings on an H100 (PERF.md): loss 8.9e-8, 0, 8.9e-8, 0
+# before the render and runs no kernel, exactly. The plain side takes the
+# hash table's gradient from index_add_, whose float atomics add in an order
+# that changes from run to run (the kernel side sums it in a fixed order).
+# Four readings on an H100 (PERF.md), while both sides took index_add_:
+# loss 8.9e-8, 0, 8.9e-8, 0
 # (one f32 ulp near 1.3 is 9e-8 relative), update 1.4e-5-4.1e-5 (the
 # largest in mlp_sem.w0, where an element with a small second moment
 # magnifies a small change of its gradient), gradient 4.6e-6-1.3e-5 (the
@@ -4011,7 +4418,8 @@ def phase_ngp_step(dev, bench_run):
     if not np.isfinite(loss).all():
         fail("the ngp+occ member steps gave a non-finite loss")
     expected = dict.fromkeys(launches, 0)
-    expected.update(fused_render_weights=E * 100, fused_render_weights_bwd=E * 100)
+    expected.update(fused_render_weights=E * 100, fused_render_weights_bwd=E * 100,
+                    hash_table_bwd=E * 100)
     if launches != expected:
         fail(f"ngp+occ train launch counts {launches}, expected {expected}")
 
@@ -4059,7 +4467,7 @@ def phase_ngp_step(dev, bench_run):
     for name, ru, rg in rows:
         print(f"    {name:16s} update {ru:.3e} gradient {rg:.3e}")
     expected = dict.fromkeys(step_launches, 0)
-    expected.update(fused_render_weights=1, fused_render_weights_bwd=1)
+    expected.update(fused_render_weights=1, fused_render_weights_bwd=1, hash_table_bwd=1)
     if step_launches != expected:
         fail(f"an ngp+occ member step launched {step_launches}, expected {expected}")
     if not (loss_rel <= NGP_STEP_TOL[0] and worst_u <= NGP_STEP_TOL[1]
@@ -4158,7 +4566,7 @@ def phase_ngp_loop(dev):
                     * _render_calls(oh * ow, cfg.max_samples_test))
     expected = dict.fromkeys(counts, 0)
     expected.update(fused_render_weights=E * ran + renders + eval_renders,
-                    fused_render_weights_bwd=E * ran)
+                    fused_render_weights_bwd=E * ran, hash_table_bwd=E * ran)
     if scored == 0 or counts != expected:
         fail(f"ngp loop launch counts {counts}, expected {expected} ({scored} candidates scored)")
     return counts
@@ -4230,8 +4638,9 @@ TRAINER_PSNR_MARGIN = 5.0
 # (loss relative, worst update err / scale, worst gradient err / scale, the gradient read from
 # Adam's first moment); the occupancy grid must match exactly. Each limit is shown to be passed
 # by neither a zeroed nor a negated K2 (they read 0.39-656 on the loss, 0.80-340 on the update,
-# 1-400 on the gradient on an H100, PERF.md). The NGP fields' tables take their gradient by float
-# atomics, so two steps differ by their order as well as by K2's rounding: ngp+occ keeps phase
+# 1-400 on the gradient on an H100, PERF.md). The NGP fields' tables took their gradient by float
+# atomics when these were set, so two steps differed by their order as well as by K2's rounding
+# (both sides now sum it in the same fixed order): ngp+occ keeps phase
 # 19's limits (`NGP_STEP_TOL`; read 0-1.8e-7 / 9.5e-6-5.0e-5 / 5.9e-7-8.2e-7 over four calls).
 # The proposal trainer is compared at its final samples only (its level keeps the kernel on both
 # sides: a last-digit difference in the level's weights moves a sample across an inverse-CDF bin
@@ -4574,11 +4983,12 @@ def _step_passes(name, x, spread=None):
 
 
 def _compare_trainer_step(name, step_fn, state, args, kwargs, counters, fwd, bwd,
-                          sites=K2_SITES, spread=False, gathers=0):
+                          sites=K2_SITES, spread=False, gathers=0, tables=0):
     """``_trainer_step_readings`` at ``TRAINER_STEP_TOL[name]``: the kernel
     step must pass, K2 zeroed and negated must not, and the kernel step
-    must launch K2 ``fwd`` and ``bwd`` times and the gathers' backward
-    ``gathers`` times → the inputs K2 was given in the kernel step."""
+    must launch K2 ``fwd`` and ``bwd`` times, the gathers' backward
+    ``gathers`` times and the hash table's backward ``tables`` times → the
+    inputs K2 was given in the kernel step."""
     res = _trainer_step_readings(name, step_fn, state, args, kwargs, counters, sites,
                                  spread=spread)
     r, zeroed, negated, launches = res["kernel"], res["zeroed"], res["negated"], res["launches"]
@@ -4594,7 +5004,7 @@ def _compare_trainer_step(name, step_fn, state, args, kwargs, counters, fwd, bwd
           f"{negated[1]:.3e} / {negated[2]:.3e}; launches {launches}", flush=True)
     expected = dict.fromkeys(launches, 0)
     expected.update(fused_render_weights=fwd, fused_render_weights_bwd=bwd,
-                    gather_rows_bwd=gathers)
+                    gather_rows_bwd=gathers, hash_table_bwd=tables)
     if launches != expected:
         fail(f"a {name} trainer step launched {launches}, expected {expected}")
     if _step_passes(name, zeroed, sp) or _step_passes(name, negated, sp):
@@ -4831,7 +5241,8 @@ def phase_trainers(dev):
         fail(f"the ngp+occ trainer's held-out PSNR {held} is not {TRAINER_PSNR_MARGIN} dB over "
              f"the background's {bg_psnr}")
     expected = dict.fromkeys(timed, 0)
-    expected.update(fused_render_weights=chunk, fused_render_weights_bwd=chunk)
+    expected.update(fused_render_weights=chunk, fused_render_weights_bwd=chunk,
+                    hash_table_bwd=chunk)
     if timed != expected:
         fail(f"ngp+occ trainer launch counts {timed}, expected {expected}")
     for k in launches_total:
@@ -4844,7 +5255,7 @@ def phase_trainers(dev):
     state = state._replace(step=-(-state.step // 16) * 16)  # a step that updates the grid
     draws = _occ_step_draws(state, gen, dev)
     seen = _compare_trainer_step("ngp+occ", step_fn, state, (o, d, px, bk),
-                                 dict(occ_draws=draws), counters, 1, 1)
+                                 dict(occ_draws=draws), counters, 1, 1, tables=1)
     f, b = _check_k2_at(dev, "ngp+occ trainer", seen[0], gen_k2, True)
     records["ngp+occ"] = (_shape_record(f, R, S), _shape_record(b, R, S, False))
     del out, state
@@ -4861,10 +5272,12 @@ def phase_trainers(dev):
           f"{losses[-20:].mean():.5f}, on a fixed batch {probed[0]:.5f} -> {probed[1]:.5f}; "
           f"launches {timed}", flush=True)
     expected = dict.fromkeys(timed, 0)
-    # the gathers' backward: the inverse CDF's and _outer's, each step
+    # the gathers' backward: the inverse CDF's and _outer's, each step; the hash
+    # table's: the field's and the proposal field's
     expected.update(fused_render_weights=2 * TRAINER_CHUNKS[-1],
                     fused_render_weights_bwd=2 * TRAINER_CHUNKS[-1],
-                    gather_rows_bwd=2 * TRAINER_CHUNKS[-1])
+                    gather_rows_bwd=2 * TRAINER_CHUNKS[-1],
+                    hash_table_bwd=2 * TRAINER_CHUNKS[-1])
     if timed != expected:
         fail(f"ngp+prop trainer launch counts {timed}, expected {expected}")
     for k in launches_total:
@@ -4876,7 +5289,7 @@ def phase_trainers(dev):
     # keeps K2 on both sides (it is held alone below) and the final samples' K2 is compared
     seen = _compare_trainer_step("ngp+prop", step_fn, state, (o, d, px, bk),
                                  dict(noises=[noise]), counters, 2, 2, ("train.examples",),
-                                 spread=True, gathers=2)
+                                 spread=True, gathers=2, tables=2)
     level, final = seen
     if level[3] or not final[3]:
         fail("the proposal level's intervals carry a gradient or the final ones do not")
@@ -4970,9 +5383,10 @@ def phase_trainers(dev):
 
 # phase 24: the sharded train phases and render at full width, on ranks that
 # share the card, each against the unsharded phase on the same draws.
-# Flagship (2, 1): the losses and parameters bit for bit: each rank does
-# its member's unsharded arithmetic, and every kernel of the step, the
-# proposal loss's gathers' backward too, sums in a fixed order. Flagship
+# Flagship and ngp+occ (2, 1): the losses and parameters bit for bit: each
+# rank does its member's unsharded arithmetic, and every kernel of the step,
+# the proposal loss's gathers' backward and the hash table's too, sums in a
+# fixed order. Flagship
 # (1, 2): JAX's own bounds for its shard_map
 # phase against its unsharded phase (tests/test_sharding.py:270-287), on
 # JAX's protocol of 3 steps: their losses within rtol 1e-2 / atol 1e-3, and
@@ -4985,8 +5399,10 @@ def phase_trainers(dev):
 # printed. ngp+occ, both meshes:
 # NGP_STEP_TOL, which holds one member step, on the first step's update
 # and gradient (from Adam's first moment) and on every loss; the 10 steps'
-# update and moment are printed beside two unsharded runs' spread (the
-# table's index_add_ atomics are not bit-repeatable).
+# update and moment are printed beside two unsharded runs', which must be
+# the same bits. (While the table's gradient was index_add_'s float atomics,
+# two unsharded runs read up to 2.0e-7 apart on the losses, and one (2, 1)
+# run went past NGP_STEP_TOL.)
 MESH_STEPS = 20
 MESH_NGP_STEPS = 10
 MESH_SHAPES = ((2, 1), (1, 2))
@@ -5324,7 +5740,7 @@ def phase_mesh(dev, bench_run, ngp_state):
     single = _counted_jobs(Mesh.single(dev), todo)
     # the unsharded flagship job again and again, each run bit for bit
     repeats = flagship_repeats(dev, fl_state, run.dataset, REPEAT_RUNS)
-    # the unsharded ngp+occ phase again: two runs differ by the table's atomics alone
+    # the unsharded ngp+occ phase again: the same bits
     spread = _train_summary(runs.train_job(Mesh.single(dev), **todo[1][1]), single[1][0],
                             ngp_state)
     refs = [(_on_card(single[0][0], dev), fl_state),
@@ -5355,7 +5771,8 @@ def phase_mesh(dev, bench_run, ngp_state):
           + "".join(f"; {shape} {render_s(results[shape][0]):.3f} s (rank 0)"
                     for shape in MESH_SHAPES), flush=True)
     print(f"  two unsharded ngp+occ runs: losses max rel {spread['loss_rel']:.3e}, update worst "
-          f"err/scale {spread['update']:.3e}, Adam's first moment {spread['mu']:.3e}", flush=True)
+          f"err/scale {spread['update']:.3e}, Adam's first moment {spread['mu']:.3e}; bit for bit "
+          f"{spread['bits']}", flush=True)
     bad = []
     for shape in MESH_SHAPES:
         ranks = results[shape]
@@ -5374,7 +5791,8 @@ def phase_mesh(dev, bench_run, ngp_state):
                 bad.append(f"{shape} rank {rank} flagship launches {fl_n}, expected {want}")
             want = dict.fromkeys(ng_n, 0)
             want.update(fused_render_weights=MESH_NGP_STEPS * E_l,
-                        fused_render_weights_bwd=MESH_NGP_STEPS * E_l)
+                        fused_render_weights_bwd=MESH_NGP_STEPS * E_l,
+                        hash_table_bwd=MESH_NGP_STEPS * E_l)
             if ng_n != want:
                 bad.append(f"{shape} rank {rank} ngp launches {ng_n}, expected {want}")
             renders = sum(n["fused_field_heads"] for _, n in rr[2:])
@@ -5407,10 +5825,14 @@ def phase_mesh(dev, bench_run, ngp_state):
               f"{NGP_STEP_TOL[0]}); the first step's update worst err/scale {ng['update_1']:.3e} "
               f"(tol {NGP_STEP_TOL[1]}), gradient {ng['grad_1']:.3e} (tol {NGP_STEP_TOL[2]}); "
               f"after {MESH_NGP_STEPS} steps update {ng['update']:.3e}, Adam's first moment "
-              f"{ng['mu']:.3e}; grids max-abs {ng['occ_err']:.3e}", flush=True)
+              f"{ng['mu']:.3e}; grids max-abs {ng['occ_err']:.3e}; bit for bit {ng['bits']}",
+              flush=True)
         if not (ng["loss_rel"] <= NGP_STEP_TOL[0] and ng["update_1"] <= NGP_STEP_TOL[1]
                 and ng["grad_1"] <= NGP_STEP_TOL[2]):
             bad.append(f"{shape} ngp+occ off the unsharded phase")
+        if n_data == 1 and not ng["bits"]:
+            bad.append(f"{shape} ngp+occ not the unsharded phase bit for bit (loss "
+                       f"{ng['loss_rel']:.3e}, update {ng['update']:.3e})")
         for k, ((got, _), (want, _)) in enumerate(zip(ranks[0][2:], single[2:])):
             off = [name for name in want
                    if name not in ("seconds", "job_s", "startup_s") and got[name][0] != want[name][0]]
@@ -5421,6 +5843,8 @@ def phase_mesh(dev, bench_run, ngp_state):
         print(f"  {shape} launches of rank 0: flagship {nonzero(ranks[0][0][1])}; ngp "
               f"{nonzero(ranks[0][1][1])}; render {nonzero(ranks[0][2][1])} a candidate",
               flush=True)
+    if not spread["bits"]:
+        bad.append("two unsharded ngp+occ runs differ")
     if repeats["differ"] or repeats["outer_distinct"] != 1:
         bad.append(f"{repeats['differ']} of {REPEAT_RUNS} unsharded flagship runs differ from "
                    f"the first, _outer's backward gave {repeats['outer_distinct']} results")

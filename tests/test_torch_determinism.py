@@ -6,8 +6,10 @@ cotangents in ascending order without atomics (``csrc/gather_rows.cu``);
 here its plain version, ``scatter_add_``, runs. Tolerances:
   * ``gather_rows`` forward against ``torch.gather``, its backward against
     ``scatter_add_`` into zeros and against a numpy emulation of the
-    kernel's arithmetic (each term added to its bin's float32 sum, a row's
-    list a then list b, each ascending): bit for bit;
+    kernel's arithmetic (each bin's float32 sum from 0, list a's terms then
+    list b's, each ascending: in a sorted row each run added by its first
+    lane from shuffles, chunk by chunk, in an unsorted row each bin's terms
+    picked from the whole row): bit for bit;
   * the port's ``prop_loss`` gradient against ``jax.grad`` of the JAX
     package's: rtol 1e-5, atol 1e-6 of the gradient's max-abs (the same
     sums, XLA's transpose of the gather and of the cumsum in its own order);
@@ -37,18 +39,72 @@ def T(a):
     return torch.as_tensor(np.array(a))
 
 
+def _chunk(ks, gs, q0, n_bins):
+    """Lane l's query q0 + l of a clamped row: (bins, cotangents); past the
+    row's end the bin ``n_bins`` and 0."""
+    q = q0 + np.arange(32)
+    inside = q < len(ks)
+    q = np.minimum(q, len(ks) - 1)
+    return np.where(inside, ks[q], n_bins), np.where(inside, gs[q], 0).astype(np.float32)
+
+
+def _sum_runs(ks, gs, n_bins, o, first):
+    """``sum_runs`` of ``csrc/gather_rows.cu`` on one list of one row, lane
+    by lane: chunks of 32 queries in groups of 4, each run's terms added in
+    order by its first lane (from 0 for list a, else from the output as it
+    stood at the group's start), a run through lane 31 carried on → False
+    where the list is not sorted."""
+    Q, lanes = len(ks), np.arange(32)
+    carry, carry_bin = np.float32(0), -2
+    for g0 in range(0, Q, 128):
+        chunks = [_chunk(ks, gs, g0 + 32 * j, n_bins) for j in range(4)]
+        frm = [np.array([o[k] if not first and 0 <= k < n_bins else 0 for k in c[0]], np.float32)
+               for c in chunks]
+        for j, (k, v) in enumerate(chunks):
+            if g0 + 32 * j >= Q:
+                break
+            prev = np.concatenate([[carry_bin], k[:-1]])
+            if np.any(k < prev):
+                return False
+            if 0 <= carry_bin < n_bins and k[0] != carry_bin:
+                o[carry_bin] = carry
+            start = (lanes == 0) | (k != prev)
+            ends = (lanes == 31) | (k != np.concatenate([k[1:], k[-1:]]))
+            length = [int(np.argmax(ends[lane:])) + 1 for lane in lanes]
+            s = frm[j].copy()
+            if k[0] == carry_bin:
+                s[0] = carry
+            for lane in np.nonzero(start)[0]:
+                for i in range(length[lane]):
+                    s[lane] = np.float32(s[lane] + v[lane + i])
+                if lane + length[lane] < 32 and 0 <= k[lane] < n_bins:
+                    o[k[lane]] = s[lane]
+            carry, carry_bin = s[np.nonzero(start)[0].max()], int(k[31])
+    if 0 <= carry_bin < n_bins:
+        o[carry_bin] = carry
+    return True
+
+
 def kernel_emulation(n_bins, pairs):
-    """The arithmetic of ``csrc/gather_rows.cu`` in numpy: per row, the
-    lists in order and each list's queries ascending, each term added to
-    its bin's float32 sum; indices outside the row add nothing."""
+    """The arithmetic of ``csrc/gather_rows.cu`` in numpy: a row's output
+    zeroed, then list a's runs and list b's (``_sum_runs``) where both lists
+    are sorted; else each bin's float32 sum from 0 over list a's terms, then
+    list b's, in ascending q. Indices are clamped to [-1, n_bins]: outside
+    the row they add nothing."""
     R, Q = pairs[0][0].shape
-    out = np.zeros((R, n_bins), np.float32)
+    out = np.full((R, n_bins), np.nan, np.float32)  # every bin must be written
     for r in range(R):
-        for g, idx in pairs:
-            for q in range(Q):
-                k = int(idx[r, q])
-                if 0 <= k < n_bins:
-                    out[r, k] = np.float32(out[r, k] + g[r, q])
+        o = out[r]
+        o[:] = 0
+        rows = [(np.clip(idx[r], -1, n_bins), g[r].astype(np.float32)) for g, idx in pairs]
+        if all(_sum_runs(ks, gs, n_bins, o, first=i == 0) for i, (ks, gs) in enumerate(rows)):
+            continue
+        for b in range(n_bins):
+            s = np.float32(0)
+            for ks, gs in rows:
+                for x in gs[ks == b]:
+                    s = np.float32(s + x)
+            o[b] = s
     return out
 
 

@@ -41,6 +41,7 @@ SLICE_MODULES = [
     "apnerf_tpu_torch.ops.cuda.fused_field_volrend",
     "apnerf_tpu_torch.ops.cuda.fused_field_heads",
     "apnerf_tpu_torch.ops.cuda.launch",
+    "apnerf_tpu_torch.ops.cuda.hash_table",
     "apnerf_tpu_torch.ops.cuda.field_train",
     "apnerf_tpu_torch.models.nn",
     "apnerf_tpu_torch.models.ngp",

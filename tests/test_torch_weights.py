@@ -8,7 +8,8 @@ JAX package.
   (the Pallas test's own), rtol / atol 1e-5 on the gradients (suffix
   sums over up to 256 terms in two orders).
 * The wrapper's choice of the kernels' lane-span instance for every S
-  from 1 to 1024, and of their vector accesses.
+  from 1 to 1024, its passes past 1024 up to 8192, and its vector
+  accesses.
 * The kernels' arithmetic, emulated in float32 numpy lane by lane (each
   lane's span, its serial sums, the warp's shuffle scans in the order
   the kernels take them), against autograd through the plain version:
@@ -33,10 +34,11 @@ from apnerf_tpu.ops.pallas import fused_render_weights as j_fused_render_weights
 from apnerf_tpu_torch.ops.cuda import volrend_cuda
 from apnerf_tpu_torch.ops.cuda.volrend_cuda import (
     LANE_SPANS,
-    MAX_SAMPLES,
+    SPAN_SAMPLES,
     fused_render_weights,
     fused_render_weights_plain,
     lane_span,
+    span_count,
     vector_access,
 )
 
@@ -80,15 +82,17 @@ def test_weights_and_gradients_match_jax(S):
 
 
 def test_lane_span_for_every_width():
-    for S in range(1, MAX_SAMPLES + 1):
+    for S in range(1, SPAN_SAMPLES + 1):
         v = lane_span(S)
         # the smallest instance whose warp covers the row
         assert v in LANE_SPANS and 32 * v >= S, S
         assert v == LANE_SPANS[0] or 32 * LANE_SPANS[LANE_SPANS.index(v) - 1] < S, S
     assert [lane_span(S) for S in (64, 128, 256, 512)] == [2, 4, 8, 16]
-    for S in (0, MAX_SAMPLES + 1):
-        with pytest.raises(ValueError):
-            lane_span(S)
+    # past one warp's span the widest instance in passes of SPAN_SAMPLES
+    for S in range(SPAN_SAMPLES + 1, 8193):
+        assert lane_span(S) == LANE_SPANS[-1] and span_count(S) == -(-S // SPAN_SAMPLES), S
+    with pytest.raises(ValueError):
+        lane_span(0)
 
 
 def test_vector_access_needs_aligned_rows_and_pointers():

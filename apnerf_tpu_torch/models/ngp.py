@@ -12,9 +12,10 @@ degree 4 of the view direction ++ geo features → rgb) and ``mlp_sem``
 (geo features → class logits). Everything runs in float32, as
 ``apply_mlp`` runs it without a compute dtype; the matrix products take
 float32 operands because ``torch.backends.cuda.matmul.allow_tf32`` stays
-at its default, False (nothing in the port sets it). No kernel of the
-port takes this field: the hash gather, its ``index_add_`` backward and
-the MLPs are PyTorch ops, as the JAX package leaves them to XLA.
+at its default, False (nothing in the port sets it). The hash gather and
+the MLPs are PyTorch ops, as the JAX package leaves them to XLA; the hash
+encoding's table gradient is the port's kernel ``hash_table_bwd``
+(``ops/hashgrid.py``), a fixed-order sum, so a run repeats bit for bit.
 With ``unbounded`` a field reads positions through the scene contraction
 (``ops/contraction.py``) and has no in-aabb selector.
 """

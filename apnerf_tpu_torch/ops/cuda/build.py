@@ -139,7 +139,9 @@ def library() -> ctypes.CDLL:
     lib.apnerf_col_sums.restype = i
     lib.apnerf_gather_rows_bwd.argtypes = [p, p, p, p, i, i, i, p, p]
     lib.apnerf_gather_rows_bwd.restype = i
-    lib.apnerf_hash_table_bwd.argtypes = [p, p, p, ll, i, i, p, p, p, p, p]
+    lib.apnerf_hash_table_bwd.argtypes = [p, p, p, ll, i, i, i, i, i, i, p, p, p, p, p, p]
     lib.apnerf_hash_table_bwd.restype = i
+    lib.apnerf_hash_table_bwd_slots.argtypes = [i, i, i]
+    lib.apnerf_hash_table_bwd_slots.restype = i
     _lib = lib
     return lib

@@ -10,14 +10,16 @@ features are blended with trilinear weights.
 
 ``hash_encode`` gathers every level's corners in one ``index_select`` on
 the flat [L·T, F] table (int32 indices, per-level offsets), each row of F
-float32 features read as one element of F·4 bytes (``_RowGather``); its
-backward adds the rows' cotangents into the flat table with
-``ops/cuda/hash_table.hash_table_bwd``: on the card a CUDA kernel that sums
-each entry's rows in a fixed order, with no atomics, so the table's
-gradient repeats bit for bit from run to run; on the CPU ``index_add_``.
-The JAX package's row-gather custom VJP and
-its ``optimization_barrier`` fences were workarounds for the TPU's
-gathers and are not carried over.
+float32 features read as one element of F·4 bytes, and blends them with
+the trilinear weights (``_RowGatherInterp``, JAX's ``_rowgather_interp``).
+Its backward is JAX's: the table's gradient from the encoding's cotangent
+and the weights, with ``ops/cuda/hash_table.hash_table_bwd`` (on the card a
+CUDA kernel that sums each entry's terms in a fixed order, with no atomic
+float adds and no sort of the whole index array, so the gradient repeats
+bit for bit from run to run; on the CPU ``index_add_`` of the weighted
+cotangents), and the weights' gradient, where the positions need one, from
+the rows gathered again. JAX's ``optimization_barrier`` fences were
+workarounds for the TPU's gathers and are not carried over.
 
 The hash works in uint32 in JAX (multiplications wrap). Here it works in
 int64 on coordinates masked to 32 bits: ``(c * prime) & 0xFFFFFFFF``,
@@ -149,28 +151,50 @@ def _corner_indices_and_weights(x: torch.Tensor, cfg: HashGridConfig):
 _ROW_VIEW = {1: torch.int32, 2: torch.int64, 4: torch.complex128}
 
 
-class _RowGather(torch.autograd.Function):
-    """rows [M, F] = table [L·T, F] at idx [M] (int32). The forward reads
-    each row as one element of F·4 bytes: on an H100 (PERF.md) every
-    PyTorch gather of rows of 4 floats (``index_select``, advanced
-    indexing, ``gather``, ``embedding``) took 20.2 ms at the train shape,
-    33.5M rows, and ``index_select`` of the same rows as 16-byte elements
-    0.32 ms; the bits are the same. The backward adds the rows' cotangents
-    into a zero table with ``hash_table_bwd``, in a fixed order."""
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """rows [M, F] = table [L·T, F] at idx [M] (int32), each row read as one
+    element of F·4 bytes: on an H100 (PERF.md) every PyTorch gather of rows
+    of 4 floats (``index_select``, advanced indexing, ``gather``,
+    ``embedding``) took 20.2 ms at the train shape, 33.5M rows, and
+    ``index_select`` of the same rows as 16-byte elements 0.32 ms; the bits
+    are the same."""
+    view = _ROW_VIEW.get(table.shape[1])
+    if view is None or table.dtype != torch.float32 or not table.is_contiguous():
+        return table.index_select(0, idx)
+    return table.view(view).index_select(0, idx).view(torch.float32)
+
+
+class _RowGatherInterp(torch.autograd.Function):
+    """[L, N, F] = Σ over the 8 corners of weights [L, N, 8] × table
+    [L·T, F] at idx [L·N·8] (int32): the gather and the blend in one, as
+    JAX's ``_rowgather_interp``. The backward takes the encoding's
+    cotangent and the weights to ``hash_table_bwd`` (the products w · g
+    formed there, in a fixed order of adds), and computes the weights'
+    gradient, when asked, from the rows gathered again, as JAX does."""
 
     @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
+    def forward(ctx, table, idx, weights):
+        L, N, _ = weights.shape
+        vals = _gather_rows(table, idx).view(L, N, 8, table.shape[1])
+        # the table only for the weights' gradient: saved, it would pin the
+        # table's version from the forward to the backward
+        ctx.save_for_backward(table if ctx.needs_input_grad[2] else None, idx, weights)
         ctx.table_shape = table.shape
-        view = _ROW_VIEW.get(table.shape[1])
-        if view is None or table.dtype != torch.float32 or not table.is_contiguous():
-            return table.index_select(0, idx)
-        return table.view(view).index_select(0, idx).view(torch.float32)
+        return (vals * weights[..., None]).sum(dim=2)
 
     @staticmethod
     def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        return hash_table_bwd(ctx.table_shape[0], idx, g.contiguous()), None
+        table, idx, weights = ctx.saved_tensors
+        L, N, _ = weights.shape
+        n_rows, F = ctx.table_shape
+        g = g.contiguous()
+        d_table = d_weights = None
+        if ctx.needs_input_grad[0]:
+            d_table = hash_table_bwd(n_rows, idx, g.view(L * N, F), weights.reshape(-1))
+        if ctx.needs_input_grad[2]:
+            vals = _gather_rows(table, idx).view(L, N, 8, F)
+            d_weights = (vals * g[:, :, None, :]).sum(dim=-1)
+        return d_table, None, d_weights
 
 
 def hash_encode(
@@ -182,6 +206,5 @@ def hash_encode(
     L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
     N = x.shape[0]
     idx, weights = _corner_indices_and_weights(x, cfg)
-    vals = _RowGather.apply(table.reshape(L * T, F), idx.reshape(-1)).view(L, N, 8, F)
-    out = (vals * weights[..., None]).sum(dim=2)  # [L, N, F]
+    out = _RowGatherInterp.apply(table.reshape(L * T, F), idx.reshape(-1), weights)  # [L, N, F]
     return out.permute(1, 0, 2).reshape(N, L * F)

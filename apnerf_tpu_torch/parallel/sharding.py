@@ -47,7 +47,7 @@ def make_sharded_train_step(cfg: PipelineConfig, mesh: Mesh, lattice: torch.Tens
 def make_sharded_occ_phase(cfg: PipelineConfig, mesh: Mesh, lattice: torch.Tensor,
                            schedule=None):
     """The (ngp, occ) chunk of steps (``sharding.py:53-64``) on ``mesh``:
-    the hash table's gradient (``index_add_``) is averaged over ``data``
+    the hash table's gradient (``hash_table_bwd``) is averaged over ``data``
     with the rest, and every data rank of a member makes the same
     occupancy-update draws on the same parameters, so its grid stays the
     same on every data rank."""

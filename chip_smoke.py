@@ -248,16 +248,20 @@ Phases, each of which must pass:
      + occupancy trainer at ``max_samples`` 1040 (two chunks of 20 steps, a
      step against K2's plain version), each with exact launches.
  30. the hash grid table's backward (``hash_table_bwd``) against a float64
-     sum of the same rows, within the bound of its order of adds (shown to
+     sum of the same terms, within the bound of its order of adds (shown to
      catch a zeroed and a negated output), and repeated bit for bit, at the
-     ngp+occ member step's 33.5M rows into the 16 x 2^19 x 4 table (the
-     corners of uniform positions and of positions in a thin slab), on one
-     index that takes 2^21 rows, and on rows of 2 and 3 features; beside
-     its time, index_add_'s (the plain version, float atomics), the
-     accumulating index_put_'s and the bound. Every ngp path's launches of
-     it are counted exactly in phases 19, 20, 21, 24 and 29, and the (2, 1)
-     ngp+occ phase of phase 24 is held bit for bit, as are two unsharded
-     runs of it.
+     ngp+occ member step's 33.5M terms into the 16 x 2^19 x 4 table (the
+     corners of uniform positions and of positions in a thin slab), in the
+     weighted form the encoding's backward calls and on rows of their own,
+     on one index that takes 2^21 rows, and on rows of 2 and 3 features;
+     on three small cases bit for bit against ``hash_table_bwd_emulated``,
+     its order in numpy; beside its time and each pass's device time,
+     index_add_'s (the plain version, float atomics), on the slab's rows
+     the accumulating index_put_'s, and both bounds (at the encoding's
+     boundary and on materialised rows; the uniform corners' rows are
+     checked, not timed). Every ngp path's launches of it are counted
+     exactly in phases 19, 20, 21, 24 and 29, and the (2, 1) ngp+occ phase
+     of phase 24 is held bit for bit, as are two unsharded runs of it.
 Phase 28 runs after phase 5, phases 13 to 17, 26, 27, 29, 30, 19 and 24
 after phase 9, phases 18, 20 to 23 and 25 after phase 11. Phase 1 also holds the
 host's mirrors of the tile's shared-memory layouts to the kernels' own at
@@ -289,7 +293,8 @@ its launches over the ngp+occ loop and over phase 21's timed chunks, and
 its times at each trainer's shape; the main field's kernels the tile's
 instances and phases 26 and 27's readings; K2, K5, K6 and the gathers'
 backward phase 29's, ``long_rays``; the hash table's backward phase 30's
-slab case, with its launches over phase 20's ngp+occ loop), and before
+slab case on rows of their own and, under ``weighted``, at the encoding's
+boundary, with its launches over phase 20's ngp+occ loop), and before
 that the smoke's total
 wall time. Any failure exits non-zero
 before those lines.
@@ -674,7 +679,8 @@ def main(argv=None) -> int:
     # ---- 29. rays past 1024 samples, gathers past 1024 bins --------------------------
     long_rays = phase_long_rays(dev, bench_run)
     # ---- 30. the hash grid table's backward ------------------------------------------
-    records["hash_table_bwd"] = phase_hash_table(dev)["slab"]
+    hash_records = phase_hash_table(dev)
+    records["hash_table_bwd"] = hash_records["slab"]
     # ---- 19. the ngp+occ path's weights-kernel shapes and member step ---------------
     ngp_state = phase_ngp_step(dev, bench_run)
     # ---- 24. the sharded train phases and render on ranks that share the card ---------
@@ -743,7 +749,7 @@ def main(argv=None) -> int:
         {"name": "hash_table_bwd", "route": "cuda",
          "source": "apnerf_tpu_torch/csrc/hash_table_bwd.cu",
          "replaces": "apnerf_tpu/ops/hashgrid.py:220",
-         "note": "no Pallas counterpart: XLA's scatter-add of the table gather's cotangents "
+         "note": "no Pallas counterpart: XLA's scatter-add of the weighted cotangents "
                  "(apnerf_tpu/ops/hashgrid.py:220-231)"},
     ]
     for k in kernels:
@@ -757,7 +763,8 @@ def main(argv=None) -> int:
         # render kernels' functions (a whole field, a render, its backward, a
         # whole MLP with the bf16 contract), so no library time; the gathers'
         # backward has one, scatter_add over both lists' indices; the hash
-        # table's, the accumulating index_put_. The hash table's backward
+        # table's, index_add_ on rows of their own (the accumulating
+        # index_put_ beside it). The hash table's backward
         # runs on the ngp+occ path alone: its launches over phase 20's loop.
         n = (launches[k["name"]] or route_launches.get(k["name"], 0)
              or ngp_launches[k["name"]])
@@ -772,6 +779,14 @@ def main(argv=None) -> int:
             k["max_err_over_leaf_scale"] = rel[0]
         if ngp_launches[k["name"]]:
             k["ngp_loop_launches"] = ngp_launches[k["name"]]
+        if k["name"] == "hash_table_bwd":
+            # the form the ngp paths call, at the encoding's boundary: its
+            # library time is index_add_'s on the materialised products; and
+            # on a real member step's terms (phase 19)
+            err, ms, pms, (bound_ms, bound_by), extra = hash_records["slab weighted"]
+            k["weighted"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bound_ms,
+                                 bound_by=bound_by, **extra)
+            k["ngp_member_step"] = NGP_TABLE
         if mesh_launches.get(k["name"]):
             # each rank's launches over phase 24's sharded flagship phase on (2, 1)
             k["mesh_rank_launches"] = mesh_launches[k["name"]]
@@ -1321,20 +1336,23 @@ L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB of L2
 
 def kernel_device_ms(fn, kernel, calls=20, before=None, tries=3):
     """The device time (ms) of one launch of the kernel named ``kernel``
-    in ``fn``: the mean over the launches ``torch.profiler`` records in a
-    window of ``calls`` calls (``before()`` ahead of each, untimed). The
-    profiler drops some launches from a window (one of 20 in most, all of
-    them in a few, on an H100 with torch 2.11, and then often in several
-    windows in a row, early or late in a run), so the mean is taken over
-    those it recorded; a window that holds fewer than half is measured
-    again, up to ``tries`` times, and then None is returned: the reading
-    is "not measured". The kernel's event window, plain time and bound do
-    not depend on the profiler, so no check waits on it."""
+    in ``fn`` (or, for a sequence of names, {name: ms} of each): the mean
+    over the launches ``torch.profiler`` records in a window of ``calls``
+    calls (``before()`` ahead of each, untimed). The profiler drops some
+    launches from a window (one of 20 in most, all of them in a few, on an
+    H100 with torch 2.11, and then often in several windows in a row, early
+    or late in a run), so the mean is taken over those it recorded; a name
+    the window holds fewer than half the launches of is measured again in
+    the next window, up to ``tries`` windows, and then reads None: "not
+    measured". The kernel's event window, plain time and bound do not
+    depend on the profiler, so no check waits on it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = [kernel] if isinstance(kernel, str) else list(kernel)
     fn()
     torch.cuda.synchronize()
+    got = {}
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -1342,13 +1360,19 @@ def kernel_device_ms(fn, kernel, calls=20, before=None, tries=3):
                     before()
                 fn()
             torch.cuda.synchronize()
-        got = [e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA and kernel in e.name]
-        if 2 * len(got) >= calls:
-            return sum(got) / len(got) / 1e3
-    print(f"  the profiler recorded {len(got)} of {calls} launches of {kernel} in {tries} "
-          "windows: its device time is not measured", flush=True)
-    return None
+        for name in names:
+            t = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+            if name not in got and 2 * len(t) >= calls:
+                got[name] = sum(t) / len(t) / 1e3
+        if len(got) == len(names):
+            break
+    for name in names:
+        if name not in got:
+            print(f"  the profiler recorded fewer than {calls // 2 + calls % 2} of {calls} "
+                  f"launches of {name} in {tries} windows: its device time is not measured",
+                  flush=True)
+    return got.get(kernel) if isinstance(kernel, str) else {name: got.get(name) for name in names}
 
 
 def k2_times(dev, R, fn, kernel, label, calls=20):
@@ -1460,99 +1484,171 @@ def phase_gather_rows(dev, cases=GATHER_CASES, seed=2828):
 
 # phase 30: the hash grid table's backward (csrc/hash_table_bwd.cu) at the
 # ngp+occ member step's shape, PipelineConfig()'s 16 x 2^19 x 4 table and
-# 2^18 positions (33.5M rows; the step marches about 258,000 samples), the
+# 2^18 positions (33.5M terms; the step marches about 258,000 samples), the
 # corners of positions uniform in the unit cube and of positions in a slab
-# 1 % thick (longer runs at every level), then one index taking 2^21 rows
-# (a run over 2048 tiles) and rows of 2 and 3 features. Each is held to
-# a float64 sum of the same rows: every entry within (5 + 1024 / 32 +
-# the tiles its longest run spans + 1) x 2^-24 x the sum of its terms'
-# magnitudes, the bound of a float32 sum whose chains of dependent adds are
-# that deep (tests/test_torch_hash_table.py holds the kernel's order,
-# emulated, to the same bound); a zeroed and a negated output must fail it.
-# Three more launches must give the same bits. Timed beside index_add_ (the
-# plain version, float atomics) and the accumulating index_put_ (the
-# library's fixed-order call, which sums a run serially).
-HASH_CASES = (("uniform", 1 << 18, 4, None), ("slab", 1 << 18, 4, None),
-              ("one index", 1 << 21, 4, 1000), ("2 features", 1 << 17, 2, 5000),
-              ("3 features", 1 << 17, 3, 5000))
+# 1 % thick (longer runs at every level), each in the weighted form the
+# encoding's backward calls (the cotangent [L·N, 4] and the trilinear
+# weights) and unweighted on rows of their own, then one
+# index taking 2^21 rows (a bucket of 64 segments) and rows of 2 and 3
+# features. Each is held to a float64 sum of the same terms: every entry
+# within order_depth(the largest bucket's terms) x 2^-24 x the sum of its
+# terms' magnitudes, the bound of a float32 sum in the kernel's order
+# (tests/test_torch_hash_table.py holds the emulated order to the same
+# bound); a zeroed and a negated output must fail it. Three more launches
+# must give the same bits. On HASH_SMALL the kernel must equal
+# hash_table_bwd_emulated, its order emulated in numpy, bit for bit. Timed
+# (all but HASH_UNTIMED) beside index_add_ (the plain version: float
+# atomics, on the materialised products for the weighted form), on
+# HASH_PUT also beside the accumulating index_put_ (the library's
+# fixed-order call, which sums a run serially), each pass's device time
+# beside both bounds: the function at the encoding's boundary (idx, w, the
+# cotangent, the table) and on materialised rows (idx, rows, the table).
+HASH_CASES = (("uniform", 1 << 18, 4, None, True), ("slab", 1 << 18, 4, None, True),
+              ("uniform", 1 << 18, 4, None, False), ("slab", 1 << 18, 4, None, False),
+              ("one index", 1 << 21, 4, 1000, False), ("2 features", 1 << 17, 2, 5000, False),
+              ("3 features", 1 << 17, 3, 5000, False))
+# the small cases held bit for bit against the emulated order: corners of 3000
+# positions, 5 % of them outside the unit cube, on a 4-level table of 2^12
+# rows (weighted; wrapped keys); 70,000 terms on four keys either side of the
+# bucket boundary at 2 features (a bucket of 2 segments); 3 features weighted
+HASH_SMALL = (("corners", 3000, 4, None, True), ("split", 70000, 2, 16384, False),
+              ("3 features", 8000, 3, 3000, True))
 HASH_REPEATS = 3
+# the unweighted corners are timed on the slab alone (the kernels JSON's row,
+# PR 16's interface), the uniform ones checked only; the accumulating
+# index_put_ (0.5 s on one index) is timed on the slab alone
+HASH_UNTIMED = ("uniform",)
+HASH_PUT = "slab"
+HASH_PASSES = ("count", "scan_groups", "scan_buckets", "scan_tiles", "partition", "reduce",
+               "combine")
 
 
-def _hash_case(gen, dev, kind, N, F, n_rows):
-    """(idx [M] int32, g [M, F], n_rows) for a case of ``HASH_CASES``."""
+def _hash_case(gen, dev, kind, N, F, n_rows, weighted):
+    """(idx [M] int32, g [M / K, F], weights [M] or None, n_rows) for a case
+    of ``HASH_CASES`` or ``HASH_SMALL``."""
     from apnerf_tpu_torch.ops import hashgrid
 
+    weights = None
     if n_rows is None:
         cfg = hashgrid.HashGridConfig()
+        if kind == "corners":
+            cfg = hashgrid.HashGridConfig(n_levels=4, n_features=F, log2_table_size=12,
+                                          base_resolution=4, max_resolution=64)
         x = torch.rand((N, 3), generator=gen, device=dev)
         if kind == "slab":
             x[:, 2] = 0.3 + 0.01 * x[:, 2]
-        idx = hashgrid._corner_indices_and_weights(x, cfg)[0].reshape(-1)
+        if kind == "corners":
+            x = x * 1.1 - 0.05
+        idx, w = hashgrid._corner_indices_and_weights(x, cfg)
+        idx = idx.reshape(-1)
         n_rows = cfg.n_levels * cfg.table_size
+        if weighted:
+            weights = w.reshape(-1)
     elif kind == "one index":
         idx = torch.full((N,), n_rows // 2, dtype=torch.int32, device=dev)
+    elif kind == "split":
+        keys = torch.tensor([5, 8191, 8192, 9000], dtype=torch.int32, device=dev)
+        idx = keys[torch.randint(0, 4, (N,), generator=gen, device=dev)]
     else:
-        idx = torch.randint(0, n_rows, (N,), generator=gen, device=dev, dtype=torch.int32)
-    g = torch.randn((idx.shape[0], F), generator=gen, device=dev)
-    return idx, g, n_rows
+        idx = torch.randint(0, n_rows, (N * (8 if weighted else 1),), generator=gen, device=dev,
+                            dtype=torch.int32)
+        if weighted:
+            weights = torch.rand((idx.shape[0],), generator=gen, device=dev)
+    M = idx.shape[0]
+    g = torch.randn((M // 8 if weighted else M, F), generator=gen, device=dev)
+    return idx, g, weights, n_rows
 
 
 def phase_hash_table(dev, seed=3030):
-    """Phase 30 → the record of the ngp+occ step's shape (max-abs error
-    against the float64 sum, ms, plain ms, bound, and its device and
-    library times)."""
+    """Phase 30 → {label: the record of a case (max-abs error against the
+    float64 sum, ms, plain ms, bound, and its device and library times)}."""
     from apnerf_tpu_torch.ops.cuda.hash_table import (
-        TILE,
         hash_table_bwd,
+        hash_table_bwd_emulated,
         hash_table_bwd_plain,
+        order_depth,
+        row_bits,
     )
 
     t_phase = time.perf_counter()
     gen = _generator(dev, seed)
+    for kind, N, F, n_rows, weighted in HASH_SMALL:
+        idx, g, w, n_rows = _hash_case(gen, dev, kind, N, F, n_rows, weighted)
+        got = hash_table_bwd(n_rows, idx, g, w)
+        ref = hash_table_bwd_emulated(n_rows, idx.cpu(), g.cpu(), None if w is None else w.cpu())
+        same = np.array_equal(got.cpu().numpy(), ref)
+        n_diff = int((got.cpu().numpy() != ref).sum())
+        print(f"hash table backward [{kind}, small] {idx.shape[0]} terms of {F} into {n_rows} "
+              f"({'weighted' if weighted else 'unweighted'}): bit for bit against its emulated "
+              f"order {same} ({n_diff} entries differ)", flush=True)
+        if not same:
+            fail(f"hash_table_bwd ({kind}, small) is not its emulated order bit for bit")
     records = {}
-    for kind, N, F, n_rows in HASH_CASES:
-        idx, g, n_rows = _hash_case(gen, dev, kind, N, F, n_rows)
+    for kind, N, F, n_rows, weighted in HASH_CASES:
+        label = f"{kind} weighted" if weighted else kind
+        idx, g, w, n_rows = _hash_case(gen, dev, kind, N, F, n_rows, weighted)
         M = idx.shape[0]
-        got = hash_table_bwd(n_rows, idx, g)
-        wit = hash_table_bwd_plain(n_rows, idx, g.double())
-        mag = hash_table_bwd_plain(n_rows, idx, g.abs().double())
-        longest = int(torch.unique(idx, return_counts=True)[1].max())
-        depth = 5 + TILE // 32 + -(-longest // TILE) + 1
+        call = lambda: hash_table_bwd(n_rows, idx, g, w)  # noqa: E731
+        got = call()
+        w64 = None if w is None else w.double()
+        wit = hash_table_bwd_plain(n_rows, idx, g.double(), w64)
+        mag = hash_table_bwd_plain(n_rows, idx, g.abs().double(), None if w is None else w64.abs())
+        bucket = idx[(idx >= 0) & (idx < n_rows)].long() >> row_bits(F)
+        depth = order_depth(int(torch.bincount(bucket).max()), weighted)
         limit = depth * 2.0 ** -24 * mag
         within = lambda x: bool(((x.double() - wit).abs() <= limit).all())  # noqa: E731
         if within(torch.zeros_like(got)) or within(-got):
-            fail(f"hash_table_bwd ({kind}): the limit would pass a zeroed or negated output")
-        repeats = all(torch.equal(hash_table_bwd(n_rows, idx, g), got)
-                      for _ in range(HASH_REPEATS))
+            fail(f"hash_table_bwd ({label}): the limit would pass a zeroed or negated output")
+        repeats = all(torch.equal(call(), got) for _ in range(HASH_REPEATS))
         ok = within(got)
         scale = float(wit.abs().max())
         err = float((got.double() - wit).abs().max())
-        plain = hash_table_bwd_plain(n_rows, idx, g)
-        p_err = float((plain.double() - wit).abs().max())
-        del wit, mag, limit, plain
-        ms = cuda_ms(lambda: hash_table_bwd(n_rows, idx, g))
-        pms = cuda_ms(lambda: hash_table_bwd_plain(n_rows, idx, g))
+        rows = g if w is None else g.repeat_interleave(8, dim=0) * w[:, None]
         zero = torch.zeros((n_rows, F), device=dev)
-        lib_ms = cuda_ms(lambda: zero.clone().index_put_((idx,), g, accumulate=True), 3, 2)
-        dev_ms = [kernel_device_ms(lambda: hash_table_bwd(n_rows, idx, g), name, calls=10)
-                  for name in ("hash_table_bwd_tiles_kernel", "hash_table_bwd_runs_kernel")]
-        dev_ms = None if None in dev_ms else sum(dev_ms)
-        n_bytes = M * (4 + 4 * F) + n_rows * F * 4
-        bnd = bound(M * F, n_bytes, PEAK_F32_FLOPS)
-        print(f"hash table backward [{kind}] {M} rows of {F} into {n_rows} (longest run "
-              f"{longest}): within the float64 sum's bound ({depth} adds deep) {ok}; max-abs "
-              f"{err:.3e} ({err / scale:.3e} of scale; index_add_'s {p_err / scale:.3e}); zeroed "
-              f"and negated outputs fail the limit; {HASH_REPEATS} more launches bit for bit "
-              f"{repeats} | kernel {ms:.4f} ms with the sort (device, both passes "
-              + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
-              + f"), plain index_add_ {pms:.4f} ms, index_put_ {lib_ms:.4f} ms, bound "
-              f"{bnd[0]:.5f} ms ({bnd[1]}, {n_bytes / 1e6:.1f} MB)", flush=True)
+        p_err = float((zero.clone().index_add_(0, idx, rows).double() - wit).abs().max())
+        del wit, mag, limit, w64
+        checked = (f"hash table backward [{label}] {M} terms of {F} into {n_rows} (the largest "
+                   f"bucket's order {depth} roundings deep): within the float64 sum's bound "
+                   f"{ok}; max-abs {err:.3e} ({err / scale:.3e} of scale; index_add_'s "
+                   f"{p_err / scale:.3e}); zeroed and negated outputs fail the limit; "
+                   f"{HASH_REPEATS} more launches bit for bit {repeats}")
         if not ok:
-            fail(f"hash_table_bwd ({kind}) is off the float64 sum past its bound: {err}")
+            fail(f"hash_table_bwd ({label}) is off the float64 sum past its bound: {err}")
         if not repeats:
-            fail(f"hash_table_bwd ({kind}) does not repeat bit for bit")
-        records[kind] = (err, ms, pms, bnd, {"library_ms": lib_ms, "device_ms": dev_ms})
-        del idx, g, got
+            fail(f"hash_table_bwd ({label}) does not repeat bit for bit")
+        if label in HASH_UNTIMED:
+            print(f"{checked} (not timed)", flush=True)
+            del idx, g, w, got, rows, zero
+            continue
+        ms = cuda_ms(call)
+        pms = cuda_ms(lambda: hash_table_bwd_plain(n_rows, idx, g, w))
+        add_ms = cuda_ms(lambda: zero.clone().index_add_(0, idx, rows))
+        put_ms = (cuda_ms(lambda: zero.clone().index_put_((idx,), rows, accumulate=True), 3, 2)
+                  if label == HASH_PUT else None)
+        passes = kernel_device_ms(call, [f"hash_table_bwd_{p}_kernel" for p in HASH_PASSES],
+                                  calls=6)
+        dev_ms = None if None in passes.values() else sum(passes.values())
+        rows_bytes = M * (4 + 4 * F) + n_rows * F * 4
+        bnd_rows = bound(2 * M * F, rows_bytes, PEAK_F32_FLOPS)
+        if weighted:
+            n_bytes = M * 8 + g.numel() * 4 + n_rows * F * 4
+            bnd = bound(2 * M * F, n_bytes, PEAK_F32_FLOPS)
+        else:
+            n_bytes, bnd = rows_bytes, bnd_rows
+        fmt = lambda t: "not measured" if t is None else f"{t:.4f}"  # noqa: E731
+        print(f"{checked} | wrapper {ms:.4f} ms (device, all passes, {fmt(dev_ms)} ms: "
+              + ", ".join(f"{p} {fmt(t)}" for p, t in zip(HASH_PASSES, passes.values()))
+              + f"), plain {pms:.4f} ms, index_add_ {add_ms:.4f} ms"
+              + (" on the materialised products" if weighted else "")
+              + (f", index_put_ {put_ms:.4f} ms" if put_ms is not None else "")
+              + f", bound {bnd[0]:.5f} ms ({bnd[1]}, {n_bytes / 1e6:.1f} MB)"
+              + (f", on materialised rows {bnd_rows[0]:.5f} ms ({rows_bytes / 1e6:.1f} MB)"
+                 if weighted else ""), flush=True)
+        records[label] = (err, ms, pms, bnd, {
+            "library_ms": add_ms, "index_put_ms": put_ms, "device_ms": dev_ms,
+            "device_ms_by_pass": dict(zip(HASH_PASSES, passes.values())),
+            "bound_rows_ms": bnd_rows[0]})
+        del idx, g, w, got, rows, zero
     print(f"phase 30: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return records
 
@@ -4486,10 +4582,56 @@ def phase_ngp_step(dev, bench_run):
     busy = sum(
         e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA
     ) / 1e6
+    table = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "hash_table_bwd_" in e.name]
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
     print(f"profiled ngp+occ member step (no grid update): wall {t_p * 1e3:.3f} ms, device busy "
-          f"{busy * 1e3:.3f} ms, idle share {1 - busy / t_p:.1%}", flush=True)
+          f"{busy * 1e3:.3f} ms, idle share {1 - busy / t_p:.1%}; the table's backward "
+          f"{sum(table) / 1e3:.3f} ms of device time over its {len(table)} launches",
+          flush=True)
+    NGP_TABLE.update(ngp_step_table(core, member, opt, batch, state.step, occ0))
     return state
+
+
+# the hash table's backward on a real ngp+occ member step's terms (phase 19)
+NGP_TABLE = {}
+
+
+def ngp_step_table(core, member, opt, batch, step, occ):
+    """The hash table's backward on the terms of one ngp+occ member step (a
+    march's samples along rays share their cells' corners), timed beside
+    index_add_ on the materialised products, with each pass's device time."""
+    from apnerf_tpu_torch.ops import hashgrid
+    from apnerf_tpu_torch.ops.cuda.hash_table import hash_table_bwd
+
+    seen = []
+
+    def record(n_rows, idx, g, weights=None):
+        seen.append((n_rows, idx, g, weights))
+        return hash_table_bwd(n_rows, idx, g, weights)
+
+    hashgrid.hash_table_bwd = record
+    try:
+        core(member, opt, batch, step, occ=occ, occ_thre=1e-3)
+    finally:
+        hashgrid.hash_table_bwd = hash_table_bwd
+    n_rows, idx, g, w = seen[-1]
+    F = g.shape[1]
+    call = lambda: hash_table_bwd(n_rows, idx, g, w)  # noqa: E731
+    ms = cuda_ms(call)
+    rows = g.repeat_interleave(idx.shape[0] // g.shape[0], dim=0) * w[:, None]
+    zero = torch.zeros((n_rows, F), device=idx.device)
+    add_ms = cuda_ms(lambda: zero.clone().index_add_(0, idx, rows))
+    passes = kernel_device_ms(call, [f"hash_table_bwd_{p}_kernel" for p in HASH_PASSES], calls=6)
+    fmt = lambda t: "not measured" if t is None else f"{t:.4f}"  # noqa: E731
+    out = dict(terms=int(idx.shape[0]), ms=ms, index_add_ms=add_ms,
+               device_ms=None if None in passes.values() else sum(passes.values()),
+               device_ms_by_pass=dict(zip(HASH_PASSES, passes.values())))
+    print(f"the table's backward on this member step's {out['terms']} terms: "
+          f"wrapper {ms:.4f} ms (device, all passes, {fmt(out['device_ms'])} ms: "
+          + ", ".join(f"{p} {fmt(t)}" for p, t in zip(HASH_PASSES, passes.values()))
+          + f"), index_add_ on the materialised products {add_ms:.4f} ms", flush=True)
+    return out
 
 
 def _render_calls(rays: int, samples: int) -> int:

@@ -1,0 +1,10 @@
+"""Per cent of the window in which the device ran nothing, in a train
+cell: the device's busy time a step (the traced pass) times the window's
+steps, against the window's wall time (untraced, host clock)."""
+
+
+def read(run):
+    if run.trace is None or not run.trace["work"].get("steps") or run.trace["busy_s"] <= 0:
+        return None
+    busy = run.trace["busy_s"] / run.trace["work"]["steps"] * run.work["steps"]
+    return 100.0 * (1.0 - busy / run.window_s)
